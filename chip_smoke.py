@@ -3,27 +3,44 @@
 
     python3 chip_smoke.py
 
-Phases, each printing one line of what it found; any failure raises, so
-the exit code is non-zero:
+Phases, each printing what it found; any failure raises, so the exit code
+is non-zero:
 
 1. device: a CUDA device is required; prints ``nvidia-smi``'s name and
    power limit; TF32 matmuls must be off.
 2. build: compiles the kernels from ``n_body_problem_tpu_torch/csrc``.
-3. kernels: each CUDA kernel against its plain PyTorch version on the card,
-   at N = 128, 896 (odd tile count), 1,024 (90 padding bodies) and 65,536,
-   within rtol=1e-4, atol=2e-6 (the JAX package's bounds for these kernels
-   against the direct oracle); the all-pairs kernel also in its block form
-   (rows != columns) and for bitwise repeatability; the symmetric kernel
-   also for momentum (|sum m a| < 1e-6). Times both kernels and both plain
-   versions at N = 65,536.
-4. main path: ``Simulation(SimConfig(), plummer(65536), device="cuda")``
-   (the default solver, the symmetric kernel), then ``solver="pallas"``
-   (the all-pairs kernel), then leapfrog; each primed with 5 steps and
-   timed over 50; launch counters show that each kernel ran. Then the
-   energy check of the JAX package's test (N=256, seed 4, dt=0.002, 200
-   steps) through the symmetric kernel.
-5. CLI: ``python -m n_body_problem_tpu_torch run`` on a galaxy collision of
-   20,480 stars in a subprocess.
+3. exact kernels: the all-pairs and symmetric kernels against their plain
+   PyTorch versions at N = 128, 896 (odd tile count), 1,024 (90 padding
+   bodies) and 65,536, within rtol=1e-4, atol=2e-6; the all-pairs kernel
+   also in block form and for bitwise repeatability; the symmetric kernel
+   for momentum. Times both at N = 65,536.
+4. treecode kernels: the near, far and VIP kernels against their plain
+   versions on the port's own work lists, at the shapes of every treecode
+   run of phase 6 and one smaller: Plummer spheres of 8,192, 20,480 (with
+   ``tuned_tree_overrides``: 32-body source tiles, so 64 entries fill the
+   near kernel's 2,048-body stage), 65,536 and 524,288 bodies (whose node
+   panel, at the TPU's 512 bytes a node, was over 3 MiB and so fetched
+   from HBM entry by entry there; VIP sweep of 8,192 bodies), within
+   rtol=1e-4, atol=2e-6 on the raw outputs; each launch repeated for
+   bitwise equality. Times all three at N = 65,536.
+5. exact main path: ``Simulation(SimConfig(), plummer(65536))`` (the
+   symmetric kernel), ``solver="pallas"`` (the all-pairs kernel) and
+   leapfrog; launch counters show that each kernel ran.
+6. treecode main path: ``Simulation(SimConfig(solver="treecode"))`` at
+   N = 65,536 (Euler, then leapfrog; 8 steps primed, 64 timed), at 20,480
+   with ``tuned_tree_overrides(20480)`` and at 524,288 (16 timed). Each run
+   must launch the near and far kernels once a step and the VIP sweep's two
+   kernels once a step each, keep positions finite and overspeed 0. After
+   it the treecode force on lists built afresh (``bench.py``'s probe) must
+   stay within p99 2.5e-3 and median 5e-4 of the all-pairs kernel's exact
+   force (all bodies, or 2,048 sampled at 524,288); the error on the lists
+   the run last stepped with, ``tree_rebuild_every`` steps old, is printed
+   beside it. A ``torch.profiler`` trace of 16 steps at 65,536 gives the
+   step's breakdown and the device's idle share.
+7. energy: the JAX package's energy-drift test through the symmetric kernel.
+8. CLI: ``python -m n_body_problem_tpu_torch run`` on a galaxy collision of
+   20,480 stars, with the default solver and with ``--solver treecode
+   --tree-tuned``, in subprocesses.
 
 The last three lines of standard output are the kernels' JSON record, the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -32,6 +49,7 @@ card's name and power limit, and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import json
+import math
 import pathlib
 import shutil
 import subprocess
@@ -44,28 +62,18 @@ PHYS = dict(eps2=1e-6, compensate=0.1, G=1.0)
 # (padded N, real N): one tile, odd tile count, padding bodies, full size.
 SIZES = ((128, 128), (896, 896), (1024, 934), (65536, 65536))
 N_MAIN = 65536
-PRIME_STEPS, TIMED_STEPS = 5, 50
+PRIME_STEPS, TIMED_STEPS = 5, 20
+TREE_PRIME, TREE_TIMED = 8, 64
+ERR_P99, ERR_MEDIAN = 2.5e-3, 5e-4   # tests/test_treecode_hier.py:126-127
+TREE_KERNELS = ("near", "far", "vip")
+# Kernel launches a treecode step makes, by wrapper: the VIP sweep is its
+# pair kernel and the kernel that sums its per-block reactions.
+TREE_LAUNCHES_A_STEP = {"near": 1, "far": 1, "vip": 2}
 
 
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise RuntimeError(f"chip_smoke: FAILED: {what}")
-
-
-def time_ms(fn, reps: int) -> float:
-    """Mean device time of ``fn()`` over ``reps`` calls, by CUDA events."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def cloud(n: int, n_real: int, seed: int, device):
@@ -75,44 +83,49 @@ def cloud(n: int, n_real: int, seed: int, device):
     return pad_state_to(models.plummer(n_real, seed=seed), n).to(device)
 
 
+def agree(res: dict, key: str, name: str, got, want) -> float:
+    """Hold a kernel's output against its plain version's; keeps the
+    largest |difference| in ``res[key]``."""
+    import torch
+
+    err = float((got - want).abs().max()) if got.numel() else 0.0
+    res[key]["max_abs_err"] = max(res[key]["max_abs_err"], err)
+    check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
+    check(torch.allclose(got, want, **TOL),
+          f"{name}: max |kernel - plain| = {err:.3e} outside rtol=1e-4, atol=2e-6")
+    return err
+
+
 def compare_kernels(device, sizes=SIZES, time_at: int | None = N_MAIN) -> dict:
-    """Phase 3: each kernel against its plain version; returns per-kernel
-    ``max_abs_err`` and, at ``time_at`` bodies, ``ms`` and ``plain_ms``."""
+    """Phase 3: each exact kernel against its plain version; returns
+    per-kernel ``max_abs_err`` and, at ``time_at`` bodies, ``ms`` and
+    ``plain_ms``."""
     import torch
 
     from n_body_problem_tpu_torch.ops import cuda_force, cuda_symmetric
+    from n_body_problem_tpu_torch.treecode_profile import time_ms
 
     tile = cuda_symmetric.KERNEL_TILE
     res = {"allpairs": {"max_abs_err": 0.0}, "symmetric": {"max_abs_err": 0.0}}
-
-    def agree(name, key, got, want):
-        err = float((got - want).abs().max())
-        res[key]["max_abs_err"] = max(res[key]["max_abs_err"], err)
-        check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
-        check(torch.allclose(got, want, **TOL),
-              f"{name}: max |kernel - plain| = {err:.3e} outside rtol=1e-4, atol=2e-6")
-        return err
-
     for n, n_real in sizes:
         s = cloud(n, n_real, seed=n, device=device)
         pos, mass = s.pos, s.mass
         tiles = dict(tile_i=tile, tile_j=tile)
         a = cuda_force.block_acc(pos, pos, mass, **tiles, **PHYS)
-        ea = agree(f"allpairs N={n}", "allpairs", a,
+        ea = agree(res, "allpairs", f"allpairs N={n}", a,
                    cuda_force.block_acc_plain(pos, pos, mass, **PHYS))
         a2 = cuda_force.block_acc(pos, pos, mass, **tiles, **PHYS)
         check(torch.equal(a, a2), f"allpairs N={n}: two launches differ bitwise")
         rows = cloud(384, 384, seed=n + 1, device=device).pos + 0.5
         ab = cuda_force.block_acc(rows, pos, mass, **tiles, **PHYS)
-        eb = agree(f"allpairs block 384x{n}", "allpairs", ab,
+        eb = agree(res, "allpairs", f"allpairs block 384x{n}", ab,
                    cuda_force.block_acc_plain(rows, pos, mass, **PHYS))
         b = cuda_symmetric.symmetric_acc(pos, mass, tile=tile, **PHYS)
-        es = agree(f"symmetric N={n}", "symmetric", b,
+        es = agree(res, "symmetric", f"symmetric N={n}", b,
                    cuda_symmetric.symmetric_acc_plain(pos, mass, tile=tile, **PHYS))
         net = float((mass[:, None] * b).sum(0).abs().max())
         check(net < 1e-6, f"symmetric N={n}: |sum m a| = {net:.3e} >= 1e-6")
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)  # a fault in the run shows here
+        torch.cuda.synchronize(device)  # a fault in the run shows here
         print(f"kernels: N={n} (real {n_real}) allpairs err {ea:.3e} "
               f"block(384x{n}) err {eb:.3e} bitwise-repeatable; symmetric err "
               f"{es:.3e} |sum m a| {net:.3e}", flush=True)
@@ -134,29 +147,130 @@ def compare_kernels(device, sizes=SIZES, time_at: int | None = N_MAIN) -> dict:
     return res
 
 
+def tree_inputs(n: int, device, seed: int = 0, **overrides) -> dict:
+    """The treecode kernels' arguments at the shapes the main path gives
+    them: a Plummer sphere through ``Simulation``'s sort, padding and
+    capacity planning, then the port's acceptance build."""
+    from n_body_problem_tpu_torch import SimConfig, Simulation, models
+    from n_body_problem_tpu_torch.ops import treecode
+    from n_body_problem_tpu_torch.ops.registry import tree_kwargs
+
+    sim = Simulation(SimConfig(solver="treecode", **overrides),
+                     models.plummer(n, seed=seed), device=device)
+    cfg, s = sim.cfg, sim.state
+    build_kw, _ = tree_kwargs(cfg)
+    aux = treecode.build_tree_hier_cols(s.pos[:, 0], s.pos[:, 1], s.pos[:, 2],
+                                        s.mass, **build_kw)
+    st = treecode._hier_static(s.n, cfg.tree_tile, cfg.tree_src_tile, cfg.tree_theta,
+                               cfg.tree_max_near, cfg.tree_vip_tiles,
+                               cfg.tree_far_max, treecode.HIER_BRANCH)
+    ops = treecode.kernel_operands(s.pos, s.mass, aux[4], compensate=cfg.compensate,
+                                   G=cfg.G, src_tile=cfg.tree_src_tile,
+                                   vip_src=st[4], plan=st[5])
+    c2 = cfg.compensate ** 2
+    return dict(
+        n=s.n, cfg=cfg, ops=ops, aux=aux,
+        near=dict(args=(ops["bodies"], aux[0], aux[1]),
+                  kw=dict(n=s.n, tile=cfg.tree_tile, src_tile=cfg.tree_src_tile,
+                          entries=st[2], eps2=cfg.eps2, c2=c2)),
+        far=dict(args=(ops["bodies"], ops["summ"], aux[2], aux[3]),
+                 kw=dict(n=s.n, tile=cfg.tree_tile, eps2=cfg.eps2, c2=c2, G=cfg.G)),
+        vip=dict(args=(ops["rows"], ops["panel"]), kw=dict(eps2=cfg.eps2, c2=c2)))
+
+
+def tree_kernel_cases():
+    """(label, N, overrides): the shapes of every treecode run of phase 6,
+    and a smaller one."""
+    from n_body_problem_tpu_torch.config import tuned_tree_overrides
+
+    return (("8,192", 8192, {}), ("20,480 tuned", 20480, tuned_tree_overrides(20480)),
+            ("65,536", 65536, {}), ("524,288", 524288, {}))
+
+
+def compare_tree_kernels(device, cases=None, time_at: int | None = N_MAIN) -> dict:
+    """Phase 4: each treecode kernel against its plain version on the
+    port's work lists; bitwise repeatability; times at ``time_at``."""
+    import torch
+
+    from n_body_problem_tpu_torch.ops import cuda_treecode as ct
+    from n_body_problem_tpu_torch.treecode_profile import time_ms
+
+    fns = {"near": (ct.near_field, ct.near_field_plain),
+           "far": (ct.far_field_hier, ct.far_field_hier_plain),
+           "vip": (ct.vip_both, ct.vip_both_plain)}
+    res = {k: {"max_abs_err": 0.0} for k in TREE_KERNELS}
+    timed = False
+    for label, n, overrides in cases or tree_kernel_cases():
+        inp = tree_inputs(n, device, **overrides)
+        line = []
+        for key in TREE_KERNELS:
+            kernel, plain = fns[key]
+            a = inp[key]
+            got, again = kernel(*a["args"], **a["kw"]), kernel(*a["args"], **a["kw"])
+            want = plain(*a["args"], **a["kw"])
+            if key == "vip":
+                err = max(agree(res, key, f"vip action N={n}", got[0], want[0]),
+                          agree(res, key, f"vip reaction N={n}", got[1], want[1]))
+                same = all(torch.equal(x, y) for x, y in zip(got, again))
+            else:
+                err = agree(res, key, f"{key} N={n}", got, want)
+                same = torch.equal(got, again)
+            check(same, f"{key} N={n}: two launches differ bitwise")
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            line.append(f"{key} err {err:.3e}")
+            if n == time_at and not overrides:
+                res[key]["ms"] = time_ms(lambda: kernel(*a["args"], **a["kw"]), 20)
+                res[key]["plain_ms"] = time_ms(lambda: plain(*a["args"], **a["kw"]), 3)
+                timed = True
+        summ, c = inp["ops"]["summ"], inp["cfg"]
+        print(f"tree kernels: N={label} src_tile={c.tree_src_tile} entries "
+              f"{inp['near']['kw']['entries']} lists "
+              f"{tuple(x.shape[0] for x in inp['aux'][:4])} VIP panel "
+              f"{inp['ops']['panel'].shape[0]} bodies; node panel {summ.shape[0]} nodes "
+              f"({summ.numel() * 4 / 2**20:.2f} MiB here, "
+              f"{summ.shape[0] * 512 / 2**20:.2f} MiB in the TPU layout) "
+              f"{'; '.join(line)}; bitwise-repeatable", flush=True)
+        del inp
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    if timed:
+        print(f"tree kernels: times at N={time_at} (ms/call) " + "; ".join(
+            f"{k} {res[k]['ms']:.4f} vs plain {res[k]['plain_ms']:.4f}"
+            for k in TREE_KERNELS), flush=True)
+    return res
+
+
+def counters() -> dict:
+    from n_body_problem_tpu_torch.ops import cuda_force, cuda_symmetric, cuda_treecode
+
+    return {"allpairs": cuda_force.block_acc, "symmetric": cuda_symmetric.symmetric_acc,
+            "near": cuda_treecode.near_field, "far": cuda_treecode.far_field_hier,
+            "vip": cuda_treecode.vip_both}
+
+
 def drive_main_path(device, n: int = N_MAIN, prime: int = PRIME_STEPS,
                     timed: int = TIMED_STEPS) -> None:
-    """Phase 4a: the default simulation, then solver="pallas", then
+    """Phase 5: the default simulation, then solver="pallas", then
     leapfrog, each through the public ``Simulation`` entry point."""
     import torch
 
     from n_body_problem_tpu_torch import SimConfig, Simulation, models
-    from n_body_problem_tpu_torch.ops import cuda_force, cuda_symmetric
 
+    wrappers = counters()
     runs = (
-        ("default", SimConfig(), "pallas_symmetric", cuda_symmetric.symmetric_acc),
-        ("pallas", SimConfig(solver="pallas"), "pallas", cuda_force.block_acc),
-        ("leapfrog", SimConfig(integrator="leapfrog"), "pallas_symmetric",
-         cuda_symmetric.symmetric_acc),
+        ("default", SimConfig(), "pallas_symmetric", "symmetric"),
+        ("pallas", SimConfig(solver="pallas"), "pallas", "allpairs"),
+        ("leapfrog", SimConfig(integrator="leapfrog"), "pallas_symmetric", "symmetric"),
     )
-    for label, cfg, solver, wrapper in runs:
+    for label, cfg, solver, key in runs:
         sim = Simulation(cfg, models.plummer(n, seed=0), device=device)
         check(sim.solver == solver, f"{label}: resolved {sim.solver!r}, expected {solver!r}")
         e0 = sim.diagnostics()["energy"]
         sim.run(prime)
-        before, wall0 = wrapper.launches, sim.wall_seconds
+        before, wall0 = wrappers[key].launches, sim.wall_seconds
         sim.run(timed)
-        launched = wrapper.launches - before
+        launched = wrappers[key].launches - before
         wall = sim.wall_seconds - wall0
         check(launched >= timed, f"{label}: kernel launched {launched} times in {timed} steps")
         check(bool(torch.isfinite(sim.state.pos).all()), f"{label}: non-finite positions")
@@ -171,8 +285,117 @@ def drive_main_path(device, n: int = N_MAIN, prime: int = PRIME_STEPS,
               f"{abs((d['energy'] - e0) / e0):.3e}", flush=True)
 
 
+def tree_force_error(sim, sample: int | None = None,
+                     fresh: bool = True) -> tuple[float, float]:
+    """(p99, median) relative error of the treecode force on ``sim``'s
+    current bodies against the all-pairs kernel's exact force (on
+    ``sample`` random real bodies, or on all of them).
+
+    ``fresh``: the bodies re-sorted and the lists built anew, as
+    ``bench.py``'s probe does. Otherwise the lists the run last stepped
+    with, on the bodies as it left them: ``tree_rebuild_every`` steps after
+    the lists were built (after a run of whole chunks), as stale as the
+    lists of a leapfrog step get and one step staler than an Euler step's.
+    """
+    import torch
+
+    from n_body_problem_tpu_torch.ops import treecode
+    from n_body_problem_tpu_torch.ops.registry import make_force_fn, tree_kwargs
+    from n_body_problem_tpu_torch.treecode_profile import force_error
+    from n_body_problem_tpu_torch.utils.morton import device_resort
+
+    s = sim.state
+    if fresh:
+        s, _ = device_resort(s, torch.arange(s.n, device=s.device))
+        tree = make_force_fn(sim.cfg, s.device.type, s.n)(s.pos, s.mass)
+    else:
+        tree = treecode.treecode_acc_hier(s.pos, s.mass, sim.tree_lists,
+                                          **tree_kwargs(sim.cfg)[1])
+    return force_error(tree, s.pos, s.mass, s.n_real, sim.cfg, sample)
+
+
+def tree_runs():
+    """(label, N, config, timed steps, bodies sampled by the error probe)."""
+    from n_body_problem_tpu_torch import SimConfig
+    from n_body_problem_tpu_torch.config import tuned_tree_overrides
+
+    return (
+        ("65k euler", 65536, SimConfig(solver="treecode"), TREE_TIMED, None),
+        ("65k leapfrog", 65536, SimConfig(solver="treecode", integrator="leapfrog"),
+         TREE_TIMED, None),
+        ("20k tuned", 20480, SimConfig(solver="treecode", **tuned_tree_overrides(20480)),
+         TREE_TIMED, None),
+        ("524k", 524288, SimConfig(solver="treecode"), 16, 2048),
+    )
+
+
+def drive_treecode(device, runs=None, profile_label: str = "65k euler") -> dict:
+    """Phase 6: the treecode main path through ``Simulation``; returns the
+    launch counts of the runs (the error probes are not counted)."""
+    import torch
+
+    from n_body_problem_tpu_torch import Simulation, models
+    from n_body_problem_tpu_torch.treecode_profile import profile_tree_step
+
+    wrappers = counters()
+    launched = {k: 0 for k in TREE_KERNELS}
+    for label, n, cfg, timed, sample in runs or tree_runs():
+        t0 = time.perf_counter()
+        sim = Simulation(cfg, models.plummer(n, seed=0), device=device)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        init_s = time.perf_counter() - t0
+        e0 = sim.diagnostics()["energy"]
+        before = {k: wrappers[k].launches for k in TREE_KERNELS}
+        sim.run(TREE_PRIME)
+        wall0 = sim.wall_seconds
+        sim.run(timed)
+        wall = sim.wall_seconds - wall0
+        moved = {k: wrappers[k].launches - before[k] for k in TREE_KERNELS}
+        for k in TREE_KERNELS:   # (a CPU rehearsal runs the plain versions)
+            want = TREE_LAUNCHES_A_STEP[k] * (TREE_PRIME + timed)
+            check(moved[k] == want or device.type != "cuda",
+                  f"treecode [{label}]: {k} launches {moved[k]}, expected {want}")
+            launched[k] += moved[k]
+        check(bool(torch.isfinite(sim.state.pos).all()), f"treecode [{label}]: non-finite positions")
+        d = sim.diagnostics()
+        check(d["overspeed"] == 0, f"treecode [{label}]: overspeed {d['overspeed']}")
+        check(d["step"] == TREE_PRIME + timed, f"treecode [{label}]: step {d['step']}")
+        # The envelope holds on fresh lists, as the JAX package's tests and
+        # bench.py measure it; the error on the run's own lists, as stale
+        # as the run lets them get, is reported beside it (PERF.md §6).
+        errs = {lists: tree_force_error(sim, sample, fresh=fresh)
+                for lists, fresh in (("fresh lists", True), ("the run's lists", False))}
+        p99, med = errs["fresh lists"]
+        check(p99 < ERR_P99 and med < ERR_MEDIAN,
+              f"treecode [{label}]: force error p99 {p99:.3e} median {med:.3e}")
+        check(all(map(math.isfinite, errs["the run's lists"])),
+              f"treecode [{label}]: non-finite error on the run's lists")
+        c = sim.cfg
+        print(f"treecode [{label}]: N={sim.state.n_real} tile={c.tree_tile} "
+              f"src_tile={c.tree_src_tile} vip={c.tree_vip_tiles} caps(max_near="
+              f"{c.tree_max_near} flat={c.tree_flat_cap} far_max={c.tree_far_max} "
+              f"far={c.tree_far_cap}) rebuild_every={c.tree_rebuild_every} "
+              f"integrator={c.integrator} init {init_s:.3f} s; "
+              f"{wall / timed * 1e3:.4f} ms/step over {timed} steps "
+              f"{sim.pairs_per_step() * timed / wall:.4e} pairs/s; launches "
+              f"{moved}; |dE/E| after {TREE_PRIME + timed} steps "
+              f"{abs((d['energy'] - e0) / e0):.3e}; force error vs all-pairs on "
+              f"{sample or sim.state.n_real} bodies: " + "; ".join(
+                  f"{lists} p99 {p99:.3e} median {med:.3e}"
+                  for lists, (p99, med) in errs.items()), flush=True)
+        if label == profile_label:
+            prof = profile_tree_step(sim)
+            print(f"treecode profile [{label}, 16 steps, ms]: " + " ".join(
+                f"{k} {v:.4f}" for k, v in prof.items()), flush=True)
+        del sim
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    return launched
+
+
 def energy_check(device) -> None:
-    """Phase 4b: the JAX package's energy-drift test, through the
+    """Phase 7: the JAX package's energy-drift test, through the
     symmetric kernel (tests/test_integrators.py:53-64)."""
     from n_body_problem_tpu_torch import SimConfig, Simulation, diagnostics, models
 
@@ -189,24 +412,26 @@ def energy_check(device) -> None:
               flush=True)
 
 
-def run_cli(out: pathlib.Path, n: int = 20480, device: str | None = None) -> None:
-    """Phase 5: the CLI's ``run`` subcommand in a subprocess."""
+def run_cli(out: pathlib.Path, n: int = 20480, device: str | None = None,
+            extra: tuple[str, ...] = ()) -> None:
+    """Phase 8: the CLI's ``run`` subcommand in a subprocess."""
     from n_body_problem_tpu_torch.io.checkpoint import load_checkpoint
 
     shutil.rmtree(out, ignore_errors=True)
     cmd = [sys.executable, "-m", "n_body_problem_tpu_torch", "run",
            "--model", "galaxy_collision", "--n", str(n), "--steps", "20",
-           "--diag-every", "10", "--out", str(out)]
+           "--diag-every", "10", "--out", str(out), *extra]
     if device:
         cmd += ["--device", device]
     proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
     for line in proc.stderr.splitlines():
         print(f"  cli| {line}")
-    check(proc.returncode == 0, f"cli: rc={proc.returncode}")
+    check(proc.returncode == 0, f"cli {' '.join(extra)}: rc={proc.returncode}")
     state, _ = load_checkpoint(out / "final.npz")
     check(int(state.step) == 20, f"cli: final.npz at step {int(state.step)}")
     check(bool(state.pos.isfinite().all()), "cli: non-finite positions in final.npz")
-    print(f"cli: rc 0, final.npz with {state.n_real} bodies at step 20", flush=True)
+    print(f"cli {' '.join(extra) or '(default solver)'}: rc 0, final.npz with "
+          f"{state.n_real} bodies at step 20", flush=True)
 
 
 def main() -> int:
@@ -215,7 +440,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs one GPU", file=sys.stderr)
         return 1
-    from n_body_problem_tpu_torch.ops import cuda_build, cuda_force, cuda_symmetric
+    from n_body_problem_tpu_torch.ops import cuda_build
 
     device = torch.device("cuda", 0)
     smi = subprocess.run(
@@ -235,27 +460,36 @@ def main() -> int:
     print(f"build: {build_s:.3f} s -> {cuda_build.library_path()}", flush=True)
 
     res = compare_kernels(device)
+    res.update(compare_tree_kernels(device))
 
-    cuda_force.block_acc.launches = 0
-    cuda_symmetric.symmetric_acc.launches = 0
+    wrappers = counters()
+    for w in wrappers.values():
+        w.launches = 0
     drive_main_path(device)
-    launches = {"allpairs": cuda_force.block_acc.launches,
-                "symmetric": cuda_symmetric.symmetric_acc.launches}
+    launches = {k: wrappers[k].launches for k in ("allpairs", "symmetric")}
+    for w in wrappers.values():
+        w.launches = 0
+    launches.update(drive_treecode(device))
     for key, count in launches.items():
         check(count > 0, f"main path never launched the {key} kernel")
     energy_check(device)
     run_cli(ROOT / "out" / "chip_smoke_cli")
+    run_cli(ROOT / "out" / "chip_smoke_cli_tree",
+            extra=("--solver", "treecode", "--tree-tuned"))
 
+    records = (
+        ("allpairs", "allpairs_acc_kernel", "allpairs.cu", "pallas_force.py:41"),
+        ("symmetric", "symmetric_acc_kernel", "symmetric.cu", "pallas_symmetric.py:87"),
+        ("near", "near_field_kernel", "near.cu", "treecode.py:1286"),
+        ("far", "far_field_kernel", "far_hier.cu", "treecode.py:2164"),
+        ("vip", "vip_both_kernel+vip_react_sum_kernel", "vip.cu", "treecode.py:805"),
+    )
     kernels = [
-        {"name": "allpairs_acc_kernel", "route": "cuda",
-         "source": "n_body_problem_tpu_torch/csrc/allpairs.cu",
-         "replaces": "n_body_problem_tpu/ops/pallas_force.py:41",
-         "launches": launches["allpairs"], **res["allpairs"]},
-        {"name": "symmetric_acc_kernel", "route": "cuda",
-         "source": "n_body_problem_tpu_torch/csrc/symmetric.cu",
-         "replaces": "n_body_problem_tpu/ops/pallas_symmetric.py:87",
-         "launches": launches["symmetric"], **res["symmetric"]},
-    ]
+        {"name": name, "route": "cuda",
+         "source": f"n_body_problem_tpu_torch/csrc/{src}",
+         "replaces": f"n_body_problem_tpu/ops/{tpu}",
+         "launches": launches[key], **res[key]}
+        for key, name, src, tpu in records]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

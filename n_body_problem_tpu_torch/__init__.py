@@ -4,10 +4,11 @@ A port of ``n_body_problem_tpu`` (JAX, XLA and Pallas for the TPU) to
 PyTorch with hand-written CUDA kernels for Hopper (``csrc/``). The JAX
 package is the reference it is tested against; this package imports no JAX.
 
-This first slice is the exact direct-sum simulation: config, state, the
+Ported so far: the exact direct-sum simulation (config, state, the
 procedural models, the plain PyTorch solvers, the all-pairs and symmetric
-half-pair CUDA kernels, both integrators, diagnostics, checkpoints and the
-``run``/``info`` CLI.
+half-pair CUDA kernels, both integrators, diagnostics, checkpoints, the
+``run``/``info`` CLI) and the hierarchical treecode run loop (Morton sort,
+acceptance build, the near, far and VIP CUDA kernels).
 
 Public API::
 
@@ -17,6 +18,10 @@ Public API::
                         device="cuda")
     sim.run(100)
     print(sim.diagnostics())
+
+    tree = nb.Simulation(nb.SimConfig(solver="treecode"),
+                         nb.models.plummer(524288, seed=0), device="cuda")
+    tree.run(16)
 """
 
 from n_body_problem_tpu_torch.config import SimConfig

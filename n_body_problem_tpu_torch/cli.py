@@ -3,6 +3,8 @@
 Counterpart of ``n_body_problem_tpu.cli`` for the ported slice:
 
     python -m n_body_problem_tpu_torch run --model plummer --n 65536 --steps 100
+    python -m n_body_problem_tpu_torch run --model galaxy_collision --n 20480 \
+        --solver treecode --tree-tuned --steps 100
     python -m n_body_problem_tpu_torch info
 
 ``run`` is headless: physics runs on ``--device`` (the GPU when there is
@@ -32,8 +34,6 @@ _NOT_PORTED = {
     "serve": "ROADMAP §1 item 6 (live viewer)",
     "gif": "ROADMAP §1 item 6 (rendering)",
     "export_snap": "ROADMAP §1 item 7 (export_snap)",
-    "morton_sort": "ROADMAP §1 item 3 (Morton sort)",
-    "tree_tuned": "ROADMAP §1 item 3 (treecode)",
     "profile": "ROADMAP §1 item 8 (bench and profiling)",
 }
 
@@ -105,6 +105,16 @@ def cmd_run(args) -> int:
     else:
         state = make_model(args.model, args.n, seed=args.seed)
     cfg = _build_config(args, base=ck_cfg)
+    if args.morton_sort:
+        cfg = cfg.replace(morton_sort=True)
+    if args.tree_tuned:
+        from n_body_problem_tpu_torch.config import tuned_tree_overrides
+        from n_body_problem_tpu_torch.ops.forces import required_padding
+
+        # Bracket on the padded body count, which the tuning table was
+        # measured at (the treecode pads to a multiple of 256).
+        padded = required_padding("treecode", state.n_real, cfg.block_size)
+        cfg = cfg.replace(**tuned_tree_overrides(padded))
     out = pathlib.Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
 
@@ -200,8 +210,11 @@ def build_parser() -> argparse.ArgumentParser:
     r.add_argument("--serve", type=int, default=0, metavar="PORT", help="not ported yet")
     r.add_argument("--gif", action="store_true", help="not ported yet")
     r.add_argument("--export-snap", action="store_true", help="not ported yet")
-    r.add_argument("--morton-sort", action="store_true", help="not ported yet")
-    r.add_argument("--tree-tuned", action="store_true", help="not ported yet")
+    r.add_argument("--morton-sort", action="store_true",
+                   help="Z-order bodies at init (tile locality)")
+    r.add_argument("--tree-tuned", action="store_true",
+                   help="apply the measured per-N treecode tuning table "
+                        "(config.tuned_tree_overrides)")
     r.add_argument("--profile", action="store_true", help="not ported yet")
     r.add_argument("--devices", type=int, default=1, help="only 1 is ported")
     r.set_defaults(fn=cmd_run)

@@ -1,8 +1,9 @@
 """Build and load the package's CUDA kernels.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` (Hopper)
-into one shared library with a plain C interface, which is loaded with
-``ctypes``. Nothing is built when a module is imported: the first wrapper
+Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` (Hopper),
+one ``nvcc`` process a source, all started together, and the objects are
+linked into one shared library with a plain C interface, which is loaded
+with ``ctypes``. Nothing is built when a module is imported: the first wrapper
 that launches a kernel calls :func:`load_library`, and that builds from the
 package's own sources into ``_build/<hash>/``, keyed by a hash of the
 sources and the flags. A later process with the same sources loads the
@@ -33,7 +34,7 @@ LIB_NAME = "libnbody_kernels.so"
 # The kernels index float triples and quads with 32-bit ints.
 MAX_BODIES = (1 << 31) // 4
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # C entry points: name -> (argtypes, restype). P = pointer or stream,
 # I = int, F = float.
@@ -43,6 +44,15 @@ _SIGNATURES = {
     "nbody_allpairs_acc": ((_P, _I, _P, _I, _P, _F, _F, _P), _I),
     # (body4, n, out, c2, eps2, stream) -> cudaError_t
     "nbody_symmetric_acc": ((_P, _I, _P, _F, _F, _P), _I),
+    # (bodies4, n, tile, src_tile, entries, flat_src, chunk_tgt, n_chunks,
+    #  out, c2, eps2, stream) -> cudaError_t
+    "nbody_near_field": ((_P, _I, _I, _I, _I, _P, _P, _I, _P, _F, _F, _P), _I),
+    # (bodies4, n, tile, summ12, far_src, far_tgt, n_chunks, out, c2, eps2,
+    #  gc, stream) -> cudaError_t
+    "nbody_far_field": ((_P, _I, _I, _P, _P, _P, _I, _P, _F, _F, _F, _P), _I),
+    # (rows4, n, panel4, w, partial, action, react, c2, eps2, stream)
+    #  -> cudaError_t
+    "nbody_vip_both": ((_P, _I, _P, _I, _P, _P, _P, _F, _F, _P), _I),
     # (cudaError_t) -> message
     "nbody_error_string": ((_I,), ctypes.c_char_p),
 }
@@ -70,8 +80,9 @@ def sources() -> list[pathlib.Path]:
 
 
 def source_hash() -> str:
+    """Hash of the flags, the sources and the headers they include."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sorted(CSRC_DIR.glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
@@ -84,22 +95,40 @@ def library_path() -> pathlib.Path:
 def build_library() -> pathlib.Path:
     """Compile ``csrc/*.cu`` into the library unless it is already built.
 
-    The compiler's report (``-Xptxas -v``: registers, shared memory, spills
-    per kernel) is kept beside the library as ``build.log``.
+    One ``nvcc -c`` a source, all running at once, then one link. The
+    compiler's report (``-Xptxas -v``: registers, shared memory, spills per
+    kernel) is kept beside the library as ``build.log``.
     """
     lib = library_path()
     if lib.is_file():
         return lib
     lib.parent.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{LIB_NAME}.{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
+    tag = f"{os.getpid()}.tmp"
+    nvcc = find_nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    seconds = time.perf_counter() - t0
-    log = f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}\nrc={proc.returncode} seconds={seconds:.3f}\n"
-    (lib.parent / "build.log").write_text(log)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed (rc={proc.returncode}):\n{log}")
+    jobs = []
+    for src in sources():
+        obj = lib.parent / f"{src.stem}.{tag}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    log, failed = [], False
+    for cmd, _, proc in jobs:
+        out, _ = proc.communicate()
+        log.append(f"$ {' '.join(cmd)}\n{out}rc={proc.returncode}\n")
+        failed |= proc.returncode != 0
+    tmp = lib.with_name(f"{LIB_NAME}.{tag}")
+    if not failed:
+        cmd = [nvcc, "-shared", "-o", str(tmp), *(str(o) for _, o, _ in jobs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+        log.append(f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}rc={proc.returncode}\n")
+        failed = proc.returncode != 0
+    for _, obj, _ in jobs:
+        obj.unlink(missing_ok=True)
+    text = "".join(log) + f"seconds={time.perf_counter() - t0:.3f}\n"
+    (lib.parent / "build.log").write_text(text)
+    if failed:
+        raise RuntimeError(f"nvcc failed:\n{text}")
     os.replace(tmp, lib)  # atomic: a concurrent loader sees all or nothing
     return lib
 

@@ -1,0 +1,258 @@
+"""Treecode kernels: near field, hierarchical far field, VIP sweep.
+
+Each function here has two forms. On a CUDA tensor the wrapper launches a
+hand-written kernel (``csrc/near.cu``, ``csrc/far_hier.cu``,
+``csrc/vip.cu``); on a CPU tensor it runs the ``*_plain`` function beside
+it, the same computation in plain PyTorch, which is also what the kernel is
+checked against on the card. A failed build or launch raises. Each wrapper
+counts its launches in ``.launches``.
+
+Layouts (the GPU's, not the TPU's lane-padded ones):
+
+- ``bodies`` (N + S, 4) float32 rows [x y z m'], with m' = G c^3 m_tree
+  (VIP bodies massless) and a zero sentinel tile of S = ``src_tile`` rows
+  last. The near kernel reads source tile j as rows [j S, (j+1) S); both
+  the near and the far kernel read target row t as the xyz of rows
+  [t T, (t+1) T), T = ``tile``.
+- ``flat_src`` (flat_cap,) / ``chunk_tgt`` (flat_cap / E,) int32: near
+  chunk p holds source tiles ``flat_src[p E:(p+1) E]`` for target row
+  ``chunk_tgt[p]``; ``chunk_tgt`` is non-decreasing, sentinel K_t last.
+- ``summ`` (K_total + 1, 12) float32 node rows
+  [cx cy cz m qxx qyy qzz qxy qxz qyz tr 0], zero sentinel row last;
+  ``far_src`` / ``far_tgt`` as the near lists with ``FAR_ENTRIES`` nodes a
+  chunk.
+- ``rows`` (N, 4) and ``panel`` (W, 4) float32 [x y z G c^3 m] for the VIP
+  sweep.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from n_body_problem_tpu_torch.ops import cuda_build
+
+FAR_ENTRIES = 64        # far-list node entries per chunk (csrc/far_hier.cu)
+NEAR_CHUNK_BODIES = 2048  # most source bodies a near chunk stages (csrc/near.cu)
+VIP_ROWS = 256          # row bodies per VIP sweep block (csrc/vip.cu)
+# Largest pair block a plain version materialises at once.
+_PLAIN_PAIRS = 1 << 22
+
+
+def _live_chunks(tgt: torch.Tensor, k_t: int) -> int:
+    """Chunks before the sentinel tail (the tags are non-decreasing)."""
+    return int((tgt < k_t).sum())
+
+
+def _check_block(tile: int) -> None:
+    if tile % 32 or not 32 <= tile <= 1024:
+        raise ValueError(f"tile={tile}: the kernels run one thread a body, "
+                         "so the target row must be a multiple of 32 up to 1024")
+
+
+def _require_i32(name: str, t: torch.Tensor, device: torch.device) -> None:
+    if t.device != device or t.dtype != torch.int32 or t.dim() != 1 \
+            or not t.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous 1-D int32 tensor on {device}")
+
+
+def _stream(dev: torch.device) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+# -------------------------------------------------------------- near field
+def near_field_plain(bodies, flat_src, chunk_tgt, *, n: int, tile: int,
+                     src_tile: int, entries: int, eps2: float,
+                     c2: float) -> torch.Tensor:
+    """Exact near field (N, 3): for each live chunk, the target row's bodies
+    against every body of the chunk's source tiles, summed into the row."""
+    k_t, k_s = n // tile, n // src_tile
+    live = _live_chunks(chunk_tgt, k_t)
+    src = flat_src[:live * entries].long().reshape(live, entries)
+    tgt = chunk_tgt[:live].long()
+    tiles = bodies.reshape(k_s + 1, src_tile, 4)
+    targets = bodies[:n, :3].reshape(k_t, tile, 3)
+    acc = bodies.new_zeros((k_t, tile, 3))
+    batch = max(1, _PLAIN_PAIRS // (tile * entries * src_tile))
+    for b in range(0, live, batch):
+        s = tiles[src[b:b + batch]].reshape(-1, entries * src_tile, 4)
+        p = targets[tgt[b:b + batch]]
+        d = s[:, None, :, :3] - p[:, :, None, :]                 # (B, T, L, 3)
+        r2 = (d * d).sum(-1)
+        inv = torch.rsqrt(r2 * c2 + eps2)
+        w = s[:, None, :, 3] * (inv * inv * inv)
+        acc.index_add_(0, tgt[b:b + batch], (w[..., None] * d).sum(2))
+    return acc.reshape(n, 3)
+
+
+def near_field(bodies, flat_src, chunk_tgt, *, n: int, tile: int,
+               src_tile: int, entries: int, eps2: float,
+               c2: float) -> torch.Tensor:
+    """Exact near field (N, 3) over the compacted near lists.
+
+    ``near_field.launches`` counts the kernel's launches.
+    """
+    kw = dict(n=n, tile=tile, src_tile=src_tile, entries=entries, eps2=eps2, c2=c2)
+    if bodies.device.type == "cpu":
+        return near_field_plain(bodies, flat_src, chunk_tgt, **kw)
+    if bodies.device.type != "cuda":
+        raise ValueError(f"near_field: no kernel for device {bodies.device}")
+    dev = bodies.device
+    _check_block(tile)
+    if entries * src_tile > NEAR_CHUNK_BODIES:
+        raise ValueError(f"near_field: a chunk of {entries} x {src_tile} bodies "
+                         f"exceeds {NEAR_CHUNK_BODIES}")
+    cuda_build.require_f32("bodies", bodies, (n + src_tile, 4), dev)
+    _require_i32("flat_src", flat_src, dev)
+    _require_i32("chunk_tgt", chunk_tgt, dev)
+    n_chunks = chunk_tgt.shape[0]
+    if flat_src.shape[0] < n_chunks * entries:
+        raise ValueError("near_field: flat_src shorter than its chunks")
+    if n > cuda_build.MAX_BODIES or n % tile or n % src_tile:
+        raise ValueError(f"near_field: N={n} must divide tile and src_tile")
+    out = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    lib = cuda_build.load_library()
+    with torch.cuda.device(dev):
+        rc = lib.nbody_near_field(bodies.data_ptr(), n, tile, src_tile, entries,
+                                  flat_src.data_ptr(), chunk_tgt.data_ptr(),
+                                  n_chunks, out.data_ptr(), c2, eps2, _stream(dev))
+        near_field.launches += 1
+    cuda_build.check(rc, "near_field_kernel")
+    return out
+
+
+near_field.launches = 0
+
+
+# --------------------------------------------------------------- far field
+def far_field_hier_plain(bodies, summ, far_src, far_tgt, *, n: int, tile: int,
+                         eps2: float, c2: float, G: float) -> torch.Tensor:
+    """Softened monopole + quadrupole far field (N, 3): for each live chunk,
+    the target row's bodies against its ``FAR_ENTRIES`` node summaries."""
+    k_t = n // tile
+    live = _live_chunks(far_tgt, k_t)
+    src = far_src[:live * FAR_ENTRIES].long().reshape(live, FAR_ENTRIES)
+    tgt = far_tgt[:live].long()
+    targets = bodies[:n, :3].reshape(k_t, tile, 3)
+    acc = bodies.new_zeros((k_t, tile, 3))
+    c4 = c2 * c2
+    c6 = c4 * c2
+    gc = G * math.sqrt(c2)
+    batch = max(1, _PLAIN_PAIRS // (tile * FAR_ENTRIES))
+    for b in range(0, live, batch):
+        s = summ[src[b:b + batch]][:, None]                      # (B, 1, E, 12)
+        p = targets[tgt[b:b + batch]]                            # (B, T, 3)
+        dx = s[..., 0] - p[..., 0:1]                             # (B, T, E)
+        dy = s[..., 1] - p[..., 1:2]
+        dz = s[..., 2] - p[..., 2:3]
+        r2 = dx * dx + dy * dy + dz * dz
+        u2 = 1.0 / (c2 * r2 + eps2)
+        u = torch.sqrt(u2)
+        u3 = u2 * u
+        u5 = u3 * u2
+        u7 = u5 * u2
+        sdx = s[..., 4] * dx + s[..., 7] * dy + s[..., 8] * dz
+        sdy = s[..., 7] * dx + s[..., 5] * dy + s[..., 9] * dz
+        sdz = s[..., 8] * dx + s[..., 9] * dy + s[..., 6] * dz
+        q = dx * sdx + dy * sdy + dz * sdz
+        wd = (s[..., 3] * c2 * u3 - 1.5 * c4 * s[..., 10] * u5
+              + 7.5 * c6 * q * u7) * gc
+        ws = (-3.0 * c4 * u5) * gc
+        upd = torch.stack([(wd * dx + ws * sdx).sum(-1),
+                           (wd * dy + ws * sdy).sum(-1),
+                           (wd * dz + ws * sdz).sum(-1)], -1)
+        acc.index_add_(0, tgt[b:b + batch], upd)
+    return acc.reshape(n, 3)
+
+
+def far_field_hier(bodies, summ, far_src, far_tgt, *, n: int, tile: int,
+                   eps2: float, c2: float, G: float) -> torch.Tensor:
+    """Hierarchical far field (N, 3) over the compacted far lists.
+
+    ``far_field_hier.launches`` counts the kernel's launches.
+    """
+    kw = dict(n=n, tile=tile, eps2=eps2, c2=c2, G=G)
+    if bodies.device.type == "cpu":
+        return far_field_hier_plain(bodies, summ, far_src, far_tgt, **kw)
+    if bodies.device.type != "cuda":
+        raise ValueError(f"far_field_hier: no kernel for device {bodies.device}")
+    dev = bodies.device
+    _check_block(tile)
+    if bodies.shape[0] < n or n % tile or n > cuda_build.MAX_BODIES:
+        raise ValueError(f"far_field_hier: N={n} must divide tile={tile}")
+    cuda_build.require_f32("bodies", bodies, (bodies.shape[0], 4), dev)
+    cuda_build.require_f32("summ", summ, (summ.shape[0], 12), dev)
+    _require_i32("far_src", far_src, dev)
+    _require_i32("far_tgt", far_tgt, dev)
+    n_chunks = far_tgt.shape[0]
+    if far_src.shape[0] < n_chunks * FAR_ENTRIES:
+        raise ValueError("far_field_hier: far_src shorter than its chunks")
+    out = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    lib = cuda_build.load_library()
+    with torch.cuda.device(dev):
+        rc = lib.nbody_far_field(bodies.data_ptr(), n, tile, summ.data_ptr(),
+                                 far_src.data_ptr(), far_tgt.data_ptr(), n_chunks,
+                                 out.data_ptr(), c2, eps2, G * math.sqrt(c2),
+                                 _stream(dev))
+        far_field_hier.launches += 1
+    cuda_build.check(rc, "far_field_kernel")
+    return out
+
+
+far_field_hier.launches = 0
+
+
+# --------------------------------------------------------------- VIP sweep
+def vip_both_plain(rows, panel, *, eps2: float,
+                   c2: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """(action (N, 3) of the panel on every row, reaction (W, 3) of every
+    row on each panel body) from one pass over the N x W pairs."""
+    w_cnt = panel.shape[0]
+    batch = max(1, _PLAIN_PAIRS // max(w_cnt, 1))
+    react = rows.new_zeros((w_cnt, 3))
+    action = []
+    for r in range(0, rows.shape[0], batch):
+        pi = rows[r:r + batch]
+        d = panel[None, :, :3] - pi[:, None, :3]                 # (B, W, 3)
+        r2 = (d * d).sum(-1)
+        inv = torch.rsqrt(r2 * c2 + eps2)
+        u = inv * inv * inv
+        action.append(((panel[None, :, 3] * u)[..., None] * d).sum(1))
+        react -= ((pi[:, 3:4] * u)[..., None] * d).sum(0)
+    return torch.cat(action), react
+
+
+def vip_both(rows, panel, *, eps2: float,
+             c2: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """(action (N, 3), reaction (W, 3)) of the two-way VIP sweep.
+
+    ``vip_both.launches`` counts kernel launches: a sweep is two, the pair
+    kernel and the small kernel that sums its per-block reactions (only
+    the first when W = 0).
+    """
+    if rows.device.type == "cpu":
+        return vip_both_plain(rows, panel, eps2=eps2, c2=c2)
+    if rows.device.type != "cuda":
+        raise ValueError(f"vip_both: no kernel for device {rows.device}")
+    dev = rows.device
+    n, w_cnt = rows.shape[0], panel.shape[0]
+    cuda_build.require_f32("rows", rows, (n, 4), dev)
+    cuda_build.require_f32("panel", panel, (w_cnt, 4), dev)
+    if max(n, w_cnt) > cuda_build.MAX_BODIES:
+        raise ValueError(f"vip_both: at most {cuda_build.MAX_BODIES} bodies")
+    blocks = -(-n // VIP_ROWS)
+    partial = torch.empty((blocks, w_cnt, 3), dtype=torch.float32, device=dev)
+    action = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    react = torch.empty((w_cnt, 3), dtype=torch.float32, device=dev)
+    lib = cuda_build.load_library()
+    with torch.cuda.device(dev):
+        rc = lib.nbody_vip_both(rows.data_ptr(), n, panel.data_ptr(), w_cnt,
+                                partial.data_ptr(), action.data_ptr(),
+                                react.data_ptr(), c2, eps2, _stream(dev))
+        vip_both.launches += 2 if w_cnt else 1
+    cuda_build.check(rc, "vip_both_kernel")
+    return action, react
+
+
+vip_both.launches = 0

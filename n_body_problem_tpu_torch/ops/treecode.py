@@ -1,0 +1,695 @@
+"""Hierarchical Barnes-Hut treecode on the Morton tiling.
+
+Counterpart of the hierarchical path of ``n_body_problem_tpu.ops.treecode``
+(the path ``Simulation(SimConfig(solver="treecode"))`` runs on the GPU).
+Bodies must be Morton-sorted; consecutive tiles are then compact clusters.
+Per force evaluation:
+
+1. **VIP split.** The largest-radius source tiles leave the tree and are
+   evaluated exactly in both directions by one rectangular sweep
+   (``cuda_treecode.vip_both``, kernel ``vip_both_kernel``; the JAX
+   package's ``_vip_both_pallas_cols``).
+2. **Near field (exact)** over compacted work lists: chunk p holds
+   ``entries = CHUNK_LANES / src_tile`` source tiles (``flat_src``) for the
+   target row ``chunk_tgt[p]`` (``cuda_treecode.near_field``, kernel
+   ``near_field_kernel``; ``_near_field_flat_cols`` there).
+3. **Far field**: softened monopole + quadrupole from multi-level node
+   summaries, ``FAR_ENTRIES`` nodes a chunk (``far_src``) for target row
+   ``far_tgt[p]`` (``cuda_treecode.far_field_hier``, kernel
+   ``far_field_kernel``; ``_far_field_hier_cols`` there).
+
+The acceptance lists are built every ``tree_rebuild_every`` steps by
+:func:`build_tree_hier_cols`; node summaries are recomputed from the current
+positions on every call. Names follow the JAX package so each counterpart
+can be found; the static planners return identical integers.
+
+The acceptance build is plain PyTorch and never synchronises with the
+host: capacities are static, and a capacity overflow is a ``torch.where``.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from n_body_problem_tpu_torch.ops import cuda_treecode
+
+DEFAULT_TILE = 32
+DEFAULT_THETA = 0.55
+DEFAULT_MAC_TAU = 2e-4     # level-0 (flat) mass-aware MAC tolerance
+MAC_REF_KSRC = 4096        # tau calibration point: threshold scales by
+                           # sqrt(MAC_REF_KSRC / K_s)
+DEFAULT_MAX_NEAR = 416     # fallback when the planner was not consulted
+DEFAULT_VIP_TILES = 128
+CHUNK_LANES = 2048         # near-work source bodies per work chunk
+DEFAULT_SRC_TILE = 64      # source granularity (bodies)
+DEFAULT_NEAR_SLACK = 8     # extra closest-far source tiles a target computes exactly
+HIER_BRANCH = 2            # nodes merged per level (binary hierarchy)
+DEFAULT_HIER_TAU = 0.01    # coarse-level MAC tolerance
+FAR_ENTRIES = cuda_treecode.FAR_ENTRIES  # far-list node entries per work chunk
+HIER_MIN_NODES = 16        # the coarsest level keeps at least this many nodes
+DEFAULT_HIER_TILE = 128    # target-row granularity of the hierarchical path
+
+_TINY = 1e-12
+# Largest (rows x columns) block of the acceptance build's distance matrix
+# materialised at once, as in the JAX package's chunking (8,192 bodies).
+_DIST_BODIES = 8192
+# Bodies sampled for the MAC's median acceleration scale.
+_MEDIAN_SAMPLE = 2048
+
+_f32 = torch.float32
+_i32 = torch.int32
+
+
+# ------------------------------------------------------------ static plans
+def _clamp_vip(vip_tiles: int, k: int) -> int:
+    """VIP capacity must leave a tree behind (and stay 0 for tiny K)."""
+    return int(min(vip_tiles, k // 4))
+
+
+def _vip_src_tiles(vip_tiles: int, tile: int, src_tile: int) -> int:
+    """The VIP capacity, counted in 32-body units, at source granularity."""
+    del tile
+    return max(int(vip_tiles * DEFAULT_TILE // src_tile),
+               1 if vip_tiles else 0)
+
+
+def _flat_static(n, tile, src_tile, theta, max_near, vip_tiles):
+    if src_tile % tile and tile % src_tile:
+        raise ValueError(f"src_tile={src_tile} and tile={tile} must be "
+                         f"multiples of one another")
+    if n % tile:
+        raise ValueError(f"flat treecode: N={n} must be a multiple of "
+                         f"tile={tile}")
+    if n % src_tile:
+        raise ValueError(f"flat treecode: N={n} must be a multiple of "
+                         f"src_tile={src_tile}")
+    if not (0.0 < theta <= 1.0):
+        raise ValueError(f"theta must be in (0, 1], got {theta}")
+    if src_tile > CHUNK_LANES:
+        raise ValueError(f"src_tile={src_tile} > {CHUNK_LANES}")
+    k_t = n // tile
+    k_s = n // src_tile
+    entries = CHUNK_LANES // src_tile
+    if k_s < entries:
+        raise ValueError(f"flat path needs K_src >= {entries}; "
+                         "use treecode_acc")
+    max_near = max(-(-max_near // entries) * entries, entries)
+    max_near = min(max_near, k_s - (k_s % entries) or k_s)
+    vip_src = _clamp_vip(_vip_src_tiles(vip_tiles, tile, src_tile), k_s)
+    return k_t, k_s, entries, max_near, vip_src
+
+
+def _level_plan(k_s: int, branch: int = HIER_BRANCH,
+                min_nodes: int = HIER_MIN_NODES) -> tuple[int, ...]:
+    """Node counts per level, finest first."""
+    ks = [k_s]
+    while ks[-1] % branch == 0 and ks[-1] // branch >= min_nodes:
+        ks.append(ks[-1] // branch)
+    return tuple(ks)
+
+
+def _hier_static(n, tile, src_tile, theta, max_near, vip_tiles, far_max,
+                 branch):
+    k_t, k_s, entries, max_near, vip_src = _flat_static(
+        n, tile, src_tile, theta, max_near, vip_tiles)
+    if k_s < FAR_ENTRIES:
+        raise ValueError(
+            f"hierarchical treecode needs K_src >= {FAR_ENTRIES} "
+            f"(N >= {FAR_ENTRIES * src_tile}); the flat path is not ported "
+            "yet (ROADMAP §1 item 4)")
+    plan = _level_plan(k_s, branch)
+    k_total = sum(plan)
+    far_max = max(-(-far_max // FAR_ENTRIES) * FAR_ENTRIES, FAR_ENTRIES)
+    far_max = min(far_max, (k_total // FAR_ENTRIES) * FAR_ENTRIES)
+    return k_t, k_s, entries, max_near, vip_src, plan, k_total, far_max
+
+
+# --------------------------------------------------------------- summaries
+def _tiles(a: torch.Tensor, k: int) -> torch.Tensor:
+    return a.reshape(k, a.shape[0] // k)
+
+
+def tile_summaries_cols(xc, yc, zc, mass, tile: int):
+    """Per-tile (com (K,3), m_tot (K,), radius (K,), quad (K,6)).
+
+    ``radius`` spans bodies with mass > 0 only; ``quad`` is the raw second
+    moment sum_a m_a outer(d_a, d_a), packed [xx, yy, zz, xy, xz, yz].
+    Massless tiles get m_tot = radius = quad = 0.
+    """
+    (cx, cy, cz, m_tot, radius, _, q) = _level0(xc, yc, zc, mass, tile)
+    return torch.stack([cx, cy, cz], 1), m_tot, radius, torch.stack(q, 1)
+
+
+def _level0(xc, yc, zc, mass, src_tile: int):
+    """Level-0 summary tuple (see :func:`_level_summaries`)."""
+    k0 = xc.shape[0] // src_tile
+    x, y, z, m = (_tiles(a, k0) for a in (xc, yc, zc, mass))
+    m_tot = m.sum(1)
+    inv = 1.0 / torch.clamp(m_tot, min=_TINY)
+    has = m_tot > 0
+    cx = torch.where(has, (m * x).sum(1) * inv, x.mean(1))
+    cy = torch.where(has, (m * y).sum(1) * inv, y.mean(1))
+    cz = torch.where(has, (m * z).sum(1) * inv, z.mean(1))
+    dx = x - cx[:, None]
+    dy = y - cy[:, None]
+    dz = z - cz[:, None]
+    r2 = dx * dx + dy * dy + dz * dz
+    radius = torch.sqrt(torch.where(m > 0, r2, 0.0).amax(1))
+    return _finish(m_tot, cx, cy, cz, radius,
+                   (m * dx * dx).sum(1), (m * dy * dy).sum(1),
+                   (m * dz * dz).sum(1), (m * dx * dy).sum(1),
+                   (m * dx * dz).sum(1), (m * dy * dz).sum(1))
+
+
+def _finish(m_tot, cx, cy, cz, radius, qxx, qyy, qzz, qxy, qxz, qyz):
+    rms2 = (qxx + qyy + qzz) / torch.clamp(m_tot, min=_TINY)
+    return (cx, cy, cz, m_tot, radius, rms2, (qxx, qyy, qzz, qxy, qxz, qyz))
+
+
+def _tile_radius(xc, yc, zc, mass, tile: int) -> torch.Tensor:
+    """Radius-only summary (the VIP selector needs nothing else)."""
+    k = xc.shape[0] // tile
+    x, y, z, m = (_tiles(a, k) for a in (xc, yc, zc, mass))
+    inv_m = 1.0 / torch.clamp(m.sum(1), min=_TINY)
+    cx = (m * x).sum(1) * inv_m
+    cy = (m * y).sum(1) * inv_m
+    cz = (m * z).sum(1) * inv_m
+    dx = x - cx[:, None]
+    dy = y - cy[:, None]
+    dz = z - cz[:, None]
+    r2 = dx * dx + dy * dy + dz * dz
+    return torch.sqrt(torch.where(m > 0, r2, 0.0).amax(1))
+
+
+def _vip_split(xc, yc, zc, mass, tile: int, vip_tiles: int):
+    """(mass_tree, vip_body_idx (W,), is_vip_body (N,)): pull the
+    ``vip_tiles`` largest-radius tiles out of the tree."""
+    k = xc.shape[0] // tile
+    radius = _tile_radius(xc, yc, zc, mass, tile)
+    vip_idx = _top_k(radius[None], vip_tiles)[1][0]
+    body_idx = (vip_idx[:, None] * tile
+                + torch.arange(tile, device=xc.device)[None, :]).reshape(-1)
+    is_vip_tile = torch.zeros((k,), dtype=torch.bool, device=xc.device)
+    is_vip_tile.index_fill_(0, vip_idx, True)
+    is_vip_body = is_vip_tile.repeat_interleave(tile)
+    mass_tree = torch.where(is_vip_body, 0.0, mass)
+    return mass_tree, body_idx, is_vip_body
+
+
+def _level_summaries(xc, yc, zc, mass, src_tile: int, plan, branch: int):
+    """Multipole summaries for every level of the hierarchy, finest first:
+    tuples ``(cx, cy, cz, m_tot, radius, rms2, (qxx, qyy, qzz, qxy, qxz,
+    qyz))`` of (K_l,) tensors. com and quad merge exactly (parallel axis);
+    radius merges conservatively as max(child distance + child radius)."""
+    return _merge_levels(_level0(xc, yc, zc, mass, src_tile), plan, branch)
+
+
+def _merge_levels(level0, plan, branch: int):
+    """Branch-``branch`` upward merges of the level tuples."""
+    levels = [level0]
+    for k in plan[1:]:
+        cx, cy, cz, m_tot, radius, _, q = levels[-1]
+        qxx, qyy, qzz, qxy, qxz, qyz = q
+
+        def part(a):
+            return a.reshape(k, branch)
+
+        mc = part(m_tot)
+        mp = mc.sum(1)
+        invp = 1.0 / torch.clamp(mp, min=_TINY)
+        hasp = mp > 0
+        cxp = torch.where(hasp, (mc * part(cx)).sum(1) * invp, part(cx).mean(1))
+        cyp = torch.where(hasp, (mc * part(cy)).sum(1) * invp, part(cy).mean(1))
+        czp = torch.where(hasp, (mc * part(cz)).sum(1) * invp, part(cz).mean(1))
+        ddx = part(cx) - cxp[:, None]
+        ddy = part(cy) - cyp[:, None]
+        ddz = part(cz) - czp[:, None]
+        d2 = ddx * ddx + ddy * ddy + ddz * ddz
+        radp = torch.where(mc > 0, torch.sqrt(d2) + part(radius), 0.0).amax(1)
+        levels.append(_finish(
+            mp, cxp, cyp, czp, radp,
+            (part(qxx) + mc * ddx * ddx).sum(1),
+            (part(qyy) + mc * ddy * ddy).sum(1),
+            (part(qzz) + mc * ddz * ddz).sum(1),
+            (part(qxy) + mc * ddx * ddy).sum(1),
+            (part(qxz) + mc * ddx * ddz).sum(1),
+            (part(qyz) + mc * ddy * ddz).sum(1)))
+    return levels
+
+
+def _summary_panel(levels) -> torch.Tensor:
+    """(K_total + 1, 12) node summaries for the far kernel, one dense row
+    per node: cx cy cz m qxx qyy qzz qxy qxz qyz tr and a zero pad; the
+    last row is the all-zero sentinel (it contributes exactly nothing)."""
+    cat = [torch.cat([lv[i] for lv in levels]) for i in range(4)]
+    qs = [torch.cat([lv[6][i] for lv in levels]) for i in range(6)]
+    tr = qs[0] + qs[1] + qs[2]
+    summ = torch.stack(cat + qs + [tr, torch.zeros_like(tr)], 1)
+    return torch.cat([summ, summ.new_zeros((1, 12))])
+
+
+# -------------------------------------------------------------- acceptance
+def _min_tile_dist(xc, yc, zc, cx, cy, cz, tile: int) -> torch.Tensor:
+    """(K_t, K_s): min over the bodies of target tile i of |y - com_j|,
+    computed a block of target tiles at a time."""
+    n = xc.shape[0]
+    k_t = n // tile
+    rows = max(_DIST_BODIES // tile, 1)
+    out = []
+    for r in range(0, k_t, rows):
+        sl = slice(r * tile, min(r + rows, k_t) * tile)
+        dx = cx[None, :] - xc[sl, None]
+        dy = cy[None, :] - yc[sl, None]
+        dz = cz[None, :] - zc[sl, None]
+        d2 = dx * dx + dy * dy + dz * dz
+        out.append(d2.reshape(-1, tile, cx.shape[0]).amin(1))
+    return torch.sqrt(torch.cat(out))
+
+
+def _monopole_acc_mags(xs, ys, zs, cx, cy, cz, m_tot, *, eps2, c2):
+    """(S,) per-G acceleration magnitudes of sample bodies, estimated from
+    monopole tile summaries."""
+    c3 = c2 * math.sqrt(c2)
+    dx = cx[None, :] - xs[:, None]
+    dy = cy[None, :] - ys[:, None]
+    dz = cz[None, :] - zs[:, None]
+    r2 = dx * dx + dy * dy + dz * dz
+    u2 = 1.0 / (c2 * r2 + eps2)
+    w = m_tot[None, :] * u2 * torch.sqrt(u2) * c3
+    ax = (w * dx).sum(1)
+    ay = (w * dy).sum(1)
+    az = (w * dz).sum(1)
+    return torch.sqrt(ax * ax + ay * ay + az * az)
+
+
+def _median(v: torch.Tensor) -> torch.Tensor:
+    """numpy's median: the mean of the two middle values for an even count
+    (``torch.median`` would take the lower one)."""
+    s = torch.sort(v).values
+    k = s.shape[0]
+    if k % 2:
+        return s[k // 2]
+    return s[k // 2 - 1] * 0.5 + s[k // 2] * 0.5
+
+
+def _median_monopole_acc(xc, yc, zc, cx, cy, cz, m_tot, *, eps2, c2):
+    """Median per-G acceleration magnitude of a body sample: the MAC's
+    normalisation scale."""
+    step = max(xc.shape[0] // _MEDIAN_SAMPLE, 1)
+    return _median(_monopole_acc_mags(
+        xc[::step], yc[::step], zc[::step], cx, cy, cz, m_tot,
+        eps2=eps2, c2=c2))
+
+
+def _self_overlap(k_t: int, k_s: int, tile: int, src_tile: int,
+                  device) -> torch.Tensor:
+    """(K_t, K_s) bool: target row i and source column j share bodies."""
+    rows = torch.arange(k_t, device=device)[:, None]
+    cols = torch.arange(k_s, device=device)[None, :]
+    return (rows // max(src_tile // tile, 1)) == (cols // max(tile // src_tile, 1))
+
+
+def _hier_open_masks(xc, yc, zc, levels, tile: int, src_tile: int, *,
+                     mac_tau: float, theta: float, eps2: float, c2: float,
+                     mac_tau0: float | None = None):
+    """Per-level (opens, min_d) and the level-0 score matrix for near
+    ranking (self-overlapping nodes forced to +inf).
+
+    ``mac_tau > 0``: open node j for target row i iff
+    m_j rms_j^2 r_j / (d_ij - r_j)^5 > tau * a_med, with d the per-body
+    union distance to the node's com. ``mac_tau0 > 0``: level 0 uses the
+    flat criterion m r^3 / d^5 > mac_tau0 * sqrt(MAC_REF_KSRC / K_s) * a_med
+    instead. ``mac_tau == 0``: the geometric radius / theta test.
+    """
+    cx0, cy0, cz0, m0 = levels[0][:4]
+    a_med = None
+    if mac_tau > 0:
+        a_med = torch.clamp(_median_monopole_acc(
+            xc, yc, zc, cx0, cy0, cz0, m0, eps2=eps2, c2=c2), min=_TINY)
+    opens, minds = [], []
+    k_t = xc.shape[0] // tile
+    score0 = thresh0 = None
+    for lvl, (cx, cy, cz, m, radius, rms2, _) in enumerate(levels):
+        min_d = torch.clamp(_min_tile_dist(xc, yc, zc, cx, cy, cz, tile),
+                            min=_TINY)
+        if mac_tau > 0 and lvl == 0 and mac_tau0:
+            d5 = torch.square(torch.square(min_d)) * min_d
+            score = (m * radius * radius * radius)[None, :] / d5 / a_med
+            thresh = mac_tau0 * math.sqrt(MAC_REF_KSRC / m.shape[0])
+        elif mac_tau > 0:
+            amp = m * rms2 * radius
+            delta = torch.clamp(min_d - radius[None, :], min=_TINY)
+            d5 = torch.square(torch.square(delta)) * delta
+            score = amp[None, :] / d5 / a_med
+            thresh = mac_tau
+        else:
+            score = radius[None, :] / min_d
+            thresh = theta
+        k_l = score.shape[1]
+        node_bodies = levels[0][0].shape[0] * src_tile // k_l
+        score = torch.where(
+            _self_overlap(k_t, k_l, tile, node_bodies, xc.device),
+            torch.inf, score)
+        if lvl == 0:
+            score0, thresh0 = score, thresh
+        opens.append(score > thresh)
+        minds.append(min_d)
+    return opens, minds, score0, thresh0
+
+
+def _chain_evals(opens, branch: int):
+    """(evals per level, reach_0): the topmost passing node on each
+    root-to-leaf path is evaluated; leaves with no passing ancestor reach
+    level 0 (near candidates)."""
+    n_levels = len(opens)
+    reach = torch.ones_like(opens[-1])
+    evals = [None] * n_levels
+    for lvl in range(n_levels - 1, -1, -1):
+        evals[lvl] = reach & ~opens[lvl]
+        if lvl:
+            reach = (reach & opens[lvl]).repeat_interleave(branch, dim=1)
+    return evals, reach
+
+
+def _top_k(x: torch.Tensor, k: int):
+    """(values, indices) of the k largest entries of each row, largest
+    first, ties to the lower index (as ``lax.top_k`` orders them)."""
+    s = torch.sort(x, dim=1, descending=True, stable=True)
+    return s.values[:, :k], s.indices[:, :k]
+
+
+def _compact_open_lists(ratio, theta, slack, flat_cap, entries, max_near):
+    """Compact per-row opening scores into flat work lists:
+    (flat_src (flat_cap,), chunk_tgt (flat_cap/E,), near_mask (K_t, K_s)).
+
+    Row i takes ``v_i = round_up(open_count_i + slack, E)`` slots, clamped
+    to ``max_near``, best scores first. If the rows ask for more than
+    ``flat_cap``, each keeps one chunk and the excess is scaled down
+    (chosen by ``torch.where``, with no host synchronisation). Entries with
+    a negative score point at the sentinel source ``K_s``; unused chunks
+    carry the sentinel target ``K_t``. Both scatters write into a buffer one
+    slot longer than the list, whose last slot takes the dropped entries.
+    """
+    k_t, k_s = ratio.shape
+    dev = ratio.device
+    if flat_cap < k_t * entries:
+        raise ValueError(
+            f"flat_cap={flat_cap} < one chunk per target row "
+            f"({k_t} * {entries}); use suggest_hier")
+    vals, near_idx = _top_k(ratio, max_near)
+    near_idx = torch.where(vals < 0, k_s, near_idx).to(_i32)
+    cnt = (ratio > theta).sum(1, dtype=_i32)
+    v = torch.clamp(((cnt + slack + entries - 1) // entries) * entries,
+                    entries, max_near)
+    total = v.sum()
+    extra = v - entries
+    # torch.full fills on the device; torch.tensor would copy from the host.
+    sf = torch.div(torch.full((), float(flat_cap - k_t * entries), device=dev),
+                   torch.clamp(extra.sum(), min=1).to(_f32))
+    v_scaled = entries + (torch.floor(extra.to(_f32) * sf).to(_i32)
+                          // entries) * entries
+    v = torch.where(total > flat_cap, v_scaled, v)
+    offs = torch.cumsum(v, 0, dtype=_i32) - v
+
+    s_idx = torch.arange(max_near, device=dev, dtype=_i32)[None, :]
+    dest = torch.where(s_idx < v[:, None], offs[:, None] + s_idx, flat_cap)
+    flat_src = torch.full((flat_cap + 1,), k_s, dtype=_i32, device=dev)
+    flat_src[dest.reshape(-1).long()] = near_idx.reshape(-1)
+    flat_src = flat_src[:flat_cap]
+
+    n_chunks = flat_cap // entries
+    cpr = max_near // entries
+    c_idx = torch.arange(cpr, device=dev, dtype=_i32)[None, :]
+    cdest = torch.where(c_idx < (v // entries)[:, None],
+                        offs[:, None] // entries + c_idx, n_chunks)
+    rows = torch.arange(k_t, device=dev, dtype=_i32)[:, None].expand(k_t, cpr)
+    chunk_tgt = torch.full((n_chunks + 1,), k_t, dtype=_i32, device=dev)
+    chunk_tgt[cdest.reshape(-1).long()] = rows.reshape(-1)
+    chunk_tgt = chunk_tgt[:n_chunks]
+
+    # The far field complements the entries that landed.
+    slot_rows = chunk_tgt.repeat_interleave(entries)
+    mask = torch.zeros((k_t + 1, k_s + 1), dtype=torch.bool, device=dev)
+    mask.index_put_((slot_rows.long(), flat_src[:n_chunks * entries].long()),
+                    torch.ones((), dtype=torch.bool, device=dev))
+    return flat_src, chunk_tgt, mask[:k_t, :k_s]
+
+
+def _hier_lists(xc, yc, zc, mass, *, tile, src_tile, theta, vip_src, plan,
+                branch, mac_tau, mac_tau0, eps2, c2):
+    """What the capacity planner and the acceptance build share: (is_vip_body,
+    levels, opens, minds, score0, thresh0, evals, reach0)."""
+    n = xc.shape[0]
+    if vip_src:
+        mass_tree, _, is_vip_body = _vip_split(xc, yc, zc, mass, src_tile,
+                                               vip_src)
+    else:
+        is_vip_body = torch.zeros((n,), dtype=torch.bool, device=xc.device)
+        mass_tree = mass
+    levels = _level_summaries(xc, yc, zc, mass_tree, src_tile, plan, branch)
+    opens, minds, score0, thresh0 = _hier_open_masks(
+        xc, yc, zc, levels, tile, src_tile, mac_tau=mac_tau, theta=theta,
+        eps2=eps2, c2=c2, mac_tau0=mac_tau0)
+    evals, reach0 = _chain_evals(opens, branch)
+    return is_vip_body, levels, opens, minds, score0, thresh0, evals, reach0
+
+
+def _check_union(union_coarse: bool) -> None:
+    if not union_coarse:
+        raise NotImplementedError(
+            "tree_hier_union=False (the com-minus-row-radius bound at coarse "
+            "levels) is not ported yet (ROADMAP §1 item 4)")
+
+
+def build_tree_hier_cols(
+    xc, yc, zc, mass,
+    *,
+    tile: int = DEFAULT_HIER_TILE,
+    src_tile: int = DEFAULT_SRC_TILE,
+    theta: float = DEFAULT_THETA,
+    max_near: int = DEFAULT_MAX_NEAR,
+    vip_tiles: int = DEFAULT_VIP_TILES,
+    slack: int = DEFAULT_NEAR_SLACK,
+    flat_cap: int,
+    far_max: int,
+    far_cap: int,
+    branch: int = HIER_BRANCH,
+    mac_tau: float = DEFAULT_HIER_TAU,
+    mac_tau0: float | None = None,
+    eps2: float = 1e-6,
+    compensate: float = 0.1,
+    union_coarse: bool = True,
+):
+    """Hierarchical acceptance structures:
+    ``(flat_src, chunk_tgt, far_src, far_tgt, is_vip_body)``.
+
+    The near lists as described in :func:`_compact_open_lists`, plus
+    compacted multi-level far lists (``far_cap`` node ids in chunks of
+    ``FAR_ENTRIES``, per-target contiguous, tagged by ``far_tgt``). Together
+    they cover every (target row, source leaf) pair once: near exactly,
+    everything else at its topmost accepted ancestor. Size the capacities
+    with :func:`suggest_hier`.
+    """
+    _check_union(union_coarse)
+    n = xc.shape[0]
+    (_, _, entries, max_near, vip_src, plan, _,
+     far_max) = _hier_static(n, tile, src_tile, theta, max_near, vip_tiles,
+                             far_max, branch)
+    xc, yc, zc, mass = (a.to(_f32) for a in (xc, yc, zc, mass))
+    (is_vip_body, levels, _, minds, score0, thresh0, evals,
+     reach0) = _hier_lists(xc, yc, zc, mass, tile=tile, src_tile=src_tile,
+                           theta=theta, vip_src=vip_src, plan=plan,
+                           branch=branch, mac_tau=mac_tau, mac_tau0=mac_tau0,
+                           eps2=eps2, c2=compensate * compensate)
+    # Near: only leaves the chain reaches (a leaf under an accepted
+    # ancestor is already covered: score -1 ranks it out as a sentinel).
+    score0 = torch.where(reach0, score0, -1.0)
+    flat_src, chunk_tgt, near_mask = _compact_open_lists(
+        score0, thresh0, slack, flat_cap, entries, max_near)
+    # Far: level-0 complements of the near entries that landed, plus the
+    # chain evals at coarser levels, ranked by monopole strength m / d^2 so
+    # an overflow sheds the weakest contributors.
+    evals[0] = reach0 & ~near_mask
+    key = torch.cat([torch.where(ev, lv[3][None, :] / (md * md), -1.0)
+                     for ev, lv, md in zip(evals, levels, minds)], 1)
+    far_src, far_tgt, _ = _compact_open_lists(
+        key, 0.0, 0, far_cap, FAR_ENTRIES, far_max)
+    return flat_src, chunk_tgt, far_src, far_tgt, is_vip_body
+
+
+def aux_from_numpy(aux, device=None):
+    """The five acceptance arrays of either package (e.g. the JAX
+    ``build_tree_hier_cols`` output through ``np.asarray``) as this
+    package's tensors: int32 lists and a bool VIP mask."""
+    flat_src, chunk_tgt, far_src, far_tgt, is_vip = (np.asarray(a) for a in aux)
+    as_i32 = lambda a: torch.as_tensor(a.astype(np.int32), device=device)  # noqa: E731
+    return (as_i32(flat_src), as_i32(chunk_tgt), as_i32(far_src),
+            as_i32(far_tgt), torch.as_tensor(is_vip.astype(bool), device=device))
+
+
+# ------------------------------------------------------------------ forces
+def _vip_tile_index(is_vip_body, k_s: int, src_tile: int,
+                    vip_src: int) -> torch.Tensor:
+    """(vip_src,) ascending ids of the VIP source tiles, without a host
+    sync (``jnp.nonzero(size=...)`` in the JAX package): each VIP tile is
+    scattered to its rank, the rest to a slot past the end."""
+    is_tile = is_vip_body.reshape(k_s, src_tile)[:, 0]
+    rank = torch.cumsum(is_tile, 0) - 1
+    dest = torch.where(is_tile, rank, vip_src)
+    out = torch.zeros((vip_src + 1,), dtype=torch.int64, device=is_tile.device)
+    out[dest] = torch.arange(k_s, device=is_tile.device)
+    return out[:vip_src]
+
+
+def kernel_operands(pos, mass, is_vip_body, *, compensate: float = 0.1,
+                    G: float = 1.0, src_tile: int = DEFAULT_SRC_TILE,
+                    vip_src: int, plan, branch: int = HIER_BRANCH) -> dict:
+    """What the three kernels of one force evaluation take, in the GPU
+    layouts of ``ops/cuda_treecode.py``: ``bodies`` (N + S, 4) with the VIP
+    bodies massless and a zero tile last, ``summ`` (K_total + 1, 12) node
+    rows from the current positions, and for the VIP sweep ``rows`` (N, 4),
+    ``panel`` (W, 4) and ``vip_tile_idx`` (None without VIPs)."""
+    n = pos.shape[0]
+    k_s = n // src_tile
+    gc3 = G * (compensate * compensate) * compensate
+    mass_tree = torch.where(is_vip_body, 0.0, mass) if vip_src else mass
+    bodies = pos.new_zeros((n + src_tile, 4))
+    bodies[:n, :3] = pos
+    bodies[:n, 3] = mass_tree * gc3
+    summ = _summary_panel(_level_summaries(pos[:, 0], pos[:, 1], pos[:, 2],
+                                           mass_tree, src_tile, plan, branch))
+    ops = dict(bodies=bodies, summ=summ, rows=None, panel=None, vip_tile_idx=None)
+    if vip_src:
+        # VIP bodies are whole source tiles, so the panel gather (and the
+        # reaction overwrite) are row slices of the (K_s, S, .) view.
+        idx = _vip_tile_index(is_vip_body, k_s, src_tile, vip_src)
+        rows = torch.cat([pos, (mass * gc3)[:, None]], 1)
+        ops.update(rows=rows, vip_tile_idx=idx,
+                   panel=rows.reshape(k_s, src_tile, 4)[idx].reshape(-1, 4))
+    return ops
+
+
+def treecode_acc_hier(
+    pos, mass, aux_hier,
+    *,
+    eps2: float,
+    compensate: float = 0.1,
+    G: float = 1.0,
+    tile: int = DEFAULT_HIER_TILE,
+    src_tile: int = DEFAULT_SRC_TILE,
+    theta: float = DEFAULT_THETA,
+    max_near: int = DEFAULT_MAX_NEAR,
+    vip_tiles: int = DEFAULT_VIP_TILES,
+    far_max: int = 0,
+    branch: int = HIER_BRANCH,
+) -> torch.Tensor:
+    """Hierarchical treecode acceleration (N, 3) of Morton-sorted bodies.
+
+    ``aux_hier`` comes from :func:`build_tree_hier_cols` with the same
+    static knobs. Exact near field + monopole/quadrupole far field at the
+    topmost accepted ancestor + the exact two-way VIP sweep, whose
+    reaction overwrites the VIP bodies' rows.
+    """
+    n = pos.shape[0]
+    (_, k_s, _, _, vip_src, plan, _, _) = _hier_static(
+        n, tile, src_tile, theta, max_near, vip_tiles, far_max, branch)
+    c2 = compensate * compensate
+    flat_src, chunk_tgt, far_src, far_tgt, is_vip_body = aux_hier
+    ops = kernel_operands(pos.to(_f32), mass.to(_f32), is_vip_body,
+                          compensate=compensate, G=G, src_tile=src_tile,
+                          vip_src=vip_src, plan=plan, branch=branch)
+    acc = cuda_treecode.near_field(ops["bodies"], flat_src, chunk_tgt, n=n,
+                                   tile=tile, src_tile=src_tile,
+                                   entries=CHUNK_LANES // src_tile,
+                                   eps2=eps2, c2=c2)
+    # One far kernel whatever the panel's size (the TPU kept small panels
+    # in VMEM and fetched large ones entry by entry).
+    acc = acc + cuda_treecode.far_field_hier(ops["bodies"], ops["summ"],
+                                             far_src, far_tgt, n=n, tile=tile,
+                                             eps2=eps2, c2=c2, G=G)
+    if vip_src:
+        action, react = cuda_treecode.vip_both(ops["rows"], ops["panel"],
+                                               eps2=eps2, c2=c2)
+        acc = (acc + action).reshape(k_s, src_tile, 3)
+        acc[ops["vip_tile_idx"]] = react.reshape(-1, src_tile, 3)
+        acc = acc.reshape(n, 3)
+    return acc
+
+
+def treecode_acc_hier_cols(xc, yc, zc, mass, aux_hier, **kw):
+    """Columnar form of :func:`treecode_acc_hier`: (N,) columns in,
+    ``(ax, ay, az)`` out, as the JAX package's function takes and gives."""
+    acc = treecode_acc_hier(torch.stack([xc, yc, zc], 1), mass, aux_hier, **kw)
+    return acc[:, 0], acc[:, 1], acc[:, 2]
+
+
+# ----------------------------------------------------------------- planners
+def hier_counts(pos, mass, *, tile: int = DEFAULT_HIER_TILE,
+                src_tile: int = DEFAULT_SRC_TILE,
+                theta: float = DEFAULT_THETA,
+                vip_tiles: int = DEFAULT_VIP_TILES,
+                branch: int = HIER_BRANCH,
+                mac_tau: float = DEFAULT_HIER_TAU,
+                mac_tau0: float | None = None,
+                eps2: float = 1e-6,
+                compensate: float = 0.1,
+                union_coarse: bool = True):
+    """(near_count (K_t,), far_count (K_t,)) of the hierarchical chain on
+    this distribution, uncapped: the capacity planner's input."""
+    _check_union(union_coarse)
+    n = pos.shape[0]
+    k_s = n // src_tile
+    plan = _level_plan(k_s, branch)
+    vip_src = _clamp_vip(_vip_src_tiles(vip_tiles, tile, src_tile), k_s)
+    pos = pos.to(_f32)
+    (_, _, opens, _, _, _, evals, reach0) = _hier_lists(
+        pos[:, 0], pos[:, 1], pos[:, 2], mass.to(_f32), tile=tile,
+        src_tile=src_tile, theta=theta, vip_src=vip_src, plan=plan,
+        branch=branch, mac_tau=mac_tau, mac_tau0=mac_tau0, eps2=eps2,
+        c2=compensate * compensate)
+    near = (reach0 & opens[0]).sum(1)
+    far = sum(ev.sum(1) for ev in evals)
+    return near, far
+
+
+def suggest_hier(pos, mass, *, tile: int = DEFAULT_HIER_TILE,
+                 src_tile: int = DEFAULT_SRC_TILE,
+                 theta: float = DEFAULT_THETA,
+                 vip_tiles: int = DEFAULT_VIP_TILES,
+                 slack: int = DEFAULT_NEAR_SLACK,
+                 branch: int = HIER_BRANCH,
+                 mac_tau: float = DEFAULT_HIER_TAU,
+                 mac_tau0: float | None = None,
+                 eps2: float = 1e-6,
+                 compensate: float = 0.1,
+                 union_coarse: bool = True,
+                 margin: float = 1.3,
+                 far_margin: float = 1.25) -> dict:
+    """Host-side capacity planner for the hierarchical path:
+    ``{"max_near", "flat_cap", "far_max", "far_cap"}``."""
+    near, far = hier_counts(
+        pos, mass, tile=tile, src_tile=src_tile, theta=theta,
+        vip_tiles=vip_tiles, branch=branch, mac_tau=mac_tau,
+        mac_tau0=mac_tau0, eps2=eps2, compensate=compensate,
+        union_coarse=union_coarse)
+    near = near.cpu().numpy()
+    far = far.cpu().numpy()
+    entries = CHUNK_LANES // src_tile
+    k_t = len(near)
+
+    def rnd(v, e):
+        return ((v + e - 1) // e) * e
+
+    max_near = int(rnd(int(math.ceil(near.max() * margin)), entries))
+    v = np.maximum(rnd(near + slack, entries), entries)
+    flat_cap = int(rnd(max(int(math.ceil(v.sum() * margin)),
+                           k_t * entries), entries))
+    far_max = int(rnd(int(math.ceil(far.max() * far_margin)), FAR_ENTRIES))
+    w = np.maximum(rnd(far, FAR_ENTRIES), FAR_ENTRIES)
+    far_cap = int(rnd(max(int(math.ceil(w.sum() * far_margin)),
+                          k_t * FAR_ENTRIES), FAR_ENTRIES))
+    return {"max_near": max_near, "flat_cap": flat_cap,
+            "far_max": far_max, "far_cap": far_cap}

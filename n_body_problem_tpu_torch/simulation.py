@@ -1,23 +1,37 @@
 """Step loop: build a step function and run it on a device.
 
-Counterpart of ``n_body_problem_tpu.simulation`` for the exact solvers. A
-Python loop takes the place of ``lax.scan``: PyTorch runs eagerly, each
-step enqueues its kernels on the device's stream, and only the end of
-:meth:`Simulation.run` waits for the device.
+Counterpart of ``n_body_problem_tpu.simulation``. A Python loop takes the
+place of ``lax.scan``: PyTorch runs eagerly, each step enqueues its kernels
+on the device's stream, and only the end of :meth:`Simulation.run` waits
+for the device.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time as _time
 from typing import Callable
 
+import numpy as np
 import torch
+from torch.profiler import record_function
 
-from n_body_problem_tpu_torch.config import SimConfig
+from n_body_problem_tpu_torch.config import SimConfig, resolve_vip_tiles
+from n_body_problem_tpu_torch.ops import treecode
 from n_body_problem_tpu_torch.ops.forces import required_padding
 from n_body_problem_tpu_torch.ops.integrators import make_integrator, prime_leapfrog
-from n_body_problem_tpu_torch.ops.registry import make_force_fn, resolve_solver
-from n_body_problem_tpu_torch.state import SimState, pad_state_to
+from n_body_problem_tpu_torch.ops.registry import (
+    make_force_fn,
+    resolve_solver,
+    tree_kwargs,
+    treecode_not_ported,
+)
+from n_body_problem_tpu_torch.state import SimState, pad_state_to, unpad_state
+from n_body_problem_tpu_torch.utils.morton import (
+    apply_permutation,
+    device_resort,
+    morton_argsort,
+)
 
 StepFn = Callable[[SimState], SimState]
 
@@ -36,6 +50,63 @@ def run_steps(state: SimState, step_fn: StepFn, n_steps: int) -> SimState:
     return state
 
 
+def make_treecode_run(cfg: SimConfig):
+    """The hierarchical treecode run: every ``cfg.tree_rebuild_every``
+    steps, Z-order the bodies on the device and rebuild the acceptance
+    lists, then run the steps with both kept.
+
+    The resort is load-bearing: Morton tile locality decays as bodies move,
+    and once open counts outgrow the static capacities the leaked tiles'
+    multipole errors heat the core. Nothing in the loop waits for the host.
+    The resort and the build are labelled for ``torch.profiler``
+    (``treecode.resort``, ``treecode.build``).
+
+    Returns ``run(state, n_steps) -> (state, ids, aux)``, where ``ids[i]``
+    is the input slot of the body now at slot i and ``aux`` the acceptance
+    lists the last chunk stepped with (in the returned state's slot order;
+    None when ``n_steps`` is 0). ``cfg`` must carry the resolved tile, VIP
+    count and capacities (``Simulation`` resolves them).
+    """
+    why = treecode_not_ported(cfg, "cuda")
+    if why:
+        raise NotImplementedError(why)
+    r = cfg.tree_rebuild_every
+    dt = cfg.dt
+    build_kw, acc_kw = tree_kwargs(cfg)
+    leapfrog = cfg.integrator == "leapfrog"
+
+    def chunk(state: SimState, ids: torch.Tensor, length: int):
+        with record_function("treecode.resort"):
+            state, ids = device_resort(state, ids)
+        pos, vel, acc, mass = state.pos, state.vel, state.acc, state.mass
+        with record_function("treecode.build"):
+            aux = treecode.build_tree_hier_cols(
+                pos[:, 0], pos[:, 1], pos[:, 2], mass, **build_kw)
+        for _ in range(length):
+            if leapfrog:  # KDK, stored-acceleration form
+                vel = vel + acc * (0.5 * dt)
+                pos = pos + vel * dt
+                acc = treecode.treecode_acc_hier(pos, mass, aux, **acc_kw)
+                vel = vel + acc * (0.5 * dt)
+            else:
+                acc = treecode.treecode_acc_hier(pos, mass, aux, **acc_kw)
+                vel = vel + acc * dt
+                pos = pos + vel * dt
+        return dataclasses.replace(state, pos=pos, vel=vel, acc=acc), ids, aux
+
+    def run(state: SimState, n_steps: int):
+        ids = torch.arange(state.n, dtype=torch.int32, device=state.device)
+        aux = None
+        full, rem = divmod(n_steps, r)
+        for length in [r] * full + ([rem] if rem else []):
+            state, ids, aux = chunk(state, ids, length)
+        return dataclasses.replace(
+            state, time=state.time + torch.full_like(state.time, dt) * n_steps,
+            step=state.step + n_steps), ids, aux
+
+    return run
+
+
 class Simulation:
     """Stateful convenience wrapper.
 
@@ -46,20 +117,32 @@ class Simulation:
     ``device`` defaults to the device the state is on. The state is padded
     with zero-mass bodies to the solver's multiple, exactly as the JAX
     package pads it, and leapfrog runs are primed with one force
-    evaluation.
+    evaluation. With ``solver="treecode"`` the bodies are Morton-sorted at
+    init and re-sorted on the device as the run goes; ``sort_perm[i]`` is
+    the input index of the body now at slot i, and ``tree_lists`` holds the
+    acceptance lists the last steps were taken with (``aux_hier`` of
+    ``ops.treecode.treecode_acc_hier``, in ``state``'s slot order).
     """
 
     def __init__(self, cfg: SimConfig, state: SimState,
                  device: str | torch.device | None = None):
-        if cfg.morton_sort or cfg.resort_every:
-            raise NotImplementedError(
-                "morton_sort/resort_every are not ported yet "
-                "(ROADMAP §1 item 3: Morton sort)")
         self.device = torch.device(device) if device is not None else state.device
+        dev_type = self.device.type
         state = state.to(self.device)
-        solver = resolve_solver(cfg.solver, self.device.type, state.n)
-        if cfg.tree_tile == 0:
+        solver = resolve_solver(cfg.solver, dev_type, state.n)
+        if solver == "treecode":
+            cfg = self._treecode_config(cfg, state.n)
+        elif cfg.tree_tile == 0:
             cfg = cfg.replace(tree_tile=32)
+        self.cfg = cfg
+        self.solver = solver
+        self.sort_perm = None
+        self.state = state
+        if cfg.morton_sort or cfg.resort_every > 0:
+            if state.n != state.n_real:
+                self.state = unpad_state(state)
+            self._resort()
+        state = self.state
         need = required_padding(
             solver, state.n, cfg.block_size, cfg.pallas_tile_i,
             cfg.pallas_tile_j, cfg.pallas_sym_tile, cfg.tree_tile,
@@ -67,26 +150,102 @@ class Simulation:
         )
         if state.n < need:
             state = pad_state_to(state, need)
+        self._tree_run = self.tree_lists = None
+        if solver == "treecode":
+            cfg = self._plan_treecode(cfg, state)
+            self._tree_run = make_treecode_run(cfg)
         self.cfg = cfg
-        self.solver = solver
         if cfg.integrator == "leapfrog":
-            state = prime_leapfrog(state, make_force_fn(cfg, self.device.type, state.n))
+            state = prime_leapfrog(state, make_force_fn(cfg, dev_type, state.n))
         self.state = state
-        self._step_fn = make_step_fn(cfg, self.device.type, state.n)
+        self._step_fn = make_step_fn(cfg, dev_type, state.n)
         self.wall_seconds = 0.0
+
+    def _treecode_config(self, cfg: SimConfig, n: int) -> SimConfig:
+        """The JAX package's treecode defaults: the auto target-row tile
+        (128 on the hierarchical path, resolved before padding) and the
+        Morton sort the acceptance needs; refuses the paths not ported."""
+        why = treecode_not_ported(cfg, self.device.type)
+        if why:
+            raise NotImplementedError(why)
+        need = max(treecode.CHUNK_LANES, treecode.FAR_ENTRIES * cfg.tree_src_tile)
+        if n < need:
+            raise NotImplementedError(
+                f"the hierarchical treecode needs N >= {need} at "
+                f"tree_src_tile={cfg.tree_src_tile}; smaller N runs the flat "
+                "treecode (ROADMAP §1 item 4)")
+        if cfg.tree_tile == 0:
+            cfg = cfg.replace(tree_tile=treecode.DEFAULT_HIER_TILE)
+        if not (cfg.morton_sort or cfg.resort_every):
+            cfg = cfg.replace(morton_sort=True)
+        return cfg
+
+    @staticmethod
+    def _plan_treecode(cfg: SimConfig, state: SimState) -> SimConfig:
+        """Resolve the VIP count and plan the static capacities on the
+        (sorted, padded) initial bodies; margins absorb drift between
+        re-sorts."""
+        if cfg.tree_vip_tiles == -1:
+            cfg = cfg.replace(tree_vip_tiles=resolve_vip_tiles(-1, state.n))
+        caps = treecode.suggest_hier(
+            state.pos, state.mass, tile=cfg.tree_tile,
+            src_tile=cfg.tree_src_tile, theta=cfg.tree_theta,
+            vip_tiles=cfg.tree_vip_tiles, slack=cfg.tree_near_slack,
+            mac_tau=cfg.tree_hier_tau, mac_tau0=cfg.tree_mac_tau,
+            eps2=cfg.eps2, compensate=cfg.compensate,
+            union_coarse=cfg.tree_hier_union)
+        for field, key in (("tree_max_near", "max_near"),
+                           ("tree_flat_cap", "flat_cap"),
+                           ("tree_far_max", "far_max"),
+                           ("tree_far_cap", "far_cap")):
+            if getattr(cfg, field) == 0:
+                cfg = cfg.replace(**{field: caps[key]})
+        return cfg
 
     @property
     def step_fn(self) -> StepFn:
         return self._step_fn
 
     def run(self, n_steps: int) -> SimState:
-        """Advance ``n_steps``; returns when the device has finished them."""
+        """Advance ``n_steps``; returns when the device has finished them.
+
+        The treecode re-sorts on the device inside its run; every other
+        solver with ``cfg.resort_every = r`` runs in chunks of r steps with
+        a host Morton sort between them."""
         t0 = _time.perf_counter()
-        self.state = run_steps(self.state, self._step_fn, n_steps)
+        if self._tree_run is not None:
+            self.state, ids, aux = self._tree_run(self.state, n_steps)
+            self._track_ids(ids)
+            if aux is not None:
+                self.tree_lists = aux
+        else:
+            r = self.cfg.resort_every or n_steps
+            done = 0
+            while done < n_steps:
+                todo = min(r, n_steps - done)
+                self.state = run_steps(self.state, self._step_fn, todo)
+                done += todo
+                if done < n_steps:  # no sort after the last chunk
+                    self._resort()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.wall_seconds += _time.perf_counter() - t0
         return self.state
+
+    def _track_ids(self, ids: torch.Tensor) -> None:
+        """Compose a device run's body permutation into ``sort_perm``."""
+        ids = ids[: self.state.n_real].cpu().numpy()
+        self.sort_perm = ids if self.sort_perm is None else self.sort_perm[ids]
+
+    def _resort(self) -> None:
+        """Re-Morton-order the real bodies on the host (padding stays last);
+        ``sort_perm`` follows, so callers can map back to the input order."""
+        k = self.state.n_real
+        perm_real = morton_argsort(self.state.pos[:k])
+        perm = np.concatenate([perm_real, np.arange(k, self.state.n)])
+        self.state = apply_permutation(self.state, perm)
+        self.sort_perm = (perm_real if self.sort_perm is None
+                          else self.sort_perm[perm_real])
 
     def trajectory(self, n_steps: int, save_every: int = 1):
         raise NotImplementedError(

@@ -37,12 +37,30 @@ def test_resume_continues_steps(tmp_path):
 
 
 def test_unported_flags_name_the_roadmap(tmp_path, capsys):
-    for extra in (["--render-every", "10"], ["--devices", "2"], ["--tree-tuned"],
+    for extra in (["--render-every", "10"], ["--devices", "2"],
                   ["--dataset", "0"], ["--gif"], ["--serve", "8000"]):
         rc = main(["run", "--model", "plummer", "--n", "64", "--steps", "1",
                    "--out", str(tmp_path), *extra])
         assert rc == 2, extra
         assert "ROADMAP" in capsys.readouterr().err, extra
+
+
+def test_run_treecode_tree_tuned(tmp_path, capsys):
+    """``--solver treecode --tree-tuned`` on the CPU, with the capacities
+    pinned in a config file (the hierarchical path needs them off the GPU)."""
+    cfg = tmp_path / "caps.json"
+    cfg.write_text('{"tree_flat_cap": 16384, "tree_far_cap": 16384}')
+    rc = main(["run", "--model", "plummer", "--n", "4096", "--steps", "4",
+               "--steps-per-block", "2", "--diag-every", "2", "--config", str(cfg),
+               "--solver", "treecode", "--tree-tuned", "--device", "cpu",
+               "--out", str(tmp_path / "o")])
+    assert rc == 0
+    assert "solver=treecode" in capsys.readouterr().err
+    state, saved = jax_load(tmp_path / "o" / "final.npz")
+    assert int(state.step) == 4 and np.isfinite(np.asarray(state.pos)).all()
+    # the tuning table's 20,480-and-under row (config.tuned_tree_overrides)
+    assert (saved.tree_src_tile, saved.tree_rebuild_every, saved.tree_near_slack,
+            saved.tree_mac_tau) == (32, 32, 4, 5e-4)
 
 
 def test_info(capsys):

@@ -90,3 +90,95 @@ def test_simulation_on_card_matches_cpu(cuda):
         gpu.run(5)
         cpu.run(5)
         torch.testing.assert_close(gpu.state.pos.cpu(), cpu.state.pos, rtol=1e-4, atol=1e-5)
+
+
+# ------------------------------------------------------------ treecode kernels
+# (N, overrides): the default source tile (64 bodies, 32 entries a near
+# chunk) and the tuned small-N one (32 bodies, 64 entries).
+TREE_CASES = [(8192, {}), (20480, tnb.config.tuned_tree_overrides(20480))]
+
+
+def _tree_case(device, n, overrides):
+    """The three treecode kernels' arguments, as the main path builds them
+    (Morton sort, padding, planned capacities, the port's lists)."""
+    from n_body_problem_tpu_torch.ops import treecode
+    from n_body_problem_tpu_torch.ops.registry import tree_kwargs
+
+    sim = tnb.Simulation(tnb.SimConfig(solver="treecode", **overrides),
+                         tnb.models.plummer(n, seed=3), device=device)
+    cfg, s = sim.cfg, sim.state
+    build_kw, _ = tree_kwargs(cfg)
+    aux = treecode.build_tree_hier_cols(*s.pos.unbind(1), s.mass, **build_kw)
+    st = treecode._hier_static(s.n, cfg.tree_tile, cfg.tree_src_tile, cfg.tree_theta,
+                               cfg.tree_max_near, cfg.tree_vip_tiles,
+                               cfg.tree_far_max, treecode.HIER_BRANCH)
+    ops = treecode.kernel_operands(s.pos, s.mass, aux[4], src_tile=cfg.tree_src_tile,
+                                   vip_src=st[4], plan=st[5])
+    c2 = PHYS["compensate"] ** 2
+    return {
+        "near": ((ops["bodies"], aux[0], aux[1]),
+                 dict(n=s.n, tile=cfg.tree_tile, src_tile=cfg.tree_src_tile,
+                      entries=st[2], eps2=PHYS["eps2"], c2=c2)),
+        "far": ((ops["bodies"], ops["summ"], aux[2], aux[3]),
+                dict(n=s.n, tile=cfg.tree_tile, eps2=PHYS["eps2"], c2=c2, G=1.0)),
+        "vip": ((ops["rows"], ops["panel"]), dict(eps2=PHYS["eps2"], c2=c2)),
+    }
+
+
+def _tree_fns():
+    from n_body_problem_tpu_torch.ops import cuda_treecode as ct
+
+    return {"near": (ct.near_field, ct.near_field_plain),
+            "far": (ct.far_field_hier, ct.far_field_hier_plain),
+            "vip": (ct.vip_both, ct.vip_both_plain)}
+
+
+@pytest.mark.parametrize("kernel", ["near", "far", "vip"])
+@pytest.mark.parametrize("n,overrides", TREE_CASES)
+def test_tree_kernel_matches_plain(cuda, kernel, n, overrides):
+    args, kw = _tree_case(cuda, n, overrides)[kernel]
+    fn, plain = _tree_fns()[kernel]
+    got, again, want = fn(*args, **kw), fn(*args, **kw), plain(*args, **kw)
+    torch.cuda.synchronize()
+    got, again, want = ((x,) if kernel != "vip" else x for x in (got, again, want))
+    for g, a, w in zip(got, again, want):
+        torch.testing.assert_close(g, w, **TOL)
+        assert torch.equal(g, a)   # fixed order, no atomics: bitwise repeatable
+
+
+def test_tree_wrappers_count_launches(cuda):
+    case = _tree_case(cuda, 8192, {})
+    before = {k: fn.launches for k, (fn, _) in _tree_fns().items()}
+    for k, (fn, _) in _tree_fns().items():
+        fn(*case[k][0], **case[k][1])
+    torch.cuda.synchronize()
+    assert {k: fn.launches - before[k] for k, (fn, _) in _tree_fns().items()} == \
+        {"near": 1, "far": 1, "vip": 2}   # the VIP sweep is two kernels
+
+
+def test_treecode_simulation_on_card_matches_cpu(cuda):
+    # The CPU run needs pinned capacities; the card then runs the same ones.
+    cfg = tnb.SimConfig(solver="treecode", tree_flat_cap=64 * 32 * 4,
+                        tree_far_cap=32 * 64 * 8, tree_vip_tiles=8, tree_rebuild_every=4)
+    gpu = tnb.Simulation(cfg, tnb.models.plummer(4096, seed=11), device=cuda)
+    cpu = tnb.Simulation(cfg, tnb.models.plummer(4096, seed=11), device="cpu")
+    gpu.run(8)
+    cpu.run(8)
+    assert (gpu.sort_perm == cpu.sort_perm).mean() > 0.99
+    back = lambda s: s.state.pos.cpu()[:4096][torch.from_numpy(s.sort_perm).argsort()]  # noqa: E731
+    torch.testing.assert_close(back(gpu), back(cpu), rtol=0, atol=1e-4)
+
+
+def test_treecode_run_never_waits_for_the_host(cuda):
+    """The run loop (resort, acceptance build, forces, update) enqueues
+    without one host synchronisation: capacity overflow is a torch.where."""
+    sim = tnb.Simulation(tnb.SimConfig(solver="treecode"), tnb.models.plummer(8192, seed=1),
+                         device=cuda)
+    sim.run(2)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, ids, _ = sim._tree_run(sim.state, 10)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert torch.isfinite(state.pos).all() and int(state.step) == 12

@@ -133,7 +133,22 @@ def test_kernel_argument_checks():
 
 def test_build_inputs_are_the_package_sources():
     names = [p.name for p in cuda_build.sources()]
-    assert names == ["allpairs.cu", "symmetric.cu"]
+    assert names == ["allpairs.cu", "far_hier.cu", "near.cu", "symmetric.cu", "vip.cu"]
     assert cuda_build.library_path().parent.parent == cuda_build.BUILD_DIR
     assert "arch=compute_90a,code=sm_90a" in cuda_build.NVCC_FLAGS
     assert "--use_fast_math" not in cuda_build.NVCC_FLAGS
+
+
+def test_build_hash_covers_the_included_headers(tmp_path, monkeypatch):
+    """Editing a header the kernels include must rebuild the library."""
+    import shutil
+
+    for src in cuda_build.CSRC_DIR.iterdir():
+        shutil.copy(src, tmp_path / src.name)
+    assert (tmp_path / "lists.cuh").is_file()
+    monkeypatch.setattr(cuda_build, "CSRC_DIR", tmp_path)
+    before = cuda_build.source_hash()
+    (tmp_path / "lists.cuh").write_text((tmp_path / "lists.cuh").read_text() + "\n")
+    assert cuda_build.source_hash() != before
+    assert [p.name for p in cuda_build.sources()] == [
+        "allpairs.cu", "far_hier.cu", "near.cu", "symmetric.cu", "vip.cu"]

@@ -52,15 +52,30 @@ def test_auto_rule_on_cuda():
     assert resolve_solver("direct", "cuda", 10) == "direct"
 
 
-@pytest.mark.parametrize("solver", ["treecode", "pair_matrix"])
+@pytest.mark.parametrize("solver", ["pair_matrix"])
 def test_unported_solvers_name_the_roadmap(solver):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tnb.Simulation(tnb.SimConfig(solver=solver), tnb.models.plummer(64, seed=0))
 
 
-def test_morton_sort_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tnb.Simulation(tnb.SimConfig(morton_sort=True), tnb.models.plummer(64, seed=0))
+@pytest.mark.parametrize("cfg,item", [
+    (dict(), "item 10"),                                   # dense path on the CPU
+    (dict(tree_hier=False, tree_flat_cap=8192), "item 4"),  # single-level flat path
+    (dict(tree_flat_cap=8192), "item 4"),                  # flat path: no far lists
+    (dict(tree_flat_cap=-1), "item 10"),                   # flat path switched off
+])
+def test_treecode_paths_not_ported_name_the_roadmap(cfg, item):
+    """Only the hierarchical path is ported; on the CPU it needs pinned
+    capacities, as the JAX package's CPU runs do."""
+    with pytest.raises(NotImplementedError, match=f"ROADMAP §1 {item}"):
+        tnb.Simulation(tnb.SimConfig(solver="treecode", **cfg),
+                       tnb.models.plummer(4096, seed=0))
+
+
+def test_treecode_below_the_hierarchy_names_the_flat_path():
+    cfg = tnb.SimConfig(solver="treecode", tree_flat_cap=2048, tree_far_cap=4096)
+    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 4"):
+        tnb.Simulation(cfg, tnb.models.plummer(2000, seed=0))
 
 
 def test_pallas_runs_bitwise_equal():
