@@ -7,8 +7,10 @@ package is the reference it is tested against; this package imports no JAX.
 Ported so far: the exact direct-sum simulation (config, state, the
 procedural models, the plain PyTorch solvers, the all-pairs and symmetric
 half-pair CUDA kernels, both integrators, diagnostics, checkpoints, the
-``run``/``info`` CLI) and the hierarchical treecode run loop (Morton sort,
-acceptance build, the near, far and VIP CUDA kernels).
+``run``/``info`` CLI) and the treecode run loop on its hierarchical,
+single-level flat and dense paths (Morton sort, acceptance builds, the near,
+far, panel-gather, near-panel and VIP CUDA kernels). Entry points run on
+``cuda`` unless asked for the CPU.
 
 Public API::
 

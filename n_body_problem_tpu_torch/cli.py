@@ -7,8 +7,9 @@ Counterpart of ``n_body_problem_tpu.cli`` for the ported slice:
         --solver treecode --tree-tuned --steps 100
     python -m n_body_problem_tpu_torch info
 
-``run`` is headless: physics runs on ``--device`` (the GPU when there is
-one) in ``--steps-per-block`` chunks, with diagnostics and checkpoints in
+``run`` is headless: physics runs on ``--device`` (``cuda`` unless
+``--device cpu`` is given; without a GPU that is an error) in
+``--steps-per-block`` chunks, with diagnostics and checkpoints in
 ``--out``. Flags of features this package does not have yet are accepted
 and rejected with the ROADMAP item that will bring them.
 """
@@ -84,12 +85,6 @@ def _reject_unported(args) -> None:
             "give --model or --resume")
 
 
-def _default_device() -> str:
-    import torch
-
-    return "cuda" if torch.cuda.is_available() else "cpu"
-
-
 def cmd_run(args) -> int:
     import numpy as np
 
@@ -118,7 +113,7 @@ def cmd_run(args) -> int:
     out = pathlib.Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
 
-    sim = Simulation(cfg, state, device=args.device or _default_device())
+    sim = Simulation(cfg, state, device=args.device)
     print(
         f"n={sim.state.n_real} (padded {sim.state.n})  solver={cfg.solver}  "
         f"integrator={cfg.integrator}  dt={cfg.dt}", file=sys.stderr,
@@ -199,8 +194,8 @@ def build_parser() -> argparse.ArgumentParser:
     src.add_argument("--data-dir", default=None, help="not ported yet")
     src.add_argument("--quirk-compat", action="store_true", help="not ported yet")
     _add_physics_flags(r)
-    r.add_argument("--device", default=None,
-                   help="torch device (default: cuda when available, else cpu)")
+    r.add_argument("--device", default="cuda",
+                   help="torch device (default cuda; give cpu to run on the CPU)")
     r.add_argument("--steps", type=int, default=1000)
     r.add_argument("--steps-per-block", type=int, default=50)
     r.add_argument("--out", default="out")
@@ -228,7 +223,7 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     try:
         return args.fn(args)
-    except (FileNotFoundError, ValueError, NotImplementedError) as e:
+    except (FileNotFoundError, ValueError, NotImplementedError, RuntimeError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
 

@@ -13,9 +13,9 @@ checkpoint written by either package loads in the other. In this package
 (``ops/cuda_force.py``) and ``"pallas_symmetric"`` the hand-written CUDA
 half-pair kernel (``ops/cuda_symmetric.py``); ``"auto"`` picks between them
 on a CUDA device and resolves to ``"mxu"`` on the CPU
-(``ops/registry.py``). ``"treecode"`` is the hierarchical treecode
-(``ops/treecode.py``) on the near, far and VIP CUDA kernels
-(``ops/cuda_treecode.py``).
+(``ops/registry.py``). ``"treecode"`` is the treecode (``ops/treecode.py``)
+on its hierarchical, flat or dense path, on the CUDA kernels of
+``ops/cuda_treecode.py``.
 """
 
 from __future__ import annotations

@@ -50,6 +50,13 @@ _SIGNATURES = {
     # (bodies4, n, tile, summ12, far_src, far_tgt, n_chunks, out, c2, eps2,
     #  gc, stream) -> cudaError_t
     "nbody_far_field": ((_P, _I, _I, _P, _P, _P, _I, _P, _F, _F, _F, _P), _I),
+    # (bodies4, n, tile, summ12, k_s, mask, out, c2, eps2, gc, stream)
+    #  -> cudaError_t
+    "nbody_far_single": ((_P, _I, _I, _P, _I, _P, _P, _F, _F, _F, _P), _I),
+    # (bodies4, tile, near_idx, k, m_near, out, stream) -> cudaError_t
+    "nbody_gather_panels": ((_P, _I, _P, _I, _I, _P, _P), _I),
+    # (bodies4, tile, panels4, k, width, out, c2, eps2, stream) -> cudaError_t
+    "nbody_near_panel": ((_P, _I, _P, _I, _I, _P, _F, _F, _P), _I),
     # (rows4, n, panel4, w, partial, action, react, c2, eps2, stream)
     #  -> cudaError_t
     "nbody_vip_both": ((_P, _I, _P, _I, _P, _P, _P, _F, _F, _P), _I),

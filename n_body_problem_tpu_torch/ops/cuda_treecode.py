@@ -1,7 +1,8 @@
-"""Treecode kernels: near field, hierarchical far field, VIP sweep.
+"""Treecode kernels: near fields, far fields, panel gather, VIP sweep.
 
 Each function here has two forms. On a CUDA tensor the wrapper launches a
 hand-written kernel (``csrc/near.cu``, ``csrc/far_hier.cu``,
+``csrc/far_single.cu``, ``csrc/gather.cu``, ``csrc/near_panel.cu``,
 ``csrc/vip.cu``); on a CPU tensor it runs the ``*_plain`` function beside
 it, the same computation in plain PyTorch, which is also what the kernel is
 checked against on the card. A failed build or launch raises. Each wrapper
@@ -11,16 +12,19 @@ Layouts (the GPU's, not the TPU's lane-padded ones):
 
 - ``bodies`` (N + S, 4) float32 rows [x y z m'], with m' = G c^3 m_tree
   (VIP bodies massless) and a zero sentinel tile of S = ``src_tile`` rows
-  last. The near kernel reads source tile j as rows [j S, (j+1) S); both
-  the near and the far kernel read target row t as the xyz of rows
-  [t T, (t+1) T), T = ``tile``.
+  last. The near kernel reads source tile j as rows [j S, (j+1) S); the
+  other kernels read target row t as the xyz of rows [t T, (t+1) T),
+  T = ``tile``.
 - ``flat_src`` (flat_cap,) / ``chunk_tgt`` (flat_cap / E,) int32: near
   chunk p holds source tiles ``flat_src[p E:(p+1) E]`` for target row
   ``chunk_tgt[p]``; ``chunk_tgt`` is non-decreasing, sentinel K_t last.
 - ``summ`` (K_total + 1, 12) float32 node rows
   [cx cy cz m qxx qyy qzz qxy qxz qyz tr 0], zero sentinel row last;
   ``far_src`` / ``far_tgt`` as the near lists with ``FAR_ENTRIES`` nodes a
-  chunk.
+  chunk. The single-level far field takes the level-0 rows and a
+  (K_t, K_s) bool or uint8 ``near_mask`` instead of lists.
+- ``near_idx`` (K, M) int32 and ``panels`` (K, M T, 4) float32: the dense
+  path's near lists and the body rows they gather, tile by tile.
 - ``rows`` (N, 4) and ``panel`` (W, 4) float32 [x y z G c^3 m] for the VIP
   sweep.
 """
@@ -126,6 +130,32 @@ near_field.launches = 0
 
 
 # --------------------------------------------------------------- far field
+def _far_terms(s, px, py, pz, *, eps2: float, c2: float, G: float):
+    """Per (body, node) softened monopole + quadrupole pull, components
+    (x, y, z), of summary rows ``s`` (..., 12) on bodies ``p*`` that
+    broadcast against them."""
+    dx = s[..., 0] - px
+    dy = s[..., 1] - py
+    dz = s[..., 2] - pz
+    r2 = dx * dx + dy * dy + dz * dz
+    u2 = 1.0 / (c2 * r2 + eps2)
+    u = torch.sqrt(u2)
+    u3 = u2 * u
+    u5 = u3 * u2
+    u7 = u5 * u2
+    sdx = s[..., 4] * dx + s[..., 7] * dy + s[..., 8] * dz
+    sdy = s[..., 7] * dx + s[..., 5] * dy + s[..., 9] * dz
+    sdz = s[..., 8] * dx + s[..., 9] * dy + s[..., 6] * dz
+    q = dx * sdx + dy * sdy + dz * sdz
+    c4 = c2 * c2
+    c6 = c4 * c2
+    gc = G * math.sqrt(c2)
+    wd = (s[..., 3] * c2 * u3 - 1.5 * c4 * s[..., 10] * u5
+          + 7.5 * c6 * q * u7) * gc
+    ws = (-3.0 * c4 * u5) * gc
+    return wd * dx + ws * sdx, wd * dy + ws * sdy, wd * dz + ws * sdz
+
+
 def far_field_hier_plain(bodies, summ, far_src, far_tgt, *, n: int, tile: int,
                          eps2: float, c2: float, G: float) -> torch.Tensor:
     """Softened monopole + quadrupole far field (N, 3): for each live chunk,
@@ -136,33 +166,13 @@ def far_field_hier_plain(bodies, summ, far_src, far_tgt, *, n: int, tile: int,
     tgt = far_tgt[:live].long()
     targets = bodies[:n, :3].reshape(k_t, tile, 3)
     acc = bodies.new_zeros((k_t, tile, 3))
-    c4 = c2 * c2
-    c6 = c4 * c2
-    gc = G * math.sqrt(c2)
     batch = max(1, _PLAIN_PAIRS // (tile * FAR_ENTRIES))
     for b in range(0, live, batch):
         s = summ[src[b:b + batch]][:, None]                      # (B, 1, E, 12)
         p = targets[tgt[b:b + batch]]                            # (B, T, 3)
-        dx = s[..., 0] - p[..., 0:1]                             # (B, T, E)
-        dy = s[..., 1] - p[..., 1:2]
-        dz = s[..., 2] - p[..., 2:3]
-        r2 = dx * dx + dy * dy + dz * dz
-        u2 = 1.0 / (c2 * r2 + eps2)
-        u = torch.sqrt(u2)
-        u3 = u2 * u
-        u5 = u3 * u2
-        u7 = u5 * u2
-        sdx = s[..., 4] * dx + s[..., 7] * dy + s[..., 8] * dz
-        sdy = s[..., 7] * dx + s[..., 5] * dy + s[..., 9] * dz
-        sdz = s[..., 8] * dx + s[..., 9] * dy + s[..., 6] * dz
-        q = dx * sdx + dy * sdy + dz * sdz
-        wd = (s[..., 3] * c2 * u3 - 1.5 * c4 * s[..., 10] * u5
-              + 7.5 * c6 * q * u7) * gc
-        ws = (-3.0 * c4 * u5) * gc
-        upd = torch.stack([(wd * dx + ws * sdx).sum(-1),
-                           (wd * dy + ws * sdy).sum(-1),
-                           (wd * dz + ws * sdz).sum(-1)], -1)
-        acc.index_add_(0, tgt[b:b + batch], upd)
+        terms = _far_terms(s, p[..., 0:1], p[..., 1:2], p[..., 2:3],
+                           eps2=eps2, c2=c2, G=G)                # (B, T, E) each
+        acc.index_add_(0, tgt[b:b + batch], torch.stack([t.sum(-1) for t in terms], -1))
     return acc.reshape(n, 3)
 
 
@@ -201,6 +211,151 @@ def far_field_hier(bodies, summ, far_src, far_tgt, *, n: int, tile: int,
 
 
 far_field_hier.launches = 0
+
+
+# ---------------------------------------------------- single-level far field
+def far_field_single_plain(bodies, summ, near_mask, *, n: int, tile: int,
+                           eps2: float, c2: float, G: float) -> torch.Tensor:
+    """Single-level far field (N, 3): every body against all K_s level-0
+    summaries except the near tiles of its target row."""
+    k_s = near_mask.shape[1]
+    s = summ[:k_s]
+    rows = max(1, _PLAIN_PAIRS // max(k_s * tile, 1))
+    targets = bodies[:n, :3]
+    out = []
+    for r in range(0, n // tile, rows):
+        p = targets[r * tile:(r + rows) * tile]
+        live = ~near_mask[r:r + rows].bool().repeat_interleave(tile, 0)
+        terms = _far_terms(s, p[:, 0:1], p[:, 1:2], p[:, 2:3], eps2=eps2, c2=c2, G=G)
+        out.append(torch.stack([torch.where(live, t, 0.0).sum(1) for t in terms], 1))
+    return torch.cat(out) if out else bodies.new_zeros((0, 3))
+
+
+def far_field_single(bodies, summ, near_mask, *, n: int, tile: int, eps2: float,
+                     c2: float, G: float) -> torch.Tensor:
+    """Single-level far field (N, 3) of the level-0 summaries, the near
+    tiles of each target row (``near_mask``) left out.
+
+    ``far_field_single.launches`` counts the kernel's launches.
+    """
+    kw = dict(n=n, tile=tile, eps2=eps2, c2=c2, G=G)
+    if bodies.device.type == "cpu":
+        return far_field_single_plain(bodies, summ, near_mask, **kw)
+    if bodies.device.type != "cuda":
+        raise ValueError(f"far_field_single: no kernel for device {bodies.device}")
+    dev = bodies.device
+    _check_block(tile)
+    k_t, k_s = near_mask.shape
+    if n % tile or k_t != n // tile or bodies.shape[0] < n or n > cuda_build.MAX_BODIES:
+        raise ValueError(f"far_field_single: N={n} must divide tile={tile} and "
+                         f"match the mask's {k_t} rows")
+    cuda_build.require_f32("bodies", bodies, (bodies.shape[0], 4), dev)
+    cuda_build.require_f32("summ", summ, (summ.shape[0], 12), dev)
+    if summ.shape[0] < k_s:
+        raise ValueError(f"far_field_single: {summ.shape[0]} summary rows < K_s={k_s}")
+    if near_mask.device != dev or near_mask.dtype not in (torch.bool, torch.uint8) \
+            or not near_mask.is_contiguous():
+        raise ValueError(f"near_mask must be a contiguous bool or uint8 tensor on {dev}")
+    out = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    lib = cuda_build.load_library()
+    with torch.cuda.device(dev):
+        rc = lib.nbody_far_single(bodies.data_ptr(), n, tile, summ.data_ptr(), k_s,
+                                  near_mask.data_ptr(), out.data_ptr(), c2, eps2,
+                                  G * math.sqrt(c2), _stream(dev))
+        far_field_single.launches += 1
+    cuda_build.check(rc, "far_single_kernel")
+    return out
+
+
+far_field_single.launches = 0
+
+
+# ------------------------------------------------------ dense near field
+def gather_panels_plain(bodies, near_idx, *, tile: int) -> torch.Tensor:
+    """(K, M T, 4): target tile k's near tiles ``near_idx[k]`` of body rows,
+    side by side."""
+    tiles = bodies[:bodies.shape[0] // tile * tile].reshape(-1, tile, 4)
+    return tiles[near_idx.long()].reshape(near_idx.shape[0], -1, 4)
+
+
+def gather_panels(bodies, near_idx, *, tile: int) -> torch.Tensor:
+    """The dense path's near panels (K, M T, 4); ``near_idx`` must lie in
+    [0, rows of ``bodies`` / ``tile``) (the kernel does not check it).
+
+    ``gather_panels.launches`` counts the kernel's launches.
+    """
+    if bodies.device.type == "cpu":
+        return gather_panels_plain(bodies, near_idx, tile=tile)
+    if bodies.device.type != "cuda":
+        raise ValueError(f"gather_panels: no kernel for device {bodies.device}")
+    dev = bodies.device
+    cuda_build.require_f32("bodies", bodies, (bodies.shape[0], 4), dev)
+    if near_idx.device != dev or near_idx.dtype != torch.int32 or near_idx.dim() != 2 \
+            or not near_idx.is_contiguous():
+        raise ValueError(f"near_idx must be a contiguous 2-D int32 tensor on {dev}")
+    k, m_near = near_idx.shape
+    if tile <= 0 or k * m_near * tile > cuda_build.MAX_BODIES:
+        raise ValueError(f"gather_panels: {k} x {m_near} tiles of {tile} rows is too many")
+    out = torch.empty((k, m_near * tile, 4), dtype=torch.float32, device=dev)
+    lib = cuda_build.load_library()
+    with torch.cuda.device(dev):
+        rc = lib.nbody_gather_panels(bodies.data_ptr(), tile, near_idx.data_ptr(), k,
+                                     m_near, out.data_ptr(), _stream(dev))
+        gather_panels.launches += 1
+    cuda_build.check(rc, "gather_panels_kernel")
+    return out
+
+
+gather_panels.launches = 0
+
+
+def near_panel_plain(bodies, panels, *, tile: int, eps2: float,
+                     c2: float) -> torch.Tensor:
+    """Exact near field (K T, 3): target tile k against its panel k."""
+    k, width = panels.shape[:2]
+    targets = bodies[:k * tile, :3].reshape(k, tile, 3)
+    batch = max(1, _PLAIN_PAIRS // max(tile * width, 1))
+    out = []
+    for b in range(0, k, batch):
+        pan = panels[b:b + batch]
+        d = pan[:, None, :, :3] - targets[b:b + batch, :, None, :]     # (B, T, W, 3)
+        r2 = (d * d).sum(-1)
+        inv = torch.rsqrt(r2 * c2 + eps2)
+        w = pan[:, None, :, 3] * (inv * inv * inv)
+        out.append((w[..., None] * d).sum(2))
+    return torch.cat(out).reshape(k * tile, 3)
+
+
+def near_panel(bodies, panels, *, tile: int, eps2: float, c2: float) -> torch.Tensor:
+    """Exact near field (K T, 3) of each target tile against its gathered
+    panel (:func:`gather_panels`).
+
+    ``near_panel.launches`` counts the kernel's launches.
+    """
+    if bodies.device.type == "cpu":
+        return near_panel_plain(bodies, panels, tile=tile, eps2=eps2, c2=c2)
+    if bodies.device.type != "cuda":
+        raise ValueError(f"near_panel: no kernel for device {bodies.device}")
+    dev = bodies.device
+    _check_block(tile)
+    if panels.dim() != 3:
+        raise ValueError("panels must be (K, W, 4)")
+    k, width = panels.shape[:2]
+    cuda_build.require_f32("panels", panels, (k, width, 4), dev)
+    cuda_build.require_f32("bodies", bodies, (bodies.shape[0], 4), dev)
+    if bodies.shape[0] < k * tile or k * max(width, tile) > cuda_build.MAX_BODIES:
+        raise ValueError(f"near_panel: {k} tiles of {tile} need that many body rows")
+    out = torch.empty((k * tile, 3), dtype=torch.float32, device=dev)
+    lib = cuda_build.load_library()
+    with torch.cuda.device(dev):
+        rc = lib.nbody_near_panel(bodies.data_ptr(), tile, panels.data_ptr(), k, width,
+                                  out.data_ptr(), c2, eps2, _stream(dev))
+        near_panel.launches += 1
+    cuda_build.check(rc, "near_panel_kernel")
+    return out
+
+
+near_panel.launches = 0
 
 
 # --------------------------------------------------------------- VIP sweep

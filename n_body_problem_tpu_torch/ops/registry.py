@@ -3,8 +3,8 @@
 Counterpart of ``n_body_problem_tpu.ops.registry``. ``"auto"`` resolves by
 device type: on ``"cuda"`` to the hand-written kernels, by the same body
 count rule as the JAX package uses on the TPU; elsewhere to ``"mxu"``.
-``"treecode"`` is the hierarchical treecode (``ops/treecode.py``); its
-single-level flat and dense paths are not ported yet.
+``"treecode"`` is the treecode (``ops/treecode.py``) on the path the
+configuration names (:func:`tree_path`).
 """
 
 from __future__ import annotations
@@ -74,61 +74,67 @@ def make_force_fn(cfg: SimConfig, device_type: str = "cpu",
             pos, mass, tile=cfg.pallas_sym_tile,
             precision=cfg.pallas_sym_precision, **kw)
     if solver == "treecode":
-        return _treecode_force(cfg, device_type, n)
+        return _treecode_force(cfg, n)
     raise ValueError(f"unknown solver {solver!r}")
 
 
-def treecode_not_ported(cfg: SimConfig, device_type: str) -> str | None:
-    """Why this treecode configuration cannot run yet, or None when it takes
-    the hierarchical path (the only treecode path ported so far)."""
-    if not cfg.tree_hier:
-        return ("tree_hier=False needs the single-level flat treecode "
-                "(ROADMAP §1 item 4)")
-    if cfg.tree_flat_cap < 0 or (cfg.tree_flat_cap == 0 and device_type != "cuda"):
-        return ("the treecode with tree_flat_cap left at 0 off the GPU (or "
-                "-1) runs the dense treecode path (ROADMAP §1 item 10); pin "
-                "tree_flat_cap and tree_far_cap to run the hierarchical path")
-    if cfg.tree_flat_cap > 0 and cfg.tree_far_cap <= 0:
-        return ("tree_flat_cap without tree_far_cap runs the single-level "
-                "flat treecode (ROADMAP §1 item 4)")
-    return None
+def tree_path(cfg: SimConfig) -> str:
+    """The treecode path a config runs, as the JAX package's
+    ``make_treecode_run`` and ``make_force_fn`` choose it: ``"hier"`` with
+    both list capacities (and ``tree_hier``), ``"flat"`` with the near-list
+    capacity alone, else ``"dense"``. ``Simulation`` plans the capacities
+    so that this is the path the JAX package takes for the same N on the TPU
+    (on the CPU, the path it takes there)."""
+    if cfg.tree_flat_cap > 0:
+        return "hier" if cfg.tree_hier and cfg.tree_far_cap > 0 else "flat"
+    return "dense"
 
 
 def tree_kwargs(cfg: SimConfig) -> tuple[dict, dict]:
-    """Keyword arguments of ``treecode.build_tree_hier_cols`` and
-    ``treecode.treecode_acc_hier`` for a resolved treecode config."""
-    sel = dict(tile=cfg.tree_tile or 32, src_tile=cfg.tree_src_tile,
-               theta=cfg.tree_theta,
+    """Keyword arguments of the acceptance build and of the force of the
+    config's path (``treecode.build_tree_hier_cols`` and
+    ``treecode_acc_hier``, ``build_tree_flat`` and ``treecode_acc_flat``, or
+    ``build_tree`` and ``treecode_acc``)."""
+    path = tree_path(cfg)
+    sel = dict(tile=cfg.tree_tile or 32, theta=cfg.tree_theta,
                max_near=cfg.tree_max_near or treecode.DEFAULT_MAX_NEAR,
                vip_tiles=cfg.tree_vip_tiles)
-    build_kw = dict(slack=cfg.tree_near_slack, flat_cap=cfg.tree_flat_cap,
-                    far_max=cfg.tree_far_max, far_cap=cfg.tree_far_cap,
+    phys = dict(eps2=cfg.eps2, compensate=cfg.compensate)
+    if path == "dense":
+        return dict(mac_tau=cfg.tree_mac_tau, **phys, **sel), dict(G=cfg.G, **phys, **sel)
+    sel["src_tile"] = cfg.tree_src_tile
+    build_kw = dict(slack=cfg.tree_near_slack, flat_cap=cfg.tree_flat_cap, **phys, **sel)
+    acc_kw = dict(G=cfg.G, **phys, **sel)
+    if path == "flat":
+        return dict(build_kw, mac_tau=cfg.tree_mac_tau), acc_kw
+    build_kw.update(far_max=cfg.tree_far_max, far_cap=cfg.tree_far_cap,
                     mac_tau=cfg.tree_hier_tau, mac_tau0=cfg.tree_mac_tau,
-                    union_coarse=cfg.tree_hier_union, eps2=cfg.eps2,
-                    compensate=cfg.compensate, **sel)
-    acc_kw = dict(eps2=cfg.eps2, compensate=cfg.compensate, G=cfg.G,
-                  far_max=cfg.tree_far_max, **sel)
-    return build_kw, acc_kw
+                    union_coarse=cfg.tree_hier_union)
+    return build_kw, dict(acc_kw, far_max=cfg.tree_far_max)
 
 
-def _treecode_force(cfg: SimConfig, device_type: str, n: int | None) -> ForceFn:
-    """The hierarchical treecode as ``(pos, mass) -> acc``, building its
-    acceptance lists on every call (``Simulation.run`` keeps them for
-    ``tree_rebuild_every`` steps instead). ``pos`` must be Morton-sorted and
-    the capacities set (``Simulation`` plans them when they are 0)."""
-    why = treecode_not_ported(cfg, device_type)
-    if why:
-        raise NotImplementedError(why)
-    if cfg.tree_flat_cap == 0 or cfg.tree_far_cap == 0:
-        raise ValueError("the treecode force needs tree_flat_cap and "
-                         "tree_far_cap; Simulation plans them")
+_TREE_FNS = {
+    "hier": (lambda pos, mass, **kw: treecode.build_tree_hier_cols(*pos.unbind(1), mass, **kw),
+             treecode.treecode_acc_hier),
+    "flat": (treecode.build_tree_flat, treecode.treecode_acc_flat),
+    "dense": (treecode.build_tree, treecode.treecode_acc),
+}
+
+
+def tree_fns(cfg: SimConfig):
+    """``(build(pos, mass) -> lists, force(pos, mass, lists) -> acc)`` of the
+    config's treecode path, for a resolved config."""
+    build_kw, acc_kw = tree_kwargs(cfg)
+    build, acc = _TREE_FNS[tree_path(cfg)]
+    return (lambda pos, mass: build(pos, mass, **build_kw),
+            lambda pos, mass, aux: acc(pos, mass, aux, **acc_kw))
+
+
+def _treecode_force(cfg: SimConfig, n: int | None) -> ForceFn:
+    """The treecode as ``(pos, mass) -> acc``, building its acceptance lists
+    on every call (``Simulation.run`` keeps them for ``tree_rebuild_every``
+    steps instead). ``pos`` must be Morton-sorted."""
     if cfg.tree_vip_tiles == -1:
         cfg = cfg.replace(tree_vip_tiles=resolve_vip_tiles(-1, n if n else 262144))
-    build_kw, acc_kw = tree_kwargs(cfg)
-
-    def force(pos, mass):
-        aux = treecode.build_tree_hier_cols(pos[:, 0], pos[:, 1], pos[:, 2],
-                                            mass, **build_kw)
-        return treecode.treecode_acc_hier(pos, mass, aux, **acc_kw)
-
-    return force
+    build, force = tree_fns(cfg)
+    return lambda pos, mass: force(pos, mass, build(pos, mass))

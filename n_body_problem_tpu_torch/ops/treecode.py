@@ -1,27 +1,35 @@
-"""Hierarchical Barnes-Hut treecode on the Morton tiling.
+"""Barnes-Hut treecode on the Morton tiling.
 
-Counterpart of the hierarchical path of ``n_body_problem_tpu.ops.treecode``
-(the path ``Simulation(SimConfig(solver="treecode"))`` runs on the GPU).
+Counterpart of ``n_body_problem_tpu.ops.treecode``, all three of its paths
+(``Simulation`` picks one, as the JAX package does; see ``simulation.py``).
 Bodies must be Morton-sorted; consecutive tiles are then compact clusters.
-Per force evaluation:
+Every path splits off the VIP tiles first: the largest-radius source tiles
+leave the tree and are evaluated exactly in both directions by one
+rectangular sweep (``cuda_treecode.vip_both``; the JAX package's
+``_vip_both_pallas_cols``). Then, per force evaluation:
 
-1. **VIP split.** The largest-radius source tiles leave the tree and are
-   evaluated exactly in both directions by one rectangular sweep
-   (``cuda_treecode.vip_both``, kernel ``vip_both_kernel``; the JAX
-   package's ``_vip_both_pallas_cols``).
-2. **Near field (exact)** over compacted work lists: chunk p holds
-   ``entries = CHUNK_LANES / src_tile`` source tiles (``flat_src``) for the
-   target row ``chunk_tgt[p]`` (``cuda_treecode.near_field``, kernel
-   ``near_field_kernel``; ``_near_field_flat_cols`` there).
-3. **Far field**: softened monopole + quadrupole from multi-level node
-   summaries, ``FAR_ENTRIES`` nodes a chunk (``far_src``) for target row
-   ``far_tgt[p]`` (``cuda_treecode.far_field_hier``, kernel
-   ``far_field_kernel``; ``_far_field_hier_cols`` there).
+- **Hierarchical** (:func:`build_tree_hier_cols`,
+  :func:`treecode_acc_hier`): the exact near field over compacted work
+  lists, chunk p holding ``entries = CHUNK_LANES / src_tile`` source tiles
+  (``flat_src``) for target row ``chunk_tgt[p]`` (``cuda_treecode.
+  near_field``; ``_near_field_flat_cols`` there), and a softened monopole +
+  quadrupole far field from multi-level node summaries, ``FAR_ENTRIES``
+  nodes a chunk (``cuda_treecode.far_field_hier``; ``_far_field_hier_cols``).
+- **Single-level flat** (:func:`build_tree_flat_cols`,
+  :func:`treecode_acc_flat`): the same near lists, and a far field that
+  sweeps all level-0 source tiles except each target row's near mask
+  (``cuda_treecode.far_field_single``; ``_far_field_pallas_cols``).
+- **Dense** (:func:`build_tree`, :func:`treecode_acc`): fixed-size near
+  lists ``near_idx`` (K, M) at one tile size for targets and sources; the
+  near tiles are gathered into one panel a target tile
+  (``cuda_treecode.gather_panels``; ``_gather_panels_pallas``) and swept
+  exactly (``cuda_treecode.near_panel``; ``_near_field_pallas``), and the
+  single-level far field covers the rest when ``max_near < K``.
 
-The acceptance lists are built every ``tree_rebuild_every`` steps by
-:func:`build_tree_hier_cols`; node summaries are recomputed from the current
-positions on every call. Names follow the JAX package so each counterpart
-can be found; the static planners return identical integers.
+The acceptance lists are built every ``tree_rebuild_every`` steps; node
+summaries are recomputed from the current positions on every call. Names
+follow the JAX package so each counterpart can be found; the static
+planners return identical integers.
 
 The acceptance build is plain PyTorch and never synchronises with the
 host: capacities are static, and a capacity overflow is a ``torch.where``.
@@ -102,6 +110,18 @@ def _flat_static(n, tile, src_tile, theta, max_near, vip_tiles):
     return k_t, k_s, entries, max_near, vip_src
 
 
+def _static_args(n, tile, theta, max_near, vip_tiles):
+    """(K, max_near, vip_tiles) of the dense path: the capacity rounded up to
+    a multiple of 4 and clamped to K, the VIP count clamped."""
+    if n % tile:
+        raise ValueError(f"treecode_acc: N={n} must be a multiple of tile={tile}")
+    if not (0.0 < theta <= 1.0):
+        raise ValueError(f"theta must be in (0, 1], got {theta}")
+    k = n // tile
+    max_near = min(-(-max_near // 4) * 4, k)
+    return k, max_near, _clamp_vip(vip_tiles, k)
+
+
 def _level_plan(k_s: int, branch: int = HIER_BRANCH,
                 min_nodes: int = HIER_MIN_NODES) -> tuple[int, ...]:
     """Node counts per level, finest first."""
@@ -118,8 +138,7 @@ def _hier_static(n, tile, src_tile, theta, max_near, vip_tiles, far_max,
     if k_s < FAR_ENTRIES:
         raise ValueError(
             f"hierarchical treecode needs K_src >= {FAR_ENTRIES} "
-            f"(N >= {FAR_ENTRIES * src_tile}); the flat path is not ported "
-            "yet (ROADMAP §1 item 4)")
+            f"(N >= {FAR_ENTRIES * src_tile}); use the flat path")
     plan = _level_plan(k_s, branch)
     k_total = sum(plan)
     far_max = max(-(-far_max // FAR_ENTRIES) * FAR_ENTRIES, FAR_ENTRIES)
@@ -312,17 +331,58 @@ def _self_overlap(k_t: int, k_s: int, tile: int, src_tile: int,
     return (rows // max(src_tile // tile, 1)) == (cols // max(tile // src_tile, 1))
 
 
+def _flat_mac(min_d, m, radius, a_med, tau: float):
+    """The single-level mass-aware MAC: scores m r^3 / d^5 / a_med (K_t, K_s)
+    and their threshold tau * sqrt(MAC_REF_KSRC / K_s)."""
+    d5 = torch.square(torch.square(min_d)) * min_d
+    return ((m * radius * radius * radius)[None, :] / d5 / a_med,
+            tau * math.sqrt(MAC_REF_KSRC / m.shape[0]))
+
+
+def _opening_scores(xc, yc, zc, cx, cy, cz, m_tot, radius, tile: int, *,
+                    theta: float, mac_tau: float, src_tile: int | None = None,
+                    eps2: float = 1e-6, c2: float = 0.01):
+    """(scores (K_t, K_s), threshold) of the single-level opening test, self
+    tiles +inf: the mass-aware MAC when ``mac_tau > 0``, else the geometric
+    radius / min-body-distance against ``theta``."""
+    src_tile = src_tile or tile
+    k_t = xc.shape[0] // tile
+    min_d = torch.clamp(_min_tile_dist(xc, yc, zc, cx, cy, cz, tile), min=_TINY)
+    if mac_tau > 0:
+        a_med = torch.clamp(_median_monopole_acc(
+            xc, yc, zc, cx, cy, cz, m_tot, eps2=eps2, c2=c2), min=_TINY)
+        score, thresh = _flat_mac(min_d, m_tot, radius, a_med, mac_tau)
+    else:
+        score, thresh = radius[None, :] / min_d, theta
+    overlap = _self_overlap(k_t, cx.shape[0], tile, src_tile, xc.device)
+    return torch.where(overlap, torch.inf, score), thresh
+
+
+def _row_bounds(xc, yc, zc, tile: int):
+    """(centroid x, y, z, radius) of each target row: the coarse levels'
+    com-minus-row-radius distance bound when ``union_coarse`` is off."""
+    k_t = xc.shape[0] // tile
+    tx, ty, tz = (_tiles(a, k_t) for a in (xc, yc, zc))
+    tcx, tcy, tcz = tx.mean(1), ty.mean(1), tz.mean(1)
+    ddx = tx - tcx[:, None]
+    ddy = ty - tcy[:, None]
+    ddz = tz - tcz[:, None]
+    return tcx, tcy, tcz, torch.sqrt((ddx * ddx + ddy * ddy + ddz * ddz).amax(1))
+
+
 def _hier_open_masks(xc, yc, zc, levels, tile: int, src_tile: int, *,
                      mac_tau: float, theta: float, eps2: float, c2: float,
-                     mac_tau0: float | None = None):
+                     mac_tau0: float | None = None, union_coarse: bool = True):
     """Per-level (opens, min_d) and the level-0 score matrix for near
     ranking (self-overlapping nodes forced to +inf).
 
     ``mac_tau > 0``: open node j for target row i iff
     m_j rms_j^2 r_j / (d_ij - r_j)^5 > tau * a_med, with d the per-body
-    union distance to the node's com. ``mac_tau0 > 0``: level 0 uses the
-    flat criterion m r^3 / d^5 > mac_tau0 * sqrt(MAC_REF_KSRC / K_s) * a_med
-    instead. ``mac_tau == 0``: the geometric radius / theta test.
+    union distance to the node's com (at the coarse levels, with
+    ``union_coarse`` off, the row-centroid distance minus the row's radius).
+    ``mac_tau0 > 0``: level 0 uses the flat criterion
+    m r^3 / d^5 > mac_tau0 * sqrt(MAC_REF_KSRC / K_s) * a_med instead.
+    ``mac_tau == 0``: the geometric radius / theta test.
     """
     cx0, cy0, cz0, m0 = levels[0][:4]
     a_med = None
@@ -332,13 +392,19 @@ def _hier_open_masks(xc, yc, zc, levels, tile: int, src_tile: int, *,
     opens, minds = [], []
     k_t = xc.shape[0] // tile
     score0 = thresh0 = None
+    if not union_coarse:
+        tcx, tcy, tcz, trad = _row_bounds(xc, yc, zc, tile)
     for lvl, (cx, cy, cz, m, radius, rms2, _) in enumerate(levels):
-        min_d = torch.clamp(_min_tile_dist(xc, yc, zc, cx, cy, cz, tile),
-                            min=_TINY)
+        if lvl == 0 or union_coarse:
+            min_d = _min_tile_dist(xc, yc, zc, cx, cy, cz, tile)
+        else:
+            dcx = cx[None, :] - tcx[:, None]
+            dcy = cy[None, :] - tcy[:, None]
+            dcz = cz[None, :] - tcz[:, None]
+            min_d = torch.sqrt(dcx * dcx + dcy * dcy + dcz * dcz) - trad[:, None]
+        min_d = torch.clamp(min_d, min=_TINY)
         if mac_tau > 0 and lvl == 0 and mac_tau0:
-            d5 = torch.square(torch.square(min_d)) * min_d
-            score = (m * radius * radius * radius)[None, :] / d5 / a_med
-            thresh = mac_tau0 * math.sqrt(MAC_REF_KSRC / m.shape[0])
+            score, thresh = _flat_mac(min_d, m, radius, a_med, mac_tau0)
         elif mac_tau > 0:
             amp = m * rms2 * radius
             delta = torch.clamp(min_d - radius[None, :], min=_TINY)
@@ -379,6 +445,20 @@ def _top_k(x: torch.Tensor, k: int):
     first, ties to the lower index (as ``lax.top_k`` orders them)."""
     s = torch.sort(x, dim=1, descending=True, stable=True)
     return s.values[:, :k], s.indices[:, :k]
+
+
+def _acceptance(xc, yc, zc, level0, tile: int, theta: float, max_near: int,
+                mac_tau: float = 0.0, eps2: float = 1e-6, c2: float = 0.01):
+    """Dense near lists: (near_idx (K, M) int32, the ``max_near`` highest
+    scores of each row, self first; near_mask (K, K) bool). The mask is
+    scattered from the lists, never compared through a (K, M, K) tensor."""
+    cx, cy, cz, m_tot, radius = level0[:5]
+    score, _ = _opening_scores(xc, yc, zc, cx, cy, cz, m_tot, radius, tile,
+                               theta=theta, mac_tau=mac_tau, eps2=eps2, c2=c2)
+    near_idx = _top_k(score, max_near)[1]
+    near_mask = torch.zeros(score.shape, dtype=torch.bool, device=score.device)
+    near_mask.scatter_(1, near_idx, True)
+    return near_idx.to(_i32), near_mask
 
 
 def _compact_open_lists(ratio, theta, slack, flat_cap, entries, max_near):
@@ -439,7 +519,7 @@ def _compact_open_lists(ratio, theta, slack, flat_cap, entries, max_near):
 
 
 def _hier_lists(xc, yc, zc, mass, *, tile, src_tile, theta, vip_src, plan,
-                branch, mac_tau, mac_tau0, eps2, c2):
+                branch, mac_tau, mac_tau0, eps2, c2, union_coarse):
     """What the capacity planner and the acceptance build share: (is_vip_body,
     levels, opens, minds, score0, thresh0, evals, reach0)."""
     n = xc.shape[0]
@@ -452,16 +532,9 @@ def _hier_lists(xc, yc, zc, mass, *, tile, src_tile, theta, vip_src, plan,
     levels = _level_summaries(xc, yc, zc, mass_tree, src_tile, plan, branch)
     opens, minds, score0, thresh0 = _hier_open_masks(
         xc, yc, zc, levels, tile, src_tile, mac_tau=mac_tau, theta=theta,
-        eps2=eps2, c2=c2, mac_tau0=mac_tau0)
+        eps2=eps2, c2=c2, mac_tau0=mac_tau0, union_coarse=union_coarse)
     evals, reach0 = _chain_evals(opens, branch)
     return is_vip_body, levels, opens, minds, score0, thresh0, evals, reach0
-
-
-def _check_union(union_coarse: bool) -> None:
-    if not union_coarse:
-        raise NotImplementedError(
-            "tree_hier_union=False (the com-minus-row-radius bound at coarse "
-            "levels) is not ported yet (ROADMAP §1 item 4)")
 
 
 def build_tree_hier_cols(
@@ -493,7 +566,6 @@ def build_tree_hier_cols(
     everything else at its topmost accepted ancestor. Size the capacities
     with :func:`suggest_hier`.
     """
-    _check_union(union_coarse)
     n = xc.shape[0]
     (_, _, entries, max_near, vip_src, plan, _,
      far_max) = _hier_static(n, tile, src_tile, theta, max_near, vip_tiles,
@@ -503,7 +575,8 @@ def build_tree_hier_cols(
      reach0) = _hier_lists(xc, yc, zc, mass, tile=tile, src_tile=src_tile,
                            theta=theta, vip_src=vip_src, plan=plan,
                            branch=branch, mac_tau=mac_tau, mac_tau0=mac_tau0,
-                           eps2=eps2, c2=compensate * compensate)
+                           eps2=eps2, c2=compensate * compensate,
+                           union_coarse=union_coarse)
     # Near: only leaves the chain reaches (a leaf under an accepted
     # ancestor is already covered: score -1 ranks it out as a sentinel).
     score0 = torch.where(reach0, score0, -1.0)
@@ -518,6 +591,64 @@ def build_tree_hier_cols(
     far_src, far_tgt, _ = _compact_open_lists(
         key, 0.0, 0, far_cap, FAR_ENTRIES, far_max)
     return flat_src, chunk_tgt, far_src, far_tgt, is_vip_body
+
+
+def _tree_mass(xc, yc, zc, mass, tile: int, vip_tiles: int):
+    """(mass_tree, is_vip_body): the masses with the VIP tiles taken out."""
+    if vip_tiles:
+        mass_tree, _, is_vip_body = _vip_split(xc, yc, zc, mass, tile, vip_tiles)
+        return mass_tree, is_vip_body
+    return mass, torch.zeros(mass.shape, dtype=torch.bool, device=mass.device)
+
+
+def build_tree(pos, mass, *, tile: int = DEFAULT_TILE,
+               theta: float = DEFAULT_THETA, max_near: int = DEFAULT_MAX_NEAR,
+               vip_tiles: int = DEFAULT_VIP_TILES, mac_tau: float = 0.0,
+               eps2: float = 1e-6, compensate: float = 0.1):
+    """Dense acceptance structures ``(near_idx (K, M) int32, near_mask
+    (K, K) bool, is_vip_body (N,) bool)``: each target tile's ``max_near``
+    worst source tiles (self first) after the VIP split."""
+    n = pos.shape[0]
+    _, max_near, vip_tiles = _static_args(n, tile, theta, max_near, vip_tiles)
+    xc, yc, zc = pos.to(_f32).unbind(1)
+    mass_tree, is_vip_body = _tree_mass(xc, yc, zc, mass.to(_f32), tile, vip_tiles)
+    near_idx, near_mask = _acceptance(
+        xc, yc, zc, _level0(xc, yc, zc, mass_tree, tile), tile, theta, max_near,
+        mac_tau=mac_tau, eps2=eps2, c2=compensate * compensate)
+    return near_idx, near_mask, is_vip_body
+
+
+def build_tree_flat_cols(xc, yc, zc, mass, *, tile: int = DEFAULT_TILE,
+                         src_tile: int = DEFAULT_SRC_TILE,
+                         theta: float = DEFAULT_THETA,
+                         max_near: int = DEFAULT_MAX_NEAR,
+                         vip_tiles: int = DEFAULT_VIP_TILES,
+                         slack: int = DEFAULT_NEAR_SLACK, flat_cap: int,
+                         mac_tau: float = 0.0, eps2: float = 1e-6,
+                         compensate: float = 0.1):
+    """Single-level flat acceptance structures ``(flat_src, chunk_tgt,
+    near_mask (K_t, K_s) bool, is_vip_body)``: the near work lists as
+    described in :func:`_compact_open_lists`, and the mask of the entries
+    that landed, which the far field leaves out. Size ``flat_cap`` with
+    :func:`suggest_flat_cap`."""
+    n = xc.shape[0]
+    _, _, entries, max_near, vip_src = _flat_static(n, tile, src_tile, theta,
+                                                    max_near, vip_tiles)
+    xc, yc, zc, mass = (a.to(_f32) for a in (xc, yc, zc, mass))
+    mass_tree, is_vip_body = _tree_mass(xc, yc, zc, mass, src_tile, vip_src)
+    cx, cy, cz, m_tot, radius = _level0(xc, yc, zc, mass_tree, src_tile)[:5]
+    score, thresh = _opening_scores(
+        xc, yc, zc, cx, cy, cz, m_tot, radius, tile, theta=theta, mac_tau=mac_tau,
+        src_tile=src_tile, eps2=eps2, c2=compensate * compensate)
+    flat_src, chunk_tgt, near_mask = _compact_open_lists(
+        score, thresh, slack, flat_cap, entries, max_near)
+    # The far kernel reads the mask as contiguous (K_t, K_s) bytes.
+    return flat_src, chunk_tgt, near_mask.contiguous(), is_vip_body
+
+
+def build_tree_flat(pos, mass, **kw):
+    """:func:`build_tree_flat_cols` of (N, 3) positions."""
+    return build_tree_flat_cols(*pos.unbind(1), mass, **kw)
 
 
 def aux_from_numpy(aux, device=None):
@@ -547,11 +678,13 @@ def _vip_tile_index(is_vip_body, k_s: int, src_tile: int,
 def kernel_operands(pos, mass, is_vip_body, *, compensate: float = 0.1,
                     G: float = 1.0, src_tile: int = DEFAULT_SRC_TILE,
                     vip_src: int, plan, branch: int = HIER_BRANCH) -> dict:
-    """What the three kernels of one force evaluation take, in the GPU
-    layouts of ``ops/cuda_treecode.py``: ``bodies`` (N + S, 4) with the VIP
-    bodies massless and a zero tile last, ``summ`` (K_total + 1, 12) node
-    rows from the current positions, and for the VIP sweep ``rows`` (N, 4),
-    ``panel`` (W, 4) and ``vip_tile_idx`` (None without VIPs)."""
+    """What the kernels of one force evaluation take, in the GPU layouts of
+    ``ops/cuda_treecode.py``: ``bodies`` (N + S, 4) with the VIP bodies
+    massless and a zero tile last, ``summ`` (K_total + 1, 12) node rows of
+    the levels ``plan`` from the current positions (None when ``plan`` is
+    None), and for the VIP sweep ``rows`` (N, 4), ``panel`` (W, 4) and
+    ``vip_tile_idx`` (None without VIPs). The single-level paths pass
+    ``plan=(K_s,)``; the dense path's source tile is its target tile."""
     n = pos.shape[0]
     k_s = n // src_tile
     gc3 = G * (compensate * compensate) * compensate
@@ -559,8 +692,8 @@ def kernel_operands(pos, mass, is_vip_body, *, compensate: float = 0.1,
     bodies = pos.new_zeros((n + src_tile, 4))
     bodies[:n, :3] = pos
     bodies[:n, 3] = mass_tree * gc3
-    summ = _summary_panel(_level_summaries(pos[:, 0], pos[:, 1], pos[:, 2],
-                                           mass_tree, src_tile, plan, branch))
+    summ = None if plan is None else _summary_panel(_level_summaries(
+        pos[:, 0], pos[:, 1], pos[:, 2], mass_tree, src_tile, plan, branch))
     ops = dict(bodies=bodies, summ=summ, rows=None, panel=None, vip_tile_idx=None)
     if vip_src:
         # VIP bodies are whole source tiles, so the panel gather (and the
@@ -570,6 +703,17 @@ def kernel_operands(pos, mass, is_vip_body, *, compensate: float = 0.1,
         ops.update(rows=rows, vip_tile_idx=idx,
                    panel=rows.reshape(k_s, src_tile, 4)[idx].reshape(-1, 4))
     return ops
+
+
+def _add_vips(acc, ops, tile: int, *, eps2: float, c2: float) -> torch.Tensor:
+    """``acc`` plus the VIP panel's exact pull, with the VIP bodies' rows
+    overwritten by their exact accelerations (the sweep's reaction). VIP
+    bodies are whole tiles, so the overwrite is a row slice of the
+    (K, tile, 3) view."""
+    action, react = cuda_treecode.vip_both(ops["rows"], ops["panel"], eps2=eps2, c2=c2)
+    acc = (acc + action).reshape(-1, tile, 3)
+    acc[ops["vip_tile_idx"]] = react.reshape(-1, tile, 3)
+    return acc.reshape(-1, 3)
 
 
 def treecode_acc_hier(
@@ -610,13 +754,7 @@ def treecode_acc_hier(
     acc = acc + cuda_treecode.far_field_hier(ops["bodies"], ops["summ"],
                                              far_src, far_tgt, n=n, tile=tile,
                                              eps2=eps2, c2=c2, G=G)
-    if vip_src:
-        action, react = cuda_treecode.vip_both(ops["rows"], ops["panel"],
-                                               eps2=eps2, c2=c2)
-        acc = (acc + action).reshape(k_s, src_tile, 3)
-        acc[ops["vip_tile_idx"]] = react.reshape(-1, src_tile, 3)
-        acc = acc.reshape(n, 3)
-    return acc
+    return _add_vips(acc, ops, src_tile, eps2=eps2, c2=c2) if vip_src else acc
 
 
 def treecode_acc_hier_cols(xc, yc, zc, mass, aux_hier, **kw):
@@ -624,6 +762,85 @@ def treecode_acc_hier_cols(xc, yc, zc, mass, aux_hier, **kw):
     ``(ax, ay, az)`` out, as the JAX package's function takes and gives."""
     acc = treecode_acc_hier(torch.stack([xc, yc, zc], 1), mass, aux_hier, **kw)
     return acc[:, 0], acc[:, 1], acc[:, 2]
+
+
+def treecode_acc_flat(
+    pos, mass, aux_flat,
+    *,
+    eps2: float,
+    compensate: float = 0.1,
+    G: float = 1.0,
+    tile: int = DEFAULT_TILE,
+    src_tile: int = DEFAULT_SRC_TILE,
+    theta: float = DEFAULT_THETA,
+    max_near: int = DEFAULT_MAX_NEAR,
+    vip_tiles: int = DEFAULT_VIP_TILES,
+) -> torch.Tensor:
+    """Single-level flat treecode acceleration (N, 3) of Morton-sorted
+    bodies, ``aux_flat`` from :func:`build_tree_flat_cols` with the same
+    static knobs: exact near field over the compacted lists + monopole /
+    quadrupole far field of every other level-0 source tile + the exact
+    two-way VIP sweep."""
+    n = pos.shape[0]
+    _, k_s, entries, _, vip_src = _flat_static(n, tile, src_tile, theta,
+                                               max_near, vip_tiles)
+    c2 = compensate * compensate
+    flat_src, chunk_tgt, near_mask, is_vip_body = aux_flat
+    ops = kernel_operands(pos.to(_f32), mass.to(_f32), is_vip_body,
+                          compensate=compensate, G=G, src_tile=src_tile,
+                          vip_src=vip_src, plan=(k_s,))
+    acc = cuda_treecode.near_field(ops["bodies"], flat_src, chunk_tgt, n=n,
+                                   tile=tile, src_tile=src_tile, entries=entries,
+                                   eps2=eps2, c2=c2)
+    acc = acc + cuda_treecode.far_field_single(ops["bodies"], ops["summ"], near_mask,
+                                               n=n, tile=tile, eps2=eps2, c2=c2, G=G)
+    return _add_vips(acc, ops, src_tile, eps2=eps2, c2=c2) if vip_src else acc
+
+
+def treecode_acc_flat_cols(xc, yc, zc, mass, aux_flat, **kw):
+    """Columnar form of :func:`treecode_acc_flat`."""
+    acc = treecode_acc_flat(torch.stack([xc, yc, zc], 1), mass, aux_flat, **kw)
+    return acc[:, 0], acc[:, 1], acc[:, 2]
+
+
+def treecode_acc(
+    pos, mass, aux=None,
+    *,
+    eps2: float,
+    compensate: float = 0.1,
+    G: float = 1.0,
+    tile: int = DEFAULT_TILE,
+    theta: float = DEFAULT_THETA,
+    max_near: int = DEFAULT_MAX_NEAR,
+    vip_tiles: int = DEFAULT_VIP_TILES,
+    mac_tau: float = 0.0,
+) -> torch.Tensor:
+    """Dense treecode acceleration (N, 3) of Morton-sorted bodies: each
+    target tile's near tiles gathered into one panel and swept exactly, the
+    single-level far field over the rest when ``max_near < K`` (else the
+    near field is the direct sum), and the exact two-way VIP sweep.
+
+    ``aux`` comes from :func:`build_tree` with the same static knobs; None
+    builds it for this call.
+    """
+    n = pos.shape[0]
+    k, max_near, vip_tiles = _static_args(n, tile, theta, max_near, vip_tiles)
+    c2 = compensate * compensate
+    pos, mass = pos.to(_f32), mass.to(_f32)
+    if aux is None:
+        aux = build_tree(pos, mass, tile=tile, theta=theta, max_near=max_near,
+                         vip_tiles=vip_tiles, mac_tau=mac_tau, eps2=eps2,
+                         compensate=compensate)
+    near_idx, near_mask, is_vip_body = aux
+    ops = kernel_operands(pos, mass, is_vip_body, compensate=compensate, G=G,
+                          src_tile=tile, vip_src=vip_tiles,
+                          plan=(k,) if max_near < k else None)
+    panels = cuda_treecode.gather_panels(ops["bodies"], near_idx, tile=tile)
+    acc = cuda_treecode.near_panel(ops["bodies"], panels, tile=tile, eps2=eps2, c2=c2)
+    if max_near < k:
+        acc = acc + cuda_treecode.far_field_single(ops["bodies"], ops["summ"], near_mask,
+                                                   n=n, tile=tile, eps2=eps2, c2=c2, G=G)
+    return _add_vips(acc, ops, tile, eps2=eps2, c2=c2) if vip_tiles else acc
 
 
 # ----------------------------------------------------------------- planners
@@ -639,7 +856,6 @@ def hier_counts(pos, mass, *, tile: int = DEFAULT_HIER_TILE,
                 union_coarse: bool = True):
     """(near_count (K_t,), far_count (K_t,)) of the hierarchical chain on
     this distribution, uncapped: the capacity planner's input."""
-    _check_union(union_coarse)
     n = pos.shape[0]
     k_s = n // src_tile
     plan = _level_plan(k_s, branch)
@@ -649,7 +865,7 @@ def hier_counts(pos, mass, *, tile: int = DEFAULT_HIER_TILE,
         pos[:, 0], pos[:, 1], pos[:, 2], mass.to(_f32), tile=tile,
         src_tile=src_tile, theta=theta, vip_src=vip_src, plan=plan,
         branch=branch, mac_tau=mac_tau, mac_tau0=mac_tau0, eps2=eps2,
-        c2=compensate * compensate)
+        c2=compensate * compensate, union_coarse=union_coarse)
     near = (reach0 & opens[0]).sum(1)
     far = sum(ev.sum(1) for ev in evals)
     return near, far
@@ -693,3 +909,59 @@ def suggest_hier(pos, mass, *, tile: int = DEFAULT_HIER_TILE,
                           k_t * FAR_ENTRIES), FAR_ENTRIES))
     return {"max_near": max_near, "flat_cap": flat_cap,
             "far_max": far_max, "far_cap": far_cap}
+
+
+def open_counts(pos, mass, *, tile: int = DEFAULT_TILE,
+                theta: float = DEFAULT_THETA,
+                vip_tiles: int = DEFAULT_VIP_TILES,
+                src_tile: int | None = None, mac_tau: float = 0.0,
+                eps2: float = 1e-6, compensate: float = 0.1) -> torch.Tensor:
+    """(K_t,) count of source tiles each target row opens (self included),
+    after the VIP split; ``src_tile`` defaults to ``tile`` (the dense
+    path)."""
+    src_tile = src_tile or tile
+    k_s = pos.shape[0] // src_tile
+    vip_src = _clamp_vip(_vip_src_tiles(vip_tiles, tile, src_tile), k_s)
+    xc, yc, zc = pos.to(_f32).unbind(1)
+    mass_tree, _ = _tree_mass(xc, yc, zc, mass.to(_f32), src_tile, vip_src)
+    cx, cy, cz, m_tot, radius = _level0(xc, yc, zc, mass_tree, src_tile)[:5]
+    score, thresh = _opening_scores(
+        xc, yc, zc, cx, cy, cz, m_tot, radius, tile, theta=theta, mac_tau=mac_tau,
+        src_tile=src_tile, eps2=eps2, c2=compensate * compensate)
+    return (score > thresh).sum(1)
+
+
+def suggest_max_near(pos, mass, *, tile: int = DEFAULT_TILE,
+                     theta: float = DEFAULT_THETA,
+                     vip_tiles: int = DEFAULT_VIP_TILES, margin: float = 1.2,
+                     multiple: int = 32, src_tile: int | None = None,
+                     mac_tau: float = 0.0, eps2: float = 1e-6,
+                     compensate: float = 0.1) -> int:
+    """Host-side near-list capacity (in source tiles): the largest open
+    count with ``margin``, rounded up to ``multiple`` and clamped to K_s."""
+    counts = open_counts(pos, mass, tile=tile, theta=theta, vip_tiles=vip_tiles,
+                         src_tile=src_tile, mac_tau=mac_tau, eps2=eps2,
+                         compensate=compensate).cpu().numpy()
+    k = max(pos.shape[0] // (src_tile or tile), 1)
+    need = int(math.ceil(float(counts.max()) * margin))
+    need = ((need + multiple - 1) // multiple) * multiple
+    return int(min(max(need, 1), k))
+
+
+def suggest_flat_cap(pos, mass, *, tile: int = DEFAULT_TILE,
+                     src_tile: int = DEFAULT_SRC_TILE,
+                     theta: float = DEFAULT_THETA,
+                     vip_tiles: int = DEFAULT_VIP_TILES,
+                     slack: int = DEFAULT_NEAR_SLACK, margin: float = 1.25,
+                     mac_tau: float = 0.0, eps2: float = 1e-6,
+                     compensate: float = 0.1) -> int:
+    """Host-side flat-list capacity: every row's chunks with ``margin``, at
+    least one chunk a row."""
+    counts = open_counts(pos, mass, tile=tile, theta=theta, vip_tiles=vip_tiles,
+                         src_tile=src_tile, mac_tau=mac_tau, eps2=eps2,
+                         compensate=compensate).cpu().numpy()
+    entries = CHUNK_LANES // src_tile
+    v = np.maximum(((counts + slack + entries - 1) // entries) * entries, entries)
+    need = int(math.ceil(float(v.sum()) * margin))
+    need = max(need, max(pos.shape[0] // tile, 1) * entries)
+    return ((need + entries - 1) // entries) * entries

@@ -23,8 +23,8 @@ from n_body_problem_tpu_torch.ops.integrators import make_integrator, prime_leap
 from n_body_problem_tpu_torch.ops.registry import (
     make_force_fn,
     resolve_solver,
-    tree_kwargs,
-    treecode_not_ported,
+    tree_fns,
+    tree_path,
 )
 from n_body_problem_tpu_torch.state import SimState, pad_state_to, unpad_state
 from n_body_problem_tpu_torch.utils.morton import (
@@ -51,15 +51,18 @@ def run_steps(state: SimState, step_fn: StepFn, n_steps: int) -> SimState:
 
 
 def make_treecode_run(cfg: SimConfig):
-    """The hierarchical treecode run: every ``cfg.tree_rebuild_every``
-    steps, Z-order the bodies on the device and rebuild the acceptance
-    lists, then run the steps with both kept.
+    """The treecode run: every ``cfg.tree_rebuild_every`` steps, Z-order the
+    bodies on the device and rebuild the acceptance lists of the config's
+    path (``ops.registry.tree_path``), then run the steps with both kept.
 
     The resort is load-bearing: Morton tile locality decays as bodies move,
     and once open counts outgrow the static capacities the leaked tiles'
     multipole errors heat the core. Nothing in the loop waits for the host.
     The resort and the build are labelled for ``torch.profiler``
-    (``treecode.resort``, ``treecode.build``).
+    (``treecode.resort``, ``treecode.build``). The hierarchical and flat
+    paths update positions in the loop and the time once at the end, as
+    the JAX package's columnar run does; the dense path steps through the
+    generic integrator, as the JAX package's dense run does.
 
     Returns ``run(state, n_steps) -> (state, ids, aux)``, where ``ids[i]``
     is the input slot of the body now at slot i and ``aux`` the acceptance
@@ -67,29 +70,30 @@ def make_treecode_run(cfg: SimConfig):
     None when ``n_steps`` is 0). ``cfg`` must carry the resolved tile, VIP
     count and capacities (``Simulation`` resolves them).
     """
-    why = treecode_not_ported(cfg, "cuda")
-    if why:
-        raise NotImplementedError(why)
     r = cfg.tree_rebuild_every
     dt = cfg.dt
-    build_kw, acc_kw = tree_kwargs(cfg)
+    dense = tree_path(cfg) == "dense"
+    build, force = tree_fns(cfg)
     leapfrog = cfg.integrator == "leapfrog"
 
     def chunk(state: SimState, ids: torch.Tensor, length: int):
         with record_function("treecode.resort"):
             state, ids = device_resort(state, ids)
-        pos, vel, acc, mass = state.pos, state.vel, state.acc, state.mass
         with record_function("treecode.build"):
-            aux = treecode.build_tree_hier_cols(
-                pos[:, 0], pos[:, 1], pos[:, 2], mass, **build_kw)
+            aux = build(state.pos, state.mass)
+        if dense:
+            step = make_integrator(cfg.integrator,
+                                   lambda pos, mass: force(pos, mass, aux), dt)
+            return run_steps(state, step, length), ids, aux
+        pos, vel, acc, mass = state.pos, state.vel, state.acc, state.mass
         for _ in range(length):
             if leapfrog:  # KDK, stored-acceleration form
                 vel = vel + acc * (0.5 * dt)
                 pos = pos + vel * dt
-                acc = treecode.treecode_acc_hier(pos, mass, aux, **acc_kw)
+                acc = force(pos, mass, aux)
                 vel = vel + acc * (0.5 * dt)
             else:
-                acc = treecode.treecode_acc_hier(pos, mass, aux, **acc_kw)
+                acc = force(pos, mass, aux)
                 vel = vel + acc * dt
                 pos = pos + vel * dt
         return dataclasses.replace(state, pos=pos, vel=vel, acc=acc), ids, aux
@@ -100,11 +104,24 @@ def make_treecode_run(cfg: SimConfig):
         full, rem = divmod(n_steps, r)
         for length in [r] * full + ([rem] if rem else []):
             state, ids, aux = chunk(state, ids, length)
-        return dataclasses.replace(
-            state, time=state.time + torch.full_like(state.time, dt) * n_steps,
-            step=state.step + n_steps), ids, aux
+        if not dense:
+            state = dataclasses.replace(
+                state, time=state.time + torch.full_like(state.time, dt) * n_steps,
+                step=state.step + n_steps)
+        return state, ids, aux
 
     return run
+
+
+def _resolve_device(device: str | torch.device | None) -> torch.device:
+    """The device a ``Simulation`` runs on: ``"cuda"`` unless the caller
+    asks for another; never a quiet fallback to the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: Simulation runs on the GPU by default; pass "
+            'device="cpu" (--device cpu on the command line) to run on the CPU')
+    return dev
 
 
 class Simulation:
@@ -114,19 +131,22 @@ class Simulation:
     >>> sim.run(100)
     >>> sim.state.pos
 
-    ``device`` defaults to the device the state is on. The state is padded
+    ``device`` defaults to ``"cuda"``; without a GPU the constructor raises
+    unless ``device="cpu"`` is given. The state is padded
     with zero-mass bodies to the solver's multiple, exactly as the JAX
     package pads it, and leapfrog runs are primed with one force
     evaluation. With ``solver="treecode"`` the bodies are Morton-sorted at
     init and re-sorted on the device as the run goes; ``sort_perm[i]`` is
     the input index of the body now at slot i, and ``tree_lists`` holds the
-    acceptance lists the last steps were taken with (``aux_hier`` of
-    ``ops.treecode.treecode_acc_hier``, in ``state``'s slot order).
+    acceptance lists the last steps were taken with (in ``state``'s slot
+    order): those of ``ops.treecode.build_tree_hier_cols``,
+    ``build_tree_flat`` or ``build_tree``, by the path
+    (``ops.registry.tree_path(sim.cfg)``).
     """
 
     def __init__(self, cfg: SimConfig, state: SimState,
                  device: str | torch.device | None = None):
-        self.device = torch.device(device) if device is not None else state.device
+        self.device = _resolve_device(device)
         dev_type = self.device.type
         state = state.to(self.device)
         solver = resolve_solver(cfg.solver, dev_type, state.n)
@@ -162,20 +182,17 @@ class Simulation:
         self.wall_seconds = 0.0
 
     def _treecode_config(self, cfg: SimConfig, n: int) -> SimConfig:
-        """The JAX package's treecode defaults: the auto target-row tile
-        (128 on the hierarchical path, resolved before padding) and the
-        Morton sort the acceptance needs; refuses the paths not ported."""
-        why = treecode_not_ported(cfg, self.device.type)
-        if why:
-            raise NotImplementedError(why)
-        need = max(treecode.CHUNK_LANES, treecode.FAR_ENTRIES * cfg.tree_src_tile)
-        if n < need:
-            raise NotImplementedError(
-                f"the hierarchical treecode needs N >= {need} at "
-                f"tree_src_tile={cfg.tree_src_tile}; smaller N runs the flat "
-                "treecode (ROADMAP §1 item 4)")
+        """The JAX package's treecode defaults: the auto target-row tile,
+        resolved before padding (128 where the hierarchical path will run,
+        32 otherwise), and the Morton sort the acceptance needs. The GPU
+        plays the TPU's part in the rule."""
         if cfg.tree_tile == 0:
-            cfg = cfg.replace(tree_tile=treecode.DEFAULT_HIER_TILE)
+            hier = (cfg.tree_hier
+                    and n >= max(treecode.CHUNK_LANES,
+                                 treecode.FAR_ENTRIES * cfg.tree_src_tile)
+                    and ((cfg.tree_flat_cap == 0 and self.device.type == "cuda")
+                         or (cfg.tree_flat_cap > 0 and cfg.tree_far_cap > 0)))
+            cfg = cfg.replace(tree_tile=treecode.DEFAULT_HIER_TILE if hier else 32)
         if not (cfg.morton_sort or cfg.resort_every):
             cfg = cfg.replace(morton_sort=True)
         return cfg
@@ -183,23 +200,44 @@ class Simulation:
     @staticmethod
     def _plan_treecode(cfg: SimConfig, state: SimState) -> SimConfig:
         """Resolve the VIP count and plan the static capacities on the
-        (sorted, padded) initial bodies; margins absorb drift between
+        (sorted, padded) initial bodies, as the JAX package does: on the
+        GPU with ``tree_flat_cap`` at 0, the flat lists from 2,048 bodies
+        and the hierarchy from ``FAR_ENTRIES`` source tiles; otherwise the
+        capacities given, or the dense path. Margins absorb drift between
         re-sorts."""
+        n, src = state.n, cfg.tree_src_tile
         if cfg.tree_vip_tiles == -1:
-            cfg = cfg.replace(tree_vip_tiles=resolve_vip_tiles(-1, state.n))
-        caps = treecode.suggest_hier(
-            state.pos, state.mass, tile=cfg.tree_tile,
-            src_tile=cfg.tree_src_tile, theta=cfg.tree_theta,
-            vip_tiles=cfg.tree_vip_tiles, slack=cfg.tree_near_slack,
-            mac_tau=cfg.tree_hier_tau, mac_tau0=cfg.tree_mac_tau,
-            eps2=cfg.eps2, compensate=cfg.compensate,
-            union_coarse=cfg.tree_hier_union)
-        for field, key in (("tree_max_near", "max_near"),
-                           ("tree_flat_cap", "flat_cap"),
-                           ("tree_far_max", "far_max"),
-                           ("tree_far_cap", "far_cap")):
-            if getattr(cfg, field) == 0:
-                cfg = cfg.replace(**{field: caps[key]})
+            cfg = cfg.replace(tree_vip_tiles=resolve_vip_tiles(-1, n))
+        use_flat = (cfg.tree_flat_cap == 0 and state.device.type == "cuda"
+                    and n >= treecode.CHUNK_LANES and n % src == 0)
+        use_hier = (cfg.tree_hier and n >= treecode.FAR_ENTRIES * src
+                    and (use_flat or (cfg.tree_flat_cap > 0 and cfg.tree_far_cap > 0)))
+        sel = dict(tile=cfg.tree_tile, theta=cfg.tree_theta,
+                   vip_tiles=cfg.tree_vip_tiles, eps2=cfg.eps2,
+                   compensate=cfg.compensate)
+        if use_hier:
+            caps = treecode.suggest_hier(
+                state.pos, state.mass, src_tile=src, slack=cfg.tree_near_slack,
+                mac_tau=cfg.tree_hier_tau, mac_tau0=cfg.tree_mac_tau,
+                union_coarse=cfg.tree_hier_union, **sel)
+            for field, key in (("tree_max_near", "max_near"),
+                               ("tree_flat_cap", "flat_cap"),
+                               ("tree_far_max", "far_max"),
+                               ("tree_far_cap", "far_cap")):
+                if getattr(cfg, field) == 0:
+                    cfg = cfg.replace(**{field: caps[key]})
+            return cfg
+        # The flat path counts the near capacity in source tiles, the
+        # dense path in target tiles.
+        flat_src = src if use_flat or cfg.tree_flat_cap > 0 else None
+        if cfg.tree_max_near == 0:
+            cfg = cfg.replace(tree_max_near=treecode.suggest_max_near(
+                state.pos, state.mass, src_tile=flat_src, mac_tau=cfg.tree_mac_tau,
+                **sel))
+        if use_flat:
+            cfg = cfg.replace(tree_flat_cap=treecode.suggest_flat_cap(
+                state.pos, state.mass, src_tile=src, slack=cfg.tree_near_slack,
+                mac_tau=cfg.tree_mac_tau, **sel))
         return cfg
 
     @property

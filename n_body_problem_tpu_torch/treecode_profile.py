@@ -3,9 +3,11 @@
     python -m n_body_problem_tpu_torch.treecode_profile [--sizes 20480t,65536,524288]
         [--steps 16] [--staleness 20480t,65536 [--ages 0,8,16,24,31]] [--json PATH]
 
-For each size (a ``t`` suffix applies ``tuned_tree_overrides``), a Plummer
-sphere (seed 0) goes through ``Simulation(SimConfig(solver="treecode"))``,
-8 primed steps, and then:
+For each size, a Plummer sphere (seed 0) goes through
+``Simulation(SimConfig(solver="treecode"))`` on the path that N takes, or
+with a suffix: ``t`` applies ``tuned_tree_overrides``, ``f`` the
+single-level flat path (``tree_hier=False``), ``d`` the dense path
+(``tree_flat_cap=-1``). Then 8 primed steps, and:
 
 - ``build_ms``, ``resort_ms``, ``force_ms``: one acceptance build, one
   device resort and one force evaluation, by CUDA events (mean of 5/10/10);
@@ -14,7 +16,7 @@ sphere (seed 0) goes through ``Simulation(SimConfig(solver="treecode"))``,
   ``torch.profiler`` trace) and device kernels of one force evaluation;
 - ``step_ms``: ``Simulation.run`` over ``--steps`` steps, no profiler;
 - a ``torch.profiler`` trace of another ``--steps`` steps: device ms of
-  the near, far and VIP kernels, the ``treecode.build`` and
+  each treecode kernel, the ``treecode.build`` and
   ``treecode.resort`` spans and everything else, device busy time, the
   window's wall time and the device's idle share of it.
 
@@ -42,7 +44,9 @@ from torch.profiler import ProfilerActivity, profile
 
 PRIME = 8
 _KERNELS = {"near_field_kernel": "near", "far_field_kernel": "far",
-            "vip_both_kernel": "vip", "vip_react_sum_kernel": "vip"}
+            "vip_both_kernel": "vip", "vip_react_sum_kernel": "vip",
+            "far_single_kernel": "far_single", "gather_panels_kernel": "gather",
+            "near_panel_kernel": "near_panel"}
 
 
 def time_ms(fn, reps: int) -> float:
@@ -80,30 +84,42 @@ def force_error(tree, pos, mass, n_real: int, cfg,
     return float(torch.quantile(err, 0.99)), float(err.median())
 
 
-def staleness(n: int, tuned: bool, ages: tuple[int, ...],
-              sample: int | None = None) -> dict:
+def _size(tok: str):
+    """(N, overrides) of a ``--sizes`` token such as ``20480t``."""
+    from n_body_problem_tpu_torch.config import tuned_tree_overrides
+
+    n = int(tok.rstrip("tfd"))
+    return n, {"t": tuned_tree_overrides(n), "f": dict(tree_hier=False),
+               "d": dict(tree_flat_cap=-1)}.get(tok[-1], {})
+
+
+def _sim(tok: str):
+    from n_body_problem_tpu_torch import SimConfig, Simulation, models
+
+    n, over = _size(tok)
+    sim = Simulation(SimConfig(solver="treecode", **over), models.plummer(n, seed=0),
+                     device="cuda")
+    sim.run(PRIME)
+    return sim
+
+
+def staleness(tok: str, ages: tuple[int, ...], sample: int | None = None) -> dict:
     """Force error against the all-pairs kernel on acceptance lists
     ``age`` Euler steps old: after ``PRIME`` steps, resort and build once,
     then step with those lists (as a run's chunk does) and probe at each
     age. Returns ``{age: (p99, median)}``."""
-    from n_body_problem_tpu_torch import SimConfig, Simulation, models
-    from n_body_problem_tpu_torch.config import tuned_tree_overrides
-    from n_body_problem_tpu_torch.ops import treecode
-    from n_body_problem_tpu_torch.ops.registry import tree_kwargs
+    from n_body_problem_tpu_torch.ops.registry import tree_fns
     from n_body_problem_tpu_torch.utils.morton import device_resort
 
-    over = tuned_tree_overrides(n) if tuned else {}
-    sim = Simulation(SimConfig(solver="treecode", **over), models.plummer(n, seed=0),
-                     device="cuda")
-    sim.run(PRIME)
+    sim = _sim(tok)
     cfg = sim.cfg
     s, _ = device_resort(sim.state, torch.arange(sim.state.n, device=sim.state.device))
-    build_kw, acc_kw = tree_kwargs(cfg)
+    build, force = tree_fns(cfg)
     pos, vel, mass = s.pos, s.vel, s.mass
-    aux = treecode.build_tree_hier_cols(*pos.unbind(1), mass, **build_kw)
+    aux = build(pos, mass)
     out = {}
     for age in range(max(ages) + 1):
-        acc = treecode.treecode_acc_hier(pos, mass, aux, **acc_kw)
+        acc = force(pos, mass, aux)
         if age in ages:
             out[age] = force_error(acc, pos, mass, s.n_real, cfg, sample)
         vel = vel + acc * cfg.dt
@@ -130,7 +146,7 @@ def _device_events(events: list) -> list:
 
 def profile_tree_step(sim, steps: int = 16) -> dict:
     """Device time by kernel over ``steps`` steps of a treecode run, from a
-    ``torch.profiler`` trace: the three kernels, the resort and the build
+    ``torch.profiler`` trace: each treecode kernel, the resort and the build
     (their ``record_function`` labels), everything else, and the device's
     idle share of the wall time of the window."""
     events, wall_us = _trace(lambda: sim.run(steps))
@@ -162,24 +178,18 @@ def profile_tree_step(sim, steps: int = 16) -> dict:
     return out
 
 
-def profile_size(n: int, tuned: bool, steps: int) -> dict:
-    from n_body_problem_tpu_torch import SimConfig, Simulation, models
-    from n_body_problem_tpu_torch.config import tuned_tree_overrides
-    from n_body_problem_tpu_torch.ops import treecode
-    from n_body_problem_tpu_torch.ops.registry import tree_kwargs
+def profile_size(tok: str, steps: int) -> dict:
+    from n_body_problem_tpu_torch.ops.registry import tree_fns, tree_path
     from n_body_problem_tpu_torch.utils.morton import device_resort
 
-    over = tuned_tree_overrides(n) if tuned else {}
-    sim = Simulation(SimConfig(solver="treecode", **over), models.plummer(n, seed=0),
-                     device="cuda")
-    sim.run(PRIME)
+    sim = _sim(tok)
     s = sim.state
-    build_kw, acc_kw = tree_kwargs(sim.cfg)
+    build_fn, force_fn = tree_fns(sim.cfg)
     ids = torch.arange(s.n, device=s.device)
-    build = lambda: treecode.build_tree_hier_cols(*s.pos.unbind(1), s.mass, **build_kw)  # noqa: E731
+    build = lambda: build_fn(s.pos, s.mass)  # noqa: E731
     aux = build()
-    force = lambda: treecode.treecode_acc_hier(s.pos, s.mass, aux, **acc_kw)  # noqa: E731
-    out = {"n": s.n_real, "tuned": tuned,
+    force = lambda: force_fn(s.pos, s.mass, aux)  # noqa: E731
+    out = {"size": tok, "n": s.n_real, "path": tree_path(sim.cfg),
            "build_ms": time_ms(build, 5),
            "resort_ms": time_ms(lambda: device_resort(s, ids), 10),
            "force_ms": time_ms(force, 10)}
@@ -205,7 +215,8 @@ def profile_size(n: int, tuned: bool, steps: int) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sizes", default="20480t,65536,524288",
-                    help="comma-separated N, 't' suffix for tuned_tree_overrides")
+                    help="comma-separated N; suffix 't' for tuned_tree_overrides, "
+                         "'f' for the flat path, 'd' for the dense path")
     ap.add_argument("--steps", type=int, default=16)
     ap.add_argument("--staleness", default="",
                     help="sizes, as --sizes, whose force error to probe on lists "
@@ -218,18 +229,15 @@ def main(argv=None) -> int:
     ages = tuple(int(a) for a in args.ages.split(","))
     stale = []
     for tok in filter(None, args.staleness.split(",")):
-        n, tuned = int(tok.rstrip("t")), tok.endswith("t")
-        errs = staleness(n, tuned, ages, sample=2048 if n > 65536 else None)
-        stale.append({"n": n, "tuned": tuned,
-                      "p99_median_by_age": {str(a): e for a, e in errs.items()}})
-        print(f"staleness n {n} tuned {tuned}: " + "; ".join(
+        errs = staleness(tok, ages, sample=2048 if _size(tok)[0] > 65536 else None)
+        stale.append({"size": tok, "p99_median_by_age": {str(a): e for a, e in errs.items()}})
+        print(f"staleness {tok}: " + "; ".join(
             f"age {a} p99 {p:.3e} median {m:.3e}" for a, (p, m) in errs.items()),
             flush=True)
         torch.cuda.empty_cache()
     rows = []
     for tok in filter(None, args.sizes.split(",")):
-        tuned = tok.endswith("t")
-        row = profile_size(int(tok.rstrip("t")), tuned, args.steps)
+        row = profile_size(tok, args.steps)
         rows.append(row)
         prof = row.pop("profile_ms")
         print(" ".join(f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"

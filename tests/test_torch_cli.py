@@ -29,9 +29,9 @@ def test_run_writes_checkpoint_jax_reads(tmp_path, capsys):
 
 def test_resume_continues_steps(tmp_path):
     assert main(["run", "--model", "plummer", "--n", "64", "--steps", "4",
-                 "--solver", "direct", "--out", str(tmp_path / "a")]) == 0
+                 "--solver", "direct", "--device", "cpu", "--out", str(tmp_path / "a")]) == 0
     assert main(["run", "--resume", str(tmp_path / "a" / "final.npz"), "--steps", "3",
-                 "--out", str(tmp_path / "b")]) == 0
+                 "--device", "cpu", "--out", str(tmp_path / "b")]) == 0
     state, cfg = jax_load(tmp_path / "b" / "final.npz")
     assert int(state.step) == 7 and cfg.solver == "direct"
 
@@ -45,9 +45,23 @@ def test_unported_flags_name_the_roadmap(tmp_path, capsys):
         assert "ROADMAP" in capsys.readouterr().err, extra
 
 
+def test_run_without_a_gpu_names_the_cpu_device(tmp_path, capsys, monkeypatch):
+    """``--device`` defaults to cuda; with no GPU the command fails and says
+    how to ask for the CPU, and never falls back to it quietly."""
+    import torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    rc = main(["run", "--model", "plummer", "--n", "64", "--steps", "1",
+               "--out", str(tmp_path)])
+    assert rc != 0
+    assert 'device="cpu"' in capsys.readouterr().err
+    assert not (tmp_path / "final.npz").exists()
+
+
 def test_run_treecode_tree_tuned(tmp_path, capsys):
     """``--solver treecode --tree-tuned`` on the CPU, with the capacities
-    pinned in a config file (the hierarchical path needs them off the GPU)."""
+    pinned in a config file (the hierarchical path's, as the JAX package's
+    CPU runs pin them)."""
     cfg = tmp_path / "caps.json"
     cfg.write_text('{"tree_flat_cap": 16384, "tree_far_cap": 16384}')
     rc = main(["run", "--model", "plummer", "--n", "4096", "--steps", "4",

@@ -99,7 +99,7 @@ TREE_CASES = [(8192, {}), (20480, tnb.config.tuned_tree_overrides(20480))]
 
 
 def _tree_case(device, n, overrides):
-    """The three treecode kernels' arguments, as the main path builds them
+    """The hierarchical path's kernels' arguments, as the main path builds them
     (Morton sort, padding, planned capacities, the port's lists)."""
     from n_body_problem_tpu_torch.ops import treecode
     from n_body_problem_tpu_torch.ops.registry import tree_kwargs
@@ -157,7 +157,8 @@ def test_tree_wrappers_count_launches(cuda):
 
 
 def test_treecode_simulation_on_card_matches_cpu(cuda):
-    # The CPU run needs pinned capacities; the card then runs the same ones.
+    # The hierarchical path with its capacities pinned, so that the CPU run
+    # takes it too; the card then runs the same ones.
     cfg = tnb.SimConfig(solver="treecode", tree_flat_cap=64 * 32 * 4,
                         tree_far_cap=32 * 64 * 8, tree_vip_tiles=8, tree_rebuild_every=4)
     gpu = tnb.Simulation(cfg, tnb.models.plummer(4096, seed=11), device=cuda)
@@ -174,6 +175,130 @@ def test_treecode_run_never_waits_for_the_host(cuda):
     without one host synchronisation: capacity overflow is a torch.where."""
     sim = tnb.Simulation(tnb.SimConfig(solver="treecode"), tnb.models.plummer(8192, seed=1),
                          device=cuda)
+    sim.run(2)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, ids, _ = sim._tree_run(sim.state, 10)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert torch.isfinite(state.pos).all() and int(state.step) == 12
+
+
+# ------------------------------------- single-level flat and dense paths
+# (label, N, overrides, path): the flat path by tree_hier=False and by N
+# alone (below the hierarchy's 4,096 bodies), the dense path with a far
+# field (tree_flat_cap=-1) and without one (1,024 bodies: every tile near).
+SINGLE_CASES = [("flat", 8192, dict(tree_hier=False), "flat"),
+                ("flat by N", 3072, {}, "flat"),
+                ("dense", 20480, dict(tree_flat_cap=-1), "dense"),
+                ("dense exact", 1024, {}, "dense")]
+
+
+def _single_case(device, n, overrides):
+    """Kernels 3, 4, 5 and 7's arguments on the lists of the path a
+    ``Simulation`` takes: (sim, {kernel: (args, kw)})."""
+    from n_body_problem_tpu_torch.ops import cuda_treecode as ct
+    from n_body_problem_tpu_torch.ops import treecode
+    from n_body_problem_tpu_torch.ops.registry import tree_fns, tree_path
+
+    sim = tnb.Simulation(tnb.SimConfig(solver="treecode", **overrides),
+                         tnb.models.plummer(n, seed=3), device=device)
+    cfg, s = sim.cfg, sim.state
+    aux = tree_fns(cfg)[0](s.pos, s.mass)
+    c2 = PHYS["compensate"] ** 2
+    phys = dict(eps2=PHYS["eps2"], c2=c2)
+    tile = cfg.tree_tile
+    if tree_path(cfg) == "flat":
+        st = treecode._flat_static(s.n, tile, cfg.tree_src_tile, cfg.tree_theta,
+                                   cfg.tree_max_near, cfg.tree_vip_tiles)
+        ops = treecode.kernel_operands(s.pos, s.mass, aux[3], src_tile=cfg.tree_src_tile,
+                                       vip_src=st[4], plan=(st[1],))
+        return sim, {
+            "near": ((ops["bodies"], aux[0], aux[1]),
+                     dict(n=s.n, tile=tile, src_tile=cfg.tree_src_tile, entries=st[2],
+                          **phys)),
+            "far_single": ((ops["bodies"], ops["summ"], aux[2]),
+                           dict(n=s.n, tile=tile, G=1.0, **phys))}
+    k, max_near, vip = treecode._static_args(s.n, tile, cfg.tree_theta, cfg.tree_max_near,
+                                             cfg.tree_vip_tiles)
+    ops = treecode.kernel_operands(s.pos, s.mass, aux[2], src_tile=tile, vip_src=vip,
+                                   plan=(k,))
+    panels = ct.gather_panels_plain(ops["bodies"], aux[0], tile=tile)
+    cases = {"gather": ((ops["bodies"], aux[0]), dict(tile=tile)),
+             "near_panel": ((ops["bodies"], panels), dict(tile=tile, **phys))}
+    if max_near < k:
+        cases["far_single"] = ((ops["bodies"], ops["summ"], aux[1]),
+                               dict(n=s.n, tile=tile, G=1.0, **phys))
+    return sim, cases
+
+
+def _single_fns():
+    from n_body_problem_tpu_torch.ops import cuda_treecode as ct
+
+    return {"near": (ct.near_field, ct.near_field_plain),
+            "far_single": (ct.far_field_single, ct.far_field_single_plain),
+            "gather": (ct.gather_panels, ct.gather_panels_plain),
+            "near_panel": (ct.near_panel, ct.near_panel_plain)}
+
+
+@pytest.mark.parametrize("label,n,overrides,path", SINGLE_CASES)
+def test_single_level_kernels_match_plain(cuda, label, n, overrides, path):
+    """Kernels 3 (far_single), 4 (gather, exactly), 5 (near_panel) and 7 at
+    32-body rows against their twins, bitwise repeatable."""
+    from n_body_problem_tpu_torch.ops.registry import tree_path
+
+    sim, cases = _single_case(cuda, n, overrides)
+    assert tree_path(sim.cfg) == path
+    assert ("far_single" in cases) == (label != "dense exact")
+    for name, (args, kw) in cases.items():
+        fn, plain = _single_fns()[name]
+        got, again, want = fn(*args, **kw), fn(*args, **kw), plain(*args, **kw)
+        torch.cuda.synchronize()
+        if name == "gather":
+            assert torch.equal(got, want), name
+        else:
+            torch.testing.assert_close(got, want, **TOL)
+        assert torch.equal(got, again), name
+
+
+def test_single_level_wrappers_count_launches(cuda):
+    _, cases = _single_case(cuda, 20480, dict(tree_flat_cap=-1))
+    fns = _single_fns()
+    before = {k: fns[k][0].launches for k in cases}
+    for k, (args, kw) in cases.items():
+        fns[k][0](*args, **kw)
+    torch.cuda.synchronize()
+    assert {k: fns[k][0].launches - before[k] for k in cases} == {k: 1 for k in cases}
+
+
+@pytest.mark.parametrize("overrides", [dict(tree_hier=False), dict(tree_flat_cap=-1)])
+def test_single_level_simulation_on_card_matches_cpu(cuda, overrides):
+    """The same path and capacities on both devices (the CPU run pins the
+    flat capacity the card planned), the same bodies, 8 steps."""
+    from n_body_problem_tpu_torch.ops.registry import tree_path
+
+    cfg = tnb.SimConfig(solver="treecode", tree_vip_tiles=8, tree_rebuild_every=4,
+                        **overrides)
+    gpu = tnb.Simulation(cfg, tnb.models.plummer(4096, seed=11), device=cuda)
+    pinned = cfg.replace(tree_flat_cap=gpu.cfg.tree_flat_cap,
+                         tree_max_near=gpu.cfg.tree_max_near)
+    cpu = tnb.Simulation(pinned, tnb.models.plummer(4096, seed=11), device="cpu")
+    assert tree_path(gpu.cfg) == tree_path(cpu.cfg)
+    gpu.run(8)
+    cpu.run(8)
+    assert (gpu.sort_perm == cpu.sort_perm).mean() > 0.99
+    back = lambda s: s.state.pos.cpu()[:4096][torch.from_numpy(s.sort_perm).argsort()]  # noqa: E731
+    torch.testing.assert_close(back(gpu), back(cpu), rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("overrides", [dict(tree_hier=False), dict(tree_flat_cap=-1)])
+def test_single_level_run_never_waits_for_the_host(cuda, overrides):
+    """10 flat and 10 dense steps (resort, build, forces, update) under
+    ``set_sync_debug_mode("error")``: no host sync in the new build or force
+    code."""
+    sim = tnb.Simulation(tnb.SimConfig(solver="treecode", **overrides),
+                         tnb.models.plummer(8192, seed=1), device=cuda)
     sim.run(2)
     torch.cuda.set_sync_debug_mode("error")
     try:

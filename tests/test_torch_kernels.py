@@ -18,6 +18,8 @@ from n_body_problem_tpu_torch.ops import cuda_build, cuda_force, cuda_symmetric
 
 EPS2 = 1e-6
 C = 0.1
+SOURCES = ["allpairs.cu", "far_hier.cu", "far_single.cu", "gather.cu", "near.cu",
+           "near_panel.cu", "symmetric.cu", "vip.cu"]
 
 
 def _pair(jstate):
@@ -94,7 +96,7 @@ def test_cpu_tensors_launch_no_kernel():
     cuda_force.allpairs_acc(state.pos, state.mass, eps2=EPS2, tile_i=128, tile_j=128)
     cuda_symmetric.symmetric_acc(state.pos, state.mass, eps2=EPS2, tile=128)
     sim = tnb.Simulation(tnb.SimConfig(solver="pallas_symmetric", pallas_sym_tile=64),
-                         tnb.models.plummer(64, seed=0))
+                         tnb.models.plummer(64, seed=0), device="cpu")
     sim.run(2)
     assert (cuda_force.block_acc.launches, cuda_symmetric.symmetric_acc.launches) == before
     assert before == (0, 0)
@@ -133,7 +135,7 @@ def test_kernel_argument_checks():
 
 def test_build_inputs_are_the_package_sources():
     names = [p.name for p in cuda_build.sources()]
-    assert names == ["allpairs.cu", "far_hier.cu", "near.cu", "symmetric.cu", "vip.cu"]
+    assert names == SOURCES
     assert cuda_build.library_path().parent.parent == cuda_build.BUILD_DIR
     assert "arch=compute_90a,code=sm_90a" in cuda_build.NVCC_FLAGS
     assert "--use_fast_math" not in cuda_build.NVCC_FLAGS
@@ -150,5 +152,4 @@ def test_build_hash_covers_the_included_headers(tmp_path, monkeypatch):
     before = cuda_build.source_hash()
     (tmp_path / "lists.cuh").write_text((tmp_path / "lists.cuh").read_text() + "\n")
     assert cuda_build.source_hash() != before
-    assert [p.name for p in cuda_build.sources()] == [
-        "allpairs.cu", "far_hier.cu", "near.cu", "symmetric.cu", "vip.cu"]
+    assert [p.name for p in cuda_build.sources()] == SOURCES

@@ -75,7 +75,7 @@ def test_sorted_simulation_equals_jax(cfg):
     sort, so the same body order and the same trajectory as JAX's."""
     kw = dict(solver="direct", **cfg)
     js = jnb.Simulation(jnb.SimConfig(**kw), jnb.models.plummer(300, seed=3))
-    ts = tnb.Simulation(tnb.SimConfig(**kw), tnb.models.plummer(300, seed=3))
+    ts = tnb.Simulation(tnb.SimConfig(**kw), tnb.models.plummer(300, seed=3), device="cpu")
     js.run(10)
     ts.run(10)
     np.testing.assert_array_equal(ts.sort_perm, np.asarray(js.sort_perm))

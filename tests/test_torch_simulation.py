@@ -17,7 +17,7 @@ TILES = dict(pallas_tile_i=64, pallas_tile_j=128, pallas_sym_tile=64)
 def test_simulation_matches_jax(solver, integrator):
     cfg = dict(solver=solver, integrator=integrator, **TILES)
     js = jnb.Simulation(jnb.SimConfig(**cfg), jnb.models.plummer(200, seed=1))
-    ts = tnb.Simulation(tnb.SimConfig(**cfg), tnb.models.plummer(200, seed=1))
+    ts = tnb.Simulation(tnb.SimConfig(**cfg), tnb.models.plummer(200, seed=1), device="cpu")
     assert (ts.state.n, ts.state.n_real) == (js.state.n, js.state.n_real)
     js.run(10)
     ts.run(10)
@@ -39,7 +39,7 @@ def test_simulation_matches_jax(solver, integrator):
 
 
 def test_auto_resolves_to_mxu_on_cpu():
-    sim = tnb.Simulation(tnb.SimConfig(), tnb.models.plummer(100, seed=0))
+    sim = tnb.Simulation(tnb.SimConfig(), tnb.models.plummer(100, seed=0), device="cpu")
     assert sim.solver == "mxu"
     assert sim.state.n == 256   # mxu pads to block_size, as JAX does
 
@@ -55,27 +55,52 @@ def test_auto_rule_on_cuda():
 @pytest.mark.parametrize("solver", ["pair_matrix"])
 def test_unported_solvers_name_the_roadmap(solver):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tnb.Simulation(tnb.SimConfig(solver=solver), tnb.models.plummer(64, seed=0))
+        tnb.Simulation(tnb.SimConfig(solver=solver), tnb.models.plummer(64, seed=0),
+                       device="cpu")
 
 
-@pytest.mark.parametrize("cfg,item", [
-    (dict(), "item 10"),                                   # dense path on the CPU
-    (dict(tree_hier=False, tree_flat_cap=8192), "item 4"),  # single-level flat path
-    (dict(tree_flat_cap=8192), "item 4"),                  # flat path: no far lists
-    (dict(tree_flat_cap=-1), "item 10"),                   # flat path switched off
+def test_simulation_runs_on_the_gpu_unless_asked_for_the_cpu(monkeypatch):
+    """No device given means cuda; without a GPU that raises and names the
+    way to the CPU, and never falls back to it quietly."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        tnb.Simulation(tnb.SimConfig(), tnb.models.plummer(64, seed=0))
+    sim = tnb.Simulation(tnb.SimConfig(), tnb.models.plummer(64, seed=0), device="cpu")
+    assert sim.device.type == "cpu" and sim.state.pos.device.type == "cpu"
+
+
+@pytest.mark.parametrize("n,cfg,path", [
+    (4096, dict(), "dense"),                                   # tree_flat_cap 0 on the CPU
+    (4096, dict(tree_hier=False, tree_flat_cap=8192), "flat"),  # single-level flat path
+    (4096, dict(tree_flat_cap=8192), "flat"),                  # no far lists
+    (4096, dict(tree_flat_cap=-1), "dense"),                   # flat path switched off
+    (2000, dict(tree_flat_cap=2048, tree_far_cap=4096), "hier"),  # below the hierarchy
 ])
-def test_treecode_paths_not_ported_name_the_roadmap(cfg, item):
-    """Only the hierarchical path is ported; on the CPU it needs pinned
-    capacities, as the JAX package's CPU runs do."""
-    with pytest.raises(NotImplementedError, match=f"ROADMAP §1 {item}"):
-        tnb.Simulation(tnb.SimConfig(solver="treecode", **cfg),
-                       tnb.models.plummer(4096, seed=0))
+def test_treecode_config_takes_the_jax_path(n, cfg, path):
+    """Each configuration takes the path the JAX package takes for it on the
+    CPU, with the same resolved tile and capacities, and gives the JAX
+    package's force on the sorted bodies. Far lists pinned below the
+    hierarchy's 4,096 bodies are refused by both packages alike."""
+    from n_body_problem_tpu.ops.registry import make_force_fn as jax_force_fn
+    from n_body_problem_tpu_torch.ops.registry import make_force_fn, tree_path
 
-
-def test_treecode_below_the_hierarchy_names_the_flat_path():
-    cfg = tnb.SimConfig(solver="treecode", tree_flat_cap=2048, tree_far_cap=4096)
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 4"):
-        tnb.Simulation(cfg, tnb.models.plummer(2000, seed=0))
+    kw = dict(solver="treecode", tree_vip_tiles=8, **cfg)
+    js = jnb.Simulation(jnb.SimConfig(donate=False, **kw), jnb.models.plummer(n, seed=0))
+    ts = tnb.Simulation(tnb.SimConfig(**kw), tnb.models.plummer(n, seed=0), device="cpu")
+    assert tree_path(ts.cfg) == path
+    for field in ("tree_tile", "tree_max_near", "tree_flat_cap", "tree_far_cap"):
+        assert getattr(ts.cfg, field) == getattr(js.cfg, field), field
+    np.testing.assert_array_equal(ts.sort_perm, np.asarray(js.sort_perm))
+    pos, mass = ts.state.pos, ts.state.mass
+    jforce = jax_force_fn(js.cfg, None, js.state.n)
+    force = make_force_fn(ts.cfg, "cpu", ts.state.n)
+    if path == "hier":
+        for fn, args in ((jforce, (js.state.pos, js.state.mass)), (force, (pos, mass))):
+            with pytest.raises(ValueError, match="use the flat path"):
+                fn(*args)
+        return
+    want = np.asarray(jforce(js.state.pos, js.state.mass))
+    np.testing.assert_allclose(force(pos, mass).numpy(), want, rtol=1e-4, atol=2e-6)
 
 
 def test_pallas_runs_bitwise_equal():
@@ -84,7 +109,7 @@ def test_pallas_runs_bitwise_equal():
     cfg = tnb.SimConfig(solver="pallas", **TILES)
     out = []
     for _ in range(2):
-        sim = tnb.Simulation(cfg, tnb.models.plummer(128, seed=0))
+        sim = tnb.Simulation(cfg, tnb.models.plummer(128, seed=0), device="cpu")
         sim.run(25)
         out.append(sim.state.pos.clone())
     assert torch.equal(out[0], out[1])
@@ -110,7 +135,7 @@ def test_energy_drift_plummer(integrator, tol):
     """tests/test_integrators.py:53-64 through the symmetric path."""
     cfg = tnb.SimConfig(solver="pallas_symmetric", integrator=integrator, dt=0.002,
                         pallas_sym_tile=128)
-    sim = tnb.Simulation(cfg, tnb.models.plummer(256, seed=4))
+    sim = tnb.Simulation(cfg, tnb.models.plummer(256, seed=4), device="cpu")
     e0 = float(tdiag.total_energy(sim.state, cfg))
     sim.run(200)
     e1 = float(tdiag.total_energy(sim.state, cfg))
@@ -118,7 +143,8 @@ def test_energy_drift_plummer(integrator, tol):
 
 
 def test_trajectory_and_movie_not_ported():
-    sim = tnb.Simulation(tnb.SimConfig(solver="direct"), tnb.models.plummer(16, seed=0))
+    sim = tnb.Simulation(tnb.SimConfig(solver="direct"), tnb.models.plummer(16, seed=0),
+                         device="cpu")
     with pytest.raises(NotImplementedError):
         sim.trajectory(4)
     with pytest.raises(NotImplementedError):
@@ -127,6 +153,6 @@ def test_trajectory_and_movie_not_ported():
 
 def test_pairs_per_step_counts_real_bodies():
     sim = tnb.Simulation(tnb.SimConfig(solver="pallas", **TILES),
-                         tnb.models.plummer(200, seed=0))
+                         tnb.models.plummer(200, seed=0), device="cpu")
     assert sim.pairs_per_step() == 200 * 199
     assert sim.padded_pairs_per_step() == 256 * 256

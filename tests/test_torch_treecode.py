@@ -154,6 +154,22 @@ def test_work_lists_match_jax(case):
     assert taux[0].dtype == taux[1].dtype == np.int32
 
 
+def test_work_lists_without_the_coarse_union_equal_jax(case):
+    """``union_coarse=False`` (``tree_hier_union``): the coarse levels bound
+    the distance by the row centroid's distance to the node's com minus the
+    row's radius (JAX treecode.py:1982-2014). Same capacities and lists."""
+    kw = dict(KW, union_coarse=False)
+    caps = jtc.suggest_hier(case["jpos"], case["jmass"], **kw)
+    assert ttc.suggest_hier(case["tpos"], case["tmass"], **kw) == caps
+    assert caps != case["caps"]     # the bound changes what opens
+    lists = dict(flat_cap=caps["flat_cap"], max_near=caps["max_near"],
+                 far_max=caps["far_max"], far_cap=caps["far_cap"])
+    want = jtc.build_tree_hier_cols(*_jcols(case), case["jmass"], **lists, **kw)
+    got = ttc.build_tree_hier_cols(*case["tpos"].unbind(1), case["tmass"], **lists, **kw)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
 @pytest.mark.parametrize("flat_cap", [2048, 768])   # fits / overflows
 def test_compact_open_lists_equal_jax(flat_cap):
     """Including the capacity overflow, which the port takes with a

@@ -34,7 +34,7 @@ def _unsorted(pos, perm):
 def test_treecode_simulation_matches_jax(integrator):
     kw = dict(integrator=integrator, **PINNED)
     js = jnb.Simulation(jnb.SimConfig(donate=False, **kw), jnb.models.plummer(N, seed=11))
-    ts = tnb.Simulation(tnb.SimConfig(**kw), tnb.models.plummer(N, seed=11))
+    ts = tnb.Simulation(tnb.SimConfig(**kw), tnb.models.plummer(N, seed=11), device="cpu")
     for field in ("tree_tile", "tree_max_near", "tree_far_max", "tree_vip_tiles",
                   "morton_sort"):
         assert getattr(ts.cfg, field) == getattr(js.cfg, field), field
@@ -48,7 +48,7 @@ def test_treecode_simulation_matches_jax(integrator):
     # 1e-4: float32 force sums in another order, over 8 steps.
     np.testing.assert_allclose(pt, pj, rtol=0, atol=1e-4)
     ref = tnb.Simulation(tnb.SimConfig(solver="direct", integrator=integrator),
-                         tnb.models.plummer(N, seed=11))
+                         tnb.models.plummer(N, seed=11), device="cpu")
     ref.run(8)
     # Both within 1e-3 of the exact solver (tests/test_treecode_hier.py:252).
     assert np.abs(pt - ref.state.pos.numpy()).max() < 1e-3
@@ -61,8 +61,8 @@ def test_treecode_simulation_matches_jax(integrator):
 
 def test_treecode_run_tracks_ids_over_calls():
     """Two runs compose their device permutations into sort_perm."""
-    ts = tnb.Simulation(tnb.SimConfig(**PINNED), tnb.models.plummer(N, seed=2))
-    once = tnb.Simulation(tnb.SimConfig(**PINNED), tnb.models.plummer(N, seed=2))
+    ts = tnb.Simulation(tnb.SimConfig(**PINNED), tnb.models.plummer(N, seed=2), device="cpu")
+    once = tnb.Simulation(tnb.SimConfig(**PINNED), tnb.models.plummer(N, seed=2), device="cpu")
     ts.run(4)
     ts.run(4)
     once.run(8)
@@ -76,7 +76,7 @@ def test_treecode_run_tracks_ids_over_calls():
 def test_treecode_force_fn_builds_its_own_lists():
     """``make_force_fn`` for direct callers (and ``prime_leapfrog``) on
     Morton-sorted bodies: within the hier envelope of the direct sum."""
-    sim = tnb.Simulation(tnb.SimConfig(**PINNED), tnb.models.plummer(N, seed=4))
+    sim = tnb.Simulation(tnb.SimConfig(**PINNED), tnb.models.plummer(N, seed=4), device="cpu")
     s = sim.state
     acc = make_force_fn(sim.cfg, "cpu", s.n)(s.pos, s.mass)
     exact = tnb.ops.direct_acc(s.pos, s.mass, eps2=1e-6, compensate=0.1)
@@ -93,7 +93,7 @@ def test_treecode_run_keeps_the_lists_it_stepped_with():
     from n_body_problem_tpu_torch.ops.registry import tree_kwargs
 
     sim = tnb.Simulation(tnb.SimConfig(integrator="leapfrog", **PINNED),
-                         tnb.models.plummer(N, seed=5))
+                         tnb.models.plummer(N, seed=5), device="cpu")
     assert sim.tree_lists is None
     sim.run(6)   # chunks of 4 and 2 steps
     lists = sim.tree_lists
