@@ -13,7 +13,14 @@ is non-zero:
    PyTorch versions at N = 128, 896 (odd tile count), 1,024 (90 padding
    bodies) and 65,536, within rtol=1e-4, atol=2e-6; the all-pairs kernel
    also in block form and for bitwise repeatability; the symmetric kernel
-   for momentum. Times both at N = 65,536.
+   for momentum, and at N = 448 with tile 64 (its wrapper pads to 128).
+   Times both at N = 65,536. Then the bf16x3/mixed kernel against its twin
+   in both modes at N = 512 and 448 (tile 64), 1,024 (934 real, tile 512)
+   and 65,536 (tile 512): |kernel - twin| / |twin - f32 twin| <= 0.3 and a
+   per-body p99 <= 1.5e-5 ("mixed" with K <= 3 tiles is the f32 mode and
+   matches the f32 kernel within rtol=1e-4, atol=2e-6); each mode's error
+   against the all-pairs kernel inside the JAX envelopes, mixed no worse
+   than bf16x3. Times both modes at 65,536.
 4. treecode kernels: every treecode kernel against its plain version on
    the port's own work lists, at the shapes of every treecode run of phase
    6 and one smaller: the hierarchical path (near, far, VIP) on Plummer
@@ -28,8 +35,11 @@ is non-zero:
    each kernel at the largest shape of its path, beside its plain version,
    its bound and (the gather) one ``index_select`` call.
 5. exact main path: ``Simulation(SimConfig(), plummer(65536))`` (the
-   symmetric kernel), ``solver="pallas"`` (the all-pairs kernel) and
-   leapfrog; launch counters show that each kernel ran.
+   symmetric kernel), ``solver="pallas"`` (the all-pairs kernel), leapfrog,
+   and ``pallas_sym_precision="bf16x3"`` and ``"mixed"`` (the tensor-core
+   kernel); launch counters show that each run launched its kernel every
+   step and no other. Then the pair-matrix foil (plain PyTorch) at 4,096
+   against the all-pairs kernel's force.
 6. treecode main path: ``Simulation(SimConfig(solver="treecode"))`` at
    N = 65,536 (Euler, then leapfrog; 8 steps primed, 64 timed), at 20,480
    with ``tuned_tree_overrides(20480)`` and at 524,288 (16 timed); then the
@@ -79,6 +89,18 @@ TREE_KERNELS = ("near", "far", "vip", "far_single", "gather", "near_panel")
 # sweep, symmetric kernel), a body against a node's monopole + quadrupole.
 PAIR_FLOPS, PAIR_BOTH_FLOPS, NODE_FLOPS = 20, 27, 56
 PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12   # H100 SXM FP32 non-tensor, HBM3
+# The fast symmetric modes: a pair's FP32 work one way plus the reaction
+# weight, and the three bf16 passes of the [x y z 1] panel product on the
+# tensor cores (3 passes x 4 components x 2 operations).
+FAST_PAIR_FLOPS, FAST_PAIR_TC_FLOPS, PEAK_BF16 = 21, 24, 989e12
+# (padded N, real N, tile) of the fast modes' check: even K = 8 (the JAX
+# test's shape), odd K = 7, padding with K = 2, and the production size.
+FAST_SIZES = ((512, 512, 64), (448, 448, 64), (1024, 934, 512), (65536, 65536, 512))
+FAST_RATIO = 0.3   # |kernel - twin| / |twin - f32 twin|
+FAST_P99_VS_TWIN = 1.5e-5   # per-body relative kernel - twin difference
+# JAX envelopes of the fast modes against the direct sum, (p99, median)
+# (tests/test_pallas_symmetric.py:54-63).
+FAST_ENVELOPE = {"bf16x3": (3e-2, 4e-3), "mixed": (5e-3, 5e-4)}
 
 
 def bound(flops: float, nbytes: float) -> dict:
@@ -168,6 +190,117 @@ def compare_kernels(device, sizes=SIZES, time_at: int | None = N_MAIN) -> dict:
                   "symmetric {:.4f} vs plain {:.4f}".format(
                       n, res["allpairs"]["ms"], res["allpairs"]["plain_ms"],
                       res["symmetric"]["ms"], res["symmetric"]["plain_ms"]), flush=True)
+    # N = 448 with tile 64: the JAX package takes it; the f32 kernel's
+    # wrapper pads to its 128-body tile with zero-mass bodies.
+    s = cloud(448, 448, seed=448, device=device)
+    e = agree(res, "symmetric", "symmetric N=448 tile 64",
+              cuda_symmetric.symmetric_acc(s.pos, s.mass, tile=64, **PHYS),
+              cuda_symmetric.symmetric_acc_plain(s.pos, s.mass, tile=64, **PHYS))
+    torch.cuda.synchronize(device)
+    print(f"kernels: symmetric N=448 tile 64 (padded to 512 inside) err {e:.3e}", flush=True)
+    return res
+
+
+def rel_err(got, want, n_real: int):
+    """Per-body relative force difference over the real bodies."""
+    import torch
+
+    d = (got - want)[:n_real].norm(dim=1)
+    return d / torch.clamp(want[:n_real].norm(dim=1), min=1e-12)
+
+
+def fast_bound(n: int, tile: int, precision: str) -> dict:
+    """``bound`` of one fast-mode call, counting this call's pairs: the
+    diagonals s <= near_s take the f32 reaction (PAIR_BOTH_FLOPS), the
+    others FAST_PAIR_FLOPS on the FP32 units and FAST_PAIR_TC_FLOPS on the
+    tensor cores at the bf16 peak."""
+    from n_body_problem_tpu_torch.ops.cuda_symmetric import near_diagonals
+
+    k = n // tile
+    near = sum((k // 2 if k % 2 == 0 and s == k // 2 else k) * (tile * tile if s else
+                                                                tile * (tile - 1) // 2)
+               for s in range(near_diagonals(k, precision) + 1))
+    fast = n * (n - 1) // 2 - near
+    t_tc = FAST_PAIR_TC_FLOPS * fast / PEAK_BF16 * 1e3
+    b = bound(PAIR_BOTH_FLOPS * near + FAST_PAIR_FLOPS * fast, n * 16 + n * 12)
+    if t_tc > b["bound_ms"]:
+        b = {"bound_ms": t_tc, "bound_by": "operations"}
+    return b
+
+
+def compare_fast(device, sizes=FAST_SIZES, time_at: int | None = N_MAIN) -> dict:
+    """Phase 3, the fast modes: ``symmetric_bf16x3_kernel`` against its twin
+    in "bf16x3" and "mixed" (distance ratio, per-body p99), each mode's
+    error against the all-pairs kernel inside the JAX envelopes, mixed no
+    worse than bf16x3; times at ``time_at`` bodies beside the f32 kernel."""
+    import torch
+
+    from n_body_problem_tpu_torch.ops import cuda_force, cuda_symmetric
+    from n_body_problem_tpu_torch.treecode_profile import time_ms
+
+    res = {"max_abs_err": 0.0}
+    for n, n_real, tile in sizes:
+        s = cloud(n, n_real, seed=n, device=device)
+        pos, mass = s.pos, s.mass
+        kw = dict(tile=tile, **PHYS)
+        exact = cuda_force.block_acc(pos, pos, mass, tile_i=64, tile_j=64, **PHYS)
+        f32_twin = cuda_symmetric.symmetric_acc_plain(pos, mass, **kw)
+        f32_kernel = cuda_symmetric.symmetric_acc(pos, mass, **kw)
+        k = n // tile
+        p99 = {}
+        for prec in ("bf16x3", "mixed"):
+            got = cuda_symmetric.symmetric_acc(pos, mass, precision=prec, **kw)
+            twin = cuda_symmetric.symmetric_acc_plain(pos, mass, precision=prec, **kw)
+            torch.cuda.synchronize(device)
+            check(bool(torch.isfinite(got).all()), f"{prec} N={n}: non-finite output")
+            res["max_abs_err"] = max(res["max_abs_err"], float((got - twin).abs().max()))
+            diff = rel_err(got, twin, n_real)
+            d99 = float(torch.quantile(diff, 0.99))
+            if prec == "mixed" and k <= 3:
+                # No fast diagonal: "mixed" is the f32 mode.
+                check(torch.allclose(got, f32_kernel, **TOL),
+                      f"mixed N={n} (K={k}): outside rtol=1e-4, atol=2e-6 of the f32 kernel")
+                what = "= f32 kernel"
+            else:
+                ratio = float((got - twin).norm() / (twin - f32_twin).norm())
+                check(ratio <= FAST_RATIO, f"{prec} N={n}: |kernel - twin| / |twin - f32 twin|"
+                      f" = {ratio:.3f} > {FAST_RATIO}")
+                what = f"ratio {ratio:.3f}"
+            check(d99 <= FAST_P99_VS_TWIN,
+                  f"{prec} N={n}: per-body p99 vs twin {d99:.3e} > {FAST_P99_VS_TWIN}")
+            # Which side's float32 sums set the ratio: the kernel's and the
+            # twin's distances from the same mode in float64, over the mode's
+            # distance from f32.
+            t64 = cuda_symmetric.symmetric_acc_plain(pos.double(), mass.double(),
+                                                     precision=prec, **kw).float()
+            scale = float((twin - f32_twin).norm())
+            noise = (float((got - t64).norm()) / scale, float((twin - t64).norm()) / scale)
+            del t64
+            err = rel_err(got, exact, n_real)
+            p99[prec], med = float(torch.quantile(err, 0.99)), float(err.median())
+            env = FAST_ENVELOPE[prec]
+            check(p99[prec] < env[0] and med < env[1],
+                  f"{prec} N={n}: p99 {p99[prec]:.3e} median {med:.3e} outside {env}")
+            net = float((mass[:, None] * got).sum(0).abs().max())
+            print(f"fast kernels: N={n} (real {n_real}) tile {tile} {prec}: vs twin {what} "
+                  f"p99 {d99:.3e} max |d| {float((got - twin).abs().max()):.3e}; vs float64 "
+                  f"kernel {noise[0]:.3f} twin {noise[1]:.3f}; vs all-pairs "
+                  f"p99 {p99[prec]:.3e} median {med:.3e}; |sum m a| {net:.3e}", flush=True)
+            if n == time_at:
+                fn = lambda: cuda_symmetric.symmetric_acc(pos, mass, precision=prec, **kw)  # noqa: E731
+                res[prec] = {"ms": time_ms(fn, 20),
+                             "plain_ms": time_ms(lambda: cuda_symmetric.symmetric_acc_plain(
+                                 pos, mass, precision=prec, **kw), 3),
+                             "p99": p99[prec], "median": med, **fast_bound(n, tile, prec)}
+        check(p99["mixed"] <= p99["bf16x3"],
+              f"N={n}: mixed p99 {p99['mixed']:.3e} > bf16x3 {p99['bf16x3']:.3e}")
+        del s, pos, mass, exact, f32_twin, f32_kernel
+        torch.cuda.empty_cache()
+    if time_at in [n for n, _, _ in sizes]:
+        print(f"fast kernels: times at N={time_at} tile 512 (ms/call): " + "; ".join(
+            f"{p} {res[p]['ms']:.4f} vs plain {res[p]['plain_ms']:.4f} bound "
+            f"{res[p]['bound_ms']:.4f} ({res[p]['bound_by']})" for p in ("bf16x3", "mixed")),
+            flush=True)
     return res
 
 
@@ -362,6 +495,7 @@ def counters() -> dict:
     from n_body_problem_tpu_torch.ops import cuda_force, cuda_symmetric, cuda_treecode
 
     return {"allpairs": cuda_force.block_acc, "symmetric": cuda_symmetric.symmetric_acc,
+            "symmetric_bf16x3": cuda_symmetric.symmetric_acc_bf16x3,
             "near": cuda_treecode.near_field, "far": cuda_treecode.far_field_hier,
             "vip": cuda_treecode.vip_both, "far_single": cuda_treecode.far_field_single,
             "gather": cuda_treecode.gather_panels, "near_panel": cuda_treecode.near_panel}
@@ -392,8 +526,10 @@ def launches_a_step(cfg, n: int) -> dict:
 
 def drive_main_path(device, n: int = N_MAIN, prime: int = PRIME_STEPS,
                     timed: int = TIMED_STEPS) -> None:
-    """Phase 5: the default simulation, then solver="pallas", then
-    leapfrog, each through the public ``Simulation`` entry point."""
+    """Phase 5: the default simulation, then solver="pallas", leapfrog, and
+    the symmetric solver's "bf16x3" and "mixed" precisions, each through
+    the public ``Simulation`` entry point; each run launches its kernel at
+    least once a step and no other kernel."""
     import torch
 
     from n_body_problem_tpu_torch import SimConfig, Simulation, models
@@ -403,27 +539,62 @@ def drive_main_path(device, n: int = N_MAIN, prime: int = PRIME_STEPS,
         ("default", SimConfig(), "pallas_symmetric", "symmetric"),
         ("pallas", SimConfig(solver="pallas"), "pallas", "allpairs"),
         ("leapfrog", SimConfig(integrator="leapfrog"), "pallas_symmetric", "symmetric"),
+        ("bf16x3", SimConfig(pallas_sym_precision="bf16x3"), "pallas_symmetric",
+         "symmetric_bf16x3"),
+        ("mixed", SimConfig(pallas_sym_precision="mixed"), "pallas_symmetric",
+         "symmetric_bf16x3"),
     )
     for label, cfg, solver, key in runs:
         sim = Simulation(cfg, models.plummer(n, seed=0), device=device)
         check(sim.solver == solver, f"{label}: resolved {sim.solver!r}, expected {solver!r}")
         e0 = sim.diagnostics()["energy"]
+        start = {k: w.launches for k, w in wrappers.items()}
         sim.run(prime)
         before, wall0 = wrappers[key].launches, sim.wall_seconds
         sim.run(timed)
         launched = wrappers[key].launches - before
         wall = sim.wall_seconds - wall0
         check(launched >= timed, f"{label}: kernel launched {launched} times in {timed} steps")
+        others = {k: w.launches - start[k] for k, w in wrappers.items() if k != key}
+        check(not any(others.values()), f"{label}: other kernels launched: {others}")
         check(bool(torch.isfinite(sim.state.pos).all()), f"{label}: non-finite positions")
         d = sim.diagnostics()
         check(d["overspeed"] == 0, f"{label}: overspeed {d['overspeed']}")
         check(d["step"] == prime + timed, f"{label}: step {d['step']}")
         ms = wall / timed * 1e3
         print(f"main path [{label}]: N={sim.state.n_real} solver={sim.solver} "
-              f"integrator={cfg.integrator} {ms:.4f} ms/step "
-              f"{sim.pairs_per_step() * timed / wall:.4e} pairs/s "
+              f"precision={cfg.pallas_sym_precision} integrator={cfg.integrator} "
+              f"{ms:.4f} ms/step {sim.pairs_per_step() * timed / wall:.4e} pairs/s "
               f"launches {launched} |dE/E| after {prime + timed} steps "
               f"{abs((d['energy'] - e0) / e0):.3e}", flush=True)
+
+
+def drive_pair_matrix(device, n: int = 4096, steps: int = 10) -> None:
+    """Phase 5, the pair-matrix foil (plain PyTorch, no kernel of its own):
+    its force against the all-pairs kernel's, then ``steps`` timed steps."""
+    import torch
+
+    from n_body_problem_tpu_torch import SimConfig, Simulation, models
+    from n_body_problem_tpu_torch.ops import cuda_force
+    from n_body_problem_tpu_torch.ops.registry import make_force_fn
+
+    cfg = SimConfig(solver="pair_matrix")
+    sim = Simulation(cfg, models.plummer(n, seed=0), device=device)
+    check(sim.solver == "pair_matrix" and sim.state.n == n, "pair_matrix: solver or padding")
+    s = sim.state
+    got = make_force_fn(cfg, device.type, s.n)(s.pos, s.mass)
+    want = cuda_force.block_acc(s.pos, s.pos, s.mass, tile_i=128, tile_j=128, **PHYS)
+    check(torch.allclose(got, want, **TOL),
+          f"pair_matrix: force outside rtol=1e-4, atol=2e-6 of the all-pairs kernel "
+          f"(max |d| {float((got - want).abs().max()):.3e})")
+    sim.run(2)
+    wall0 = sim.wall_seconds
+    sim.run(steps)
+    wall = sim.wall_seconds - wall0
+    check(bool(torch.isfinite(sim.state.pos).all()), "pair_matrix: non-finite positions")
+    print(f"main path [pair_matrix]: N={n} plain PyTorch {wall / steps * 1e3:.4f} ms/step "
+          f"{sim.pairs_per_step() * steps / wall:.4e} pairs/s; force vs all-pairs max |d| "
+          f"{float((got - want).abs().max()):.3e}", flush=True)
 
 
 def tree_force_error(sim, sample: int | None = None,
@@ -615,13 +786,21 @@ def main() -> int:
     print(f"build: {build_s:.3f} s -> {cuda_build.library_path()}", flush=True)
 
     res = compare_kernels(device)
+    fast = compare_fast(device)
+    print(f"kernels: symmetric at N={N_MAIN}: f32 {res['symmetric']['ms']:.4f} ms, bf16x3 "
+          f"{fast['bf16x3']['ms']:.4f}, mixed {fast['mixed']['ms']:.4f}", flush=True)
+    res["symmetric_bf16x3"] = {
+        "max_abs_err": fast["max_abs_err"], "library_ms": None,
+        **{k: fast["bf16x3"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+        **{f"{k}_mixed": fast["mixed"][k] for k in ("ms", "plain_ms", "bound_ms")}}
     res.update(compare_tree_kernels(device))
 
     wrappers = counters()
     for w in wrappers.values():
         w.launches = 0
     drive_main_path(device)
-    launches = {k: wrappers[k].launches for k in ("allpairs", "symmetric")}
+    launches = {k: wrappers[k].launches for k in ("allpairs", "symmetric", "symmetric_bf16x3")}
+    drive_pair_matrix(device)
     for w in wrappers.values():
         w.launches = 0
     launches.update(drive_treecode(device))
@@ -635,6 +814,8 @@ def main() -> int:
     records = (
         ("allpairs", "allpairs_acc_kernel", "allpairs.cu", "pallas_force.py:41"),
         ("symmetric", "symmetric_acc_kernel", "symmetric.cu", "pallas_symmetric.py:87"),
+        ("symmetric_bf16x3", "symmetric_bf16x3_kernel", "symmetric_bf16x3.cu",
+         "pallas_symmetric.py:87"),
         ("far_single", "far_single_kernel", "far_single.cu", "treecode.py:436"),
         ("gather", "gather_panels_kernel", "gather.cu", "treecode.py:617"),
         ("near_panel", "near_panel_kernel", "near_panel.cu", "treecode.py:718"),

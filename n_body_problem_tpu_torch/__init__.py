@@ -5,8 +5,9 @@ PyTorch with hand-written CUDA kernels for Hopper (``csrc/``). The JAX
 package is the reference it is tested against; this package imports no JAX.
 
 Ported so far: the exact direct-sum simulation (config, state, the
-procedural models, the plain PyTorch solvers, the all-pairs and symmetric
-half-pair CUDA kernels, both integrators, diagnostics, checkpoints, the
+procedural models, the plain PyTorch solvers and the pair-matrix foil, the
+all-pairs CUDA kernel and the symmetric half-pair kernels in the f32,
+bf16x3 and mixed precisions, both integrators, diagnostics, checkpoints, the
 ``run``/``info`` CLI) and the treecode run loop on its hierarchical,
 single-level flat and dense paths (Morton sort, acceptance builds, the near,
 far, panel-gather, near-panel and VIP CUDA kernels). Entry points run on

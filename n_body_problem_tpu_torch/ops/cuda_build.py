@@ -44,6 +44,8 @@ _SIGNATURES = {
     "nbody_allpairs_acc": ((_P, _I, _P, _I, _P, _F, _F, _P), _I),
     # (body4, n, out, c2, eps2, stream) -> cudaError_t
     "nbody_symmetric_acc": ((_P, _I, _P, _F, _F, _P), _I),
+    # (body4, n, tile, centers4, near_s, out, c2, eps2, stream) -> cudaError_t
+    "nbody_symmetric_bf16x3": ((_P, _I, _I, _P, _I, _P, _F, _F, _P), _I),
     # (bodies4, n, tile, src_tile, entries, flat_src, chunk_tgt, n_chunks,
     #  out, c2, eps2, stream) -> cudaError_t
     "nbody_near_field": ((_P, _I, _I, _I, _I, _P, _P, _I, _P, _F, _F, _P), _I),

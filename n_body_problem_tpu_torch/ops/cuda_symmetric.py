@@ -1,24 +1,32 @@
-"""Symmetric half-pair force: the hand-written CUDA kernel and its plain twin.
+"""Symmetric half-pair force: the hand-written CUDA kernels and their plain twin.
 
 Counterpart of ``n_body_problem_tpu.ops.pallas_symmetric``:
 :func:`symmetric_acc` evaluates every unordered pair once and applies
-Newton's third law (the reference's VERSION 3 method, ``kernel.cu:703-774``).
-On a CUDA tensor it launches ``symmetric_acc_kernel``
-(``csrc/symmetric.cu``); on a CPU tensor it runs
-:func:`symmetric_acc_plain`, the same coverage in plain PyTorch, which is
-also what the kernel is checked against on the card.
+Newton's third law (the reference's VERSION 3 method, ``kernel.cu:703-774``),
+in each of the JAX package's three precisions. On a CUDA tensor it launches
+``symmetric_acc_kernel`` (``csrc/symmetric.cu``) for ``"f32"`` and
+``symmetric_bf16x3_kernel`` (``csrc/symmetric_bf16x3.cu``, through
+:func:`symmetric_acc_bf16x3`) for ``"bf16x3"`` and ``"mixed"``; on a CPU
+tensor it runs :func:`symmetric_acc_plain`, the same function in plain
+PyTorch, which is also what the kernels are checked against on the card.
 
-Coverage (both versions): bodies are cut into K tiles and row tile ``i``
-meets column tile ``(i + s) mod K`` for ``s = 0 .. K // 2``. ``s = 0`` is
-the in-tile strict upper triangle; for even K the last diagonal ``s = K/2``
-pairs every tile twice, so only rows ``i < K/2`` take it. Every unordered
-pair is evaluated exactly once (``pallas_symmetric.py:13-18``).
+Coverage: bodies are cut into K tiles and row tile ``i`` meets column tile
+``(i + s) mod K`` for ``s = 0 .. K // 2``. ``s = 0`` is the in-tile strict
+upper triangle; for even K the last diagonal ``s = K/2`` pairs every tile
+twice, so only rows ``i < K/2`` take it. Every unordered pair is evaluated
+exactly once (``pallas_symmetric.py:13-18``).
 
-Only the ``"f32"`` precision is ported. The TPU's ``"bf16x3"`` and
-``"mixed"`` modes are MXU fast-math and wait on the ROADMAP.
+The fast modes follow the TPU kernel's arithmetic (``pallas_symmetric.py:
+163-194``): the action on row bodies is exact f32; the reaction on column
+bodies is contracted against the row tile's panel ``[x - c, y - c, z - c,
+1]``, centred on the row tile's mean position, and on the diagonals
+``s > near_s`` that contraction runs as three bf16 products (hi*hi + hi*lo +
+lo*hi) summed in f32. ``"bf16x3"`` has ``near_s = -1``, ``"mixed"``
+``min(1, K // 2)``; with K <= 3 tiles ``"mixed"`` is the f32 mode.
 
-The kernel adds reactions with atomics, so the order of its sums, and its
-last bits, change from run to run: compare it by tolerance, never bitwise.
+The kernels add reactions with atomics, so the order of their sums, and
+their last bits, change from run to run: compare them by tolerance, never
+bitwise.
 """
 
 from __future__ import annotations
@@ -28,8 +36,77 @@ import torch
 from n_body_problem_tpu_torch.ops import cuda_build
 
 DEFAULT_TILE = 512
-KERNEL_TILE = 128   # bodies per tile in csrc/symmetric.cu; divides DEFAULT_TILE
+KERNEL_TILE = 128   # bodies per tile in csrc/symmetric.cu; the wrapper pads N to it
 PRECISIONS = ("f32", "bf16x3", "mixed")
+# csrc/symmetric_bf16x3.cu: four warps of 16-body row chunks, 80 bytes of
+# shared memory a body of the tile.
+FAST_TILE_MULTIPLE = 64
+FAST_MAX_TILE = 2048
+
+
+def near_diagonals(k: int, precision: str) -> int:
+    """``near_s``: the last diagonal whose reaction is exact f32
+    (``pallas_symmetric.py:271``)."""
+    s_max = k // 2
+    return {"f32": s_max, "bf16x3": -1, "mixed": min(1, s_max)}[precision]
+
+
+def tile_centers(pos: torch.Tensor, tile: int) -> torch.Tensor:
+    """(K, 3): each tile's mean position, padding bodies included
+    (``pallas_symmetric.py:284``)."""
+    return pos.reshape(-1, tile, 3).mean(dim=1)
+
+
+def split_bf16(a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """hi/lo bf16 split (``_split_bf16``), returned in ``a``'s dtype:
+    hi = bf16(a) and lo = bf16(a - hi), both rounded to nearest even.
+    Products of two such values are exact in float32, as under JAX's
+    ``preferred_element_type=f32``."""
+    hi = a.to(torch.bfloat16).to(a.dtype)
+    return hi, (a - hi).to(torch.bfloat16).to(a.dtype)
+
+
+def _panel_acc_plain(pos, mass, *, eps2, compensate, G, tile, precision):
+    """The fast modes' arithmetic, one diagonal at a time, batched over row
+    tiles: exact action, panel reaction (bf16x3 on ``s > near_s``)."""
+    n = pos.shape[0]
+    k = n // tile
+    c2 = compensate * compensate
+    p = pos.reshape(k, tile, 3)
+    m = (mass * (G * c2 * compensate)).reshape(k, tile)
+    centers = tile_centers(pos, tile)
+    rows1 = torch.cat([p - centers[:, None, :], torch.ones_like(p[..., :1])], dim=-1)
+    rows1_t = rows1.transpose(1, 2)                        # (K, 4, T)
+    rows1_hi, rows1_lo = split_bf16(rows1_t)
+    near_s = near_diagonals(k, precision)
+    acc = torch.zeros((k, tile, 3), dtype=pos.dtype, device=pos.device)
+    s_max = k // 2
+    rid = torch.arange(tile, device=pos.device)
+    upper = (rid[None, :] > rid[:, None]).to(pos.dtype)   # (row, col) strict upper
+    for s in range(s_max + 1):
+        rows = k // 2 if (k % 2 == 0 and s == s_max) else k
+        i = torch.arange(rows, device=pos.device)
+        j = (i + s) % k
+        d = p[j][:, None, :, :] - p[i][:, :, None, :]     # (A, row, col, 3)
+        # The kernel's order of operations, so both round alike.
+        r2 = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] + d[..., 2] * d[..., 2]
+        inv = torch.rsqrt(r2 * c2 + eps2)
+        u = inv * inv * inv
+        if s == 0:
+            u = u * upper
+        action = torch.sum((m[j][:, None, :] * u)[..., None] * d, dim=2)
+        b_w = m[i][:, :, None] * u                        # (A, row, col)
+        if s > near_s:
+            b_hi, b_lo = split_bf16(b_w)
+            r_hi, r_lo = rows1_hi[i], rows1_lo[i]
+            s_col = r_hi @ b_hi + r_hi @ b_lo + r_lo @ b_hi   # (A, 4, col)
+        else:
+            s_col = rows1_t[i] @ b_w
+        s_col = s_col.transpose(1, 2)                     # (A, col, 4)
+        reaction = s_col[..., :3] - (p[j] - centers[i][:, None, :]) * s_col[..., 3:]
+        acc.index_add_(0, i, action)
+        acc.index_add_(0, j, reaction)
+    return acc.reshape(n, 3)
 
 
 def symmetric_acc_plain(
@@ -40,9 +117,17 @@ def symmetric_acc_plain(
     compensate: float = 0.1,
     G: float = 1.0,
     tile: int = DEFAULT_TILE,
+    precision: str = "f32",
 ) -> torch.Tensor:
     """acc (N, 3) from N (N - 1) / 2 pair evaluations in the staggered
-    coverage, one diagonal ``s`` at a time, batched over row tiles."""
+    coverage, one diagonal ``s`` at a time, batched over row tiles.
+
+    ``"f32"`` sums the reaction directly (``-sum m_i' u d``), as
+    ``csrc/symmetric.cu`` does; ``"bf16x3"`` and ``"mixed"`` follow the TPU
+    kernel's panel form (:func:`_panel_acc_plain`)."""
+    if precision != "f32":
+        return _panel_acc_plain(pos, mass, eps2=eps2, compensate=compensate, G=G,
+                                tile=tile, precision=precision)
     n = pos.shape[0]
     k = n // tile
     c2 = compensate * compensate
@@ -70,28 +155,95 @@ def symmetric_acc_plain(
     return acc.reshape(n, 3)
 
 
+def _bodies(pos, mass, *, compensate, G) -> torch.Tensor:
+    """(N, 4) rows (x, y, z, G c^3 m), what both kernels read."""
+    c2 = compensate * compensate
+    return torch.cat([pos, (mass * (G * c2 * compensate))[:, None]], dim=1)
+
+
 def _launch(pos, mass, *, eps2, compensate, G) -> torch.Tensor:
     dev = pos.device
     n = pos.shape[0]
     cuda_build.require_f32("pos", pos, (n, 3), dev)
     cuda_build.require_f32("mass", mass, (n,), dev)
-    if n % KERNEL_TILE:
-        raise ValueError(
-            f"symmetric_acc: N={n} must be a multiple of the CUDA kernel's "
-            f"tile {KERNEL_TILE} (use a pallas_sym_tile that is a multiple of it)")
-    if n > cuda_build.MAX_BODIES:
+    # The kernel tiles by KERNEL_TILE: pad with zero-mass bodies at the
+    # origin, which add exactly zero to every real body's force.
+    n_pad = n + (-n % KERNEL_TILE)
+    if n_pad > cuda_build.MAX_BODIES:
         raise ValueError(f"symmetric_acc: at most {cuda_build.MAX_BODIES} bodies")
-    c2 = compensate * compensate
-    body = torch.cat([pos, (mass * (G * c2 * compensate))[:, None]], dim=1)
+    body = _bodies(pos, mass, compensate=compensate, G=G)
+    if n_pad != n:
+        body = torch.cat([body, body.new_zeros((n_pad - n, 4))])
+    out = torch.zeros((n_pad, 3), dtype=torch.float32, device=dev)
+    lib = cuda_build.load_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.nbody_symmetric_acc(body.data_ptr(), n_pad, out.data_ptr(),
+                                     compensate * compensate, eps2, stream)
+        symmetric_acc.launches += 1
+    cuda_build.check(rc, "symmetric_acc_kernel")
+    return out[:n]
+
+
+def _launch_bf16x3(pos, mass, *, eps2, compensate, G, tile, precision) -> torch.Tensor:
+    dev = pos.device
+    n = pos.shape[0]
+    cuda_build.require_f32("pos", pos, (n, 3), dev)
+    cuda_build.require_f32("mass", mass, (n,), dev)
+    if tile % FAST_TILE_MULTIPLE or not 0 < tile <= FAST_MAX_TILE:
+        raise ValueError(
+            f"symmetric_acc_bf16x3: tile={tile} must be a multiple of "
+            f"{FAST_TILE_MULTIPLE} up to {FAST_MAX_TILE} on the card")
+    if n > cuda_build.MAX_BODIES:
+        raise ValueError(f"symmetric_acc_bf16x3: at most {cuda_build.MAX_BODIES} bodies")
+    k = n // tile
+    body = _bodies(pos, mass, compensate=compensate, G=G)
+    centers = torch.cat([tile_centers(pos, tile), pos.new_zeros((k, 1))], dim=1)
     out = torch.zeros((n, 3), dtype=torch.float32, device=dev)
     lib = cuda_build.load_library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.nbody_symmetric_acc(body.data_ptr(), n, out.data_ptr(),
-                                     c2, eps2, stream)
-        symmetric_acc.launches += 1
-    cuda_build.check(rc, "symmetric_acc_kernel")
+        rc = lib.nbody_symmetric_bf16x3(body.data_ptr(), n, tile, centers.data_ptr(),
+                                        near_diagonals(k, precision), out.data_ptr(),
+                                        compensate * compensate, eps2, stream)
+        symmetric_acc_bf16x3.launches += 1
+    cuda_build.check(rc, "symmetric_bf16x3_kernel")
     return out
+
+
+def _check_args(name: str, n: int, tile: int, precision: str, allowed) -> None:
+    if n % tile:
+        raise ValueError(f"{name}: N={n} must be a multiple of tile={tile}")
+    if precision not in allowed:
+        raise ValueError(f"unknown precision {precision!r}")
+
+
+def symmetric_acc_bf16x3(
+    pos: torch.Tensor,
+    mass: torch.Tensor,
+    *,
+    eps2: float,
+    compensate: float = 0.1,
+    G: float = 1.0,
+    tile: int = DEFAULT_TILE,
+    precision: str = "bf16x3",
+) -> torch.Tensor:
+    """acc (N, 3) in the ``"bf16x3"`` or ``"mixed"`` mode: on a CUDA tensor
+    ``symmetric_bf16x3_kernel``, whose reaction runs on the tensor cores
+    (``tile`` a multiple of 64 up to 2,048); on a CPU tensor the plain twin.
+
+    ``symmetric_acc_bf16x3.launches`` counts the kernel's launches.
+    """
+    _check_args("symmetric_acc_bf16x3", pos.shape[0], tile, precision, PRECISIONS[1:])
+    kw = dict(eps2=eps2, compensate=compensate, G=G, tile=tile, precision=precision)
+    if pos.device.type == "cuda":
+        return _launch_bf16x3(pos, mass, **kw)
+    if pos.device.type == "cpu":
+        return symmetric_acc_plain(pos, mass, **kw)
+    raise ValueError(f"symmetric_acc_bf16x3: no kernel for device {pos.device}")
+
+
+symmetric_acc_bf16x3.launches = 0
 
 
 def symmetric_acc(
@@ -107,21 +259,16 @@ def symmetric_acc(
     """acc (N, 3): every unordered pair evaluated once (Newton's 3rd law).
 
     N must be a multiple of ``tile`` (the padding contract shared with the
-    JAX package). The CPU version tiles by ``tile``; the CUDA kernel tiles
-    by :data:`KERNEL_TILE`, so on the card N must also divide by that.
+    JAX package). ``"f32"`` on the card runs the f32 kernel, which tiles by
+    :data:`KERNEL_TILE` and pads to it; the fast modes go to
+    :func:`symmetric_acc_bf16x3`.
 
-    ``symmetric_acc.launches`` counts the kernel's launches.
+    ``symmetric_acc.launches`` counts the f32 kernel's launches.
     """
-    n = pos.shape[0]
-    if n % tile:
-        raise ValueError(f"symmetric_acc: N={n} must be a multiple of tile={tile}")
-    if precision not in PRECISIONS:
-        raise ValueError(f"unknown precision {precision!r}")
-    if precision != "f32":
-        raise NotImplementedError(
-            f"symmetric_acc precision {precision!r} is not ported yet "
-            "(ROADMAP §2: bf16x3/mixed modes of the symmetric kernel)")
+    _check_args("symmetric_acc", pos.shape[0], tile, precision, PRECISIONS)
     kw = dict(eps2=eps2, compensate=compensate, G=G)
+    if precision != "f32":
+        return symmetric_acc_bf16x3(pos, mass, tile=tile, precision=precision, **kw)
     if pos.device.type == "cuda":
         return _launch(pos, mass, **kw)
     if pos.device.type == "cpu":

@@ -14,7 +14,8 @@ from typing import Callable
 import torch
 
 from n_body_problem_tpu_torch.config import SimConfig, resolve_vip_tiles
-from n_body_problem_tpu_torch.ops import cuda_force, cuda_symmetric, forces, treecode
+from n_body_problem_tpu_torch.ops import (cuda_force, cuda_symmetric, forces, pair_matrix,
+                                          treecode)
 
 ForceFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 
@@ -24,20 +25,10 @@ ForceFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 # have H100 times across N.
 SYMMETRIC_RESIDENT_CAP = 262_144
 
-_NOT_PORTED = {
-    "pair_matrix": "ROADMAP §1 item 5 (pair_matrix foil)",
-}
-
 
 def resolve_solver(solver: str, device_type: str = "cpu",
                    n: int | None = None) -> str:
-    """Resolve ``"auto"`` to a concrete solver name for ``device_type``.
-
-    Raises NotImplementedError for a solver this package does not have yet.
-    """
-    if solver in _NOT_PORTED:
-        raise NotImplementedError(
-            f"solver {solver!r} is not ported yet: {_NOT_PORTED[solver]}")
+    """Resolve ``"auto"`` to a concrete solver name for ``device_type``."""
     if solver != "auto":
         return solver
     if device_type != "cuda":
@@ -75,6 +66,8 @@ def make_force_fn(cfg: SimConfig, device_type: str = "cpu",
             precision=cfg.pallas_sym_precision, **kw)
     if solver == "treecode":
         return _treecode_force(cfg, n)
+    if solver == "pair_matrix":
+        return lambda pos, mass: pair_matrix.pair_matrix_acc(pos, mass, **kw)
     raise ValueError(f"unknown solver {solver!r}")
 
 

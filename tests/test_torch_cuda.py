@@ -60,11 +60,15 @@ def test_symmetric_kernel_matches_plain(cuda, n, n_real):
 
 def test_wrappers_count_launches(cuda):
     pos, mass = _bodies(256, 256, 4, cuda)
-    a0, s0 = cuda_force.block_acc.launches, cuda_symmetric.symmetric_acc.launches
+    fns = (cuda_force.block_acc, cuda_symmetric.symmetric_acc,
+           cuda_symmetric.symmetric_acc_bf16x3)
+    before = [f.launches for f in fns]
     cuda_force.allpairs_acc(pos, mass, tile_i=128, tile_j=128, **PHYS)
     cuda_symmetric.symmetric_acc(pos, mass, tile=128, **PHYS)
+    cuda_symmetric.symmetric_acc(pos, mass, tile=128, precision="mixed", **PHYS)
+    cuda_symmetric.symmetric_acc(pos, mass, tile=128, precision="bf16x3", **PHYS)
     torch.cuda.synchronize()
-    assert (cuda_force.block_acc.launches - a0, cuda_symmetric.symmetric_acc.launches - s0) == (1, 1)
+    assert [f.launches - b for f, b in zip(fns, before)] == [1, 1, 2]
 
 
 def test_kernel_wrappers_reject_what_the_kernels_do_not_take(cuda):
@@ -73,18 +77,56 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take(cuda):
         cuda_force.allpairs_acc(pos.double(), mass.double(), tile_i=128, tile_j=128, **PHYS)
     with pytest.raises(ValueError):
         cuda_force.block_acc(pos, pos, mass.cpu(), tile_i=128, tile_j=128, **PHYS)
-    p64, m64 = _bodies(192, 192, 6, cuda)
-    with pytest.raises(ValueError, match="128"):
-        cuda_symmetric.symmetric_acc(p64, m64, tile=64, **PHYS)
+    p32, m32 = _bodies(192, 192, 6, cuda)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        cuda_symmetric.symmetric_acc(p32, m32, tile=32, precision="bf16x3", **PHYS)
+
+
+def test_symmetric_kernel_pads_to_its_tile(cuda):
+    """N = 448 with tile 64 runs in the JAX package; the f32 kernel tiles by
+    128, so its wrapper pads with zero-mass bodies and slices back."""
+    pos, mass = _bodies(448, 448, 8, cuda)
+    got = cuda_symmetric.symmetric_acc(pos, mass, tile=64, **PHYS)
+    assert got.shape == (448, 3)
+    torch.testing.assert_close(got, cuda_symmetric.symmetric_acc_plain(pos, mass, tile=64, **PHYS),
+                               **TOL)
+
+
+# (N, real N, tile): even K = 8, odd K = 7, and padding at the production
+# tile (K = 2: "mixed" runs no fast diagonal there).
+FAST_SIZES = [(512, 512, 64), (448, 448, 64), (1024, 934, 512)]
+
+
+@pytest.mark.parametrize("precision", ["bf16x3", "mixed"])
+@pytest.mark.parametrize("n,n_real,tile", FAST_SIZES)
+def test_bf16x3_kernel_matches_plain(cuda, n, n_real, tile, precision):
+    """The tensor-core kernel against its twin: their distance at most 0.3
+    of the twin's distance from the f32 twin (a faithful kernel differs by
+    float32 summation order; a wrong role or centre by the whole fast-mode
+    error). With K <= 3 "mixed" is the f32 mode and matches it within
+    rtol=1e-4, atol=2e-6."""
+    pos, mass = _bodies(n, n_real, 9, cuda)
+    kw = dict(tile=tile, **PHYS)
+    got = cuda_symmetric.symmetric_acc(pos, mass, precision=precision, **kw)
+    want = cuda_symmetric.symmetric_acc_plain(pos, mass, precision=precision, **kw)
+    f32 = cuda_symmetric.symmetric_acc_plain(pos, mass, **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    if precision == "mixed" and n // tile <= 3:
+        torch.testing.assert_close(got, f32, **TOL)
+    else:
+        assert float((got - want).norm() / (want - f32).norm()) <= 0.3
 
 
 def test_simulation_on_card_matches_cpu(cuda):
     # Same bodies and steps; the card's sums run in another order (and with
-    # atomics for the symmetric kernel), so positions agree to float32
+    # atomics for the symmetric kernels), so positions agree to float32
     # rounding grown over 5 steps.
-    for solver in ("pallas", "pallas_symmetric"):
+    for solver, precision in (("pallas", "f32"), ("pallas_symmetric", "f32"),
+                              ("pallas_symmetric", "bf16x3"), ("pallas_symmetric", "mixed"),
+                              ("pair_matrix", "f32")):
         cfg = tnb.SimConfig(solver=solver, pallas_tile_i=128, pallas_tile_j=128,
-                            pallas_sym_tile=128)
+                            pallas_sym_tile=128, pallas_sym_precision=precision)
         gpu = tnb.Simulation(cfg, tnb.models.plummer(500, seed=7), device=cuda)
         cpu = tnb.Simulation(cfg, tnb.models.plummer(500, seed=7), device="cpu")
         gpu.run(5)

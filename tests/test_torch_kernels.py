@@ -6,6 +6,8 @@ own tests do. The CUDA kernels themselves are compared with these plain
 versions on the card by ``chip_smoke.py``.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -19,7 +21,7 @@ from n_body_problem_tpu_torch.ops import cuda_build, cuda_force, cuda_symmetric
 EPS2 = 1e-6
 C = 0.1
 SOURCES = ["allpairs.cu", "far_hier.cu", "far_single.cu", "gather.cu", "near.cu",
-           "near_panel.cu", "symmetric.cu", "vip.cu"]
+           "near_panel.cu", "symmetric.cu", "symmetric_bf16x3.cu", "vip.cu"]
 
 
 def _pair(jstate):
@@ -112,14 +114,104 @@ def test_misaligned_n_raises(kernel):
             cuda_symmetric.symmetric_acc(state.pos, state.mass, eps2=EPS2, tile=64)
 
 
-def test_fast_math_precisions_not_ported():
+def test_unknown_precision_raises():
     state = tnb.pad_state(tnb.models.plummer(60, seed=0), multiple=64)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cuda_symmetric.symmetric_acc(state.pos, state.mass, eps2=EPS2, tile=64,
-                                     precision="bf16x3")
+    for fn in (cuda_symmetric.symmetric_acc, cuda_symmetric.symmetric_acc_bf16x3):
+        with pytest.raises(ValueError):
+            fn(state.pos, state.mass, eps2=EPS2, tile=64, precision="f16")
     with pytest.raises(ValueError):
+        cuda_symmetric.symmetric_acc_bf16x3(state.pos, state.mass, eps2=EPS2, tile=64,
+                                            precision="f32")
+
+
+def _rel_err(got, want):
+    """Per-body relative force difference (tests/test_pallas_symmetric.py:48-51)."""
+    return np.linalg.norm(got - want, axis=1) / np.maximum(np.linalg.norm(want, axis=1), 1e-12)
+
+
+@functools.lru_cache(maxsize=None)
+def _fast_case(n_real, multiple, tile, precision):
+    """(n_real, port, jax) forces of one mode on Plummer seed 7; the JAX side
+    in interpret mode, as tests/test_pallas_symmetric.py runs it."""
+    (p, m), (tp, tm) = _pair(jnb.pad_state(jnb.models.plummer(n_real, seed=7), multiple=multiple))
+    want = np.asarray(jax_symmetric_acc(p, m, eps2=EPS2, compensate=C, tile=tile,
+                                        precision=precision))
+    got = cuda_symmetric.symmetric_acc(tp, tm, eps2=EPS2, compensate=C,
+                                       tile=tile, precision=precision)
+    return got.numpy(), want
+
+
+FAST_SHAPES = [
+    (512, 64, 64),     # even K = 8, the JAX envelope test's shape
+    (448, 64, 64),     # odd K = 7
+    (450, 512, 64),    # padding bodies in the last tile
+    (64, 64, 64),      # K = 1: "mixed" is the f32 mode
+    (4096, 512, 512),  # the production tile and its centring
+]
+
+
+@pytest.mark.parametrize("precision", ["bf16x3", "mixed"])
+@pytest.mark.parametrize("n_real,multiple,tile", FAST_SHAPES)
+def test_fast_modes_match_jax(n_real, multiple, tile, precision):
+    """The port's bf16x3 and mixed modes against the JAX package's.
+
+    A faithful port differs from JAX by float32 summation order only: per
+    body p99 <= 1.5e-5 and median <= 4e-7, and its distance from JAX at most
+    0.3 of JAX's own distance from its f32 mode. Assigning a pair's action
+    and reaction by the wrong tile, or centring the panel on the wrong
+    point, stays inside the JAX envelopes but gives a ratio of 1 to 4.5.
+    With K <= 3 tiles "mixed" runs no fast diagonal: there it is the f32
+    mode, within rtol 1e-4, atol 2e-6 (the f32 kernel's bound)."""
+    got, want = _fast_case(n_real, multiple, tile, precision)
+    err = _rel_err(got, want)[:n_real]
+    assert np.percentile(err, 99) <= 1.5e-5
+    assert np.median(err) <= 4e-7
+    jax_f32 = _fast_case(n_real, multiple, tile, "f32")[1]
+    if precision == "mixed" and got.shape[0] // tile <= 3:
+        np.testing.assert_allclose(got, jax_f32, rtol=1e-4, atol=2e-6)
+    else:
+        ratio = np.linalg.norm(got - want) / np.linalg.norm(want - jax_f32)
+        assert ratio <= 0.3, ratio
+
+
+@pytest.mark.parametrize("precision,p99_bound,median_bound",
+                         [("bf16x3", 3e-2, 4e-3), ("mixed", 5e-3, 5e-4)])
+def test_fast_modes_stay_in_the_jax_envelopes(precision, p99_bound, median_bound):
+    """tests/test_pallas_symmetric.py:54-91 for the port: the fast modes
+    against the direct sum, 512 bodies, tile 64."""
+    state = tnb.models.plummer(512, seed=7)
+    want = tnb.ops.direct_acc(state.pos, state.mass, eps2=EPS2, compensate=C).numpy()
+    got = cuda_symmetric.symmetric_acc(state.pos, state.mass, eps2=EPS2, compensate=C,
+                                       tile=64, precision=precision).numpy()
+    err = _rel_err(got, want)
+    assert np.percentile(err, 99) < p99_bound
+    assert np.median(err) < median_bound
+    assert not np.array_equal(got, cuda_symmetric.symmetric_acc(
+        state.pos, state.mass, eps2=EPS2, compensate=C, tile=64).numpy())
+
+
+@pytest.mark.parametrize("seed", [7, 11])
+def test_mixed_tighter_than_bf16x3(seed):
+    """tests/test_pallas_symmetric.py:94-106: exact f32 near diagonals make
+    "mixed" at least as accurate as "bf16x3"."""
+    state = tnb.models.plummer(512, seed=seed)
+    want = tnb.ops.direct_acc(state.pos, state.mass, eps2=EPS2, compensate=C).numpy()
+    p99 = {}
+    for precision in ("bf16x3", "mixed"):
+        got = cuda_symmetric.symmetric_acc(state.pos, state.mass, eps2=EPS2, compensate=C,
+                                           tile=64, precision=precision).numpy()
+        p99[precision] = np.percentile(_rel_err(got, want), 99)
+    assert p99["mixed"] <= p99["bf16x3"]
+
+
+def test_fast_mode_cpu_tensors_launch_no_kernel():
+    state = tnb.pad_state(tnb.models.plummer(100, seed=0), multiple=64)
+    before = (cuda_symmetric.symmetric_acc.launches, cuda_symmetric.symmetric_acc_bf16x3.launches)
+    for precision in ("bf16x3", "mixed"):
         cuda_symmetric.symmetric_acc(state.pos, state.mass, eps2=EPS2, tile=64,
-                                     precision="f16")
+                                     precision=precision)
+    assert (cuda_symmetric.symmetric_acc.launches,
+            cuda_symmetric.symmetric_acc_bf16x3.launches) == before == (0, 0)
 
 
 def test_kernel_argument_checks():

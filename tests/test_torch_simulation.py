@@ -52,11 +52,48 @@ def test_auto_rule_on_cuda():
     assert resolve_solver("direct", "cuda", 10) == "direct"
 
 
-@pytest.mark.parametrize("solver", ["pair_matrix"])
-def test_unported_solvers_name_the_roadmap(solver):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tnb.Simulation(tnb.SimConfig(solver=solver), tnb.models.plummer(64, seed=0),
-                       device="cpu")
+@pytest.mark.parametrize("integrator", ["semi_implicit_euler", "leapfrog"])
+@pytest.mark.parametrize("precision", ["bf16x3", "mixed"])
+def test_fast_math_simulation_matches_jax(precision, integrator):
+    """The symmetric solver's fast modes through Simulation, 448 bodies
+    (odd K = 7 at tile 64), 4 steps. rtol=1e-4, atol=1e-5 as for the exact
+    solvers: the forces differ from JAX's by float32 summation order."""
+    cfg = dict(solver="pallas_symmetric", pallas_sym_tile=64, pallas_sym_precision=precision,
+               integrator=integrator)
+    js = jnb.Simulation(jnb.SimConfig(**cfg), jnb.models.plummer(448, seed=2))
+    ts = tnb.Simulation(tnb.SimConfig(**cfg), tnb.models.plummer(448, seed=2), device="cpu")
+    assert ts.state.n == js.state.n == 448
+    js.run(4)
+    ts.run(4)
+    np.testing.assert_allclose(ts.state.pos.numpy(), np.asarray(js.state.pos),
+                               rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(ts.state.vel.numpy(), np.asarray(js.state.vel),
+                               rtol=1e-4, atol=1e-5)
+
+
+def test_pair_matrix_simulation_matches_jax():
+    """The Method A foil through Simulation: no padding, 10 steps, the same
+    tolerances as the exact solvers."""
+    js = jnb.Simulation(jnb.SimConfig(solver="pair_matrix"), jnb.models.plummer(300, seed=1))
+    ts = tnb.Simulation(tnb.SimConfig(solver="pair_matrix"), tnb.models.plummer(300, seed=1),
+                        device="cpu")
+    assert ts.solver == "pair_matrix" and ts.state.n == js.state.n == 300
+    js.run(10)
+    ts.run(10)
+    np.testing.assert_allclose(ts.state.pos.numpy(), np.asarray(js.state.pos),
+                               rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(ts.state.vel.numpy(), np.asarray(js.state.vel),
+                               rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("solver", [s for s in tnb.config.SOLVERS if s != "auto"])
+def test_every_solver_runs(solver):
+    """No solver of the JAX package's SimConfig is refused by the port."""
+    sim = tnb.Simulation(tnb.SimConfig(solver=solver, tree_vip_tiles=0, **TILES),
+                         tnb.models.plummer(60, seed=0), device="cpu")
+    sim.run(1)
+    assert sim.solver == solver
+    assert bool(torch.isfinite(sim.state.pos).all())
 
 
 def test_simulation_runs_on_the_gpu_unless_asked_for_the_cpu(monkeypatch):
