@@ -11,10 +11,13 @@ is non-zero:
 2. build: compiles the kernels from ``n_body_problem_tpu_torch/csrc``.
 3. exact kernels: the all-pairs and symmetric kernels against their plain
    PyTorch versions at N = 128, 896 (odd tile count), 1,024 (90 padding
-   bodies) and 65,536, within rtol=1e-4, atol=2e-6; the all-pairs kernel
-   also in block form and for bitwise repeatability; the symmetric kernel
-   for momentum, and at N = 448 with tile 64 (its wrapper pads to 128).
-   Times both at N = 65,536. Then the bf16x3/mixed kernel against its twin
+   bodies) and 65,536, and at K = 1, 3 and 5 (odd, 60 padding bodies) of the
+   symmetric kernel's own 512-body tile (N = 512, 1,536, 2,560; 1,024 is
+   K = 2), within rtol=1e-4, atol=2e-6; the all-pairs kernel also in block
+   form and for bitwise repeatability; the symmetric kernel for momentum
+   (|sum m a| < 1e-6, < 1e-7 at 65,536), and at N = 448 with tile 64 (its
+   wrapper pads to 512). Times both at N = 65,536, and once each at 262,144,
+   where the two must agree within 1e-4 a body. Then the bf16x3/mixed kernel against its twin
    in both modes at N = 512 and 448 (tile 64), 1,024 (934 real, tile 512)
    and 65,536 (tile 512): |kernel - twin| / |twin - f32 twin| <= 0.3 and a
    per-body p99 <= 1.5e-5 ("mixed" with K <= 3 tiles is the f32 mode and
@@ -30,10 +33,13 @@ is non-zero:
    single-level far, VIP) at 20,480 and 65,536 with ``tree_hier=False`` and
    at 2,560; the dense path (gather, near-panel, single-level far, VIP) at
    1,024 (every tile near, so no far field) and at 20,480 with
-   ``tree_flat_cap=-1``. Within rtol=1e-4, atol=2e-6 on the raw outputs,
-   the gather exactly; each launch repeated for bitwise equality. Times
-   each kernel at the largest shape of its path, beside its plain version,
-   its bound and (the gather) one ``index_select`` call.
+   ``tree_flat_cap=-1``; and the near kernel's other block splits, target
+   rows of 64 and 256 bodies at 65,536 (``tree_tile``). Within rtol=1e-4,
+   atol=2e-6 on the raw outputs, the gather exactly; each launch repeated
+   for bitwise equality. Times each kernel at the largest shape of its
+   path, beside its plain version, its bound and (the gather) one
+   ``index_select`` call; the near kernel at every row size, with the
+   largest and the mean number of chunks a row.
 5. exact main path: ``Simulation(SimConfig(), plummer(65536))`` (the
    symmetric kernel), ``solver="pallas"`` (the all-pairs kernel), leapfrog,
    and ``pallas_sym_precision="bf16x3"`` and ``"mixed"`` (the tensor-core
@@ -61,7 +67,9 @@ is non-zero:
    --tree-tuned``, in subprocesses.
 
 The last three lines of standard output are the kernels' JSON record, the
-card's name and power limit, and ``{"ok": true, "device": {...}}``.
+card's name and power limit, and ``{"ok": true, "device": {...}}``. The
+records of the symmetric and the near kernel also carry ``issue_floor_ms``
+(``kernel_compare.issue_floor_ms`` at the SM clock of this run).
 """
 
 from __future__ import annotations
@@ -74,21 +82,27 @@ import subprocess
 import sys
 import time
 
+from n_body_problem_tpu_torch.kernel_compare import (PAIR_BOTH_FLOPS, PAIR_BOTH_SLOTS, PAIR_FLOPS,
+                                                      PAIR_SLOTS, PEAK_FLOPS, PHYS, issue_floor_ms,
+                                                      near_work, sm_clock_mhz)
+
 ROOT = pathlib.Path(__file__).resolve().parent
 TOL = dict(rtol=1e-4, atol=2e-6)
-PHYS = dict(eps2=1e-6, compensate=0.1, G=1.0)
 # (padded N, real N): one tile, odd tile count, padding bodies, full size.
-SIZES = ((128, 128), (896, 896), (1024, 934), (65536, 65536))
-N_MAIN = 65536
+SIZES = ((128, 128), (896, 896), (1024, 934), (65536, 65536),
+         (512, 512), (1536, 1536), (2560, 2500))
+N_MAIN, N_LARGE = 65536, 262144
 PRIME_STEPS, TIMED_STEPS = 5, 20
 TREE_PRIME, TREE_TIMED = 8, 64
 ERR_P99, ERR_MEDIAN = 2.5e-3, 5e-4   # tests/test_treecode_hier.py:126-127
 TREE_KERNELS = ("near", "far", "vip", "far_single", "gather", "near_panel")
 # FP32 operations a kernel does per interaction, an FMA counted as two and an
-# rsqrt as one: a body pair one way (near kernels), a pair both ways (VIP
-# sweep, symmetric kernel), a body against a node's monopole + quadrupole.
-PAIR_FLOPS, PAIR_BOTH_FLOPS, NODE_FLOPS = 20, 27, 56
-PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12   # H100 SXM FP32 non-tensor, HBM3
+# rsqrt as one: a body against a node's monopole + quadrupole; a body pair
+# one way (near kernels) and both ways (VIP sweep, symmetric kernel) are
+# ``kernel_compare``'s PAIR_FLOPS and PAIR_BOTH_FLOPS, beside its FP32 peak
+# and the physics of every check (PHYS).
+NODE_FLOPS = 56
+PEAK_BYTES = 3.35e12   # H100 SXM, HBM3
 # The fast symmetric modes: a pair's FP32 work one way plus the reaction
 # weight, and the three bf16 passes of the [x y z 1] panel product on the
 # tensor cores (3 passes x 4 components x 2 operations).
@@ -145,12 +159,14 @@ def compare_kernels(device, sizes=SIZES, time_at: int | None = N_MAIN) -> dict:
     from n_body_problem_tpu_torch.ops import cuda_force, cuda_symmetric
     from n_body_problem_tpu_torch.treecode_profile import time_ms
 
-    tile = cuda_symmetric.KERNEL_TILE
+    tiles = dict(tile_i=128, tile_j=128)
     res = {"allpairs": {"max_abs_err": 0.0}, "symmetric": {"max_abs_err": 0.0}}
     for n, n_real in sizes:
         s = cloud(n, n_real, seed=n, device=device)
         pos, mass = s.pos, s.mass
-        tiles = dict(tile_i=tile, tile_j=tile)
+        # The twin's tile (any divisor of N: the f32 sum is the same up to
+        # rounding); the kernel tiles by 512 whatever the caller names.
+        tile = cuda_symmetric.KERNEL_TILE if n % cuda_symmetric.KERNEL_TILE == 0 else 128
         a = cuda_force.block_acc(pos, pos, mass, **tiles, **PHYS)
         ea = agree(res, "allpairs", f"allpairs N={n}", a,
                    cuda_force.block_acc_plain(pos, pos, mass, **PHYS))
@@ -164,11 +180,13 @@ def compare_kernels(device, sizes=SIZES, time_at: int | None = N_MAIN) -> dict:
         es = agree(res, "symmetric", f"symmetric N={n}", b,
                    cuda_symmetric.symmetric_acc_plain(pos, mass, tile=tile, **PHYS))
         net = float((mass[:, None] * b).sum(0).abs().max())
-        check(net < 1e-6, f"symmetric N={n}: |sum m a| = {net:.3e} >= 1e-6")
+        limit = 1e-7 if n == N_MAIN else 1e-6
+        check(net < limit, f"symmetric N={n}: |sum m a| = {net:.3e} >= {limit}")
         torch.cuda.synchronize(device)  # a fault in the run shows here
         print(f"kernels: N={n} (real {n_real}) allpairs err {ea:.3e} "
-              f"block(384x{n}) err {eb:.3e} bitwise-repeatable; symmetric err "
-              f"{es:.3e} |sum m a| {net:.3e}", flush=True)
+              f"block(384x{n}) err {eb:.3e} bitwise-repeatable; symmetric "
+              f"(K={-(-n // cuda_symmetric.KERNEL_TILE)}) err {es:.3e} |sum m a| {net:.3e}",
+              flush=True)
 
         if n == time_at:
             res["allpairs"]["ms"] = time_ms(
@@ -184,14 +202,34 @@ def compare_kernels(device, sizes=SIZES, time_at: int | None = N_MAIN) -> dict:
             # written once; the symmetric kernel takes each pair once.
             nbytes = n * 16 + n * 12
             res["allpairs"].update(library_ms=None, **bound(PAIR_FLOPS * n * n, nbytes))
-            res["symmetric"].update(library_ms=None,
-                                    **bound(PAIR_BOTH_FLOPS * n * (n - 1) // 2, nbytes))
+            clock = sm_clock_mhz()
+            res["symmetric"].update(
+                library_ms=None, **bound(PAIR_BOTH_FLOPS * n * (n - 1) // 2, nbytes),
+                issue_floor_ms=issue_floor_ms(n * (n - 1) / 2, PAIR_BOTH_SLOTS, clock))
             print("kernels: times at N={} (ms/call) allpairs {:.4f} vs plain {:.4f}; "
-                  "symmetric {:.4f} vs plain {:.4f}".format(
+                  "symmetric {:.4f} vs plain {:.4f}, bound {:.4f}, issue floor {:.4f} at "
+                  "{:.0f} MHz".format(
                       n, res["allpairs"]["ms"], res["allpairs"]["plain_ms"],
-                      res["symmetric"]["ms"], res["symmetric"]["plain_ms"]), flush=True)
+                      res["symmetric"]["ms"], res["symmetric"]["plain_ms"],
+                      res["symmetric"]["bound_ms"], res["symmetric"]["issue_floor_ms"],
+                      clock), flush=True)
+    if time_at is not None:
+        # The largest size `auto` gives the symmetric kernel: once each,
+        # beside the all-pairs kernel, which has to agree with it.
+        s = cloud(N_LARGE, N_LARGE, seed=N_LARGE, device=device)
+        ap = lambda: cuda_force.block_acc(s.pos, s.pos, s.mass, **tiles, **PHYS)  # noqa: E731
+        sy = lambda: cuda_symmetric.symmetric_acc(s.pos, s.mass, **PHYS)  # noqa: E731
+        diff = float(rel_err(sy(), ap(), N_LARGE).max())
+        check(diff < 1e-4, f"symmetric N={N_LARGE}: {diff:.3e} a body from the all-pairs kernel")
+        res["symmetric"]["ms_262144"] = time_ms(sy, 1)
+        res["allpairs"]["ms_262144"] = time_ms(ap, 1)
+        print(f"kernels: N={N_LARGE} symmetric {res['symmetric']['ms_262144']:.4f} ms, allpairs "
+              f"{res['allpairs']['ms_262144']:.4f} ms, largest difference a body {diff:.3e}",
+              flush=True)
+        del s
+        torch.cuda.empty_cache()
     # N = 448 with tile 64: the JAX package takes it; the f32 kernel's
-    # wrapper pads to its 128-body tile with zero-mass bodies.
+    # wrapper pads to its 512-body tile with zero-mass bodies.
     s = cloud(448, 448, seed=448, device=device)
     e = agree(res, "symmetric", "symmetric N=448 tile 64",
               cuda_symmetric.symmetric_acc(s.pos, s.mass, tile=64, **PHYS),
@@ -304,58 +342,6 @@ def compare_fast(device, sizes=FAST_SIZES, time_at: int | None = N_MAIN) -> dict
     return res
 
 
-def tree_inputs(n: int, device, seed: int = 0, **overrides) -> dict:
-    """The treecode kernels' arguments at the shapes the main path gives
-    them: a Plummer sphere through ``Simulation``'s sort, padding and
-    capacity planning, then the acceptance build of the path it takes.
-    ``kernels`` maps each kernel the path launches to ``(args, kw)``; the
-    near-panel kernel takes the plain gather's panels, so that its check
-    does not rest on the gather kernel."""
-    from n_body_problem_tpu_torch import SimConfig, Simulation, models
-    from n_body_problem_tpu_torch.ops import cuda_treecode as ct
-    from n_body_problem_tpu_torch.ops import treecode
-    from n_body_problem_tpu_torch.ops.registry import tree_fns, tree_path
-
-    sim = Simulation(SimConfig(solver="treecode", **overrides),
-                     models.plummer(n, seed=seed), device=device)
-    cfg, s = sim.cfg, sim.state
-    path, tile, src = tree_path(cfg), cfg.tree_tile, cfg.tree_src_tile
-    aux = tree_fns(cfg)[0](s.pos, s.mass)
-    phys = dict(eps2=cfg.eps2, c2=cfg.compensate ** 2)
-    far_kw = dict(n=s.n, tile=tile, G=cfg.G, **phys)
-    if path == "dense":
-        k, max_near, vip = treecode._static_args(s.n, tile, cfg.tree_theta,
-                                                 cfg.tree_max_near, cfg.tree_vip_tiles)
-        ops = treecode.kernel_operands(s.pos, s.mass, aux[2], compensate=cfg.compensate,
-                                       G=cfg.G, src_tile=tile, vip_src=vip,
-                                       plan=(k,) if max_near < k else None)
-        b = ops["bodies"]
-        kernels = {"gather": ((b, aux[0]), dict(tile=tile)),
-                   "near_panel": ((b, ct.gather_panels_plain(b, aux[0], tile=tile)),
-                                  dict(tile=tile, **phys))}
-        if max_near < k:
-            kernels["far_single"] = ((b, ops["summ"], aux[1]), far_kw)
-    else:
-        hier = path == "hier"
-        st = (treecode._hier_static(s.n, tile, src, cfg.tree_theta, cfg.tree_max_near,
-                                    cfg.tree_vip_tiles, cfg.tree_far_max, treecode.HIER_BRANCH)
-              if hier else treecode._flat_static(s.n, tile, src, cfg.tree_theta,
-                                                 cfg.tree_max_near, cfg.tree_vip_tiles))
-        ops = treecode.kernel_operands(s.pos, s.mass, aux[-1], compensate=cfg.compensate,
-                                       G=cfg.G, src_tile=src, vip_src=st[4],
-                                       plan=st[5] if hier else (st[1],))
-        b = ops["bodies"]
-        kernels = {"near": ((b, aux[0], aux[1]),
-                            dict(n=s.n, tile=tile, src_tile=src, entries=st[2], **phys))}
-        if hier:
-            kernels["far"] = ((b, ops["summ"], aux[2], aux[3]), far_kw)
-        else:
-            kernels["far_single"] = ((b, ops["summ"], aux[2]), far_kw)
-    if ops["rows"] is not None:
-        kernels["vip"] = ((ops["rows"], ops["panel"]), phys)
-    return dict(n=s.n, cfg=cfg, path=path, ops=ops, aux=aux, kernels=kernels)
-
-
 def tree_kernel_cases():
     """(label, N, overrides): the shapes of every treecode run of phase 6,
     and a smaller one."""
@@ -363,10 +349,25 @@ def tree_kernel_cases():
 
     return (("8,192", 8192, {}), ("20,480 tuned", 20480, tuned_tree_overrides(20480)),
             ("65,536", 65536, {}), ("524,288", 524288, {}),
+            ("65,536 rows of 64", 65536, dict(tree_tile=64)),
+            ("65,536 rows of 256", 65536, dict(tree_tile=256)),
             ("20,480 flat", 20480, dict(tree_hier=False)),
             ("65,536 flat", 65536, dict(tree_hier=False)),
             ("2,560", 2560, {}), ("1,024", 1024, {}),
             ("20,480 dense", 20480, dict(tree_flat_cap=-1)))
+
+
+def time_near(kernel, args, kw) -> dict:
+    """The near kernel's time at one shape beside its bound, its issue floor
+    at this run's SM clock, and the largest and mean number of chunks a
+    target row has."""
+    from n_body_problem_tpu_torch.treecode_profile import time_ms
+
+    work = near_work(args, kw)
+    ms = time_ms(lambda: kernel(*args, **kw), 20)
+    return {"ms": ms, "bound_ms": tree_work("near", args, kw)["bound_ms"],
+            "issue_floor_ms": issue_floor_ms(work.pop("pairs"), PAIR_SLOTS, sm_clock_mhz()),
+            **work}
 
 
 def tree_work(key: str, args, kw) -> dict:
@@ -377,12 +378,7 @@ def tree_work(key: str, args, kw) -> dict:
 
     nbytes = sum(a.numel() * a.element_size() for a in args)
     if key == "near":
-        bodies, flat_src, chunk_tgt = args
-        n, e = kw["n"], kw["entries"]
-        ids = flat_src[:chunk_tgt.shape[0] * e].reshape(-1, e)
-        real = (ids != n // kw["src_tile"]) & (chunk_tgt < n // kw["tile"])[:, None]
-        return bound(PAIR_FLOPS * int(real.sum()) * kw["src_tile"] * kw["tile"],
-                     nbytes + n * 12)
+        return bound(PAIR_FLOPS * near_work(args, kw)["pairs"], nbytes + kw["n"] * 12)
     if key == "far":
         bodies, summ, far_src, far_tgt = args
         n = kw["n"]
@@ -426,7 +422,7 @@ def compare_tree_kernels(device, cases=None, time_at: dict | None = None) -> dic
     import torch
 
     from n_body_problem_tpu_torch.ops import cuda_treecode as ct
-    from n_body_problem_tpu_torch.treecode_profile import time_ms
+    from n_body_problem_tpu_torch.treecode_profile import kernel_inputs, time_ms
 
     fns = {"near": (ct.near_field, ct.near_field_plain),
            "far": (ct.far_field_hier, ct.far_field_hier_plain),
@@ -437,7 +433,7 @@ def compare_tree_kernels(device, cases=None, time_at: dict | None = None) -> dic
     time_at = TIME_AT if time_at is None else time_at
     res = {k: {"max_abs_err": 0.0} for k in TREE_KERNELS}
     for label, n, overrides in cases or tree_kernel_cases():
-        inp = tree_inputs(n, device, **overrides)
+        inp = kernel_inputs(n, device, **overrides)
         line = []
         for key, (args, kw) in inp["kernels"].items():
             kernel, plain = fns[key]
@@ -458,10 +454,13 @@ def compare_tree_kernels(device, cases=None, time_at: dict | None = None) -> dic
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
             line.append(f"{key} err {err:.3e}")
-            if key == "near" and inp["cfg"].tree_tile == 32 and device.type == "cuda":
-                line.append("near at tile 32 {:.4f} ms, bound {:.4f}".format(
-                    time_ms(lambda: kernel(*args, **kw), 20),
-                    tree_work(key, args, kw)["bound_ms"]))
+            if key == "near" and n == N_MAIN and device.type == "cuda":
+                t = time_near(kernel, args, kw)
+                res["near"].setdefault("by_rows", {})[f"{inp['path']} {kw['tile']}"] = t
+                line.append("near at rows of {} {:.4f} ms, bound {:.4f}, issue floor {:.4f}, "
+                            "chunks a row max {} mean {:.2f}".format(
+                                kw["tile"], t["ms"], t["bound_ms"], t["issue_floor_ms"],
+                                t["chunks_max"], t["chunks_mean"]))
             if time_at.get(key) == label:
                 res[key]["ms"] = time_ms(lambda: kernel(*args, **kw), 20)
                 res[key]["plain_ms"] = time_ms(lambda: plain(*args, **kw), 3)
@@ -471,6 +470,8 @@ def compare_tree_kernels(device, cases=None, time_at: dict | None = None) -> dic
                           f"gather N={label}: index_select != kernel")
                     res[key]["library_ms"] = time_ms(lambda: gather_library(*args, **kw), 20)
                 res[key].update(tree_work(key, args, kw))
+                if key == "near":
+                    res[key]["issue_floor_ms"] = res[key]["by_rows"]["hier 128"]["issue_floor_ms"]
         c, ops = inp["cfg"], inp["ops"]
         shapes = " ".join(f"{x.shape[0]}x{x.shape[1]}" if x.dim() > 1 else str(x.shape[0])
                           for x in inp["aux"][:-1])

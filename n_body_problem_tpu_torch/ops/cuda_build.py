@@ -33,6 +33,10 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 LIB_NAME = "libnbody_kernels.so"
 # The kernels index float triples and quads with 32-bit ints.
 MAX_BODIES = (1 << 31) // 4
+# The smallest normal float32. symmetric.cu and near.cu take the bare rsqrt
+# instruction (csrc/pairs.cuh), which flushes a denormal argument to zero:
+# c^2 |d|^2 + eps2 is normal for every pair only if eps2 is.
+MIN_EPS2 = 1.1754944e-38
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -46,9 +50,9 @@ _SIGNATURES = {
     "nbody_symmetric_acc": ((_P, _I, _P, _F, _F, _P), _I),
     # (body4, n, tile, centers4, near_s, out, c2, eps2, stream) -> cudaError_t
     "nbody_symmetric_bf16x3": ((_P, _I, _I, _P, _I, _P, _F, _F, _P), _I),
-    # (bodies4, n, tile, src_tile, entries, flat_src, chunk_tgt, n_chunks,
-    #  out, c2, eps2, stream) -> cudaError_t
-    "nbody_near_field": ((_P, _I, _I, _I, _I, _P, _P, _I, _P, _F, _F, _P), _I),
+    # (bodies4, n, tile, sub, src_tile, entries, parts, piece, flat_src,
+    #  chunk_tgt, n_chunks, out, c2, eps2, stream) -> cudaError_t
+    "nbody_near_field": ((_P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _I, _P, _F, _F, _P), _I),
     # (bodies4, n, tile, summ12, far_src, far_tgt, n_chunks, out, c2, eps2,
     #  gc, stream) -> cudaError_t
     "nbody_far_field": ((_P, _I, _I, _P, _P, _P, _I, _P, _F, _F, _F, _P), _I),
@@ -167,6 +171,12 @@ def require_f32(name: str, t: torch.Tensor, shape: tuple[int, ...],
         raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def require_normal_eps2(name: str, eps2: float) -> None:
+    """Raise unless the softening is a normal float32 (:data:`MIN_EPS2`)."""
+    if not eps2 >= MIN_EPS2:
+        raise ValueError(f"{name}: eps2={eps2} must be at least {MIN_EPS2} on the card")
 
 
 def check(rc: int, name: str) -> None:

@@ -24,9 +24,14 @@ bodies is contracted against the row tile's panel ``[x - c, y - c, z - c,
 lo*hi) summed in f32. ``"bf16x3"`` has ``near_s = -1``, ``"mixed"``
 ``min(1, K // 2)``; with K <= 3 tiles ``"mixed"`` is the f32 mode.
 
-The kernels add reactions with atomics, so the order of their sums, and
-their last bits, change from run to run: compare them by tolerance, never
-bitwise.
+The f32 kernel tiles by :data:`KERNEL_TILE` bodies whatever ``tile`` the
+caller names (the f32 sum does not depend on the tiling beyond rounding):
+a block takes one row tile on one diagonal, and :func:`symmetric_blocks`
+and :func:`block_tiles` say which, in the kernel's integer arithmetic.
+
+The kernels add their blocks' sums with atomics, so the order of the sums,
+and their last bits, change from run to run: compare them by tolerance,
+never bitwise.
 """
 
 from __future__ import annotations
@@ -36,7 +41,9 @@ import torch
 from n_body_problem_tpu_torch.ops import cuda_build
 
 DEFAULT_TILE = 512
-KERNEL_TILE = 128   # bodies per tile in csrc/symmetric.cu; the wrapper pads N to it
+# Bodies a tile in csrc/symmetric.cu: 128 threads of four row bodies each.
+# The wrapper pads N to it.
+KERNEL_TILE = 512
 PRECISIONS = ("f32", "bf16x3", "mixed")
 # csrc/symmetric_bf16x3.cu: four warps of 16-body row chunks, 80 bytes of
 # shared memory a body of the tile.
@@ -155,10 +162,39 @@ def symmetric_acc_plain(
     return acc.reshape(n, 3)
 
 
+def symmetric_blocks(k: int) -> int:
+    """Blocks of the f32 kernel's grid when N is ``k`` tiles: one for each
+    row tile on each of the ``k // 2 + 1`` diagonals."""
+    if k <= 0:
+        raise ValueError(f"symmetric_blocks: k={k} must be positive")
+    return k * (k // 2 + 1)
+
+
+def block_tiles(k: int, b: int) -> tuple[int, int, int] | None:
+    """``(i, s, j)``: the row tile, the diagonal and the column tile
+    ``j = (i + s) mod k`` of block ``b``; the kernel's integer arithmetic.
+    ``s = 0`` is the tile's strict upper triangle. For even ``k`` only the
+    rows ``i < k / 2`` take the last diagonal: the other blocks of that
+    diagonal do nothing (``None``)."""
+    i, s = b % k, b // k
+    if k % 2 == 0 and s == k // 2 and i >= s:
+        return None
+    return i, s, (i + s) % k
+
+
 def _bodies(pos, mass, *, compensate, G) -> torch.Tensor:
     """(N, 4) rows (x, y, z, G c^3 m), what both kernels read."""
     c2 = compensate * compensate
     return torch.cat([pos, (mass * (G * c2 * compensate))[:, None]], dim=1)
+
+
+def kernel_bodies(pos, mass, *, compensate, G) -> torch.Tensor:
+    """(N_pad, 4) rows the f32 kernel reads: :func:`_bodies` with N padded
+    to :data:`KERNEL_TILE` by zero-mass bodies at the origin, which add
+    exactly zero to every real body's force."""
+    body = _bodies(pos, mass, compensate=compensate, G=G)
+    pad = -body.shape[0] % KERNEL_TILE
+    return torch.cat([body, body.new_zeros((pad, 4))]) if pad else body
 
 
 def _launch(pos, mass, *, eps2, compensate, G) -> torch.Tensor:
@@ -166,14 +202,13 @@ def _launch(pos, mass, *, eps2, compensate, G) -> torch.Tensor:
     n = pos.shape[0]
     cuda_build.require_f32("pos", pos, (n, 3), dev)
     cuda_build.require_f32("mass", mass, (n,), dev)
-    # The kernel tiles by KERNEL_TILE: pad with zero-mass bodies at the
-    # origin, which add exactly zero to every real body's force.
-    n_pad = n + (-n % KERNEL_TILE)
+    cuda_build.require_normal_eps2("symmetric_acc", eps2)
+    if n == 0:
+        return pos.new_zeros((0, 3))
+    body = kernel_bodies(pos, mass, compensate=compensate, G=G)
+    n_pad = body.shape[0]
     if n_pad > cuda_build.MAX_BODIES:
         raise ValueError(f"symmetric_acc: at most {cuda_build.MAX_BODIES} bodies")
-    body = _bodies(pos, mass, compensate=compensate, G=G)
-    if n_pad != n:
-        body = torch.cat([body, body.new_zeros((n_pad - n, 4))])
     out = torch.zeros((n_pad, 3), dtype=torch.float32, device=dev)
     lib = cuda_build.load_library()
     with torch.cuda.device(dev):

@@ -38,7 +38,21 @@ import torch
 from n_body_problem_tpu_torch.ops import cuda_build
 
 FAR_ENTRIES = 64        # far-list node entries per chunk (csrc/far_hier.cu)
-NEAR_CHUNK_BODIES = 2048  # most source bodies a near chunk stages (csrc/near.cu)
+NEAR_CHUNK_BODIES = 2048  # most source bodies a near chunk holds (csrc/near.cu)
+# The near kernel's block: at most NEAR_TARGETS bodies of a target row times
+# as many parts as bring it to NEAR_BLOCK threads; it stages about
+# NEAR_PIECE_BODIES source bodies at a time, twice (near_split). The largest
+# block and a whole chunk a stage were the fastest on an NVIDIA H100 80GB
+# HBM3 at 700.00 W: at 65,536 bodies and whole 128-body rows 1.48 / 0.98 /
+# 0.87 ms for blocks of 128 / 256 / 512 threads and stages of 512 bodies,
+# 0.81 ms for 512 threads and 2,048 bodies, 0.77 for 1,024 and 2,048. Rows
+# cut into blocks of 64 targets balance better where rows are few: 0.69 ms
+# there and 0.121 against 0.139 on the tuned 20,480 lists. At 524,288, where
+# rows are many and each chunk is then staged twice, they gain nothing: 6.18
+# ms either way, 6.05 at blocks of 128 targets (``kernel_compare --sweep``).
+NEAR_BLOCK = 1024
+NEAR_PIECE_BODIES = 2048
+NEAR_TARGETS = 64
 VIP_ROWS = 256          # row bodies per VIP sweep block (csrc/vip.cu)
 # Largest pair block a plain version materialises at once.
 _PLAIN_PAIRS = 1 << 22
@@ -51,8 +65,9 @@ def _live_chunks(tgt: torch.Tensor, k_t: int) -> int:
 
 def _check_block(tile: int) -> None:
     if tile % 32 or not 32 <= tile <= 1024:
-        raise ValueError(f"tile={tile}: the kernels run one thread a body, "
-                         "so the target row must be a multiple of 32 up to 1024")
+        raise ValueError(f"tile={tile}: the kernels run one thread a body (the near "
+                         "kernel several), so the target row must be a multiple of "
+                         "32 up to 1024")
 
 
 def _require_i32(name: str, t: torch.Tensor, device: torch.device) -> None:
@@ -90,6 +105,39 @@ def near_field_plain(bodies, flat_src, chunk_tgt, *, n: int, tile: int,
     return acc.reshape(n, 3)
 
 
+def near_split(tile: int, entries: int, src_tile: int | None = None) -> tuple[int, int, int]:
+    """``(sub, parts, piece)`` of the near kernel's block for target rows of
+    ``tile`` bodies and chunks of ``entries`` source tiles of ``src_tile``
+    bodies (a full chunk's when not given).
+
+    A block takes ``sub`` consecutive targets of one row (the largest
+    multiple of 32 that divides ``tile``, up to :data:`NEAR_TARGETS`, or up
+    to what fills the block where the entries are too few to) and is
+    ``sub * parts`` threads. A row's source entries, chunk after chunk, are
+    staged ``piece`` at a time; part ``p`` sums the entries ``p, p + parts,
+    ...`` of each piece for all ``sub`` targets. ``piece`` is a multiple of
+    ``parts`` and at most ``entries`` (a piece never exceeds a chunk's
+    bodies), about :data:`NEAR_PIECE_BODIES` bodies."""
+    if src_tile is None:
+        src_tile = NEAR_CHUNK_BODIES // entries
+    most = max(32, NEAR_TARGETS, NEAR_BLOCK // entries)
+    sub = max(s for s in range(32, most + 1, 32) if tile % s == 0)
+    parts = max(1, min(NEAR_BLOCK // sub, entries))
+    piece = parts * max(1, min(NEAR_PIECE_BODIES // (src_tile * parts), entries // parts))
+    return sub, parts, piece
+
+
+def near_parts(n_entries: int, parts: int, piece: int) -> list[list[int]]:
+    """The near kernel's split of a row's ``n_entries`` source entries (its
+    chunks' entries in order): for each part, the entries it sums, in its
+    order. Every entry lies in exactly one part."""
+    out: list[list[int]] = [[] for _ in range(parts)]
+    for e0 in range(0, n_entries, piece):
+        for p in range(parts):
+            out[p].extend(range(e0 + p, min(e0 + piece, n_entries), parts))
+    return out
+
+
 def near_field(bodies, flat_src, chunk_tgt, *, n: int, tile: int,
                src_tile: int, entries: int, eps2: float,
                c2: float) -> torch.Tensor:
@@ -108,6 +156,7 @@ def near_field(bodies, flat_src, chunk_tgt, *, n: int, tile: int,
         raise ValueError(f"near_field: a chunk of {entries} x {src_tile} bodies "
                          f"exceeds {NEAR_CHUNK_BODIES}")
     cuda_build.require_f32("bodies", bodies, (n + src_tile, 4), dev)
+    cuda_build.require_normal_eps2("near_field", eps2)
     _require_i32("flat_src", flat_src, dev)
     _require_i32("chunk_tgt", chunk_tgt, dev)
     n_chunks = chunk_tgt.shape[0]
@@ -116,10 +165,11 @@ def near_field(bodies, flat_src, chunk_tgt, *, n: int, tile: int,
     if n > cuda_build.MAX_BODIES or n % tile or n % src_tile:
         raise ValueError(f"near_field: N={n} must divide tile and src_tile")
     out = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    sub, parts, piece = near_split(tile, entries, src_tile)
     lib = cuda_build.load_library()
     with torch.cuda.device(dev):
-        rc = lib.nbody_near_field(bodies.data_ptr(), n, tile, src_tile, entries,
-                                  flat_src.data_ptr(), chunk_tgt.data_ptr(),
+        rc = lib.nbody_near_field(bodies.data_ptr(), n, tile, sub, src_tile, entries,
+                                  parts, piece, flat_src.data_ptr(), chunk_tgt.data_ptr(),
                                   n_chunks, out.data_ptr(), c2, eps2, _stream(dev))
         near_field.launches += 1
     cuda_build.check(rc, "near_field_kernel")

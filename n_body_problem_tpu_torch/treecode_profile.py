@@ -84,6 +84,58 @@ def force_error(tree, pos, mass, n_real: int, cfg,
     return float(torch.quantile(err, 0.99)), float(err.median())
 
 
+def kernel_inputs(n: int, device, seed: int = 0, **overrides) -> dict:
+    """The treecode kernels' arguments at the shapes the main path gives
+    them: a Plummer sphere through ``Simulation``'s sort, padding and
+    capacity planning, then the acceptance build of the path it takes.
+    ``kernels`` maps each kernel the path launches to ``(args, kw)``; the
+    near-panel kernel takes the plain gather's panels, so that its check
+    does not rest on the gather kernel."""
+    from n_body_problem_tpu_torch import SimConfig, Simulation, models
+    from n_body_problem_tpu_torch.ops import cuda_treecode as ct
+    from n_body_problem_tpu_torch.ops import treecode
+    from n_body_problem_tpu_torch.ops.registry import tree_fns, tree_path
+
+    sim = Simulation(SimConfig(solver="treecode", **overrides),
+                     models.plummer(n, seed=seed), device=device)
+    cfg, s = sim.cfg, sim.state
+    path, tile, src = tree_path(cfg), cfg.tree_tile, cfg.tree_src_tile
+    aux = tree_fns(cfg)[0](s.pos, s.mass)
+    phys = dict(eps2=cfg.eps2, c2=cfg.compensate ** 2)
+    far_kw = dict(n=s.n, tile=tile, G=cfg.G, **phys)
+    if path == "dense":
+        k, max_near, vip = treecode._static_args(s.n, tile, cfg.tree_theta,
+                                                 cfg.tree_max_near, cfg.tree_vip_tiles)
+        ops = treecode.kernel_operands(s.pos, s.mass, aux[2], compensate=cfg.compensate,
+                                       G=cfg.G, src_tile=tile, vip_src=vip,
+                                       plan=(k,) if max_near < k else None)
+        b = ops["bodies"]
+        kernels = {"gather": ((b, aux[0]), dict(tile=tile)),
+                   "near_panel": ((b, ct.gather_panels_plain(b, aux[0], tile=tile)),
+                                  dict(tile=tile, **phys))}
+        if max_near < k:
+            kernels["far_single"] = ((b, ops["summ"], aux[1]), far_kw)
+    else:
+        hier = path == "hier"
+        st = (treecode._hier_static(s.n, tile, src, cfg.tree_theta, cfg.tree_max_near,
+                                    cfg.tree_vip_tiles, cfg.tree_far_max, treecode.HIER_BRANCH)
+              if hier else treecode._flat_static(s.n, tile, src, cfg.tree_theta,
+                                                 cfg.tree_max_near, cfg.tree_vip_tiles))
+        ops = treecode.kernel_operands(s.pos, s.mass, aux[-1], compensate=cfg.compensate,
+                                       G=cfg.G, src_tile=src, vip_src=st[4],
+                                       plan=st[5] if hier else (st[1],))
+        b = ops["bodies"]
+        kernels = {"near": ((b, aux[0], aux[1]),
+                            dict(n=s.n, tile=tile, src_tile=src, entries=st[2], **phys))}
+        if hier:
+            kernels["far"] = ((b, ops["summ"], aux[2], aux[3]), far_kw)
+        else:
+            kernels["far_single"] = ((b, ops["summ"], aux[2]), far_kw)
+    if ops["rows"] is not None:
+        kernels["vip"] = ((ops["rows"], ops["panel"]), phys)
+    return dict(n=s.n, cfg=cfg, path=path, ops=ops, aux=aux, kernels=kernels)
+
+
 def _size(tok: str):
     """(N, overrides) of a ``--sizes`` token such as ``20480t``."""
     from n_body_problem_tpu_torch.config import tuned_tree_overrides

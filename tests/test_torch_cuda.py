@@ -58,6 +58,56 @@ def test_symmetric_kernel_matches_plain(cuda, n, n_real):
     assert float((mass[:, None] * got).sum(0).abs().max()) < 1e-6
 
 
+# (N, real N) at the kernel's own 512-body tile: K = 1 (the triangle alone),
+# K = 2 (the even-K last diagonal, rows i < K/2 only), K = 3, odd K = 5 with
+# padding bodies, even K = 8.
+SYM_TILE_SIZES = [(512, 512), (1024, 1024), (1536, 1536), (2560, 2500), (4096, 4096)]
+
+
+@pytest.mark.parametrize("n,n_real", SYM_TILE_SIZES)
+def test_symmetric_kernel_matches_plain_at_its_tile(cuda, n, n_real):
+    pos, mass = _bodies(n, n_real, 12, cuda)
+    assert n % cuda_symmetric.KERNEL_TILE == 0
+    want = cuda_symmetric.symmetric_acc_plain(pos, mass, tile=512, **PHYS)
+    got = cuda_symmetric.symmetric_acc(pos, mass, tile=512, **PHYS)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, **TOL)
+    assert float((mass[:, None] * got).sum(0).abs().max()) < 1e-6
+
+
+# The bare rsqrt instruction of the symmetric and the near kernel flushes
+# denormals, so their wrappers take a normal float32 softening only; at
+# 1e-24, the smallest at which a coincident pair's 1 / eps^3 is still finite
+# in float32, they agree with their twins as at any other.
+@pytest.mark.parametrize("eps2", [0.0, 1e-39])
+def test_pair_kernels_reject_a_denormal_softening(cuda, eps2):
+    from n_body_problem_tpu_torch.ops import cuda_treecode as ct
+    from n_body_problem_tpu_torch.treecode_profile import kernel_inputs
+
+    pos, mass = _bodies(512, 512, 13, cuda)
+    with pytest.raises(ValueError, match="eps2"):
+        cuda_symmetric.symmetric_acc(pos, mass, eps2=eps2, compensate=0.1)
+    args, kw = kernel_inputs(8192, cuda, seed=3)["kernels"]["near"]
+    with pytest.raises(ValueError, match="eps2"):
+        ct.near_field(*args, **{**kw, "eps2": eps2})
+
+
+def test_pair_kernels_match_plain_at_a_tiny_softening(cuda):
+    from n_body_problem_tpu_torch.ops import cuda_treecode as ct
+    from n_body_problem_tpu_torch.treecode_profile import kernel_inputs
+
+    pos, mass = _bodies(1024, 1024, 14, cuda)
+    kw = dict(eps2=1e-24, compensate=0.1, tile=512)
+    got = cuda_symmetric.symmetric_acc(pos, mass, **kw)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, cuda_symmetric.symmetric_acc_plain(pos, mass, **kw), **TOL)
+    args, kw = kernel_inputs(8192, cuda, seed=3)["kernels"]["near"]
+    kw = {**kw, "eps2": 1e-24}
+    got = ct.near_field(*args, **kw)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, ct.near_field_plain(*args, **kw), **TOL)
+
+
 def test_wrappers_count_launches(cuda):
     pos, mass = _bodies(256, 256, 4, cuda)
     fns = (cuda_force.block_acc, cuda_symmetric.symmetric_acc,
@@ -84,7 +134,7 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take(cuda):
 
 def test_symmetric_kernel_pads_to_its_tile(cuda):
     """N = 448 with tile 64 runs in the JAX package; the f32 kernel tiles by
-    128, so its wrapper pads with zero-mass bodies and slices back."""
+    512, so its wrapper pads with zero-mass bodies and slices back."""
     pos, mass = _bodies(448, 448, 8, cuda)
     got = cuda_symmetric.symmetric_acc(pos, mass, tile=64, **PHYS)
     assert got.shape == (448, 3)
@@ -186,6 +236,56 @@ def test_tree_kernel_matches_plain(cuda, kernel, n, overrides):
     for g, a, w in zip(got, again, want):
         torch.testing.assert_close(g, w, **TOL)
         assert torch.equal(g, a)   # fixed order, no atomics: bitwise repeatable
+
+
+# (label, N, overrides, tile, entries): the near kernel at each split of
+# near_split: 32-body rows (flat path), 64, 128 and 256 (hierarchical; the
+# last two cut into blocks of 64 targets), and the tuned 20,480 lists, whose
+# chunks are 64 entries of 32 bodies.
+NEAR_CASES = [("tile 32", 8192, dict(tree_hier=False), 32, 32),
+              ("tile 64", 8192, dict(tree_tile=64), 64, 32),
+              ("tile 128", 8192, {}, 128, 32),
+              ("tile 256", 8192, dict(tree_tile=256), 256, 32),
+              ("64 entries of 32", 20480, tnb.config.tuned_tree_overrides(20480), 128, 64)]
+
+
+@pytest.mark.parametrize("label,n,overrides,tile,entries", NEAR_CASES)
+def test_near_kernel_matches_plain_at_every_split(cuda, monkeypatch, label, n, overrides, tile,
+                                                  entries):
+    from n_body_problem_tpu_torch.ops import cuda_treecode as ct
+    from n_body_problem_tpu_torch.treecode_profile import kernel_inputs
+
+    args, kw = kernel_inputs(n, cuda, seed=3, **overrides)["kernels"]["near"]
+    assert (kw["tile"], kw["entries"]) == (tile, entries)
+    before = ct.near_field.launches
+    got, again = ct.near_field(*args, **kw), ct.near_field(*args, **kw)
+    want = ct.near_field_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert ct.near_field.launches - before == 2
+    torch.testing.assert_close(got, want, **TOL)
+    assert torch.equal(got, again)   # fixed split and order, no atomics
+    # Other splits of the same work: other sums, the same force.
+    for block, piece_bodies, targets in ((128, 2048, 32), (1024, 64, 1024), (256, 512, 128)):
+        monkeypatch.setattr(ct, "NEAR_BLOCK", block)
+        monkeypatch.setattr(ct, "NEAR_PIECE_BODIES", piece_bodies)
+        monkeypatch.setattr(ct, "NEAR_TARGETS", targets)
+        torch.testing.assert_close(ct.near_field(*args, **kw), want, **TOL)
+
+
+def test_near_kernel_writes_zeros_for_a_row_without_chunks(cuda):
+    from n_body_problem_tpu_torch.ops import cuda_treecode as ct
+    from n_body_problem_tpu_torch.treecode_profile import kernel_inputs
+
+    (bodies, flat_src, chunk_tgt), kw = kernel_inputs(8192, cuda, seed=3)["kernels"]["near"]
+    # Row 5's chunks go to row 6: still non-decreasing and contiguous.
+    moved = torch.where(chunk_tgt == 5, 6, chunk_tgt).to(torch.int32)
+    got = ct.near_field(bodies, flat_src, moved, **kw)
+    torch.cuda.synchronize()
+    assert not got[5 * kw["tile"]:6 * kw["tile"]].any()
+    torch.testing.assert_close(got, ct.near_field_plain(bodies, flat_src, moved, **kw), **TOL)
+    # No live chunk at all (every tag the sentinel): all zeros.
+    none = torch.full_like(chunk_tgt, kw["n"] // kw["tile"])
+    assert not ct.near_field(bodies, flat_src, none, **kw).any()
 
 
 def test_tree_wrappers_count_launches(cuda):
