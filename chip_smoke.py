@@ -17,7 +17,13 @@ is non-zero:
    form and for bitwise repeatability; the symmetric kernel for momentum
    (|sum m a| < 1e-6, < 1e-7 at 65,536), and at N = 448 with tile 64 (its
    wrapper pads to 512). Times both at N = 65,536, and once each at 262,144,
-   where the two must agree within 1e-4 a body. Then the bf16x3/mixed kernel against its twin
+   where the two must agree within 1e-4 a body. Then the all-pairs kernel's
+   splits: at 384 x 65,536, 2,048 x 65,536 and x 524,288 (the error probe's
+   shape), 16,384 x 65,536 (a four-way ring's), 8,192 and 32,768 squared, the
+   split its schedule chooses (several column pieces, two launches) and
+   others (one piece; 1, 2, 4 and 8 parts), each against the plain version
+   and twice for bitwise equality; timed at 8,192 squared and at
+   2,048 x 524,288. Then the bf16x3/mixed kernel against its twin
    in both modes at N = 512 and 448 (tile 64), 1,024 (934 real, tile 512)
    and 65,536 (tile 512): |kernel - twin| / |twin - f32 twin| <= 0.3 and a
    per-body p99 <= 1.5e-5 ("mixed" with K <= 3 tiles is the f32 mode and
@@ -68,8 +74,9 @@ is non-zero:
 
 The last three lines of standard output are the kernels' JSON record, the
 card's name and power limit, and ``{"ok": true, "device": {...}}``. The
-records of the symmetric and the near kernel also carry ``issue_floor_ms``
-(``kernel_compare.issue_floor_ms`` at the SM clock of this run).
+records of the all-pairs, the symmetric and the near kernels also carry
+``issue_floor_ms`` (``kernel_compare.issue_floor_ms`` at the SM clock of this
+run).
 """
 
 from __future__ import annotations
@@ -83,7 +90,8 @@ import sys
 import time
 
 from n_body_problem_tpu_torch.kernel_compare import (PAIR_BOTH_FLOPS, PAIR_BOTH_SLOTS, PAIR_FLOPS,
-                                                      PAIR_SLOTS, PEAK_FLOPS, PHYS, issue_floor_ms,
+                                                      PAIR_SLOTS, PHYS, bound, fast_bound,
+                                                      fast_issue_floor_ms, issue_floor_ms,
                                                       near_work, sm_clock_mhz)
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -99,14 +107,9 @@ TREE_KERNELS = ("near", "far", "vip", "far_single", "gather", "near_panel")
 # FP32 operations a kernel does per interaction, an FMA counted as two and an
 # rsqrt as one: a body against a node's monopole + quadrupole; a body pair
 # one way (near kernels) and both ways (VIP sweep, symmetric kernel) are
-# ``kernel_compare``'s PAIR_FLOPS and PAIR_BOTH_FLOPS, beside its FP32 peak
-# and the physics of every check (PHYS).
+# ``kernel_compare``'s PAIR_FLOPS and PAIR_BOTH_FLOPS, beside its peak rates,
+# its ``bound`` and ``fast_bound`` and the physics of every check (PHYS).
 NODE_FLOPS = 56
-PEAK_BYTES = 3.35e12   # H100 SXM, HBM3
-# The fast symmetric modes: a pair's FP32 work one way plus the reaction
-# weight, and the three bf16 passes of the [x y z 1] panel product on the
-# tensor cores (3 passes x 4 components x 2 operations).
-FAST_PAIR_FLOPS, FAST_PAIR_TC_FLOPS, PEAK_BF16 = 21, 24, 989e12
 # (padded N, real N, tile) of the fast modes' check: even K = 8 (the JAX
 # test's shape), odd K = 7, padding with K = 2, and the production size.
 FAST_SIZES = ((512, 512, 64), (448, 448, 64), (1024, 934, 512), (65536, 65536, 512))
@@ -115,14 +118,6 @@ FAST_P99_VS_TWIN = 1.5e-5   # per-body relative kernel - twin difference
 # JAX envelopes of the fast modes against the direct sum, (p99, median)
 # (tests/test_pallas_symmetric.py:54-63).
 FAST_ENVELOPE = {"bf16x3": (3e-2, 4e-3), "mixed": (5e-3, 5e-4)}
-
-
-def bound(flops: float, nbytes: float) -> dict:
-    """The least time the card could take for the work: the larger of the
-    operations over the FP32 peak and the bytes over the memory rate."""
-    t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
-    return {"bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
 def check(ok: bool, what: str) -> None:
@@ -201,15 +196,17 @@ def compare_kernels(device, sizes=SIZES, time_at: int | None = N_MAIN) -> dict:
             # Inputs read once (positions and masses), the (N, 3) output
             # written once; the symmetric kernel takes each pair once.
             nbytes = n * 16 + n * 12
-            res["allpairs"].update(library_ms=None, **bound(PAIR_FLOPS * n * n, nbytes))
             clock = sm_clock_mhz()
+            res["allpairs"].update(library_ms=None, **bound(PAIR_FLOPS * n * n, nbytes),
+                                   issue_floor_ms=issue_floor_ms(n * n, PAIR_SLOTS, clock))
             res["symmetric"].update(
                 library_ms=None, **bound(PAIR_BOTH_FLOPS * n * (n - 1) // 2, nbytes),
                 issue_floor_ms=issue_floor_ms(n * (n - 1) / 2, PAIR_BOTH_SLOTS, clock))
-            print("kernels: times at N={} (ms/call) allpairs {:.4f} vs plain {:.4f}; "
-                  "symmetric {:.4f} vs plain {:.4f}, bound {:.4f}, issue floor {:.4f} at "
-                  "{:.0f} MHz".format(
+            print("kernels: times at N={} (ms/call) allpairs {:.4f} vs plain {:.4f}, bound "
+                  "{:.4f}, issue floor {:.4f}; symmetric {:.4f} vs plain {:.4f}, bound {:.4f}, "
+                  "issue floor {:.4f} at {:.0f} MHz".format(
                       n, res["allpairs"]["ms"], res["allpairs"]["plain_ms"],
+                      res["allpairs"]["bound_ms"], res["allpairs"]["issue_floor_ms"],
                       res["symmetric"]["ms"], res["symmetric"]["plain_ms"],
                       res["symmetric"]["bound_ms"], res["symmetric"]["issue_floor_ms"],
                       clock), flush=True)
@@ -239,31 +236,79 @@ def compare_kernels(device, sizes=SIZES, time_at: int | None = N_MAIN) -> dict:
     return res
 
 
+# (Ni, Nj) of the all-pairs kernel's block form: a few rows, the treecode
+# error probe's 2,048 sampled rows at 65,536 and 524,288, a four-way ring's
+# share of 65,536, and the square cases whose rows alone do not fill the card.
+ALLPAIRS_BLOCKS = ((384, 65536), (2048, 65536), (2048, 524288), (16384, 65536),
+                   (8192, 8192), (32768, 32768))
+ALLPAIRS_TIMED = ((8192, 8192), (2048, 524288))
+
+
+def compare_allpairs_splits(device, res: dict, shapes=ALLPAIRS_BLOCKS,
+                            timed=ALLPAIRS_TIMED) -> None:
+    """Phase 3, the all-pairs kernel's splits: at each (Ni, Nj) the split the
+    schedule chooses, the same rows in one piece, and other parts and
+    pieces, each against the plain version, twice for bitwise equality, with
+    the launches the split says (one, or two with several pieces). Times the
+    chosen split at the shapes of ``timed`` into ``res["allpairs"]``."""
+    import torch
+
+    from n_body_problem_tpu_torch.ops import cuda_force as cf
+    from n_body_problem_tpu_torch.treecode_profile import time_ms
+
+    rule = cf.allpairs_split
+    tiles = dict(tile_i=128, tile_j=128)
+    try:
+        for ni, nj in shapes:
+            s = cloud(nj, nj, seed=nj, device=device)
+            gen = torch.Generator(device="cpu").manual_seed(0)
+            rows = (s.pos if ni == nj else
+                    s.pos[torch.randperm(nj, generator=gen)[:ni].sort().values.to(device)])
+            want = cf.block_acc_plain(rows, s.pos, s.mass, **PHYS)
+            chosen = rule(ni, nj)
+            stages = -(-nj // cf.ALLPAIRS_STAGE)
+            others = [(128, 8, 1), (128, 8, min(stages, 3)), (256, 4, min(stages, 7)),
+                      (512, 2, min(stages, 2)), (1024, 1, stages)]
+            seen = []
+            for split in [chosen] + [o for o in others if o != chosen]:
+                cf.allpairs_split = lambda *_, split=split: split
+                before = cf.block_acc.launches
+                got = cf.block_acc(rows, s.pos, s.mass, **tiles, **PHYS)
+                launched = cf.block_acc.launches - before
+                check(launched == (2 if split[2] > 1 else 1),
+                      f"allpairs {ni}x{nj} split {split}: {launched} launches")
+                err = agree(res, "allpairs", f"allpairs {ni}x{nj} split {split}", got, want)
+                check(torch.equal(got, cf.block_acc(rows, s.pos, s.mass, **tiles, **PHYS)),
+                      f"allpairs {ni}x{nj} split {split}: two launches differ bitwise")
+                seen.append(f"{'x'.join(map(str, split))} err {err:.2e}")
+            cf.allpairs_split = rule
+            check(chosen[2] > 1, f"allpairs {ni}x{nj}: the rule cut no column pieces")
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)   # a fault in the run shows here
+            line = (f"kernels: allpairs block {ni}x{nj} rule {'x'.join(map(str, chosen))} "
+                    f"(rows x parts x pieces); {'; '.join(seen)}; bitwise-repeatable")
+            if (ni, nj) in timed:
+                ms = time_ms(lambda: cf.block_acc(rows, s.pos, s.mass, **tiles, **PHYS), 20)
+                clock = sm_clock_mhz()
+                floor = issue_floor_ms(ni * nj, PAIR_SLOTS, clock)
+                res["allpairs"][f"ms_{ni}x{nj}"] = ms
+                res["allpairs"][f"issue_floor_ms_{ni}x{nj}"] = floor
+                ops = bound(PAIR_FLOPS * ni * nj, (ni * 6 + nj * 4) * 4)["bound_ms"]
+                line += (f"; {ms:.4f} ms, bound {ops:.4f}, issue floor {floor:.4f} at "
+                         f"{clock:.0f} MHz")
+            print(line, flush=True)
+            del s, rows, want, got
+            torch.cuda.empty_cache()
+    finally:
+        cf.allpairs_split = rule
+
+
 def rel_err(got, want, n_real: int):
     """Per-body relative force difference over the real bodies."""
     import torch
 
     d = (got - want)[:n_real].norm(dim=1)
     return d / torch.clamp(want[:n_real].norm(dim=1), min=1e-12)
-
-
-def fast_bound(n: int, tile: int, precision: str) -> dict:
-    """``bound`` of one fast-mode call, counting this call's pairs: the
-    diagonals s <= near_s take the f32 reaction (PAIR_BOTH_FLOPS), the
-    others FAST_PAIR_FLOPS on the FP32 units and FAST_PAIR_TC_FLOPS on the
-    tensor cores at the bf16 peak."""
-    from n_body_problem_tpu_torch.ops.cuda_symmetric import near_diagonals
-
-    k = n // tile
-    near = sum((k // 2 if k % 2 == 0 and s == k // 2 else k) * (tile * tile if s else
-                                                                tile * (tile - 1) // 2)
-               for s in range(near_diagonals(k, precision) + 1))
-    fast = n * (n - 1) // 2 - near
-    t_tc = FAST_PAIR_TC_FLOPS * fast / PEAK_BF16 * 1e3
-    b = bound(PAIR_BOTH_FLOPS * near + FAST_PAIR_FLOPS * fast, n * 16 + n * 12)
-    if t_tc > b["bound_ms"]:
-        b = {"bound_ms": t_tc, "bound_by": "operations"}
-    return b
 
 
 def compare_fast(device, sizes=FAST_SIZES, time_at: int | None = N_MAIN) -> dict:
@@ -329,7 +374,9 @@ def compare_fast(device, sizes=FAST_SIZES, time_at: int | None = N_MAIN) -> dict
                 res[prec] = {"ms": time_ms(fn, 20),
                              "plain_ms": time_ms(lambda: cuda_symmetric.symmetric_acc_plain(
                                  pos, mass, precision=prec, **kw), 3),
-                             "p99": p99[prec], "median": med, **fast_bound(n, tile, prec)}
+                             "p99": p99[prec], "median": med, **fast_bound(n, tile, prec),
+                             "issue_floor_ms": fast_issue_floor_ms(n, tile, prec,
+                                                                   sm_clock_mhz())}
         check(p99["mixed"] <= p99["bf16x3"],
               f"N={n}: mixed p99 {p99['mixed']:.3e} > bf16x3 {p99['bf16x3']:.3e}")
         del s, pos, mass, exact, f32_twin, f32_kernel
@@ -337,7 +384,8 @@ def compare_fast(device, sizes=FAST_SIZES, time_at: int | None = N_MAIN) -> dict
     if time_at in [n for n, _, _ in sizes]:
         print(f"fast kernels: times at N={time_at} tile 512 (ms/call): " + "; ".join(
             f"{p} {res[p]['ms']:.4f} vs plain {res[p]['plain_ms']:.4f} bound "
-            f"{res[p]['bound_ms']:.4f} ({res[p]['bound_by']})" for p in ("bf16x3", "mixed")),
+            f"{res[p]['bound_ms']:.4f} ({res[p]['bound_by']}) issue floor "
+            f"{res[p]['issue_floor_ms']:.4f}" for p in ("bf16x3", "mixed")),
             flush=True)
     return res
 
@@ -529,13 +577,18 @@ def drive_main_path(device, n: int = N_MAIN, prime: int = PRIME_STEPS,
                     timed: int = TIMED_STEPS) -> None:
     """Phase 5: the default simulation, then solver="pallas", leapfrog, and
     the symmetric solver's "bf16x3" and "mixed" precisions, each through
-    the public ``Simulation`` entry point; each run launches its kernel at
-    least once a step and no other kernel."""
+    the public ``Simulation`` entry point; each run launches its kernel as
+    often a step as its schedule says (once) and no other kernel."""
     import torch
 
     from n_body_problem_tpu_torch import SimConfig, Simulation, models
 
+    from n_body_problem_tpu_torch.ops.cuda_force import allpairs_split
+
     wrappers = counters()
+    # Kernel launches a force: the all-pairs kernel is one with one column
+    # piece, two with several; every other exact solver is one kernel.
+    a_force = {"allpairs": 2 if allpairs_split(n, n)[2] > 1 else 1}
     runs = (
         ("default", SimConfig(), "pallas_symmetric", "symmetric"),
         ("pallas", SimConfig(solver="pallas"), "pallas", "allpairs"),
@@ -555,7 +608,9 @@ def drive_main_path(device, n: int = N_MAIN, prime: int = PRIME_STEPS,
         sim.run(timed)
         launched = wrappers[key].launches - before
         wall = sim.wall_seconds - wall0
-        check(launched >= timed, f"{label}: kernel launched {launched} times in {timed} steps")
+        want = a_force.get(key, 1) * timed
+        check(launched == want,
+              f"{label}: kernel launched {launched} times in {timed} steps, expected {want}")
         others = {k: w.launches - start[k] for k, w in wrappers.items() if k != key}
         check(not any(others.values()), f"{label}: other kernels launched: {others}")
         check(bool(torch.isfinite(sim.state.pos).all()), f"{label}: non-finite positions")
@@ -787,13 +842,16 @@ def main() -> int:
     print(f"build: {build_s:.3f} s -> {cuda_build.library_path()}", flush=True)
 
     res = compare_kernels(device)
+    compare_allpairs_splits(device, res)
     fast = compare_fast(device)
     print(f"kernels: symmetric at N={N_MAIN}: f32 {res['symmetric']['ms']:.4f} ms, bf16x3 "
           f"{fast['bf16x3']['ms']:.4f}, mixed {fast['mixed']['ms']:.4f}", flush=True)
     res["symmetric_bf16x3"] = {
         "max_abs_err": fast["max_abs_err"], "library_ms": None,
-        **{k: fast["bf16x3"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
-        **{f"{k}_mixed": fast["mixed"][k] for k in ("ms", "plain_ms", "bound_ms")}}
+        **{k: fast["bf16x3"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                          "issue_floor_ms")},
+        **{f"{k}_mixed": fast["mixed"][k] for k in ("ms", "plain_ms", "bound_ms",
+                                                    "issue_floor_ms")}}
     res.update(compare_tree_kernels(device))
 
     wrappers = counters()

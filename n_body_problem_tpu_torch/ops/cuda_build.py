@@ -33,9 +33,10 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 LIB_NAME = "libnbody_kernels.so"
 # The kernels index float triples and quads with 32-bit ints.
 MAX_BODIES = (1 << 31) // 4
-# The smallest normal float32. symmetric.cu and near.cu take the bare rsqrt
-# instruction (csrc/pairs.cuh), which flushes a denormal argument to zero:
-# c^2 |d|^2 + eps2 is normal for every pair only if eps2 is.
+# The smallest normal float32. allpairs.cu, symmetric.cu, symmetric_bf16x3.cu
+# and near.cu take the bare rsqrt instruction (csrc/pairs.cuh), which flushes
+# a denormal argument to zero: c^2 |d|^2 + eps2 is normal for every pair only
+# if eps2 is. The other treecode sources still call rsqrtf().
 MIN_EPS2 = 1.1754944e-38
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -44,12 +45,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # I = int, F = float.
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    # (pos_i, ni, cols4, nj, out, c2, eps2, stream) -> cudaError_t
-    "nbody_allpairs_acc": ((_P, _I, _P, _I, _P, _F, _F, _P), _I),
+    # (pos_i, ni, cols4, nj, parts, stages_a_piece, pieces, partial, out, c2,
+    #  eps2, stream) -> cudaError_t
+    "nbody_allpairs_acc": ((_P, _I, _P, _I, _I, _I, _I, _P, _P, _F, _F, _P), _I),
     # (body4, n, out, c2, eps2, stream) -> cudaError_t
     "nbody_symmetric_acc": ((_P, _I, _P, _F, _F, _P), _I),
-    # (body4, n, tile, centers4, near_s, out, c2, eps2, stream) -> cudaError_t
-    "nbody_symmetric_bf16x3": ((_P, _I, _I, _P, _I, _P, _F, _F, _P), _I),
+    # (body4, n, tile, centers4, near_s, warps, step, out, c2, eps2, stream)
+    #  -> cudaError_t
+    "nbody_symmetric_bf16x3": ((_P, _I, _I, _P, _I, _I, _I, _P, _F, _F, _P), _I),
     # (bodies4, n, tile, sub, src_tile, entries, parts, piece, flat_src,
     #  chunk_tgt, n_chunks, out, c2, eps2, stream) -> cudaError_t
     "nbody_near_field": ((_P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _I, _P, _F, _F, _P), _I),

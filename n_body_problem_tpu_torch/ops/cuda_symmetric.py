@@ -45,10 +45,16 @@ DEFAULT_TILE = 512
 # The wrapper pads N to it.
 KERNEL_TILE = 512
 PRECISIONS = ("f32", "bf16x3", "mixed")
-# csrc/symmetric_bf16x3.cu: four warps of 16-body row chunks, 80 bytes of
-# shared memory a body of the tile.
+# csrc/symmetric_bf16x3.cu: warps of 16-body row chunks that walk the column
+# tile's 16-body strips; 16 bytes of shared memory a body of the tile for the
+# column tile and 16 more for each warp's column sums.
 FAST_TILE_MULTIPLE = 64
 FAST_MAX_TILE = 2048
+FAST_MAX_SHARED = 227 * 1024   # a block's shared memory on an H100
+# (warps a block, column strips a step) the kernel is launched with, and the
+# other shapes it takes.
+FAST_SHAPE = (4, 2)
+FAST_SHAPES = ((4, 1), (4, 2), (4, 4), (8, 1), (8, 2), (8, 4), (2, 2))
 
 
 def near_diagonals(k: int, precision: str) -> int:
@@ -231,7 +237,9 @@ def _launch_bf16x3(pos, mass, *, eps2, compensate, G, tile, precision) -> torch.
             f"{FAST_TILE_MULTIPLE} up to {FAST_MAX_TILE} on the card")
     if n > cuda_build.MAX_BODIES:
         raise ValueError(f"symmetric_acc_bf16x3: at most {cuda_build.MAX_BODIES} bodies")
+    cuda_build.require_normal_eps2("symmetric_acc_bf16x3", eps2)
     k = n // tile
+    warps, step = FAST_SHAPE
     body = _bodies(pos, mass, compensate=compensate, G=G)
     centers = torch.cat([tile_centers(pos, tile), pos.new_zeros((k, 1))], dim=1)
     out = torch.zeros((n, 3), dtype=torch.float32, device=dev)
@@ -239,8 +247,9 @@ def _launch_bf16x3(pos, mass, *, eps2, compensate, G, tile, precision) -> torch.
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.nbody_symmetric_bf16x3(body.data_ptr(), n, tile, centers.data_ptr(),
-                                        near_diagonals(k, precision), out.data_ptr(),
-                                        compensate * compensate, eps2, stream)
+                                        near_diagonals(k, precision), warps, step,
+                                        out.data_ptr(), compensate * compensate, eps2,
+                                        stream)
         symmetric_acc_bf16x3.launches += 1
     cuda_build.check(rc, "symmetric_bf16x3_kernel")
     return out
@@ -265,7 +274,8 @@ def symmetric_acc_bf16x3(
 ) -> torch.Tensor:
     """acc (N, 3) in the ``"bf16x3"`` or ``"mixed"`` mode: on a CUDA tensor
     ``symmetric_bf16x3_kernel``, whose reaction runs on the tensor cores
-    (``tile`` a multiple of 64 up to 2,048); on a CPU tensor the plain twin.
+    (``tile`` a multiple of 64 up to 2,048, ``eps2`` a normal float32); on a
+    CPU tensor the plain twin.
 
     ``symmetric_acc_bf16x3.launches`` counts the kernel's launches.
     """

@@ -17,7 +17,7 @@ import torch
 from torch.profiler import record_function
 
 from n_body_problem_tpu_torch.config import SimConfig, resolve_vip_tiles
-from n_body_problem_tpu_torch.ops import treecode
+from n_body_problem_tpu_torch.ops import cuda_build, treecode
 from n_body_problem_tpu_torch.ops.forces import required_padding
 from n_body_problem_tpu_torch.ops.integrators import make_integrator, prime_leapfrog
 from n_body_problem_tpu_torch.ops.registry import (
@@ -124,6 +124,23 @@ def _resolve_device(device: str | torch.device | None) -> torch.device:
     return dev
 
 
+# Solvers whose forces come from the hand-written kernels on the card.
+KERNEL_SOLVERS = ("pallas", "pallas_symmetric", "treecode")
+
+
+def require_card_softening(solver: str, eps2: float, device_type: str) -> None:
+    """Raise, once and before anything runs, if ``solver`` on ``device_type``
+    reaches a kernel and ``eps2`` is below the smallest normal float32: the
+    pair kernels take the bare rsqrt instruction, which flushes a denormal
+    argument (``cuda_build.MIN_EPS2``). The plain solvers and the CPU take
+    any softening."""
+    if device_type == "cuda" and solver in KERNEL_SOLVERS and not eps2 >= cuda_build.MIN_EPS2:
+        raise ValueError(
+            f"eps2={eps2} is below {cuda_build.MIN_EPS2}, the smallest softening the CUDA "
+            f'kernels of solver "{solver}" take; raise it, or pass device="cpu" '
+            "(--device cpu on the command line)")
+
+
 class Simulation:
     """Stateful convenience wrapper.
 
@@ -132,7 +149,9 @@ class Simulation:
     >>> sim.state.pos
 
     ``device`` defaults to ``"cuda"``; without a GPU the constructor raises
-    unless ``device="cpu"`` is given. The state is padded
+    unless ``device="cpu"`` is given. On ``"cuda"`` a solver that reaches a
+    kernel needs a normal float32 ``eps2`` (:func:`require_card_softening`).
+    The state is padded
     with zero-mass bodies to the solver's multiple, exactly as the JAX
     package pads it, and leapfrog runs are primed with one force
     evaluation. With ``solver="treecode"`` the bodies are Morton-sorted at
@@ -150,6 +169,7 @@ class Simulation:
         dev_type = self.device.type
         state = state.to(self.device)
         solver = resolve_solver(cfg.solver, dev_type, state.n)
+        require_card_softening(solver, cfg.eps2, dev_type)
         if solver == "treecode":
             cfg = self._treecode_config(cfg, state.n)
         elif cfg.tree_tile == 0:

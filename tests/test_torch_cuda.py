@@ -16,6 +16,7 @@ import pytest
 import torch
 
 import n_body_problem_tpu_torch as tnb
+from n_body_problem_tpu_torch.kernel_compare import allpairs_sweep
 from n_body_problem_tpu_torch.ops import cuda_force, cuda_symmetric
 from n_body_problem_tpu_torch.state import pad_state_to
 
@@ -49,6 +50,48 @@ def test_allpairs_kernel_matches_plain(cuda, n, n_real):
         assert torch.equal(got, again)   # fixed loop order, no atomics
 
 
+# (Ni, Nj): one row, the probe's and a ring step's shapes (cut to a size whose
+# twin is quick), a ragged Ni and Nj, a square case, and more rows than
+# columns. Each runs at the split allpairs_split chooses and at every other
+# split of kernel_compare.allpairs_sweep: one piece and several, every parts.
+ALLPAIRS_SHAPES = [(1, 256), (384, 65536), (2048, 131072), (1000, 2500), (8192, 8192),
+                   (40000, 4096)]
+
+
+@pytest.mark.parametrize("ni,nj", ALLPAIRS_SHAPES)
+def test_allpairs_kernel_matches_plain_at_every_split(cuda, monkeypatch, ni, nj):
+    """Whatever the rows a block, the parts and the column pieces: the twin's
+    force within tolerance, the same bits twice, and one launch for one piece,
+    two (the pair kernel and the kernel that adds the pieces) for several."""
+    pos, mass = _bodies(nj, nj, 15, cuda)
+    rows = _bodies(ni, ni, 16, cuda)[0] + 0.25
+    kw = dict(tile_i=1, tile_j=1, **PHYS)
+    want = cuda_force.block_acc_plain(rows, pos, mass, **PHYS)
+    chosen = cuda_force.allpairs_split(ni, nj)
+    splits = [chosen] + [s for s in allpairs_sweep(ni, nj) if s != chosen]
+    assert any(s[2] > 1 for s in splits) or nj <= cuda_force.ALLPAIRS_STAGE
+    for split in splits:
+        monkeypatch.setattr(cuda_force, "allpairs_split", lambda *_, split=split: split)
+        before = cuda_force.block_acc.launches
+        got = cuda_force.block_acc(rows, pos, mass, **kw)
+        assert cuda_force.block_acc.launches - before == (2 if split[2] > 1 else 1), split
+        again = cuda_force.block_acc(rows, pos, mass, **kw)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, **TOL)
+        assert torch.equal(got, again), split   # fixed orders, no atomics
+
+
+def test_allpairs_kernel_takes_no_rows_and_no_columns(cuda):
+    pos, mass = _bodies(256, 256, 17, cuda)
+    before = cuda_force.block_acc.launches
+    tiles = dict(tile_i=128, tile_j=128)
+    assert cuda_force.block_acc(pos[:0], pos, mass, **tiles, **PHYS).shape == (0, 3)
+    assert cuda_force.block_acc.launches == before
+    none = cuda_force.block_acc(pos, pos[:0], mass[:0], **tiles, **PHYS)
+    torch.cuda.synchronize()
+    assert none.shape == (256, 3) and not none.any()
+
+
 @pytest.mark.parametrize("n,n_real", SIZES)
 def test_symmetric_kernel_matches_plain(cuda, n, n_real):
     pos, mass = _bodies(n, n_real, 3, cuda)
@@ -75,8 +118,9 @@ def test_symmetric_kernel_matches_plain_at_its_tile(cuda, n, n_real):
     assert float((mass[:, None] * got).sum(0).abs().max()) < 1e-6
 
 
-# The bare rsqrt instruction of the symmetric and the near kernel flushes
-# denormals, so their wrappers take a normal float32 softening only; at
+# The bare rsqrt instruction of the all-pairs, the two symmetric and the near
+# kernel flushes denormals, so their wrappers take a normal float32 softening
+# only; at
 # 1e-24, the smallest at which a coincident pair's 1 / eps^3 is still finite
 # in float32, they agree with their twins as at any other.
 @pytest.mark.parametrize("eps2", [0.0, 1e-39])
@@ -87,6 +131,12 @@ def test_pair_kernels_reject_a_denormal_softening(cuda, eps2):
     pos, mass = _bodies(512, 512, 13, cuda)
     with pytest.raises(ValueError, match="eps2"):
         cuda_symmetric.symmetric_acc(pos, mass, eps2=eps2, compensate=0.1)
+    with pytest.raises(ValueError, match="eps2"):
+        cuda_force.block_acc(pos, pos, mass, eps2=eps2, compensate=0.1, tile_i=128, tile_j=128)
+    for precision in ("bf16x3", "mixed"):
+        with pytest.raises(ValueError, match="eps2"):
+            cuda_symmetric.symmetric_acc_bf16x3(pos, mass, eps2=eps2, compensate=0.1,
+                                                tile=64, precision=precision)
     args, kw = kernel_inputs(8192, cuda, seed=3)["kernels"]["near"]
     with pytest.raises(ValueError, match="eps2"):
         ct.near_field(*args, **{**kw, "eps2": eps2})
@@ -101,6 +151,17 @@ def test_pair_kernels_match_plain_at_a_tiny_softening(cuda):
     got = cuda_symmetric.symmetric_acc(pos, mass, **kw)
     assert torch.isfinite(got).all()
     torch.testing.assert_close(got, cuda_symmetric.symmetric_acc_plain(pos, mass, **kw), **TOL)
+    soft = dict(eps2=1e-24, compensate=0.1)
+    got = cuda_force.block_acc(pos, pos, mass, **soft)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, cuda_force.block_acc_plain(pos, pos, mass, **soft), **TOL)
+    f32_twin = cuda_symmetric.symmetric_acc_plain(pos, mass, tile=64, **soft)
+    for precision in ("bf16x3", "mixed"):
+        fast = dict(tile=64, precision=precision, **soft)
+        got = cuda_symmetric.symmetric_acc_bf16x3(pos, mass, **fast)
+        twin = cuda_symmetric.symmetric_acc_plain(pos, mass, **fast)
+        assert torch.isfinite(got).all()
+        assert float((got - twin).norm() / (twin - f32_twin).norm()) <= 0.3
     args, kw = kernel_inputs(8192, cuda, seed=3)["kernels"]["near"]
     kw = {**kw, "eps2": 1e-24}
     got = ct.near_field(*args, **kw)

@@ -1,9 +1,11 @@
-"""The schedules the symmetric f32 kernel and the near kernel are launched
-with, on the CPU.
+"""The schedules the all-pairs kernel, the symmetric kernels and the near
+kernel are launched with, on the CPU.
 
 The CUDA kernels run only on the card; what a block does there is decided
-by integers that Python computes (``cuda_symmetric.symmetric_blocks``,
-``block_tiles``; ``cuda_treecode.near_split``, ``near_parts``). These tests check those integers, and walk each schedule
+by integers that Python computes (``cuda_force.allpairs_split``,
+``allpairs_columns``; ``cuda_symmetric.symmetric_blocks``, ``block_tiles``,
+``FAST_SHAPE``; ``cuda_treecode.near_split``, ``near_parts``). These tests
+check those integers, and walk each schedule
 block by block in plain PyTorch, as the kernel does, against the plain twins
 and the JAX package's Pallas kernels in interpret mode, within rtol=1e-4,
 atol=2e-6 (the bound the CUDA kernels are held to on the card).
@@ -20,8 +22,11 @@ import n_body_problem_tpu as jnb
 import n_body_problem_tpu_torch as tnb
 from n_body_problem_tpu import models as jmodels
 from n_body_problem_tpu.ops import treecode as jtc
+from n_body_problem_tpu.ops.pallas_force import pallas_block_acc
 from n_body_problem_tpu.ops.pallas_symmetric import symmetric_acc as jax_symmetric_acc
 from n_body_problem_tpu.utils.morton import morton_argsort
+from n_body_problem_tpu_torch.kernel_compare import allpairs_sweep
+from n_body_problem_tpu_torch.ops import cuda_force as cf
 from n_body_problem_tpu_torch.ops import cuda_symmetric as cs
 from n_body_problem_tpu_torch.ops import cuda_treecode as ct
 from n_body_problem_tpu_torch.ops import treecode as ttc
@@ -31,6 +36,125 @@ EPS2, COMP = 1e-6, 0.1
 C2 = COMP * COMP
 TOL = dict(rtol=1e-4, atol=2e-6)
 T = cs.KERNEL_TILE
+
+
+# ------------------------------------------------- the all-pairs schedule
+def _check_allpairs_split(ni, nj, split):
+    """Rows x parts x pieces take every (row, column) once, inside the
+    kernel's limits."""
+    rows, parts, pieces = split
+    assert parts in cf.ALLPAIRS_PARTS and rows * parts == cf.ALLPAIRS_BLOCK_ROWS
+    assert 1 <= pieces <= 65535
+    per = cf.stages_a_piece(nj, pieces)
+    assert pieces * per * cf.ALLPAIRS_STAGE >= nj            # the pieces reach Nj
+    assert nj == 0 or (pieces - 1) * per * cf.ALLPAIRS_STAGE < nj   # and none is empty
+    # Row blocks of `rows` bodies cover 0 .. Ni once.
+    row_blocks = -(-ni // rows)
+    assert (row_blocks - 1) * rows < ni <= row_blocks * rows or ni == 0
+    columns = cf.allpairs_columns(nj, parts, pieces)
+    assert len(columns) == pieces and all(len(piece) == parts for piece in columns)
+    runs = sorted((r.start, r.stop) for piece in columns for part in piece for r in part
+                  if len(r))
+    at = 0
+    for start, stop in runs:                                 # a partition of 0 .. Nj
+        assert start == at
+        at = stop
+    assert at == nj
+    for piece in columns:                                    # a part's runs in stage order
+        for part in piece:
+            assert [r.start for r in part] == sorted(r.start for r in part)
+            assert all(len(r) <= cf.ALLPAIRS_STAGE // parts for r in part)
+    # The parts' sums (three floats a row, parts - 1 of them) fit the stage
+    # buffer they are handed over in.
+    assert (parts - 1) * 3 * rows <= cf.ALLPAIRS_STAGE * 4
+
+
+@pytest.mark.parametrize("nj", [256, 1000, 65536, 524288])
+@pytest.mark.parametrize("ni", [1, 384, 2048, 8192, 65536])
+def test_allpairs_split_covers_every_row_and_column_once(ni, nj):
+    split = cf.allpairs_split(ni, nj)
+    _check_allpairs_split(ni, nj, split)
+    rows, parts, pieces = split
+    # Enough blocks to fill the card (whole stages a piece can leave the
+    # count short of the aim, never below half of it), unless the columns
+    # are too few to cut.
+    blocks = -(-ni // rows) * pieces
+    assert (rows, parts) == (128, 8)
+    assert (blocks >= cf.ALLPAIRS_MIN_BLOCKS if pieces == 1 and nj > cf.ALLPAIRS_STAGE else
+            2 * blocks >= cf.ALLPAIRS_CUT_BLOCKS or pieces == -(-nj // cf.ALLPAIRS_STAGE))
+    for other in allpairs_sweep(ni, nj):
+        _check_allpairs_split(ni, nj, other)
+
+
+def test_allpairs_split_on_the_main_paths():
+    """Blocks of 128 rows in 8 parts everywhere. The exact step and ``auto``
+    above 262,144 take one piece, so one launch a step; the error probe's
+    2,048 sampled rows and a four-way ring's share of 65,536 are cut into
+    column pieces, to about eight blocks a multiprocessor."""
+    assert cf.allpairs_split(65536, 65536) == (128, 8, 1)
+    assert cf.allpairs_split(262144, 262144) == (128, 8, 1)
+    assert cf.allpairs_split(524288, 524288) == (128, 8, 1)
+    assert cf.allpairs_split(1048576, 1048576) == (128, 8, 1)
+    assert cf.allpairs_split(33792, 33792) == (128, 8, 1)    # 264 row blocks
+    assert cf.allpairs_split(32768, 32768) == (128, 8, 5)
+    assert cf.allpairs_split(2048, 524288) == (128, 8, 64)
+    assert cf.allpairs_split(2048, 65536) == (128, 8, 64)
+    assert cf.allpairs_split(16384, 65536) == (128, 8, 8)
+    assert cf.allpairs_split(8192, 8192) == (128, 8, 8)      # no more pieces than stages
+    assert cf.allpairs_split(0, 0) == (128, 8, 1)
+
+
+def test_allpairs_split_rejects_nonsense():
+    for ni, nj in ((-1, 4), (4, -1)):
+        with pytest.raises(ValueError):
+            cf.allpairs_split(ni, nj)
+
+
+def _walk_allpairs(pos_i, pos_j, mass_j, split):
+    """The all-pairs kernel's sums in its order: a part's columns stage by
+    stage, the parts of a block in part order, the pieces in piece order."""
+    cols = torch.cat([pos_j, (mass_j * (C2 * COMP))[:, None]], dim=1)
+    _, parts, pieces = split
+    out = None
+    for piece in cf.allpairs_columns(pos_j.shape[0], parts, pieces):
+        block = None
+        for part in piece:
+            acc = torch.zeros((pos_i.shape[0], 3))
+            for run in part:
+                src = cols[run.start:run.stop]
+                d = src[None, :, :3] - pos_i[:, None, :]
+                r2 = d[..., 2] * d[..., 2] + (d[..., 1] * d[..., 1] + d[..., 0] * d[..., 0])
+                inv = torch.rsqrt(r2 * C2 + EPS2)
+                acc = acc + ((src[None, :, 3] * (inv * inv * inv))[..., None] * d).sum(1)
+            block = acc if block is None else block + acc
+        out = block if out is None else out + block
+    return out
+
+
+@pytest.mark.parametrize("ni,nj,split", [(384, 4096, None), (384, 4096, (512, 2, 3)),
+                                         (128, 2560, (1024, 1, 1)), (256, 2560, (256, 4, 2))])
+def test_allpairs_walk_matches_plain_and_jax(ni, nj, split):
+    """384 rows against 4,096 columns are cut into 4 pieces (one a stage) of
+    8 parts by the rule itself; other splits of the same work give the same
+    force."""
+    rng = np.random.default_rng(17)
+    pos_j = rng.normal(size=(nj, 3)).astype(np.float32)
+    pos_i = (rng.normal(size=(ni, 3)) + 0.25).astype(np.float32)
+    mass = rng.uniform(0.5, 1.5, size=nj).astype(np.float32) / nj
+    mass[-60:] = 0.0                                         # padding bodies
+    ti, tj, tm = (torch.from_numpy(a.copy()) for a in (pos_i, pos_j, mass))
+    if split is None:
+        split = cf.allpairs_split(ni, nj)
+        assert split == (128, 8, 4)
+    got = _walk_allpairs(ti, tj, tm, split)
+    plain = cf.block_acc_plain(ti, tj, tm, eps2=EPS2, compensate=COMP)
+    torch.testing.assert_close(got, plain, **TOL)
+    # The wrapper on the CPU: the twin.
+    torch.testing.assert_close(cf.block_acc(ti, tj, tm, eps2=EPS2, compensate=COMP,
+                                            tile_i=128, tile_j=256), plain, rtol=0, atol=0)
+    want = np.asarray(pallas_block_acc(pos_i, pos_j, mass, eps2=EPS2, compensate=COMP,
+                                       tile_i=128, tile_j=256, interpret=True))
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
 
 
 # ------------------------------------------------- the symmetric schedule
@@ -143,6 +267,19 @@ def test_symmetric_wrapper_pads_to_the_kernel_tile(n_real, n, tile):
         # The wrapper on the CPU: the twin, at the caller's tile.
         torch.testing.assert_close(got, cs.symmetric_acc(
             state.pos, state.mass, eps2=EPS2, compensate=COMP, tile=tile), **TOL)
+
+
+@pytest.mark.parametrize("tile", [64, 448, 512, 1024, 2048])
+def test_fast_shape_fits_a_block(tile):
+    """The bf16x3/mixed kernel's block: warps whose column sums fit shared
+    memory beside the column tile at every tile the wrapper takes, whole
+    steps of column strips (tiles are multiples of 64 bodies, 4 strips)."""
+    for warps, step in cs.FAST_SHAPES:
+        assert warps in range(1, 9) and step in (1, 2, 4)
+    assert cs.FAST_SHAPE in cs.FAST_SHAPES
+    warps, step = cs.FAST_SHAPE
+    assert tile * 16 * (1 + warps) <= cs.FAST_MAX_SHARED
+    assert tile % cs.FAST_TILE_MULTIPLE == 0 and (tile // 16) % step == 0
 
 
 # ------------------------------------------------------ the near split

@@ -193,3 +193,25 @@ def test_pairs_per_step_counts_real_bodies():
                          tnb.models.plummer(200, seed=0), device="cpu")
     assert sim.pairs_per_step() == 200 * 199
     assert sim.padded_pairs_per_step() == 256 * 256
+
+
+@pytest.mark.parametrize("solver", ["pallas", "pallas_symmetric", "treecode"])
+@pytest.mark.parametrize("eps2", [0.0, 1e-39])
+def test_card_softening_is_checked_once_at_construction(solver, eps2):
+    """The pair kernels take the bare rsqrt instruction, which flushes a
+    denormal argument: on "cuda" a solver that reaches a kernel refuses a
+    softening below the smallest normal float32, naming the limit and the
+    CPU; the CPU and the plain solvers take any."""
+    from n_body_problem_tpu_torch.ops.cuda_build import MIN_EPS2
+    from n_body_problem_tpu_torch.simulation import require_card_softening
+
+    with pytest.raises(ValueError, match=r'1\.1754944e-38.*device="cpu"'):
+        require_card_softening(solver, eps2, device_type="cuda")
+    require_card_softening(solver, MIN_EPS2, device_type="cuda")
+    require_card_softening(solver, eps2, device_type="cpu")
+    require_card_softening("direct", eps2, device_type="cuda")
+    # On the CPU the constructor takes such a config, as the JAX package does.
+    if eps2 and solver != "treecode":
+        cfg = tnb.SimConfig(solver=solver, eps2=eps2, pallas_tile_i=64, pallas_tile_j=64,
+                            pallas_sym_tile=64)
+        assert tnb.Simulation(cfg, tnb.models.plummer(64, seed=2), device="cpu").solver == solver
