@@ -43,9 +43,11 @@ is non-zero:
    rows of 64 and 256 bodies at 65,536 (``tree_tile``). Within rtol=1e-4,
    atol=2e-6 on the raw outputs, the gather exactly; each launch repeated
    for bitwise equality. Times each kernel at the largest shape of its
-   path, beside its plain version, its bound and (the gather) one
-   ``index_select`` call; the near kernel at every row size, with the
-   largest and the mean number of chunks a row.
+   path, beside its plain version, its bound, its issue floor and (the
+   gather) one ``index_select`` call; the near kernel at every row size,
+   with the largest and the mean number of chunks a row; the VIP sweep and
+   the far field also at 524,288, each with its kernels' device time from a
+   ``torch.profiler`` trace (the sweep is a pair and a summing kernel).
 5. exact main path: ``Simulation(SimConfig(), plummer(65536))`` (the
    symmetric kernel), ``solver="pallas"`` (the all-pairs kernel), leapfrog,
    and ``pallas_sym_precision="bf16x3"`` and ``"mixed"`` (the tensor-core
@@ -74,9 +76,9 @@ is non-zero:
 
 The last three lines of standard output are the kernels' JSON record, the
 card's name and power limit, and ``{"ok": true, "device": {...}}``. The
-records of the all-pairs, the symmetric and the near kernels also carry
-``issue_floor_ms`` (``kernel_compare.issue_floor_ms`` at the SM clock of this
-run).
+records of every kernel but the gather also carry ``issue_floor_ms``
+(``kernel_compare.issue_floor_ms`` at the SM clock of this run); those of
+the VIP sweep and the far field ``device_ms`` and ``at_524288``.
 """
 
 from __future__ import annotations
@@ -89,10 +91,14 @@ import subprocess
 import sys
 import time
 
-from n_body_problem_tpu_torch.kernel_compare import (PAIR_BOTH_FLOPS, PAIR_BOTH_SLOTS, PAIR_FLOPS,
-                                                      PAIR_SLOTS, PHYS, bound, fast_bound,
+from n_body_problem_tpu_torch.kernel_compare import (FAR_SINGLE_TERM_SLOTS, FAR_TERM_SLOTS,
+                                                      NODE_FLOPS, PAIR_BOTH_FLOPS,
+                                                      PAIR_BOTH_SLOTS, PAIR_FLOPS, PAIR_SLOTS, PHYS,
+                                                      VIP_PAIR_SLOTS,
+                                                      bound, far_work, fast_bound,
                                                       fast_issue_floor_ms, issue_floor_ms,
-                                                      near_work, sm_clock_mhz)
+                                                      kernel_ms, near_work, sm_clock_mhz,
+                                                      tree_bound, vip_work)
 
 ROOT = pathlib.Path(__file__).resolve().parent
 TOL = dict(rtol=1e-4, atol=2e-6)
@@ -105,11 +111,9 @@ TREE_PRIME, TREE_TIMED = 8, 64
 ERR_P99, ERR_MEDIAN = 2.5e-3, 5e-4   # tests/test_treecode_hier.py:126-127
 TREE_KERNELS = ("near", "far", "vip", "far_single", "gather", "near_panel")
 # FP32 operations a kernel does per interaction, an FMA counted as two and an
-# rsqrt as one: a body against a node's monopole + quadrupole; a body pair
-# one way (near kernels) and both ways (VIP sweep, symmetric kernel) are
-# ``kernel_compare``'s PAIR_FLOPS and PAIR_BOTH_FLOPS, beside its peak rates,
-# its ``bound`` and ``fast_bound`` and the physics of every check (PHYS).
-NODE_FLOPS = 56
+# rsqrt as one (a body against a node's monopole + quadrupole; a body pair one
+# way and both ways), the issue slots each takes, the peak rates, ``bound``
+# and the physics of every check (PHYS) are ``kernel_compare``'s.
 # (padded N, real N, tile) of the fast modes' check: even K = 8 (the JAX
 # test's shape), odd K = 7, padding with K = 2, and the production size.
 FAST_SIZES = ((512, 512, 64), (448, 448, 64), (1024, 934, 512), (65536, 65536, 512))
@@ -412,41 +416,40 @@ def time_near(kernel, args, kw) -> dict:
     from n_body_problem_tpu_torch.treecode_profile import time_ms
 
     work = near_work(args, kw)
+    work.pop("pairs")
     ms = time_ms(lambda: kernel(*args, **kw), 20)
-    return {"ms": ms, "bound_ms": tree_work("near", args, kw)["bound_ms"],
-            "issue_floor_ms": issue_floor_ms(work.pop("pairs"), PAIR_SLOTS, sm_clock_mhz()),
-            **work}
+    return {"ms": ms, **tree_work("near", args, kw), **work}
 
 
 def tree_work(key: str, args, kw) -> dict:
     """``bound`` of a treecode kernel's call, counting the interactions
     these inputs need (sentinel entries and masked tiles are skipped) and
-    each input read and each output written once."""
-    from n_body_problem_tpu_torch.ops.cuda_treecode import FAR_ENTRIES
-
+    each input read and each output written once, and its issue floor at
+    this run's SM clock: a pair one way ``PAIR_SLOTS``, both ways (VIP)
+    ``VIP_PAIR_SLOTS``, a body-node term ``FAR_TERM_SLOTS`` (two targets a
+    thread) or ``FAR_SINGLE_TERM_SLOTS`` (one) (the gather has none: it moves
+    bytes)."""
     nbytes = sum(a.numel() * a.element_size() for a in args)
-    if key == "near":
-        return bound(PAIR_FLOPS * near_work(args, kw)["pairs"], nbytes + kw["n"] * 12)
-    if key == "far":
-        bodies, summ, far_src, far_tgt = args
-        n = kw["n"]
-        ids = far_src[:far_tgt.shape[0] * FAR_ENTRIES].reshape(far_tgt.shape[0], -1)
-        real = (ids != summ.shape[0] - 1) & (far_tgt < n // kw["tile"])[:, None]
-        return bound(NODE_FLOPS * int(real.sum()) * kw["tile"], nbytes + n * 12)
-    if key == "far_single":
+    if key in ("vip", "far"):
+        count, slots = ((vip_work(args, kw)["pairs"], VIP_PAIR_SLOTS) if key == "vip"
+                        else (far_work(args, kw)["terms"], FAR_TERM_SLOTS))
+        out = tree_bound(key, args, kw)
+    elif key == "near":
+        count, slots = near_work(args, kw)["pairs"], PAIR_SLOTS
+        out = bound(PAIR_FLOPS * count, nbytes + kw["n"] * 12)
+    elif key == "far_single":
         bodies, summ, mask = args
-        live = mask.numel() - int(mask.sum())
-        return bound(NODE_FLOPS * live * kw["tile"], nbytes + kw["n"] * 12)
-    if key == "gather":
+        count, slots = (mask.numel() - int(mask.sum())) * kw["tile"], FAR_SINGLE_TERM_SLOTS
+        out = bound(NODE_FLOPS * count, nbytes + kw["n"] * 12)
+    elif key == "gather":
         bodies, near_idx = args
-        return bound(0, nbytes + near_idx.numel() * kw["tile"] * 16)
-    if key == "near_panel":
+        return {**bound(0, nbytes + near_idx.numel() * kw["tile"] * 16), "issue_floor_ms": None}
+    else:   # near_panel
         bodies, panels = args
         k, w = panels.shape[:2]
-        return bound(PAIR_FLOPS * k * kw["tile"] * w, nbytes + k * kw["tile"] * 12)
-    rows, panel = args   # vip: action on every row, reaction on the panel
-    return bound(PAIR_BOTH_FLOPS * rows.shape[0] * panel.shape[0],
-                 nbytes + (rows.shape[0] + panel.shape[0]) * 12)
+        count, slots = k * kw["tile"] * w, PAIR_SLOTS
+        out = bound(PAIR_FLOPS * count, nbytes + k * kw["tile"] * 12)
+    return {**out, "issue_floor_ms": issue_floor_ms(count, slots, sm_clock_mhz())}
 
 
 def gather_library(bodies, near_idx, *, tile: int):
@@ -456,11 +459,13 @@ def gather_library(bodies, near_idx, *, tile: int):
     return tiles.index_select(0, near_idx.reshape(-1)).view(near_idx.shape[0], -1, 4)
 
 
-# Where each treecode kernel is timed: the largest shape of the path it
-# serves (case label of ``tree_kernel_cases``).
-TIME_AT = {"near": "65,536", "far": "65,536", "vip": "65,536",
-           "far_single": "65,536 flat", "gather": "20,480 dense",
-           "near_panel": "20,480 dense"}
+# Where each treecode kernel is timed (case labels of ``tree_kernel_cases``):
+# the main record at the largest shape of the path it serves below 524,288;
+# the VIP sweep and the far field also at 524,288, where the card, not the
+# host, sets the step's pace.
+TIME_AT = {"near": ("65,536",), "far": ("65,536", "524,288"), "vip": ("65,536", "524,288"),
+           "far_single": ("65,536 flat",), "gather": ("20,480 dense",),
+           "near_panel": ("20,480 dense",)}
 
 
 def compare_tree_kernels(device, cases=None, time_at: dict | None = None) -> dict:
@@ -509,17 +514,23 @@ def compare_tree_kernels(device, cases=None, time_at: dict | None = None) -> dic
                             "chunks a row max {} mean {:.2f}".format(
                                 kw["tile"], t["ms"], t["bound_ms"], t["issue_floor_ms"],
                                 t["chunks_max"], t["chunks_mean"]))
-            if time_at.get(key) == label:
-                res[key]["ms"] = time_ms(lambda: kernel(*args, **kw), 20)
-                res[key]["plain_ms"] = time_ms(lambda: plain(*args, **kw), 3)
-                res[key]["library_ms"] = None
-                if key == "gather":
-                    check(torch.equal(gather_library(*args, **kw), got),
-                          f"gather N={label}: index_select != kernel")
-                    res[key]["library_ms"] = time_ms(lambda: gather_library(*args, **kw), 20)
-                res[key].update(tree_work(key, args, kw))
-                if key == "near":
-                    res[key]["issue_floor_ms"] = res[key]["by_rows"]["hier 128"]["issue_floor_ms"]
+            labels = time_at.get(key, ())
+            if label in labels:
+                t = {"ms": time_ms(lambda: kernel(*args, **kw), 20)}
+                if key in ("vip", "far"):   # the kernels alone, without the host's enqueue
+                    t["by_kernel_ms"] = kernel_ms(lambda: kernel(*args, **kw), 20)
+                    t["device_ms"] = sum(t["by_kernel_ms"].values())
+                t.update(tree_work(key, args, kw))
+                if label == labels[0]:
+                    t["plain_ms"] = time_ms(lambda: plain(*args, **kw), 3)
+                    t["library_ms"] = None
+                    if key == "gather":
+                        check(torch.equal(gather_library(*args, **kw), got),
+                              f"gather N={label}: index_select != kernel")
+                        t["library_ms"] = time_ms(lambda: gather_library(*args, **kw), 20)
+                    res[key].update(t)
+                else:
+                    res[key][f"at_{n}"] = t
         c, ops = inp["cfg"], inp["ops"]
         shapes = " ".join(f"{x.shape[0]}x{x.shape[1]}" if x.dim() > 1 else str(x.shape[0])
                           for x in inp["aux"][:-1])
@@ -533,10 +544,21 @@ def compare_tree_kernels(device, cases=None, time_at: dict | None = None) -> dic
     timed = [k for k in TREE_KERNELS if "ms" in res[k]]
     if timed:
         print("tree kernels: times (ms/call): " + "; ".join(
-            f"{k} at {time_at[k]} {res[k]['ms']:.4f} vs plain {res[k]['plain_ms']:.4f}"
+            f"{k} at {time_at[k][0]} {res[k]['ms']:.4f} vs plain {res[k]['plain_ms']:.4f}"
             f" bound {res[k]['bound_ms']:.4f} ({res[k]['bound_by']})"
+            + (f" issue floor {res[k]['issue_floor_ms']:.4f}" if res[k]["issue_floor_ms"]
+               else "")
             + (f" library {res[k]['library_ms']:.4f}" if res[k]["library_ms"] else "")
             for k in timed), flush=True)
+    for k in ("vip", "far"):
+        for label in time_at.get(k, ()):
+            n = int(label.replace(",", ""))
+            t = res[k] if label == time_at[k][0] else res[k].get(f"at_{n}")
+            if t and "device_ms" in t:
+                print(f"tree kernels: {k} at {label}: call {t['ms']:.4f} ms, kernels "
+                      + " + ".join(f"{name} {ms:.4f}" for name, ms in t["by_kernel_ms"].items())
+                      + f" = {t['device_ms']:.4f} ms; bound {t['bound_ms']:.4f}, issue floor "
+                      f"{t['issue_floor_ms']:.4f}", flush=True)
     return res
 
 
@@ -878,7 +900,7 @@ def main() -> int:
         ("far_single", "far_single_kernel", "far_single.cu", "treecode.py:436"),
         ("gather", "gather_panels_kernel", "gather.cu", "treecode.py:617"),
         ("near_panel", "near_panel_kernel", "near_panel.cu", "treecode.py:718"),
-        ("vip", "vip_both_kernel+vip_react_sum_kernel", "vip.cu", "treecode.py:805"),
+        ("vip", "vip_both_kernel+vip_sum_kernel", "vip.cu", "treecode.py:805"),
         ("near", "near_field_kernel", "near.cu", "treecode.py:1286"),
         ("far", "far_field_kernel", "far_hier.cu", "treecode.py:2164"),
     )

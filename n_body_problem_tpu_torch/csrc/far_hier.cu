@@ -16,92 +16,213 @@
 // Node rows are 12 floats: cx cy cz m qxx qyy qzz qxy qxz qyz tr 0; the zero
 // sentinel row contributes exactly nothing.
 //
-// What bounds it on the card: arithmetic (about 45 FP32 instructions and
-// one MUFU rsqrt per body-node pair); the 3 KB of node rows a chunk reads
-// are shared by the T threads of the row.
+// What bounds it on the card: instruction issue on the FP32 pipe. A term is
+// 33 instructions with the MUFU rsqrt, and the 3 KB of node rows a chunk
+// reads are shared by the T targets of the row.
 //
-// What the design does about that: one block per target row, one thread per
-// target body; the block finds its chunk range by binary search in far_tgt
-// (non-decreasing, sentinel K_t last), stages the chunk's 64 node rows in
-// shared memory as float4 and reads them as broadcasts. No atomics and a
-// fixed order: bitwise the same on every run.
+// What the design does about that:
+// - A thread holds two targets, so the three 16-byte shared loads of a
+//   node's row serve two terms: with one target a thread those loads keep
+//   the shared memory's port as busy as the FP32 pipe.
+// - A block is `sub` targets of one row (sub / 2 threads) times `parts`
+//   (far_split in ops/cuda_treecode.py); part p takes the entries p,
+//   p + parts, ... of every stage of the row's chunks, and the parts' sums
+//   are added in part order through shared memory.
+// - The row's node rows are staged `stage_chunks` chunks at a time in two
+//   shared buffers. The ids of stage s + 2 and the node rows of stage s + 1
+//   are loaded into registers before stage s is summed, and stored after
+//   it, so the two-level gather waits behind a stage of terms; one
+//   __syncthreads a stage.
+// - The node's constants are scaled as they are stored: m by G c^3, tr by
+//   -1.5 G c^5, the quadrupole by -3 G c^5, so a term is u^3 (m' + u^2 (tr' -
+//   2.5 c^2 u^2 d'S'd)) d + u^5 S'd: 33 instructions with the bare rsqrt
+//   (pairs.cuh); the wrapper requires a normal eps2.
+// No atomics and a fixed order: bitwise the same on every run.
 
 #include <cuda_runtime.h>
 
 #include "lists.cuh"
+#include "pairs.cuh"
 
 namespace {
 
-constexpr int kEntries = 64;  // FAR_ENTRIES in ops/treecode.py
+constexpr int kEntries = 64;     // FAR_ENTRIES in ops/treecode.py
+// kMaxThreads and kSlots are FAR_MAX_THREADS and FAR_SLOTS in
+// ops/cuda_treecode.py, whose far_split keeps within them.
+constexpr int kMaxThreads = 512;
+constexpr int kTargets = 2;      // target bodies a thread
+constexpr int kSlots = 2;        // node quads a thread stages a stage, at most
 
-__global__ void __launch_bounds__(1024)
+// One body-node term into (ax, ay, az): the node's three quads a, q, r as
+// staged (m', S' and tr' scaled), kq = -2.5 c^2.
+__device__ __forceinline__ void far_term(const float4& a, const float4& q, const float4& r,
+                                         const float4& me, float c2, float eps2, float kq,
+                                         float& ax, float& ay, float& az) {
+  const float dx = a.x - me.x;
+  const float dy = a.y - me.y;
+  const float dz = a.z - me.z;
+  const float r2 = fmaf(dz, dz, fmaf(dy, dy, dx * dx));
+  const float u = rsqrt_normal(fmaf(c2, r2, eps2));
+  const float u2 = u * u;
+  const float sdx = fmaf(q.x, dx, fmaf(q.w, dy, r.x * dz));  // S'd
+  const float sdy = fmaf(q.w, dx, fmaf(q.y, dy, r.y * dz));
+  const float sdz = fmaf(r.x, dx, fmaf(r.y, dy, q.z * dz));
+  const float dsd = fmaf(dx, sdx, fmaf(dy, sdy, dz * sdz));  // d'S'd
+  const float u3 = u2 * u;
+  const float wd = u3 * fmaf(u2, fmaf(kq * u2, dsd, r.z), a.w);
+  const float u5 = u3 * u2;
+  ax = fmaf(wd, dx, fmaf(u5, sdx, ax));
+  ay = fmaf(wd, dy, fmaf(u5, sdy, ay));
+  az = fmaf(wd, dz, fmaf(u5, sdz, az));
+}
+
+// Two blocks of 512 threads a multiprocessor (at most 64 registers).
+__global__ void __launch_bounds__(kMaxThreads, 2)
 far_field_kernel(const float4* __restrict__ bodies, const float4* __restrict__ summ,
                  const int* __restrict__ far_src, const int* __restrict__ far_tgt,
-                 int n_chunks, float* __restrict__ out, float c2, float eps2,
-                 float gc) {
-  __shared__ float4 node[kEntries * 3];
-  const int t = blockIdx.x;
-  const int i = t * blockDim.x + threadIdx.x;
-  const float4 me = bodies[i];
+                 int n_chunks, int tile, int sub, int parts, int stage_chunks,
+                 float* __restrict__ out, float c2, float eps2, float gc) {
+  // Two stages of 3 x 64 x stage_chunks node quads, then 3 x 2 x threads floats.
+  extern __shared__ float4 stage[];
+  const int t = blockIdx.x / (tile / sub);  // the target row of this block's bodies
+  const int threads = blockDim.x;
+  const int half = sub / kTargets;          // threads of a part
+  const int p = threadIdx.x / half;         // part of the row's entries
+  const int b = threadIdx.x - p * half;
+  const int i = blockIdx.x * sub + b;       // this thread's targets: i and i + half
+  const float4 me0 = bodies[i];
+  const float4 me1 = bodies[i + half];
   const int c0 = lower_bound(far_tgt, n_chunks, t);
   const int c1 = lower_bound(far_tgt, n_chunks, t + 1);
+  const int* ids = far_src + static_cast<size_t>(c0) * kEntries;
+  const int total = (c1 - c0) * kEntries;
+  const int per = stage_chunks * kEntries;  // entries a stage
+  const int quads = 3 * per;                // node quads a stage
+  const int n_stages = (total + per - 1) / per;
   const float c4 = c2 * c2;
-  const float mono = c2 * gc;          // m c^2 u^3
-  const float trace = -1.5f * c4 * gc;  // -1.5 c^4 tr u^5
-  const float quad = 7.5f * c4 * c2 * gc;  // 7.5 c^6 d'Sd u^7
-  const float sd = -3.f * c4 * gc;     // -3 c^4 u^5 S d
-  float ax = 0.f, ay = 0.f, az = 0.f;
-  for (int c = c0; c < c1; ++c) {
-    const int* ids = far_src + static_cast<size_t>(c) * kEntries;
-    for (int k = threadIdx.x; k < kEntries * 3; k += blockDim.x)
-      node[k] = summ[static_cast<size_t>(ids[k / 3]) * 3 + k % 3];
-    __syncthreads();
-#pragma unroll 4
-    for (int e = 0; e < kEntries; ++e) {
-      const float4 a = node[3 * e];      // cx cy cz m
-      const float4 b = node[3 * e + 1];  // qxx qyy qzz qxy
-      const float4 q = node[3 * e + 2];  // qxz qyz tr 0
-      const float dx = a.x - me.x;
-      const float dy = a.y - me.y;
-      const float dz = a.z - me.z;
-      const float r2 = fmaf(dz, dz, fmaf(dy, dy, dx * dx));
-      const float u = rsqrtf(fmaf(c2, r2, eps2));
-      const float u2 = u * u;
-      const float u3 = u2 * u;
-      const float u5 = u3 * u2;
-      const float u7 = u5 * u2;
-      const float sdx = fmaf(b.x, dx, fmaf(b.w, dy, q.x * dz));
-      const float sdy = fmaf(b.w, dx, fmaf(b.y, dy, q.y * dz));
-      const float sdz = fmaf(q.x, dx, fmaf(q.y, dy, b.z * dz));
-      const float dsd = fmaf(dx, sdx, fmaf(dy, sdy, dz * sdz));
-      const float wd = fmaf(mono * a.w, u3, fmaf(trace * q.z, u5, quad * dsd * u7));
-      const float ws = sd * u5;
-      ax = fmaf(wd, dx, fmaf(ws, sdx, ax));
-      ay = fmaf(wd, dy, fmaf(ws, sdy, ay));
-      az = fmaf(wd, dz, fmaf(ws, sdz, az));
+  const float kq = -2.5f * c2;              // 7.5 c^6 / (-3 c^4)
+  const float mono = c2 * gc;               // m' = G c^3 m
+  const float trace = -1.5f * c4 * gc;      // tr' = -1.5 G c^5 tr
+  const float quad = -3.f * c4 * gc;        // S' = -3 G c^5 S
+  // This thread's node quads of a stage: k = threadIdx.x + j threads is the
+  // (k % 3)-th quad of entry k / 3.
+  int id[kSlots];
+  float4 nxt[kSlots];
+  const auto load_ids = [&](int st) {
+#pragma unroll
+    for (int j = 0; j < kSlots; ++j) {
+      const int k = threadIdx.x + j * threads;
+      const int e = st * per + k / 3;
+      id[j] = k < quads && e < total ? ids[e] : -1;
     }
+  };
+  const auto load_nodes = [&]() {
+#pragma unroll
+    for (int j = 0; j < kSlots; ++j) {
+      const int k = threadIdx.x + j * threads;
+      nxt[j] = id[j] >= 0 ? summ[static_cast<size_t>(id[j]) * 3 + k % 3]
+                          : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  };
+  const auto store = [&](float4* dst) {
+#pragma unroll
+    for (int j = 0; j < kSlots; ++j) {
+      const int k = threadIdx.x + j * threads;
+      if (k >= quads) continue;
+      float4 v = nxt[j];
+      if (k % 3 == 0) {
+        v.w *= mono;
+      } else {
+        v.x *= quad;
+        v.y *= quad;
+        v.z *= k % 3 == 1 ? quad : trace;
+        v.w *= quad;  // qxy, or the row's zero twelfth float
+      }
+      dst[k] = v;
+    }
+  };
+
+  if (n_stages > 0) {
+    load_ids(0);
+    load_nodes();
+    if (n_stages > 1) load_ids(1);
+    store(stage);
+  }
+  __syncthreads();
+  float ax0 = 0.f, ay0 = 0.f, az0 = 0.f, ax1 = 0.f, ay1 = 0.f, az1 = 0.f;
+  for (int s = 0; s < n_stages; ++s) {
+    const float4* cur = stage + (s & 1) * quads;
+    if (s + 1 < n_stages) {
+      load_nodes();
+      if (s + 2 < n_stages) load_ids(s + 2);
+    }
+    // This part's entries of the stage: p, p + parts, ... below cnt.
+    const int cnt = min(per, total - s * per);
+    const int mine = cnt > p ? (cnt - p + parts - 1) / parts : 0;
+    const float4* node = cur + 3 * p;
+#pragma unroll 2
+    for (int m = 0; m < mine; ++m, node += 3 * parts) {
+      const float4 a = node[0];  // cx cy cz m'
+      const float4 q = node[1];  // qxx' qyy' qzz' qxy'
+      const float4 r = node[2];  // qxz' qyz' tr' 0
+      far_term(a, q, r, me0, c2, eps2, kq, ax0, ay0, az0);
+      far_term(a, q, r, me1, c2, eps2, kq, ax1, ay1, az1);
+    }
+    if (s + 1 < n_stages) store(stage + ((s + 1) & 1) * quads);
     __syncthreads();
   }
-  out[3 * i + 0] = ax;
-  out[3 * i + 1] = ay;
-  out[3 * i + 2] = az;
+  float* red = reinterpret_cast<float*>(stage + 2 * quads);  // (6, threads)
+  const float mine6[6] = {ax0, ay0, az0, ax1, ay1, az1};
+#pragma unroll
+  for (int c = 0; c < 6; ++c) red[c * threads + threadIdx.x] = mine6[c];
+  __syncthreads();
+  if (p) return;
+  for (int q = 1; q < parts; ++q) {
+    const float* o = red + q * half + b;
+    ax0 += o[0 * threads];
+    ay0 += o[1 * threads];
+    az0 += o[2 * threads];
+    ax1 += o[3 * threads];
+    ay1 += o[4 * threads];
+    az1 += o[5 * threads];
+  }
+  out[3 * i + 0] = ax0;
+  out[3 * i + 1] = ay0;
+  out[3 * i + 2] = az0;
+  out[3 * (i + half) + 0] = ax1;
+  out[3 * (i + half) + 1] = ay1;
+  out[3 * (i + half) + 2] = az1;
 }
 
 }  // namespace
 
 // bodies: (>= n, 4) float32 rows whose xyz are the targets; summ:
 // (K_total + 1, 12) float32 node rows; far_src: (>= n_chunks * 64,) int32;
-// far_tgt: (n_chunks,) int32; out: (n, 3) float32; gc = G c. tile (threads
-// a block) divides n, is a multiple of 32 and at most 1,024. Launches on
-// `stream`; returns cudaGetLastError().
-extern "C" int nbody_far_field(const float* bodies, int n, int tile, const float* summ,
-                               const int* far_src, const int* far_tgt, int n_chunks,
-                               float* out, float c2, float eps2, float gc,
-                               void* stream) {
+// far_tgt: (n_chunks,) int32; out: (n, 3) float32; gc = G c. tile divides n;
+// sub divides tile and is a multiple of 32; a block is sub / 2 x parts <= 512
+// threads, a multiple of 32, two targets a thread, and stages stage_chunks
+// chunks at a time, at most two node quads a thread (far_split in
+// ops/cuda_treecode.py). Launches on `stream`; returns cudaGetLastError().
+extern "C" int nbody_far_field(const float* bodies, int n, int tile, int sub, int parts,
+                               int stage_chunks, const float* summ, const int* far_src,
+                               const int* far_tgt, int n_chunks, float* out, float c2,
+                               float eps2, float gc, void* stream) {
   if (n <= 0) return 0;
-  if (tile <= 0 || tile > 1024 || n % tile) return static_cast<int>(cudaErrorInvalidValue);
-  far_field_kernel<<<n / tile, tile, 0, static_cast<cudaStream_t>(stream)>>>(
+  const int threads = sub / kTargets * parts;
+  if (tile <= 0 || n % tile || sub <= 0 || sub % 32 || tile % sub || parts < 1 ||
+      threads > kMaxThreads || threads % 32 || stage_chunks < 1 ||
+      3 * kEntries * stage_chunks > kSlots * threads)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t shmem = static_cast<size_t>(2) * 3 * kEntries * stage_chunks * sizeof(float4) +
+                       3 * kTargets * threads * sizeof(float);
+  if (shmem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        far_field_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(shmem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  far_field_kernel<<<n / sub, threads, shmem, static_cast<cudaStream_t>(stream)>>>(
       reinterpret_cast<const float4*>(bodies), reinterpret_cast<const float4*>(summ),
-      far_src, far_tgt, n_chunks, out, c2, eps2, gc);
+      far_src, far_tgt, n_chunks, tile, sub, parts, stage_chunks, out, c2, eps2, gc);
   return static_cast<int>(cudaGetLastError());
 }

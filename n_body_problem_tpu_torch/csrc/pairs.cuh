@@ -1,4 +1,4 @@
-// Device helpers of the pair kernels symmetric.cu and near.cu.
+// Device helpers of the pair and treecode kernels.
 #pragma once
 
 // rsqrt(x) for normal x > 0 as the bare MUFU instruction. rsqrtf() wraps the

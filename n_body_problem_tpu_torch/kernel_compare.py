@@ -1,13 +1,13 @@
 """The pair kernels timed on one GPU at the main paths' shapes, beside another
 checkout's versions of them: the all-pairs kernel (square and block form),
-the symmetric f32 kernel, the symmetric bf16x3/mixed kernel and the treecode
-near kernel.
+the symmetric f32 kernel, the symmetric bf16x3/mixed kernel, and the
+treecode near kernel, VIP sweep and hierarchical far field.
 
     python -m n_body_problem_tpu_torch.kernel_compare [--before ROOT] [--sweep]
         [--sizes 8192,32768,65536,262144] [--blocks 2048x524288,16384x65536]
         [--fast-small 512:64,448:64,1024:512]
-        [--near 65536,524288,20480f,65536f,20480t] [--cap 524288,1048576]
-        [--json PATH]
+        [--near 65536,524288,20480f,65536f,20480t] [--vip 65536,524288,20480t]
+        [--far 65536,524288,20480t] [--cap 524288,1048576] [--json PATH]
 
 For each size the symmetric f32 kernel is timed beside the all-pairs kernel
 and held against it, the all-pairs kernel is run twice for bitwise equality,
@@ -19,7 +19,13 @@ Plummer sphere of NJ bodies (the treecode error probe's shape) or, with NI a
 fourth of NJ or more, its first NI bodies (a ring step's shape). For each
 near case (a size suffix as in ``treecode_profile``: ``t`` tuned, ``f``
 flat) the near kernel is run twice for bitwise equality, and the largest and
-the mean number of chunks a target row has are given. Each line carries the
+the mean number of chunks a target row has are given. Each VIP case (the
+panel of W VIP bodies against all N rows) and each far case (target rows
+against the node summaries of their far chunks) is held against its plain
+twin, run twice for bitwise equality, and timed as a whole call and, from a
+``torch.profiler`` trace, kernel by kernel (the VIP sweep is a pair kernel
+and a summing kernel); the far case also gives its live body-node terms and
+its chunks a row. Each line carries the
 table's bound (``bound_ms``: operations over the peak rates) and the issue
 floor (``issue_floor_ms``: the instruction slots a pair needs over the
 multiprocessors' issue rate at the SM clock ``nvidia-smi`` shows during the
@@ -36,15 +42,19 @@ the built library's SASS (``cuobjdump -sass``; the listing is kept beside
 every case are saved to a file, and a process of its own in each checkout
 times that checkout's wrappers on them, by CUDA events, in turns: before,
 after, after, before. ``ms`` and ``previous_ms`` are then the means of each
-one's two turns, and ``max_abs_vs_before`` the largest difference of the two
-outputs. Each checkout builds its own kernels; only the wrappers' public
+one's two turns, ``device_ms`` and ``previous_device_ms`` the same for the
+device time of the kernels alone (a ``torch.profiler`` trace: where the
+host enqueues a call more slowly than the card runs it, as the VIP sweep
+and the far field below 524,288 bodies, the events time the host), and
+``max_abs_vs_before`` the largest difference of the two outputs. Each checkout builds its own kernels; only the wrappers' public
 signatures have to agree.
 
 ``--sweep`` also times the near kernel over block sizes, stage sizes and
-targets a block, the all-pairs kernel over parts and pieces, and the
-bf16x3/mixed kernel over its block shapes. One JSON object with every number
-and the card's name and power limit ends the output (also written to
-``--json``).
+targets a block, the all-pairs kernel over parts and pieces, the
+bf16x3/mixed kernel over its block shapes, the VIP sweep over the splits of
+``vip_split`` and the far field over those of ``far_split``. One JSON object
+with every number and the card's name and power limit ends the output (also
+written to ``--json``).
 """
 
 from __future__ import annotations
@@ -77,26 +87,54 @@ FAST_PAIR_FLOPS, FAST_PAIR_TC_FLOPS, PEAK_BF16 = 21, 24, 989e12
 # pack, two unpacks, two subtractions and a pack for two weights) and one
 # for the shared loads, the stores and the three mma.sync of eight pairs.
 PAIR_SLOTS, PAIR_BOTH_SLOTS, FAST_PAIR_SLOTS = 15.0, 19.5, 19.0
+# A VIP pair is a pair both ways, as in the symmetric kernel: four row bodies
+# a thread, the reaction by the same three-shuffle rotation.
+VIP_PAIR_SLOTS = PAIR_BOTH_SLOTS
+# A body-node term: 33 FP32 instructions with the MUFU rsqrt (3 for d, 3 for
+# |d|^2, 1 for c^2 |d|^2 + eps2, the rsqrt, 9 for S d, 3 for d'Sd, 7 for the
+# powers of u and the weight with node constants scaled when staged, 6 FMAs
+# into the sums), and the three 16-byte shared loads of the node's row. The
+# far kernel (8/9) holds two targets a thread, so the loads serve two terms;
+# the single-level far kernel (3) one.
+NODE_TERM_INSTRUCTIONS, NODE_ROW_LOADS = 33, 3
+FAR_TERM_SLOTS = NODE_TERM_INSTRUCTIONS + NODE_ROW_LOADS / 2         # 34.5
+FAR_SINGLE_TERM_SLOTS = float(NODE_TERM_INSTRUCTIONS + NODE_ROW_LOADS)  # 36
+# FP32 operations of a body-node term (monopole + quadrupole) as those 33
+# instructions do it, an FMA two (kernel 3's term, in the reference's order,
+# takes 56).
+NODE_FLOPS = 52
 LANES_A_CLOCK = 128   # FP32 lanes a multiprocessor issues a clock
 FAST_TILE = 512
 # (threads a block, bodies a stage, most targets a block)
 NEAR_SPLITS = ((128, 512, 1024), (256, 512, 1024), (512, 512, 1024), (512, 2048, 1024),
                (1024, 2048, 1024), (1024, 2048, 128), (1024, 2048, 64), (1024, 2048, 32),
                (512, 2048, 64), (512, 2048, 32))
+# (most targets a block, parts, chunks a stage) of the far kernel's sweep.
+FAR_SPLITS = ((128, 4, 2), (128, 8, 4), (128, 8, 2), (128, 4, 1), (128, 2, 1), (64, 8, 2),
+              (64, 16, 4), (32, 16, 2), (32, 32, 4))
+# (blocks aimed at, most VIPs a piece) of the VIP sweep's.
+VIP_SPLITS = ((2048, 512), (1024, 512), (1024, 4096), (1024, 1024), (1024, 256), (512, 512),
+              (4096, 512), (16384, 512))
 # The kernels whose registers and SASS are printed: source -> kernel name.
 COUNTED = {"allpairs.cu": "allpairs_acc_kernel", "symmetric.cu": "symmetric_acc_kernel",
-           "symmetric_bf16x3.cu": "symmetric_bf16x3_kernel", "near.cu": "near_field_kernel"}
+           "symmetric_bf16x3.cu": "symmetric_bf16x3_kernel", "near.cu": "near_field_kernel",
+           "vip.cu": "vip_both_kernel", "far_hier.cu": "far_field_kernel",
+           "far_single.cu": "far_single_kernel", "near_panel.cu": "near_panel_kernel"}
 # What a process of either checkout runs: argv = cases file, results file.
 WORKER = """
 import pathlib, sys, torch
+from torch.profiler import ProfilerActivity, profile
 from n_body_problem_tpu_torch.ops import cuda_force, cuda_symmetric, cuda_treecode
 assert pathlib.Path(cuda_symmetric.__file__).resolve().is_relative_to(pathlib.Path.cwd().resolve())
 fns = {"symmetric": cuda_symmetric.symmetric_acc, "near": cuda_treecode.near_field,
-       "allpairs": cuda_force.block_acc, "symmetric_bf16x3": cuda_symmetric.symmetric_acc_bf16x3}
+       "allpairs": cuda_force.block_acc, "symmetric_bf16x3": cuda_symmetric.symmetric_acc_bf16x3,
+       "vip": cuda_treecode.vip_both, "far": cuda_treecode.far_field_hier}
 rows = []
 for case in torch.load(sys.argv[1], map_location="cuda", weights_only=False):
     fn = lambda: fns[case["kernel"]](*case["args"], **case["kw"])
     out = fn()
+    if isinstance(out, tuple):   # the VIP sweep: action, reaction
+        out = torch.cat([o.reshape(-1) for o in out])
     torch.cuda.synchronize()
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     start.record()
@@ -104,7 +142,13 @@ for case in torch.load(sys.argv[1], map_location="cuda", weights_only=False):
         fn()
     end.record()
     torch.cuda.synchronize()
-    rows.append({"ms": start.elapsed_time(end) / case["reps"], "out": out.cpu()})
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(case["reps"]):
+            fn()
+        torch.cuda.synchronize()
+    device_us = sum(e.device_time_total for e in prof.key_averages())
+    rows.append({"ms": start.elapsed_time(end) / case["reps"], "out": out.cpu(),
+                 "device_ms": device_us / 1e3 / case["reps"]})
 torch.save(rows, sys.argv[2])
 """
 
@@ -179,6 +223,42 @@ def near_work(args, kw) -> dict:
     per_row = torch.bincount(chunk_tgt[chunk_tgt < k_t].long(), minlength=k_t)
     return {"pairs": int(live.sum()) * kw["src_tile"] * kw["tile"],
             "chunks_max": int(per_row.max()), "chunks_mean": float(per_row.float().mean())}
+
+
+def vip_work(args, kw) -> dict:
+    """What a VIP sweep has to do: every row against every panel body, both
+    ways."""
+    rows, panel = args
+    return {"pairs": rows.shape[0] * panel.shape[0], "rows": rows.shape[0],
+            "vips": panel.shape[0]}
+
+
+def far_work(args, kw) -> dict:
+    """What a far-field call has to do: ``terms``, the live entries of its
+    live chunks (the zero sentinel node, the last summary row, and the unused
+    tail left out) times the target row; and the largest and the mean number
+    of far chunks a target row has."""
+    from n_body_problem_tpu_torch.ops.cuda_treecode import FAR_ENTRIES
+
+    _, summ, far_src, far_tgt = args
+    k_t = kw["n"] // kw["tile"]
+    ids = far_src[:far_tgt.shape[0] * FAR_ENTRIES].reshape(-1, FAR_ENTRIES)
+    live = (ids != summ.shape[0] - 1) & (far_tgt < k_t)[:, None]
+    per_row = torch.bincount(far_tgt[far_tgt < k_t].long(), minlength=k_t)
+    return {"terms": int(live.sum()) * kw["tile"], "chunks_max": int(per_row.max()),
+            "chunks_mean": float(per_row.float().mean())}
+
+
+def tree_bound(key: str, args, kw) -> dict:
+    """``bound`` of a VIP or far call on these inputs: the work of
+    ``vip_work`` / ``far_work`` over the FP32 peak, or each input read and
+    each output written once over the memory rate."""
+    nbytes = sum(a.numel() * a.element_size() for a in args)
+    if key == "vip":
+        rows, panel = args
+        return bound(PAIR_BOTH_FLOPS * vip_work(args, kw)["pairs"],
+                     nbytes + (rows.shape[0] + panel.shape[0]) * 12)
+    return bound(NODE_FLOPS * far_work(args, kw)["terms"], nbytes + kw["n"] * 12)
 
 
 # ------------------------------------------------------------------- SASS
@@ -297,12 +377,14 @@ def fast_case(n: int, precision: str, tile: int = FAST_TILE) -> dict:
             "reps": _reps(n * n)}
 
 
-def near_case(tok: str) -> dict:
+def tree_case(kernel: str, tok: str) -> dict:
+    """The ``kernel``'s (near, vip or far) inputs at the size token ``tok``
+    (as ``treecode_profile``'s ``--sizes``) on the path that size takes."""
     from n_body_problem_tpu_torch.treecode_profile import _size, kernel_inputs
 
     n, overrides = _size(tok)
-    args, kw = kernel_inputs(n, torch.device("cuda", 0), **overrides)["kernels"]["near"]
-    return {"kernel": "near", "label": tok, "args": list(args), "kw": kw, "reps": 10}
+    args, kw = kernel_inputs(n, torch.device("cuda", 0), **overrides)["kernels"][kernel]
+    return {"kernel": kernel, "label": tok, "args": list(args), "kw": kw, "reps": 10}
 
 
 def allpairs_sweep(ni: int, nj: int) -> list[tuple[int, int, int]]:
@@ -429,6 +511,60 @@ def fast_row(case: dict, sweep: bool) -> dict:
     return row
 
 
+def _flat(out) -> torch.Tensor:
+    return torch.cat([o.reshape(-1) for o in out]) if isinstance(out, tuple) else out
+
+
+def device_ms(fn, reps: int) -> float:
+    """Device ms of a call of ``fn``, all its kernels (``kernel_ms``)."""
+    return sum(kernel_ms(fn, reps).values())
+
+
+def sweep_constants(kernel, got, reps: int, names: tuple[str, ...], settings,
+                    timer=None) -> dict:
+    """``kernel``'s time (``timer``, by default ``time_ms``) with each setting
+    of the ``cuda_treecode`` constants ``names`` (NaN where its output leaves
+    rtol 1e-4, atol 2e-6 of ``got``); the constants are restored after."""
+    from n_body_problem_tpu_torch.ops import cuda_treecode as ct
+    from n_body_problem_tpu_torch.treecode_profile import time_ms
+
+    timer = timer or time_ms
+    keep = tuple(getattr(ct, k) for k in names)
+    out = {}
+    try:
+        for values in settings:
+            for k, v in zip(names, values):
+                setattr(ct, k, v)
+            ok = torch.allclose(_flat(kernel()), _flat(got), rtol=1e-4, atol=2e-6)
+            out["x".join(map(str, values))] = timer(kernel, reps) if ok else float("nan")
+    finally:
+        for k, v in zip(names, keep):
+            setattr(ct, k, v)
+    return out
+
+
+def _kernel_name(name: str) -> str:
+    m = re.search(r"([A-Za-z_]\w*)\s*(?:<[^()]*>)?\s*\(",
+                  name.replace("(anonymous namespace)::", ""))
+    return m.group(1) if m else name
+
+
+def kernel_ms(fn, reps: int) -> dict:
+    """Device ms a call of ``fn`` spends in each kernel it launches, by name,
+    from a ``torch.profiler`` trace of ``reps`` calls."""
+    from n_body_problem_tpu_torch.treecode_profile import _trace
+
+    fn()
+    torch.cuda.synchronize()
+    events, _ = _trace(lambda: [fn() for _ in range(reps)])
+    out = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            name = _kernel_name(e["name"])
+            out[name] = out.get(name, 0.0) + e["dur"] / 1e3 / reps
+    return out
+
+
 def near_row(case: dict, sweep: bool) -> dict:
     from n_body_problem_tpu_torch.ops import cuda_treecode as ct
     from n_body_problem_tpu_torch.treecode_profile import time_ms
@@ -448,15 +584,65 @@ def near_row(case: dict, sweep: bool) -> dict:
            "clock_mhz": clock, "bound_ms": PAIR_FLOPS * work["pairs"] / PEAK_FLOPS * 1e3,
            "issue_floor_ms": issue_floor_ms(work["pairs"], PAIR_SLOTS, clock)}
     if sweep:
-        keep = ct.NEAR_BLOCK, ct.NEAR_PIECE_BODIES, ct.NEAR_TARGETS
-        row["by_block_piece_targets"] = {}
-        for block, piece, targets in NEAR_SPLITS:
-            ct.NEAR_BLOCK, ct.NEAR_PIECE_BODIES, ct.NEAR_TARGETS = block, piece, targets
-            ok = torch.allclose(kernel(), got, rtol=1e-4, atol=2e-6)
-            row["by_block_piece_targets"][f"{block}x{piece}x{targets}"] = (
-                time_ms(kernel, case["reps"]) if ok else float("nan"))
-        ct.NEAR_BLOCK, ct.NEAR_PIECE_BODIES, ct.NEAR_TARGETS = keep
+        row["by_block_piece_targets"] = sweep_constants(
+            kernel, got, case["reps"], ("NEAR_BLOCK", "NEAR_PIECE_BODIES", "NEAR_TARGETS"),
+            NEAR_SPLITS)
     return row
+
+
+def tree_row(case: dict, sweep: bool) -> dict:
+    """The VIP sweep or the far field at one size: held against its twin,
+    run twice for bitwise equality, timed as a call and kernel by kernel,
+    beside its bound and issue floor."""
+    from n_body_problem_tpu_torch.ops import cuda_treecode as ct
+    from n_body_problem_tpu_torch.treecode_profile import time_ms
+
+    key, args, kw = case["kernel"], case["args"], case["kw"]
+    fn, plain = {"vip": (ct.vip_both, ct.vip_both_plain),
+                 "far": (ct.far_field_hier, ct.far_field_hier_plain)}[key]
+    kernel = lambda: fn(*args, **kw)  # noqa: E731
+    before = fn.launches
+    got = kernel()
+    launches = fn.launches - before
+    torch.cuda.synchronize()
+    want = plain(*args, **kw)
+    row = {"case": case["label"], "launches_a_call": launches,
+           "repeatable": bool(torch.equal(_flat(got), _flat(kernel()))),
+           "max_abs_err": float((_flat(got) - _flat(want)).abs().max()),
+           "allclose_plain": bool(torch.allclose(_flat(got), _flat(want), rtol=1e-4,
+                                                 atol=2e-6))}
+    del want
+    if key == "vip":
+        work, slots = vip_work(args, kw), VIP_PAIR_SLOTS
+        split = getattr(ct, "vip_split", None)
+        if split is not None:
+            row["split"] = split(work["rows"], work["vips"])
+    else:
+        work, slots = far_work(args, kw), FAR_TERM_SLOTS
+        row.update(n=kw["n"], tile=kw["tile"], chunks=args[3].shape[0],
+                   summ_rows=args[1].shape[0])
+        split = getattr(ct, "far_split", None)
+        if split is not None:
+            row["split"] = split(kw["tile"])
+    row["ms"] = time_ms(kernel, case["reps"])
+    clock = sm_clock_mhz()   # just after the load
+    row["by_kernel_ms"] = kernel_ms(kernel, case["reps"])
+    row["device_ms"] = sum(row["by_kernel_ms"].values())
+    count = work.pop("pairs" if key == "vip" else "terms")
+    row.update(work, clock_mhz=clock, issue_floor_ms=issue_floor_ms(count, slots, clock),
+               **{"pairs" if key == "vip" else "terms": count}, **tree_bound(key, args, kw))
+    if sweep and split is not None:
+        row["sweep_device_ms"] = sweep_constants(kernel, got, case["reps"], *tree_sweep(key),
+                                                 timer=device_ms)
+    return row
+
+
+def tree_sweep(key: str) -> tuple[tuple[str, ...], list]:
+    """The ``cuda_treecode`` constants behind ``vip_split`` / ``far_split``
+    and the settings ``--sweep`` times."""
+    if key == "vip":
+        return ("VIP_BLOCKS", "VIP_MAX_PIECE"), VIP_SPLITS
+    return ("FAR_TARGETS", "FAR_PARTS", "FAR_STAGE_CHUNKS"), FAR_SPLITS
 
 
 def cap_row(n: int) -> dict:
@@ -500,6 +686,10 @@ def in_turns(cases: list[dict], rows: list[dict], before: pathlib.Path) -> None:
         row["ms"] = (a1["ms"] + a2["ms"]) / 2
         row["previous_ms"] = (b1["ms"] + b2["ms"]) / 2
         row["turns_ms"] = [b1["ms"], a1["ms"], a2["ms"], b2["ms"]]
+        row["device_ms"] = (a1["device_ms"] + a2["device_ms"]) / 2
+        row["previous_device_ms"] = (b1["device_ms"] + b2["device_ms"]) / 2
+        row["turns_device_ms"] = [b1["device_ms"], a1["device_ms"], a2["device_ms"],
+                                  b2["device_ms"]]
         row["max_abs_vs_before"] = float((a1["out"] - b1["out"]).abs().max())
         row["allclose_before"] = bool(torch.allclose(a1["out"], b1["out"], rtol=1e-4, atol=2e-6))
 
@@ -513,6 +703,8 @@ def main(argv=None) -> int:
     ap.add_argument("--blocks", default="2048x524288,16384x65536")
     ap.add_argument("--fast-small", default="512:64,448:64,1024:512")
     ap.add_argument("--near", default="65536,524288,20480f,65536f,20480t")
+    ap.add_argument("--vip", default="65536,524288,20480t")
+    ap.add_argument("--far", default="65536,524288,20480t")
     ap.add_argument("--cap", default="")
     ap.add_argument("--json", type=pathlib.Path, default=None)
     args = ap.parse_args(argv)
@@ -550,17 +742,25 @@ def main(argv=None) -> int:
             case = fast_case(n, precision, tile)
             add(case, fast_row(case, args.sweep))
     for tok in filter(None, args.near.split(",")):
-        case = near_case(tok)
+        case = tree_case("near", tok)
         add(case, near_row(case, args.sweep))
+    for key in ("vip", "far"):
+        for tok in filter(None, getattr(args, key).split(",")):
+            case = tree_case(key, tok)
+            add(case, tree_row(case, args.sweep))
+            torch.cuda.empty_cache()
     if args.before:
         in_turns(cases, rows, args.before.resolve())
-    record = {"symmetric": [], "allpairs": [], "symmetric_bf16x3": [], "near": []}
+    record = {"symmetric": [], "allpairs": [], "symmetric_bf16x3": [], "near": [], "vip": [],
+              "far": []}
     for case, row in zip(cases, rows):
         record[case["kernel"]].append(row)
         if args.before:
             print(f"{case['kernel']} {case['label']}: ms {row['ms']:.4f} previous_ms "
-                  f"{row['previous_ms']:.4f} turns {row['turns_ms']} max |d| "
-                  f"{row['max_abs_vs_before']:.3e}", flush=True)
+                  f"{row['previous_ms']:.4f} turns {row['turns_ms']} device_ms "
+                  f"{row['device_ms']:.4f} previous_device_ms {row['previous_device_ms']:.4f} "
+                  f"turns {row['turns_device_ms']} max |d| {row['max_abs_vs_before']:.3e}",
+                  flush=True)
     del cases
     torch.cuda.empty_cache()
     record["cap"] = [cap_row(int(n)) for n in filter(None, args.cap.split(","))]

@@ -33,10 +33,11 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 LIB_NAME = "libnbody_kernels.so"
 # The kernels index float triples and quads with 32-bit ints.
 MAX_BODIES = (1 << 31) // 4
-# The smallest normal float32. allpairs.cu, symmetric.cu, symmetric_bf16x3.cu
-# and near.cu take the bare rsqrt instruction (csrc/pairs.cuh), which flushes
-# a denormal argument to zero: c^2 |d|^2 + eps2 is normal for every pair only
-# if eps2 is. The other treecode sources still call rsqrtf().
+# The smallest normal float32. allpairs.cu, symmetric.cu, symmetric_bf16x3.cu,
+# near.cu, vip.cu and far_hier.cu take the bare rsqrt instruction
+# (csrc/pairs.cuh), which flushes a denormal argument to zero: c^2 |d|^2 +
+# eps2 is normal for every pair only if eps2 is. far_single.cu and
+# near_panel.cu still call rsqrtf().
 MIN_EPS2 = 1.1754944e-38
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -56,9 +57,9 @@ _SIGNATURES = {
     # (bodies4, n, tile, sub, src_tile, entries, parts, piece, flat_src,
     #  chunk_tgt, n_chunks, out, c2, eps2, stream) -> cudaError_t
     "nbody_near_field": ((_P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _I, _P, _F, _F, _P), _I),
-    # (bodies4, n, tile, summ12, far_src, far_tgt, n_chunks, out, c2, eps2,
-    #  gc, stream) -> cudaError_t
-    "nbody_far_field": ((_P, _I, _I, _P, _P, _P, _I, _P, _F, _F, _F, _P), _I),
+    # (bodies4, n, tile, sub, parts, stage_chunks, summ12, far_src, far_tgt,
+    #  n_chunks, out, c2, eps2, gc, stream) -> cudaError_t
+    "nbody_far_field": ((_P, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P, _F, _F, _F, _P), _I),
     # (bodies4, n, tile, summ12, k_s, mask, out, c2, eps2, gc, stream)
     #  -> cudaError_t
     "nbody_far_single": ((_P, _I, _I, _P, _I, _P, _P, _F, _F, _F, _P), _I),
@@ -66,9 +67,9 @@ _SIGNATURES = {
     "nbody_gather_panels": ((_P, _I, _P, _I, _I, _P, _P), _I),
     # (bodies4, tile, panels4, k, width, out, c2, eps2, stream) -> cudaError_t
     "nbody_near_panel": ((_P, _I, _P, _I, _I, _P, _F, _F, _P), _I),
-    # (rows4, n, panel4, w, partial, action, react, c2, eps2, stream)
-    #  -> cudaError_t
-    "nbody_vip_both": ((_P, _I, _P, _I, _P, _P, _P, _F, _F, _P), _I),
+    # (rows4, n, panel4, w, pieces, piece, react_part, act_part, action,
+    #  react, c2, eps2, stream) -> cudaError_t
+    "nbody_vip_both": ((_P, _I, _P, _I, _I, _I, _P, _P, _P, _P, _F, _F, _P), _I),
     # (cudaError_t) -> message
     "nbody_error_string": ((_I,), ctypes.c_char_p),
 }

@@ -38,6 +38,12 @@ import torch
 from n_body_problem_tpu_torch.ops import cuda_build
 
 FAR_ENTRIES = 64        # far-list node entries per chunk (csrc/far_hier.cu)
+# The far kernel's compiled limits (kSlots, kMaxThreads in csrc/far_hier.cu),
+# not settings: far_split keeps within them and the launch check enforces
+# them. A thread stages at most FAR_SLOTS node quads a stage; a block has at
+# most FAR_MAX_THREADS threads.
+FAR_SLOTS = 2
+FAR_MAX_THREADS = 512
 NEAR_CHUNK_BODIES = 2048  # most source bodies a near chunk holds (csrc/near.cu)
 # The near kernel's block: at most NEAR_TARGETS bodies of a target row times
 # as many parts as bring it to NEAR_BLOCK threads; it stages about
@@ -53,7 +59,19 @@ NEAR_CHUNK_BODIES = 2048  # most source bodies a near chunk holds (csrc/near.cu)
 NEAR_BLOCK = 1024
 NEAR_PIECE_BODIES = 2048
 NEAR_TARGETS = 64
-VIP_ROWS = 256          # row bodies per VIP sweep block (csrc/vip.cu)
+# The far kernel's block: at most FAR_TARGETS bodies of a target row, two a
+# thread, times FAR_PARTS parts (or as many as it takes to stage a chunk);
+# it stages FAR_STAGE_CHUNKS chunks at a time (far_split).
+FAR_TARGETS = 128
+FAR_PARTS = 4
+FAR_STAGE_CHUNKS = 2
+# The VIP sweep's block: 128 threads of four row bodies; its grid is cut
+# along the panel too, into pieces of whole 32-VIP sub-panels of at most
+# VIP_MAX_PIECE VIPs, and further until it has about VIP_BLOCKS blocks
+# (vip_split).
+VIP_ROWS = 512
+VIP_BLOCKS = 2048
+VIP_MAX_PIECE = 512
 # Largest pair block a plain version materialises at once.
 _PLAIN_PAIRS = 1 << 22
 
@@ -226,6 +244,35 @@ def far_field_hier_plain(bodies, summ, far_src, far_tgt, *, n: int, tile: int,
     return acc.reshape(n, 3)
 
 
+def far_split(tile: int) -> tuple[int, int, int]:
+    """``(sub, parts, stage_chunks)`` of the far kernel's block for target
+    rows of ``tile`` bodies: ``sub`` consecutive targets of one row (the
+    largest multiple of 32 that divides ``tile``, up to :data:`FAR_TARGETS`),
+    two a thread, times ``parts``: whole warps, at most
+    :data:`FAR_MAX_THREADS` threads and at least the 96 that stage one
+    chunk's 192 node quads two a thread. Part ``p`` sums the entries
+    ``p, p + parts, ...`` of each stage of ``stage_chunks`` chunks
+    (:func:`far_parts`)."""
+    sub = max(s for s in range(32, max(32, min(tile, FAR_TARGETS)) + 1, 32) if tile % s == 0)
+    half = sub // 2
+    parts = max(-(-3 * FAR_ENTRIES // (FAR_SLOTS * half)),
+                min(FAR_PARTS, FAR_MAX_THREADS // half))
+    parts += 1 if parts * half % 32 else 0   # whole warps: half is a multiple of 16
+    stage = max(1, min(FAR_STAGE_CHUNKS, FAR_SLOTS * half * parts // (3 * FAR_ENTRIES)))
+    return sub, parts, stage
+
+
+def far_parts(n_entries: int, parts: int, stage_chunks: int) -> list[list[int]]:
+    """The far kernel's split of a row's ``n_entries`` entries (its chunks'
+    entries in order): for each part, the entries it sums, in its order."""
+    per = stage_chunks * FAR_ENTRIES
+    out: list[list[int]] = [[] for _ in range(parts)]
+    for e0 in range(0, n_entries, per):
+        for p in range(parts):
+            out[p].extend(range(e0 + p, min(e0 + per, n_entries), parts))
+    return out
+
+
 def far_field_hier(bodies, summ, far_src, far_tgt, *, n: int, tile: int,
                    eps2: float, c2: float, G: float) -> torch.Tensor:
     """Hierarchical far field (N, 3) over the compacted far lists.
@@ -243,17 +290,19 @@ def far_field_hier(bodies, summ, far_src, far_tgt, *, n: int, tile: int,
         raise ValueError(f"far_field_hier: N={n} must divide tile={tile}")
     cuda_build.require_f32("bodies", bodies, (bodies.shape[0], 4), dev)
     cuda_build.require_f32("summ", summ, (summ.shape[0], 12), dev)
+    cuda_build.require_normal_eps2("far_field_hier", eps2)
     _require_i32("far_src", far_src, dev)
     _require_i32("far_tgt", far_tgt, dev)
     n_chunks = far_tgt.shape[0]
     if far_src.shape[0] < n_chunks * FAR_ENTRIES:
         raise ValueError("far_field_hier: far_src shorter than its chunks")
     out = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    sub, parts, stage_chunks = far_split(tile)
     lib = cuda_build.load_library()
     with torch.cuda.device(dev):
-        rc = lib.nbody_far_field(bodies.data_ptr(), n, tile, summ.data_ptr(),
-                                 far_src.data_ptr(), far_tgt.data_ptr(), n_chunks,
-                                 out.data_ptr(), c2, eps2, G * math.sqrt(c2),
+        rc = lib.nbody_far_field(bodies.data_ptr(), n, tile, sub, parts, stage_chunks,
+                                 summ.data_ptr(), far_src.data_ptr(), far_tgt.data_ptr(),
+                                 n_chunks, out.data_ptr(), c2, eps2, G * math.sqrt(c2),
                                  _stream(dev))
         far_field_hier.launches += 1
     cuda_build.check(rc, "far_field_kernel")
@@ -428,13 +477,31 @@ def vip_both_plain(rows, panel, *, eps2: float,
     return torch.cat(action), react
 
 
+def vip_split(n: int, w: int) -> tuple[int, int, int]:
+    """``(groups, pieces, piece)`` of the VIP sweep's grid for N rows and W
+    VIP bodies: ``groups`` blocks of :data:`VIP_ROWS` rows times ``pieces``
+    pieces of ``piece`` VIPs (a multiple of 32; the last piece what is left).
+    The panel is cut into pieces of at most :data:`VIP_MAX_PIECE` VIPs, and
+    further, down to one 32-VIP sub-panel, as far as it takes to bring the
+    grid to about :data:`VIP_BLOCKS` blocks; with several pieces a second
+    kernel adds the actions in piece order, and it always adds the reactions
+    over the groups in group order."""
+    if n < 0 or w < 0:
+        raise ValueError(f"vip_split: N={n}, W={w} must not be negative")
+    groups = max(1, -(-n // VIP_ROWS))
+    subs = max(1, -(-w // 32))
+    want = min(subs, max(-(-VIP_BLOCKS // groups), -(-w // VIP_MAX_PIECE), 1))
+    piece = 32 * -(-subs // want)
+    return groups, max(1, -(-w // piece)), piece
+
+
 def vip_both(rows, panel, *, eps2: float,
              c2: float) -> tuple[torch.Tensor, torch.Tensor]:
     """(action (N, 3), reaction (W, 3)) of the two-way VIP sweep.
 
     ``vip_both.launches`` counts kernel launches: a sweep is two, the pair
-    kernel and the small kernel that sums its per-block reactions (only
-    the first when W = 0).
+    kernel and the kernel that sums its partial reactions (and actions, when
+    :func:`vip_split` cuts the panel), or only the first when W = 0.
     """
     if rows.device.type == "cpu":
         return vip_both_plain(rows, panel, eps2=eps2, c2=c2)
@@ -446,14 +513,17 @@ def vip_both(rows, panel, *, eps2: float,
     cuda_build.require_f32("panel", panel, (w_cnt, 4), dev)
     if max(n, w_cnt) > cuda_build.MAX_BODIES:
         raise ValueError(f"vip_both: at most {cuda_build.MAX_BODIES} bodies")
-    blocks = -(-n // VIP_ROWS)
-    partial = torch.empty((blocks, w_cnt, 3), dtype=torch.float32, device=dev)
-    action = torch.empty((n, 3), dtype=torch.float32, device=dev)
-    react = torch.empty((w_cnt, 3), dtype=torch.float32, device=dev)
+    cuda_build.require_normal_eps2("vip_both", eps2)
+    groups, pieces, piece = vip_split(n, w_cnt)
+    f32 = dict(dtype=torch.float32, device=dev)
+    react_part = torch.empty((groups, w_cnt, 3), **f32)
+    act_part = torch.empty((pieces if pieces > 1 else 0, n, 3), **f32)
+    action = torch.empty((n, 3), **f32)
+    react = torch.empty((w_cnt, 3), **f32)
     lib = cuda_build.load_library()
     with torch.cuda.device(dev):
-        rc = lib.nbody_vip_both(rows.data_ptr(), n, panel.data_ptr(), w_cnt,
-                                partial.data_ptr(), action.data_ptr(),
+        rc = lib.nbody_vip_both(rows.data_ptr(), n, panel.data_ptr(), w_cnt, pieces, piece,
+                                react_part.data_ptr(), act_part.data_ptr(), action.data_ptr(),
                                 react.data_ptr(), c2, eps2, _stream(dev))
         vip_both.launches += 2 if w_cnt else 1
     cuda_build.check(rc, "vip_both_kernel")

@@ -16,7 +16,8 @@ single-level flat path (``tree_hier=False``), ``d`` the dense path
   ``torch.profiler`` trace) and device kernels of one force evaluation;
 - ``step_ms``: ``Simulation.run`` over ``--steps`` steps, no profiler;
 - a ``torch.profiler`` trace of another ``--steps`` steps: device ms of
-  each treecode kernel, the ``treecode.build`` and
+  each treecode kernel (the VIP sweep's pair kernel as ``vip``, its summing
+  kernel as ``vip_sum``), the ``treecode.build`` and
   ``treecode.resort`` spans and everything else, device busy time, the
   window's wall time and the device's idle share of it.
 
@@ -44,7 +45,7 @@ from torch.profiler import ProfilerActivity, profile
 
 PRIME = 8
 _KERNELS = {"near_field_kernel": "near", "far_field_kernel": "far",
-            "vip_both_kernel": "vip", "vip_react_sum_kernel": "vip",
+            "vip_both_kernel": "vip", "vip_sum_kernel": "vip_sum",
             "far_single_kernel": "far_single", "gather_panels_kernel": "gather",
             "near_panel_kernel": "near_panel"}
 

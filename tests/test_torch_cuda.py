@@ -118,11 +118,11 @@ def test_symmetric_kernel_matches_plain_at_its_tile(cuda, n, n_real):
     assert float((mass[:, None] * got).sum(0).abs().max()) < 1e-6
 
 
-# The bare rsqrt instruction of the all-pairs, the two symmetric and the near
-# kernel flushes denormals, so their wrappers take a normal float32 softening
-# only; at
-# 1e-24, the smallest at which a coincident pair's 1 / eps^3 is still finite
-# in float32, they agree with their twins as at any other.
+# The bare rsqrt instruction of the all-pairs, the two symmetric, the near,
+# the VIP and the far kernel flushes denormals, so their wrappers take a
+# normal float32 softening only; at 1e-24, the smallest at which a coincident
+# pair's 1 / eps^3 is still finite in float32, they agree with their twins as
+# at any other.
 @pytest.mark.parametrize("eps2", [0.0, 1e-39])
 def test_pair_kernels_reject_a_denormal_softening(cuda, eps2):
     from n_body_problem_tpu_torch.ops import cuda_treecode as ct
@@ -137,9 +137,11 @@ def test_pair_kernels_reject_a_denormal_softening(cuda, eps2):
         with pytest.raises(ValueError, match="eps2"):
             cuda_symmetric.symmetric_acc_bf16x3(pos, mass, eps2=eps2, compensate=0.1,
                                                 tile=64, precision=precision)
-    args, kw = kernel_inputs(8192, cuda, seed=3)["kernels"]["near"]
-    with pytest.raises(ValueError, match="eps2"):
-        ct.near_field(*args, **{**kw, "eps2": eps2})
+    tree = kernel_inputs(8192, cuda, seed=3)["kernels"]
+    for key, fn in (("near", ct.near_field), ("vip", ct.vip_both), ("far", ct.far_field_hier)):
+        args, kw = tree[key]
+        with pytest.raises(ValueError, match="eps2"):
+            fn(*args, **{**kw, "eps2": eps2})
 
 
 def test_pair_kernels_match_plain_at_a_tiny_softening(cuda):
@@ -162,11 +164,16 @@ def test_pair_kernels_match_plain_at_a_tiny_softening(cuda):
         twin = cuda_symmetric.symmetric_acc_plain(pos, mass, **fast)
         assert torch.isfinite(got).all()
         assert float((got - twin).norm() / (twin - f32_twin).norm()) <= 0.3
-    args, kw = kernel_inputs(8192, cuda, seed=3)["kernels"]["near"]
-    kw = {**kw, "eps2": 1e-24}
-    got = ct.near_field(*args, **kw)
-    assert torch.isfinite(got).all()
-    torch.testing.assert_close(got, ct.near_field_plain(*args, **kw), **TOL)
+    tree = kernel_inputs(8192, cuda, seed=3)["kernels"]
+    for key, fn, plain in (("near", ct.near_field, ct.near_field_plain),
+                           ("vip", ct.vip_both, ct.vip_both_plain),
+                           ("far", ct.far_field_hier, ct.far_field_hier_plain)):
+        args, kw = tree[key]
+        kw = {**kw, "eps2": 1e-24}
+        got, want = fn(*args, **kw), plain(*args, **kw)
+        for g, w in zip(*((x,) if key != "vip" else x for x in (got, want))):
+            assert torch.isfinite(g).all(), key
+            torch.testing.assert_close(g, w, **TOL)
 
 
 def test_wrappers_count_launches(cuda):
@@ -510,3 +517,102 @@ def test_single_level_run_never_waits_for_the_host(cuda, overrides):
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     assert torch.isfinite(state.pos).all() and int(state.step) == 12
+
+
+# ------------------------------------------------- VIP sweep and far field
+def _vip_rows(device, n, w, seed):
+    """N rows [x y z G c^3 m] of a Plummer sphere and a panel of W of them
+    (VIP bodies are rows on the main path)."""
+    pos, mass = _bodies(n, n, seed, device)
+    rows = torch.cat([pos, (mass * 0.1 ** 3)[:, None]], 1)
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    return rows, rows[torch.randperm(n, generator=gen)[:w].to(device)].contiguous()
+
+
+@pytest.mark.parametrize("n,overrides", TREE_CASES)
+def test_vip_kernel_matches_plain_at_every_split(cuda, monkeypatch, n, overrides):
+    """The sweep on the main path's lists at the split vip_split chooses,
+    with one piece, and with the panel cut into sub-panels: the twin's
+    action and reaction within tolerance, the same bits twice, two launches
+    a sweep (the pair kernel and the summing kernel)."""
+    from n_body_problem_tpu_torch.ops import cuda_treecode as ct
+    from n_body_problem_tpu_torch.treecode_profile import kernel_inputs
+
+    (rows, panel), kw = kernel_inputs(n, cuda, seed=3, **overrides)["kernels"]["vip"]
+    want = ct.vip_both_plain(rows, panel, **kw)
+    splits = set()
+    for blocks in (ct.VIP_BLOCKS, 1, 64, 1 << 20):
+        monkeypatch.setattr(ct, "VIP_BLOCKS", blocks)
+        splits.add(ct.vip_split(rows.shape[0], panel.shape[0]))
+        before = ct.vip_both.launches
+        got, again = ct.vip_both(rows, panel, **kw), ct.vip_both(rows, panel, **kw)
+        torch.cuda.synchronize()
+        assert ct.vip_both.launches - before == 4
+        for g, a, w in zip(got, again, want):
+            torch.testing.assert_close(g, w, **TOL)
+            assert torch.equal(g, a), blocks   # fixed orders, no atomics
+    assert len(splits) >= 3 and any(s[1] == 1 for s in splits)
+
+
+@pytest.mark.parametrize("n,w", [(1000, 100), (513, 33), (65, 300), (700, 0)])
+def test_vip_kernel_at_ragged_shapes(cuda, n, w):
+    """N no multiple of the 512-row group, W no multiple of a sub-panel,
+    more VIPs than rows, and no VIP at all (one launch, zero action)."""
+    from n_body_problem_tpu_torch.ops import cuda_treecode as ct
+
+    rows, panel = _vip_rows(cuda, max(n, w), w, seed=n + w)
+    rows = rows[:n].contiguous()
+    kw = dict(eps2=1e-6, c2=0.01)
+    before = ct.vip_both.launches
+    action, react = ct.vip_both(rows, panel, **kw)
+    torch.cuda.synchronize()
+    assert ct.vip_both.launches - before == (2 if w else 1)
+    assert action.shape == (n, 3) and react.shape == (w, 3)
+    want_a, want_r = ct.vip_both_plain(rows, panel, **kw)
+    torch.testing.assert_close(action, want_a, **TOL)
+    torch.testing.assert_close(react, want_r, **TOL)
+    if w == 0:
+        assert not action.any()
+
+
+# (FAR_TARGETS, FAR_PARTS, FAR_STAGE_CHUNKS) settings of the far kernel, and
+# the (sub, parts, stage_chunks) far_split makes of them for rows of 128
+# bodies: (128, 4, 2) its own; (128, 2, 1) the fewest parts, as one chunk's
+# staging needs two; (128, 8, 4) four-chunk stages; (64, 8, 2); (32, 8, 1)
+# and (32, 6, 1) the fewest targets.
+FAR_SETTINGS = [(128, 4, 2), (128, 1, 1), (128, 8, 4), (64, 8, 4), (32, 8, 2), (32, 4, 1)]
+
+
+@pytest.mark.parametrize("n,overrides", TREE_CASES + [(8192, dict(tree_tile=64)),
+                                                      (8192, dict(tree_tile=256))])
+def test_far_kernel_matches_plain_at_every_split(cuda, monkeypatch, n, overrides):
+    from n_body_problem_tpu_torch.ops import cuda_treecode as ct
+    from n_body_problem_tpu_torch.treecode_profile import kernel_inputs
+
+    args, kw = kernel_inputs(n, cuda, seed=3, **overrides)["kernels"]["far"]
+    want = ct.far_field_hier_plain(*args, **kw)
+    for targets, parts, stage in FAR_SETTINGS:
+        monkeypatch.setattr(ct, "FAR_TARGETS", targets)
+        monkeypatch.setattr(ct, "FAR_PARTS", parts)
+        monkeypatch.setattr(ct, "FAR_STAGE_CHUNKS", stage)
+        before = ct.far_field_hier.launches
+        got, again = ct.far_field_hier(*args, **kw), ct.far_field_hier(*args, **kw)
+        torch.cuda.synchronize()
+        assert ct.far_field_hier.launches - before == 2
+        torch.testing.assert_close(got, want, **TOL)
+        assert torch.equal(got, again), (targets, parts, stage)
+
+
+def test_far_kernel_writes_zeros_for_a_row_without_chunks(cuda):
+    from n_body_problem_tpu_torch.ops import cuda_treecode as ct
+    from n_body_problem_tpu_torch.treecode_profile import kernel_inputs
+
+    (bodies, summ, far_src, far_tgt), kw = kernel_inputs(8192, cuda, seed=3)["kernels"]["far"]
+    moved = torch.where(far_tgt == 5, 6, far_tgt).to(torch.int32)
+    got = ct.far_field_hier(bodies, summ, far_src, moved, **kw)
+    torch.cuda.synchronize()
+    assert not got[5 * kw["tile"]:6 * kw["tile"]].any()
+    torch.testing.assert_close(got, ct.far_field_hier_plain(bodies, summ, far_src, moved, **kw),
+                               **TOL)
+    none = torch.full_like(far_tgt, kw["n"] // kw["tile"])
+    assert not ct.far_field_hier(bodies, summ, far_src, none, **kw).any()

@@ -98,3 +98,88 @@ def test_near_work_counts_live_entries():
                         dict(n=n, tile=tile, src_tile=src_tile, entries=entries))
     assert work["pairs"] == 4 * src_tile * tile
     assert work["chunks_max"] == 2 and work["chunks_mean"] == pytest.approx(1.5)
+
+
+def test_counted_covers_every_pair_and_treecode_kernel():
+    """The SASS report counts the inner loops of the four pair kernels and
+    of the treecode's near, VIP, far, single-level far and near-panel
+    kernels: every source with a pair or term loop, all but the gather."""
+    assert set(kc.COUNTED) == {p.name for p in cuda_build.sources()} - {"gather.cu"}
+
+
+def test_vip_work_counts_both_ways_once():
+    rows, panel = torch.zeros((1000, 4)), torch.zeros((96, 4))
+    work = kc.vip_work((rows, panel), {})
+    assert work == {"pairs": 96000, "rows": 1000, "vips": 96}
+    b = kc.tree_bound("vip", (rows, panel), {})
+    assert b["bound_by"] == "operations"
+    assert b["bound_ms"] == pytest.approx(kc.PAIR_BOTH_FLOPS * 96000 / kc.PEAK_FLOPS * 1e3)
+    assert kc.VIP_PAIR_SLOTS == kc.PAIR_BOTH_SLOTS
+    # W = 0: no pair, only the rows read and the actions written.
+    empty = kc.tree_bound("vip", (rows, panel[:0]), {})
+    assert empty["bound_by"] == "bytes"
+    assert empty["bound_ms"] == pytest.approx(1000 * 28 / kc.PEAK_BYTES * 1e3)
+
+
+def test_far_work_counts_live_terms():
+    """Two rows of 4 targets, one chunk of 64 entries each and a third chunk
+    on the unused tail: sentinel entries (the last summary row) and the tail
+    do no work."""
+    from n_body_problem_tpu_torch.ops.cuda_treecode import FAR_ENTRIES
+
+    n, tile, k = 8, 4, 10            # summ rows 0 .. 9, row 9 the zero sentinel
+    far_src = torch.full((3 * FAR_ENTRIES,), k - 1, dtype=torch.int32)
+    far_src[:40] = 1                 # row 0: 40 live entries
+    far_src[FAR_ENTRIES:FAR_ENTRIES + 7] = 2   # row 1: 7
+    far_src[2 * FAR_ENTRIES:] = 3    # the tail chunk: not a row's
+    far_tgt = torch.tensor([0, 1, 2], dtype=torch.int32)
+    args = (torch.zeros((n + 64, 4)), torch.zeros((k, 12)), far_src, far_tgt)
+    work = kc.far_work(args, dict(n=n, tile=tile))
+    assert work == {"terms": 47 * tile, "chunks_max": 1, "chunks_mean": 1.0}
+    b = kc.tree_bound("far", args, dict(n=n, tile=tile))
+    assert b["bound_ms"] == pytest.approx(
+        max(kc.NODE_FLOPS * 47 * tile / kc.PEAK_FLOPS,
+            (sum(a.numel() * a.element_size() for a in args) + n * 12) / kc.PEAK_BYTES) * 1e3)
+
+
+def test_far_term_counts_are_the_kernels():
+    """NODE_FLOPS and the 33 instructions of the far slot counts are what
+    far_hier.cu's far_term does: its FMAs (two operations each), multiplies,
+    subtractions and the rsqrt; two targets a thread halve the node row's
+    three shared loads a term, one target (kernel 3) keeps them."""
+    src = (cuda_build.CSRC_DIR / "far_hier.cu").read_text()
+    body = src[src.index("void far_term("):]
+    body = body[body.index("{"):body.index("\n}\n")]
+    fmas, muls, subs = body.count("fmaf("), body.count(" * "), body.count(" - ")
+    rsqrts = body.count("rsqrt_normal(")
+    assert rsqrts == 1
+    assert fmas + muls + subs + rsqrts == kc.NODE_TERM_INSTRUCTIONS == 33
+    assert 2 * fmas + muls + subs + rsqrts == kc.NODE_FLOPS == 52
+    assert kc.FAR_TERM_SLOTS == 33 + 3 / 2
+    assert kc.FAR_SINGLE_TERM_SLOTS == 33 + 3
+
+
+@pytest.mark.parametrize("key", ["vip", "far"])
+def test_tree_sweep_settings_are_schedules(key, monkeypatch):
+    """Every setting --sweep times gives a schedule the kernel takes (the far
+    kernel's whole warps, at most 512 threads, staging two node quads a
+    thread; the VIP sweep's whole sub-panels), each another one."""
+    from n_body_problem_tpu_torch.ops import cuda_treecode as ct
+
+    names, settings = kc.tree_sweep(key)
+    seen = set()
+    for values in settings:
+        for name, value in zip(names, values):
+            monkeypatch.setattr(ct, name, value)
+        if key == "vip":
+            split = (ct.vip_split(65536, 1024), ct.vip_split(524288, 4096))
+            for (groups, pieces, piece), w in zip(split, (1024, 4096)):
+                assert piece % 32 == 0 and pieces * piece >= w > (pieces - 1) * piece
+        else:
+            split = ct.far_split(128)
+            sub, parts, stage = split
+            threads = sub // 2 * parts
+            assert threads <= ct.FAR_MAX_THREADS and threads % 32 == 0
+            assert 3 * ct.FAR_ENTRIES * stage <= ct.FAR_SLOTS * threads
+        seen.add(split)
+    assert len(seen) == len(settings)   # no setting repeats another's schedule

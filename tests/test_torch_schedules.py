@@ -1,10 +1,11 @@
-"""The schedules the all-pairs kernel, the symmetric kernels and the near
-kernel are launched with, on the CPU.
+"""The schedules the all-pairs kernel, the symmetric kernels, the near
+kernel, the VIP sweep and the far field are launched with, on the CPU.
 
 The CUDA kernels run only on the card; what a block does there is decided
 by integers that Python computes (``cuda_force.allpairs_split``,
 ``allpairs_columns``; ``cuda_symmetric.symmetric_blocks``, ``block_tiles``,
-``FAST_SHAPE``; ``cuda_treecode.near_split``, ``near_parts``). These tests
+``FAST_SHAPE``; ``cuda_treecode.near_split``, ``near_parts``, ``vip_split``,
+``far_split``, ``far_parts``). These tests
 check those integers, and walk each schedule
 block by block in plain PyTorch, as the kernel does, against the plain twins
 and the JAX package's Pallas kernels in interpret mode, within rtol=1e-4,
@@ -429,3 +430,273 @@ def test_near_walk_leaves_a_row_without_chunks_zero():
     assert not got[5 * tile:6 * tile].any()
     torch.testing.assert_close(got, ct.near_field_plain(ops["bodies"], flat_src, moved,
                                                         **near_kw), **TOL)
+
+
+# ----------------------------------------------------- the VIP sweep's split
+# (N, W): the main paths' sweeps (65,536 and 524,288 hierarchical, 20,480
+# tuned) and ragged ones: N no multiple of the row group, W no multiple of a
+# sub-panel, one row, no VIP.
+VIP_SHAPES = [(65536, 1024), (524288, 4096), (20480, 512), (8192, 8192), (1000, 100),
+              (513, 33), (1, 1), (4096, 0), (2560, 320)]
+
+
+@pytest.mark.parametrize("n,w", VIP_SHAPES)
+def test_vip_split_puts_every_pair_in_one_block(n, w):
+    """Row groups of VIP_ROWS and pieces of whole sub-panels: each a
+    partition, so every (row, VIP) pair lies in exactly one block."""
+    groups, pieces, piece = ct.vip_split(n, w)
+    assert (groups - 1) * ct.VIP_ROWS < max(n, 1) <= groups * ct.VIP_ROWS
+    assert piece % 32 == 0 and piece >= 32 and 1 <= pieces <= 65535
+    rows = collections.Counter(r for g in range(groups)
+                               for r in range(g * ct.VIP_ROWS, min(n, (g + 1) * ct.VIP_ROWS)))
+    vips = collections.Counter(v for q in range(pieces)
+                               for v in range(q * piece, min(w, (q + 1) * piece)))
+    assert sorted(rows) == list(range(n)) and set(rows.values()) <= {1}
+    assert sorted(vips) == list(range(w)) and set(vips.values()) <= {1}
+    assert all(q * piece < w for q in range(pieces)) or w == 0   # no empty piece
+    # Pieces of at most VIP_MAX_PIECE VIPs, cut further only as far as the
+    # grid needs to reach VIP_BLOCKS.
+    assert piece <= max(32, ct.VIP_MAX_PIECE)
+    assert (pieces == 1 or piece == 32 or groups * (pieces - 1) < ct.VIP_BLOCKS
+            or (pieces - 1) * ct.VIP_MAX_PIECE < w)
+
+
+def test_vip_split_on_the_main_paths():
+    """524,288 bodies: 1,024 row groups, W = 4,096 in 8 pieces of 512;
+    65,536 cut W = 1,024 into 16 pieces of 64 to reach 2,048 blocks; the
+    tuned 20,480 into sub-panels of 32."""
+    assert ct.vip_split(524288, 4096) == (1024, 8, 512)
+    assert ct.vip_split(65536, 1024) == (128, 16, 64)
+    assert ct.vip_split(20480, 512) == (40, 16, 32)
+    assert ct.vip_split(4096, 0) == (8, 1, 32)
+    for n, w in ((-1, 4), (4, -1)):
+        with pytest.raises(ValueError):
+            ct.vip_split(n, w)
+
+
+def _walk_vip(rows, panel, *, eps2, c2):
+    """The VIP kernels' sums in their order: a block's action over its piece,
+    the pieces in piece order; a block's reaction a warp at a time (thread t
+    holds rows t + 128 q), the four warps in order, then the row groups with
+    eight warps each taking every eighth group, the warps in order."""
+    n, w = rows.shape[0], panel.shape[0]
+    groups, pieces, piece = ct.vip_split(n, w)
+    size = ct.VIP_ROWS
+    padded = torch.cat([rows, rows.new_zeros((groups * size - n, 4))])
+    warp = torch.arange(size) % 128 // 32
+    act = torch.zeros((pieces, groups * size, 3))
+    part = torch.zeros((groups, w, 3))
+    for g in range(groups):
+        me = padded[g * size:(g + 1) * size]
+        for q in range(pieces):
+            vips = panel[q * piece:(q + 1) * piece]
+            d = vips[None, :, :3] - me[:, None, :3]
+            r2 = d[..., 2] * d[..., 2] + (d[..., 1] * d[..., 1] + d[..., 0] * d[..., 0])
+            inv = torch.rsqrt(r2 * c2 + eps2)
+            u = inv * inv * inv
+            act[q, g * size:(g + 1) * size] = ((vips[None, :, 3] * u)[..., None] * d).sum(1)
+            react = -(me[:, None, 3] * u)[..., None] * d
+            by_warp = [react[warp == k].sum(0) for k in range(4)]
+            part[g, q * piece:(q + 1) * piece] = ((by_warp[0] + by_warp[1]) + by_warp[2]) + by_warp[3]
+    action = act[0]
+    for q in range(1, pieces):
+        action = action + act[q]
+    sums = [torch.zeros((w, 3)) for _ in range(8)]
+    for g in range(groups):
+        sums[g % 8] = sums[g % 8] + part[g]
+    react = sums[0]
+    for k in range(1, 8):
+        react = react + sums[k]
+    return action[:n], react
+
+
+@pytest.fixture(scope="module")
+def hier8k():
+    """The 8,192-body hierarchical lists of tests/test_torch_treecode.py
+    (Plummer seed 3, Morton-sorted), built by the port, and the operands of
+    one force evaluation on them."""
+    n = 8192
+    pos, mass = _sorted_plummer(n, seed=3)
+    tpos, tmass = torch.from_numpy(pos.copy()), torch.from_numpy(mass.copy())
+    kw = dict(tile=128, src_tile=64, vip_tiles=128, mac_tau=jtc.DEFAULT_HIER_TAU,
+              mac_tau0=jtc.DEFAULT_MAC_TAU, eps2=EPS2, compensate=COMP)
+    caps = ttc.suggest_hier(tpos, tmass, **kw)
+    aux = ttc.build_tree_hier_cols(*tpos.unbind(1), tmass, **caps, **kw)
+    st = ttc._hier_static(n, 128, 64, 0.55, caps["max_near"], 128, caps["far_max"],
+                          ttc.HIER_BRANCH)
+    ops = ttc.kernel_operands(tpos, tmass, aux[-1], compensate=COMP, src_tile=64,
+                              vip_src=st[4], plan=st[5])
+    return dict(n=n, pos=pos, mass=mass, aux=aux, ops=ops, vip_src=st[4], plan=st[5])
+
+
+def _jcols_of(pos):
+    return tuple(jnp.asarray(pos[:, a]) for a in range(3))
+
+
+@pytest.mark.parametrize("blocks", [None, 64, 100000])
+def test_vip_walk_matches_plain_and_jax(hier8k, blocks, monkeypatch):
+    """The 8,192-body sweep (W = 8,192: every tile a VIP at 128 VIP tiles of
+    64) at the rule's split and at a coarser and a finer one."""
+    if blocks is not None:
+        monkeypatch.setattr(ct, "VIP_BLOCKS", blocks)
+    ops = hier8k["ops"]
+    n = hier8k["n"]
+    got_a, got_r = _walk_vip(ops["rows"], ops["panel"], eps2=EPS2, c2=C2)
+    want_a, want_r = ct.vip_both_plain(ops["rows"], ops["panel"], eps2=EPS2, c2=C2)
+    torch.testing.assert_close(got_a, want_a, **TOL)
+    torch.testing.assert_close(got_r, want_r, **TOL)
+    if blocks is None:   # the JAX kernel once, at the rule's split
+        idx = ops["vip_tile_idx"].numpy()
+        scaled = hier8k["mass"] * (C2 * COMP)
+        cols = _jcols_of(hier8k["pos"])
+        vrow = [jnp.asarray(np.asarray(a).reshape(n // 64, 64)[idx].reshape(-1))
+                for a in (*cols, scaled)]
+        action, react = jtc._vip_both_pallas_cols(*cols, jnp.asarray(scaled), *vrow,
+                                                  eps2=EPS2, c2=C2, interpret=True)
+        np.testing.assert_allclose(got_a.numpy(), np.asarray(action)[:, :3], **TOL)
+        np.testing.assert_allclose(got_r.numpy(), np.asarray(react)[:3].T, **TOL)
+
+
+@pytest.mark.parametrize("n,w", [(1000, 100), (513, 33), (700, 0)])
+def test_vip_walk_at_ragged_shapes(n, w):
+    """N no multiple of the row group, W no multiple of a sub-panel, no VIP:
+    the padding rows and VIPs add nothing. The VIPs are rows, as on the
+    main path (a body with itself adds exactly nothing)."""
+    rng = np.random.default_rng(n + w)
+    rows = torch.from_numpy(np.concatenate([rng.normal(size=(n, 3)),
+                                            rng.uniform(0.5, 1.5, (n, 1)) / n], 1)
+                            .astype(np.float32))
+    panel = rows[rng.permutation(n)[:w]].clone()
+    got_a, got_r = _walk_vip(rows, panel, eps2=EPS2, c2=C2)
+    want_a, want_r = ct.vip_both_plain(rows, panel, eps2=EPS2, c2=C2)
+    assert got_r.shape == (w, 3)
+    torch.testing.assert_close(got_a, want_a, **TOL)
+    torch.testing.assert_close(got_r, want_r, **TOL)
+    if w == 0:
+        assert not got_a.any()
+
+
+# ------------------------------------------------------ the far field's split
+@pytest.mark.parametrize("tile", [32, 64, 96, 128, 256, 512, 1024])
+def test_far_split_fits_a_block(tile):
+    """Whole warps of one row's targets, two a thread, times parts, at most
+    512 threads; a stage's 192 node quads a chunk, two at most a thread; a
+    partition of the row's entries whatever their number."""
+    sub, parts, stage = ct.far_split(tile)
+    threads = sub // 2 * parts                          # two targets a thread
+    assert sub % 32 == 0 and tile % sub == 0 and sub <= max(32, ct.FAR_TARGETS)
+    assert parts >= 1 and stage >= 1 and threads <= ct.FAR_MAX_THREADS
+    assert threads % 32 == 0
+    assert 3 * ct.FAR_ENTRIES * stage <= ct.FAR_SLOTS * threads
+    # Two stages and the parts' sums in a block's shared memory on the card.
+    assert 2 * 3 * ct.FAR_ENTRIES * stage * 16 + 6 * threads * 4 <= 227 * 1024
+    for n_entries in (0, 64, 128, 5 * 64, 13 * 64):
+        split = ct.far_parts(n_entries, parts, stage)
+        assert len(split) == parts
+        assert sorted(e for part in split for e in part) == list(range(n_entries))
+        assert all(part == sorted(part) for part in split)
+
+
+def test_far_split_on_the_main_paths():
+    """Rows of 128 targets: 64 threads, two targets each, in 4 parts (256
+    threads), two chunks a stage; rows of 256 in blocks of 128 targets;
+    rows of 32 in 6 parts of 16 threads (the fewest that stage a chunk two
+    node quads a thread), one chunk a stage."""
+    assert ct.far_split(128) == (128, 4, 2)
+    assert ct.far_split(256) == (128, 4, 2)
+    assert ct.far_split(64) == (64, 4, 1)
+    assert ct.far_split(96) == (96, 4, 2)
+    assert ct.far_split(32) == (32, 6, 1)
+
+
+@pytest.mark.parametrize("targets,parts,want", [
+    ((128, 2, 1), None, (128, 2, 1)), ((64, 16, 4), None, (64, 16, 4)),
+    ((32, 16, 2), None, (32, 16, 2)), ((32, 1, 1), None, (32, 6, 1)),
+    ((96, 3, 4), None, (96, 4, 2)), ((128, 1, 1), None, (128, 2, 1))])
+def test_far_split_follows_its_constants(targets, parts, want, monkeypatch):
+    """Each setting the card's sweep times, and settings too small to stage
+    a chunk (a part of 16 threads needs six parts) or that leave half a warp
+    (three parts of 48 threads become four)."""
+    for name, value in zip(("FAR_TARGETS", "FAR_PARTS", "FAR_STAGE_CHUNKS"), targets):
+        monkeypatch.setattr(ct, name, value)
+    assert ct.far_split(128 if targets[0] != 96 else 96) == want
+
+
+def _walk_far(bodies, summ, far_src, far_tgt, *, n, tile, eps2, c2, G):
+    """The far kernel's sums, row by row: the node constants scaled as the
+    kernel stages them, each part's entries (far_parts) as u^3 (m' + u^2
+    (tr' - 2.5 c^2 u^2 d'S'd)) d + u^5 S'd, the parts added in order; a row
+    with no chunk stays zero."""
+    _, parts, stage = ct.far_split(tile)   # a row's blocks share its order
+    gc = G * np.sqrt(c2)
+    c4 = c2 * c2
+    s = summ.clone()
+    s[:, 3] *= c2 * gc
+    s[:, 4:10] *= -3.0 * c4 * gc
+    s[:, 10] *= -1.5 * c4 * gc
+    tgt = far_tgt.numpy()
+    out = torch.zeros((n // tile, tile, 3))
+    for t in range(n // tile):
+        c0, c1 = np.searchsorted(tgt, t, "left"), np.searchsorted(tgt, t + 1, "left")
+        ids = far_src[c0 * ct.FAR_ENTRIES:c1 * ct.FAR_ENTRIES].long()
+        me = bodies[t * tile:(t + 1) * tile, :3]
+        for part in ct.far_parts(len(ids), parts, stage):
+            if not part:
+                continue
+            node = s[ids[part]][None]                                   # (1, E, 12)
+            d = node[..., :3] - me[:, None, :]                          # (T, E, 3)
+            u = torch.rsqrt(c2 * (d * d).sum(-1) + eps2)
+            u2 = u * u
+            sd = torch.stack([node[..., 4] * d[..., 0] + node[..., 7] * d[..., 1]
+                              + node[..., 8] * d[..., 2],
+                              node[..., 7] * d[..., 0] + node[..., 5] * d[..., 1]
+                              + node[..., 9] * d[..., 2],
+                              node[..., 8] * d[..., 0] + node[..., 9] * d[..., 1]
+                              + node[..., 6] * d[..., 2]], -1)
+            dsd = (d * sd).sum(-1)
+            u3 = u2 * u
+            wd = u3 * (node[..., 3] + u2 * (node[..., 10] + (-2.5 * c2) * u2 * dsd))
+            out[t] += (wd[..., None] * d + (u3 * u2)[..., None] * sd).sum(1)
+    return out.reshape(n, 3)
+
+
+def test_far_walk_matches_plain_and_jax(hier8k):
+    """The 8,192-body hierarchical far lists against the twin and the TPU
+    kernel in interpret mode (tests/test_torch_treecode.py:216-234)."""
+    aux, ops, n = hier8k["aux"], hier8k["ops"], hier8k["n"]
+    kw = dict(n=n, tile=128, eps2=EPS2, c2=C2, G=1.0)
+    got = _walk_far(ops["bodies"], ops["summ"], aux[2], aux[3], **kw)
+    torch.testing.assert_close(got, ct.far_field_hier_plain(ops["bodies"], ops["summ"],
+                                                            aux[2], aux[3], **kw), **TOL)
+    cols = _jcols_of(hier8k["pos"])
+    mass_tree = jnp.where(jnp.asarray(aux[-1].numpy()), 0.0, jnp.asarray(hier8k["mass"]))
+    summ = jtc._summary_panel(jtc._level_summaries(*cols, mass_tree, 64, hier8k["plan"], 2))
+    acc = np.asarray(jtc._far_field_hier_cols(
+        *cols, summ, jnp.asarray(aux[2].numpy()), jnp.asarray(aux[3].numpy()),
+        eps2=EPS2, c2=C2, G=1.0, tile=128, interpret=True))
+    want = acc[:n // 128, :3, :].transpose(0, 2, 1).reshape(n, 3)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    # The lists leave rows' last chunks part sentinel, and the tail unused.
+    assert (aux[2] == ops["summ"].shape[0] - 1).any() and (aux[3] == n // 128).any()
+
+
+@pytest.mark.parametrize("targets,parts,stage", [(128, 2, 1), (64, 16, 4), (32, 6, 1)])
+def test_far_walk_at_other_splits(hier8k, targets, parts, stage, monkeypatch):
+    for name, value in (("FAR_TARGETS", targets), ("FAR_PARTS", parts),
+                        ("FAR_STAGE_CHUNKS", stage)):
+        monkeypatch.setattr(ct, name, value)
+    aux, ops, n = hier8k["aux"], hier8k["ops"], hier8k["n"]
+    kw = dict(n=n, tile=128, eps2=EPS2, c2=C2, G=1.0)
+    torch.testing.assert_close(_walk_far(ops["bodies"], ops["summ"], aux[2], aux[3], **kw),
+                               ct.far_field_hier_plain(ops["bodies"], ops["summ"], aux[2],
+                                                       aux[3], **kw), **TOL)
+
+
+def test_far_walk_leaves_a_row_without_chunks_zero(hier8k):
+    aux, ops, n = hier8k["aux"], hier8k["ops"], hier8k["n"]
+    moved = torch.where(aux[3] == 5, 6, aux[3]).to(torch.int32)
+    kw = dict(n=n, tile=128, eps2=EPS2, c2=C2, G=1.0)
+    got = _walk_far(ops["bodies"], ops["summ"], aux[2], moved, **kw)
+    assert not got[5 * 128:6 * 128].any() and got[6 * 128:7 * 128].any()
+    torch.testing.assert_close(got, ct.far_field_hier_plain(ops["bodies"], ops["summ"],
+                                                            aux[2], moved, **kw), **TOL)
