@@ -46,8 +46,10 @@ is non-zero:
    path, beside its plain version, its bound, its issue floor and (the
    gather) one ``index_select`` call; the near kernel at every row size,
    with the largest and the mean number of chunks a row; the VIP sweep and
-   the far field also at 524,288, each with its kernels' device time from a
-   ``torch.profiler`` trace (the sweep is a pair and a summing kernel).
+   the far field also at 524,288, the single-level far field also at 20,480
+   dense and the near-panel kernel also at 1,024; these four each with its
+   kernels' device time from a ``torch.profiler`` trace (the sweep is a
+   pair and a summing kernel).
 5. exact main path: ``Simulation(SimConfig(), plummer(65536))`` (the
    symmetric kernel), ``solver="pallas"`` (the all-pairs kernel), leapfrog,
    and ``pallas_sym_precision="bf16x3"`` and ``"mixed"`` (the tensor-core
@@ -78,7 +80,9 @@ The last three lines of standard output are the kernels' JSON record, the
 card's name and power limit, and ``{"ok": true, "device": {...}}``. The
 records of every kernel but the gather also carry ``issue_floor_ms``
 (``kernel_compare.issue_floor_ms`` at the SM clock of this run); those of
-the VIP sweep and the far field ``device_ms`` and ``at_524288``.
+the VIP sweep, the two far fields and the near-panel kernel ``device_ms``
+and their second shape's record (``at_524288``, ``at_20480_dense``,
+``at_1024``).
 """
 
 from __future__ import annotations
@@ -91,14 +95,11 @@ import subprocess
 import sys
 import time
 
-from n_body_problem_tpu_torch.kernel_compare import (FAR_SINGLE_TERM_SLOTS, FAR_TERM_SLOTS,
-                                                      NODE_FLOPS, PAIR_BOTH_FLOPS,
-                                                      PAIR_BOTH_SLOTS, PAIR_FLOPS, PAIR_SLOTS, PHYS,
-                                                      VIP_PAIR_SLOTS,
-                                                      bound, far_work, fast_bound,
-                                                      fast_issue_floor_ms, issue_floor_ms,
-                                                      kernel_ms, near_work, sm_clock_mhz,
-                                                      tree_bound, vip_work)
+from n_body_problem_tpu_torch.kernel_compare import (PAIR_BOTH_FLOPS, PAIR_BOTH_SLOTS,
+                                                      PAIR_FLOPS, PAIR_SLOTS, PHYS, TREE_WORK,
+                                                      bound, fast_bound, fast_issue_floor_ms,
+                                                      issue_floor_ms, kernel_ms, near_work,
+                                                      sm_clock_mhz, tree_bound)
 
 ROOT = pathlib.Path(__file__).resolve().parent
 TOL = dict(rtol=1e-4, atol=2e-6)
@@ -425,30 +426,19 @@ def tree_work(key: str, args, kw) -> dict:
     """``bound`` of a treecode kernel's call, counting the interactions
     these inputs need (sentinel entries and masked tiles are skipped) and
     each input read and each output written once, and its issue floor at
-    this run's SM clock: a pair one way ``PAIR_SLOTS``, both ways (VIP)
-    ``VIP_PAIR_SLOTS``, a body-node term ``FAR_TERM_SLOTS`` (two targets a
-    thread) or ``FAR_SINGLE_TERM_SLOTS`` (one) (the gather has none: it moves
-    bytes)."""
+    this run's SM clock: a pair one way ``PAIR_SLOTS``, and the VIP pairs
+    and body-node terms at the slots of ``kernel_compare.TREE_WORK`` (the
+    gather has none: it moves bytes)."""
     nbytes = sum(a.numel() * a.element_size() for a in args)
-    if key in ("vip", "far"):
-        count, slots = ((vip_work(args, kw)["pairs"], VIP_PAIR_SLOTS) if key == "vip"
-                        else (far_work(args, kw)["terms"], FAR_TERM_SLOTS))
-        out = tree_bound(key, args, kw)
-    elif key == "near":
+    if key == "near":
         count, slots = near_work(args, kw)["pairs"], PAIR_SLOTS
         out = bound(PAIR_FLOPS * count, nbytes + kw["n"] * 12)
-    elif key == "far_single":
-        bodies, summ, mask = args
-        count, slots = (mask.numel() - int(mask.sum())) * kw["tile"], FAR_SINGLE_TERM_SLOTS
-        out = bound(NODE_FLOPS * count, nbytes + kw["n"] * 12)
     elif key == "gather":
         bodies, near_idx = args
         return {**bound(0, nbytes + near_idx.numel() * kw["tile"] * 16), "issue_floor_ms": None}
-    else:   # near_panel
-        bodies, panels = args
-        k, w = panels.shape[:2]
-        count, slots = k * kw["tile"] * w, PAIR_SLOTS
-        out = bound(PAIR_FLOPS * count, nbytes + k * kw["tile"] * 12)
+    else:
+        work_fn, count_key, slots = TREE_WORK[key]
+        count, out = work_fn(args, kw)[count_key], tree_bound(key, args, kw)
     return {**out, "issue_floor_ms": issue_floor_ms(count, slots, sm_clock_mhz())}
 
 
@@ -462,10 +452,22 @@ def gather_library(bodies, near_idx, *, tile: int):
 # Where each treecode kernel is timed (case labels of ``tree_kernel_cases``):
 # the main record at the largest shape of the path it serves below 524,288;
 # the VIP sweep and the far field also at 524,288, where the card, not the
-# host, sets the step's pace.
+# host, sets the step's pace; the single-level far field also at 20,480
+# dense (its fewest threads), the near-panel kernel also at 1,024 (the
+# dense path N alone chooses).
 TIME_AT = {"near": ("65,536",), "far": ("65,536", "524,288"), "vip": ("65,536", "524,288"),
-           "far_single": ("65,536 flat",), "gather": ("20,480 dense",),
-           "near_panel": ("20,480 dense",)}
+           "far_single": ("65,536 flat", "20,480 dense"), "gather": ("20,480 dense",),
+           "near_panel": ("20,480 dense", "1,024")}
+# The kernels also timed by their device time from a profiler trace: the
+# host enqueues these calls more slowly than the card runs them at some of
+# their shapes.
+DEVICE_TIMED = ("vip", "far", "far_single", "near_panel")
+
+
+def at_key(label: str) -> str:
+    """The record key of a kernel's time at a further shape, ``at_524288``
+    or ``at_20480_dense``."""
+    return "at_" + label.replace(",", "").replace(" ", "_")
 
 
 def compare_tree_kernels(device, cases=None, time_at: dict | None = None) -> dict:
@@ -517,7 +519,7 @@ def compare_tree_kernels(device, cases=None, time_at: dict | None = None) -> dic
             labels = time_at.get(key, ())
             if label in labels:
                 t = {"ms": time_ms(lambda: kernel(*args, **kw), 20)}
-                if key in ("vip", "far"):   # the kernels alone, without the host's enqueue
+                if key in DEVICE_TIMED:   # the kernels alone, without the host's enqueue
                     t["by_kernel_ms"] = kernel_ms(lambda: kernel(*args, **kw), 20)
                     t["device_ms"] = sum(t["by_kernel_ms"].values())
                 t.update(tree_work(key, args, kw))
@@ -530,7 +532,7 @@ def compare_tree_kernels(device, cases=None, time_at: dict | None = None) -> dic
                         t["library_ms"] = time_ms(lambda: gather_library(*args, **kw), 20)
                     res[key].update(t)
                 else:
-                    res[key][f"at_{n}"] = t
+                    res[key][at_key(label)] = t
         c, ops = inp["cfg"], inp["ops"]
         shapes = " ".join(f"{x.shape[0]}x{x.shape[1]}" if x.dim() > 1 else str(x.shape[0])
                           for x in inp["aux"][:-1])
@@ -550,10 +552,9 @@ def compare_tree_kernels(device, cases=None, time_at: dict | None = None) -> dic
                else "")
             + (f" library {res[k]['library_ms']:.4f}" if res[k]["library_ms"] else "")
             for k in timed), flush=True)
-    for k in ("vip", "far"):
+    for k in DEVICE_TIMED:
         for label in time_at.get(k, ()):
-            n = int(label.replace(",", ""))
-            t = res[k] if label == time_at[k][0] else res[k].get(f"at_{n}")
+            t = res[k] if label == time_at[k][0] else res[k].get(at_key(label))
             if t and "device_ms" in t:
                 print(f"tree kernels: {k} at {label}: call {t['ms']:.4f} ms, kernels "
                       + " + ".join(f"{name} {ms:.4f}" for name, ms in t["by_kernel_ms"].items())

@@ -25,7 +25,8 @@
 // What the design does about that:
 // - A thread keeps R = 4 row bodies and their twelve running sums in
 //   registers, so one 16-byte broadcast load of a staged column body serves
-//   four pairs, and the four pairs are independent work for the pipe.
+//   four pairs, and the four pairs are independent work for the pipe
+//   (pull_rows in pairs.cuh, which the near-panel kernel shares).
 // - The bare rsqrt instruction (pairs.cuh) in place of rsqrtf(), which wraps
 //   it in a denormal test and two multiplies; the wrapper requires a normal
 //   eps2.
@@ -95,22 +96,7 @@ allpairs_acc_kernel(const float* __restrict__ pos_i, int ni,
     }
     __syncthreads();
 #pragma unroll 4
-    for (int k = 0; k < kCols; ++k) {
-      const float4 b = mine[k];
-#pragma unroll
-      for (int q = 0; q < kRows; ++q) {
-        // Subtract first, scale the squared distance after (pallas_force.py:54-58).
-        const float dx = b.x - xi[q];
-        const float dy = b.y - yi[q];
-        const float dz = b.z - zi[q];
-        const float r2 = fmaf(dz, dz, fmaf(dy, dy, dx * dx));
-        const float inv = rsqrt_normal(fmaf(r2, c2, eps2));
-        const float w = b.w * (inv * inv * inv);
-        ax[q] = fmaf(w, dx, ax[q]);
-        ay[q] = fmaf(w, dy, ay[q]);
-        az[q] = fmaf(w, dz, az[q]);
-      }
-    }
+    for (int k = 0; k < kCols; ++k) pull_rows<kRows>(mine[k], xi, yi, zi, ax, ay, az, c2, eps2);
     __syncthreads();
   }
 

@@ -36,13 +36,14 @@
 // - The node's constants are scaled as they are stored: m by G c^3, tr by
 //   -1.5 G c^5, the quadrupole by -3 G c^5, so a term is u^3 (m' + u^2 (tr' -
 //   2.5 c^2 u^2 d'S'd)) d + u^5 S'd: 33 instructions with the bare rsqrt
-//   (pairs.cuh); the wrapper requires a normal eps2.
+//   (scale_node_quad and far_term in nodes.cuh, which the single-level far
+//   kernel shares); the wrapper requires a normal eps2.
 // No atomics and a fixed order: bitwise the same on every run.
 
 #include <cuda_runtime.h>
 
 #include "lists.cuh"
-#include "pairs.cuh"
+#include "nodes.cuh"
 
 namespace {
 
@@ -52,29 +53,6 @@ constexpr int kEntries = 64;     // FAR_ENTRIES in ops/treecode.py
 constexpr int kMaxThreads = 512;
 constexpr int kTargets = 2;      // target bodies a thread
 constexpr int kSlots = 2;        // node quads a thread stages a stage, at most
-
-// One body-node term into (ax, ay, az): the node's three quads a, q, r as
-// staged (m', S' and tr' scaled), kq = -2.5 c^2.
-__device__ __forceinline__ void far_term(const float4& a, const float4& q, const float4& r,
-                                         const float4& me, float c2, float eps2, float kq,
-                                         float& ax, float& ay, float& az) {
-  const float dx = a.x - me.x;
-  const float dy = a.y - me.y;
-  const float dz = a.z - me.z;
-  const float r2 = fmaf(dz, dz, fmaf(dy, dy, dx * dx));
-  const float u = rsqrt_normal(fmaf(c2, r2, eps2));
-  const float u2 = u * u;
-  const float sdx = fmaf(q.x, dx, fmaf(q.w, dy, r.x * dz));  // S'd
-  const float sdy = fmaf(q.w, dx, fmaf(q.y, dy, r.y * dz));
-  const float sdz = fmaf(r.x, dx, fmaf(r.y, dy, q.z * dz));
-  const float dsd = fmaf(dx, sdx, fmaf(dy, sdy, dz * sdz));  // d'S'd
-  const float u3 = u2 * u;
-  const float wd = u3 * fmaf(u2, fmaf(kq * u2, dsd, r.z), a.w);
-  const float u5 = u3 * u2;
-  ax = fmaf(wd, dx, fmaf(u5, sdx, ax));
-  ay = fmaf(wd, dy, fmaf(u5, sdy, ay));
-  az = fmaf(wd, dz, fmaf(u5, sdz, az));
-}
 
 // Two blocks of 512 threads a multiprocessor (at most 64 registers).
 __global__ void __launch_bounds__(kMaxThreads, 2)
@@ -129,16 +107,7 @@ far_field_kernel(const float4* __restrict__ bodies, const float4* __restrict__ s
     for (int j = 0; j < kSlots; ++j) {
       const int k = threadIdx.x + j * threads;
       if (k >= quads) continue;
-      float4 v = nxt[j];
-      if (k % 3 == 0) {
-        v.w *= mono;
-      } else {
-        v.x *= quad;
-        v.y *= quad;
-        v.z *= k % 3 == 1 ? quad : trace;
-        v.w *= quad;  // qxy, or the row's zero twelfth float
-      }
-      dst[k] = v;
+      dst[k] = scale_node_quad(nxt[j], k % 3, mono, quad, trace);
     }
   };
 

@@ -1,13 +1,15 @@
 """The pair kernels timed on one GPU at the main paths' shapes, beside another
 checkout's versions of them: the all-pairs kernel (square and block form),
 the symmetric f32 kernel, the symmetric bf16x3/mixed kernel, and the
-treecode near kernel, VIP sweep and hierarchical far field.
+treecode near kernel, VIP sweep, hierarchical far field, single-level far
+field and near-panel kernel.
 
     python -m n_body_problem_tpu_torch.kernel_compare [--before ROOT] [--sweep]
         [--sizes 8192,32768,65536,262144] [--blocks 2048x524288,16384x65536]
         [--fast-small 512:64,448:64,1024:512]
         [--near 65536,524288,20480f,65536f,20480t] [--vip 65536,524288,20480t]
-        [--far 65536,524288,20480t] [--cap 524288,1048576] [--json PATH]
+        [--far 65536,524288,20480t] [--far-single 65536f,20480d,2560f]
+        [--near-panel 20480d,1024d] [--cap 524288,1048576] [--json PATH]
 
 For each size the symmetric f32 kernel is timed beside the all-pairs kernel
 and held against it, the all-pairs kernel is run twice for bitwise equality,
@@ -18,14 +20,17 @@ small ``N:tile`` shapes of ``--fast-small``) and held against its twin (up to
 Plummer sphere of NJ bodies (the treecode error probe's shape) or, with NI a
 fourth of NJ or more, its first NI bodies (a ring step's shape). For each
 near case (a size suffix as in ``treecode_profile``: ``t`` tuned, ``f``
-flat) the near kernel is run twice for bitwise equality, and the largest and
-the mean number of chunks a target row has are given. Each VIP case (the
-panel of W VIP bodies against all N rows) and each far case (target rows
-against the node summaries of their far chunks) is held against its plain
-twin, run twice for bitwise equality, and timed as a whole call and, from a
-``torch.profiler`` trace, kernel by kernel (the VIP sweep is a pair kernel
-and a summing kernel); the far case also gives its live body-node terms and
-its chunks a row. Each line carries the
+flat, ``d`` dense) the near kernel is run twice for bitwise equality, and
+the largest and the mean number of chunks a target row has are given. Each
+VIP case (the panel of W VIP bodies against all N rows), far case (target
+rows against the node summaries of their far chunks), single-level far case
+(target rows against every level-0 summary their near mask leaves) and
+near-panel case (each target tile against its gathered panel) is held
+against its plain twin, run twice for bitwise equality, and timed as a
+whole call and, from a ``torch.profiler`` trace, kernel by kernel (the VIP
+sweep is a pair kernel and a summing kernel); the far cases also give their
+live body-node terms and their chunks (or unmasked tiles) a row. Each line
+carries the
 table's bound (``bound_ms``: operations over the peak rates) and the issue
 floor (``issue_floor_ms``: the instruction slots a pair needs over the
 multiprocessors' issue rate at the SM clock ``nvidia-smi`` shows during the
@@ -52,7 +57,9 @@ signatures have to agree.
 ``--sweep`` also times the near kernel over block sizes, stage sizes and
 targets a block, the all-pairs kernel over parts and pieces, the
 bf16x3/mixed kernel over its block shapes, the VIP sweep over the splits of
-``vip_split`` and the far field over those of ``far_split``. One JSON object
+``vip_split``, the far field over those of ``far_split``, the single-level
+far field over those of ``single_split`` and the near-panel kernel over
+those of ``panel_split``. One JSON object
 with every number and the card's name and power limit ends the output (also
 written to ``--json``).
 """
@@ -93,15 +100,14 @@ VIP_PAIR_SLOTS = PAIR_BOTH_SLOTS
 # A body-node term: 33 FP32 instructions with the MUFU rsqrt (3 for d, 3 for
 # |d|^2, 1 for c^2 |d|^2 + eps2, the rsqrt, 9 for S d, 3 for d'Sd, 7 for the
 # powers of u and the weight with node constants scaled when staged, 6 FMAs
-# into the sums), and the three 16-byte shared loads of the node's row. The
-# far kernel (8/9) holds two targets a thread, so the loads serve two terms;
-# the single-level far kernel (3) one.
+# into the sums; far_term in csrc/nodes.cuh), and the three 16-byte shared
+# loads of the node's row. Both far kernels (8/9 and 3) hold two targets a
+# thread, so the loads serve two terms.
 NODE_TERM_INSTRUCTIONS, NODE_ROW_LOADS = 33, 3
 FAR_TERM_SLOTS = NODE_TERM_INSTRUCTIONS + NODE_ROW_LOADS / 2         # 34.5
-FAR_SINGLE_TERM_SLOTS = float(NODE_TERM_INSTRUCTIONS + NODE_ROW_LOADS)  # 36
+FAR_SINGLE_TERM_SLOTS = FAR_TERM_SLOTS
 # FP32 operations of a body-node term (monopole + quadrupole) as those 33
-# instructions do it, an FMA two (kernel 3's term, in the reference's order,
-# takes 56).
+# instructions do it, an FMA two.
 NODE_FLOPS = 52
 LANES_A_CLOCK = 128   # FP32 lanes a multiprocessor issues a clock
 FAST_TILE = 512
@@ -115,6 +121,12 @@ FAR_SPLITS = ((128, 4, 2), (128, 8, 4), (128, 8, 2), (128, 4, 1), (128, 2, 1), (
 # (blocks aimed at, most VIPs a piece) of the VIP sweep's.
 VIP_SPLITS = ((2048, 512), (1024, 512), (1024, 4096), (1024, 1024), (1024, 256), (512, 512),
               (4096, 512), (16384, 512))
+# (threads aimed at, mask entries a thread a stage) of the single-level far
+# field's sweep.
+SINGLE_SPLITS = ((256, 2), (256, 1), (128, 2), (128, 1), (512, 2), (512, 1), (64, 2))
+# (threads aimed at, panel rows a stage) of the near-panel kernel's sweep.
+PANEL_SPLITS = ((256, 1024), (128, 1024), (512, 1024), (256, 512), (256, 2048),
+                (128, 2048), (512, 512))
 # The kernels whose registers and SASS are printed: source -> kernel name.
 COUNTED = {"allpairs.cu": "allpairs_acc_kernel", "symmetric.cu": "symmetric_acc_kernel",
            "symmetric_bf16x3.cu": "symmetric_bf16x3_kernel", "near.cu": "near_field_kernel",
@@ -128,7 +140,8 @@ from n_body_problem_tpu_torch.ops import cuda_force, cuda_symmetric, cuda_treeco
 assert pathlib.Path(cuda_symmetric.__file__).resolve().is_relative_to(pathlib.Path.cwd().resolve())
 fns = {"symmetric": cuda_symmetric.symmetric_acc, "near": cuda_treecode.near_field,
        "allpairs": cuda_force.block_acc, "symmetric_bf16x3": cuda_symmetric.symmetric_acc_bf16x3,
-       "vip": cuda_treecode.vip_both, "far": cuda_treecode.far_field_hier}
+       "vip": cuda_treecode.vip_both, "far": cuda_treecode.far_field_hier,
+       "far_single": cuda_treecode.far_field_single, "near_panel": cuda_treecode.near_panel}
 rows = []
 for case in torch.load(sys.argv[1], map_location="cuda", weights_only=False):
     fn = lambda: fns[case["kernel"]](*case["args"], **case["kw"])
@@ -249,16 +262,46 @@ def far_work(args, kw) -> dict:
             "chunks_mean": float(per_row.float().mean())}
 
 
+def single_work(args, kw) -> dict:
+    """What a single-level far call has to do: ``terms``, the source tiles
+    that the near mask leaves to the far field (masked tiles left out)
+    times the target row; and the largest and the mean number of such tiles
+    a target row has."""
+    _, _, mask = args
+    live = (~mask.bool()).sum(1)
+    return {"terms": int(live.sum()) * kw["tile"], "live_max": int(live.max()),
+            "live_mean": float(live.float().mean())}
+
+
+def panel_work(args, kw) -> dict:
+    """What a near-panel call has to do: each of the K T targets against
+    every one of the W rows of its tile's panel, K x T x W pairs."""
+    _, panels = args
+    k, w = panels.shape[:2]
+    return {"pairs": k * kw["tile"] * w, "tiles": k, "width": w}
+
+
+# Per treecode kernel: its work function, the key of the count it returns,
+# and the issue slots one such interaction takes.
+TREE_WORK = {"vip": (vip_work, "pairs", VIP_PAIR_SLOTS), "far": (far_work, "terms", FAR_TERM_SLOTS),
+             "far_single": (single_work, "terms", FAR_SINGLE_TERM_SLOTS),
+             "near_panel": (panel_work, "pairs", PAIR_SLOTS)}
+
+
 def tree_bound(key: str, args, kw) -> dict:
-    """``bound`` of a VIP or far call on these inputs: the work of
-    ``vip_work`` / ``far_work`` over the FP32 peak, or each input read and
-    each output written once over the memory rate."""
+    """``bound`` of a VIP, far, single-level far or near-panel call on these
+    inputs: the work of ``TREE_WORK`` over the FP32 peak, or each input read
+    and each output written once over the memory rate."""
     nbytes = sum(a.numel() * a.element_size() for a in args)
     if key == "vip":
         rows, panel = args
         return bound(PAIR_BOTH_FLOPS * vip_work(args, kw)["pairs"],
                      nbytes + (rows.shape[0] + panel.shape[0]) * 12)
-    return bound(NODE_FLOPS * far_work(args, kw)["terms"], nbytes + kw["n"] * 12)
+    if key == "near_panel":
+        work = panel_work(args, kw)
+        return bound(PAIR_FLOPS * work["pairs"], nbytes + work["tiles"] * kw["tile"] * 12)
+    work = (far_work if key == "far" else single_work)(args, kw)
+    return bound(NODE_FLOPS * work["terms"], nbytes + kw["n"] * 12)
 
 
 # ------------------------------------------------------------------- SASS
@@ -591,15 +634,18 @@ def near_row(case: dict, sweep: bool) -> dict:
 
 
 def tree_row(case: dict, sweep: bool) -> dict:
-    """The VIP sweep or the far field at one size: held against its twin,
-    run twice for bitwise equality, timed as a call and kernel by kernel,
-    beside its bound and issue floor."""
+    """The VIP sweep, the far field, the single-level far field or the
+    near-panel kernel at one size: held against its twin, run twice for
+    bitwise equality, timed as a call and kernel by kernel, beside its bound
+    and issue floor."""
     from n_body_problem_tpu_torch.ops import cuda_treecode as ct
     from n_body_problem_tpu_torch.treecode_profile import time_ms
 
     key, args, kw = case["kernel"], case["args"], case["kw"]
     fn, plain = {"vip": (ct.vip_both, ct.vip_both_plain),
-                 "far": (ct.far_field_hier, ct.far_field_hier_plain)}[key]
+                 "far": (ct.far_field_hier, ct.far_field_hier_plain),
+                 "far_single": (ct.far_field_single, ct.far_field_single_plain),
+                 "near_panel": (ct.near_panel, ct.near_panel_plain)}[key]
     kernel = lambda: fn(*args, **kw)  # noqa: E731
     before = fn.launches
     got = kernel()
@@ -612,37 +658,39 @@ def tree_row(case: dict, sweep: bool) -> dict:
            "allclose_plain": bool(torch.allclose(_flat(got), _flat(want), rtol=1e-4,
                                                  atol=2e-6))}
     del want
+    work_fn, count_key, slots = TREE_WORK[key]
+    work = work_fn(args, kw)
     if key == "vip":
-        work, slots = vip_work(args, kw), VIP_PAIR_SLOTS
-        split = getattr(ct, "vip_split", None)
-        if split is not None:
-            row["split"] = split(work["rows"], work["vips"])
+        row["split"] = ct.vip_split(work["rows"], work["vips"])
     else:
-        work, slots = far_work(args, kw), FAR_TERM_SLOTS
-        row.update(n=kw["n"], tile=kw["tile"], chunks=args[3].shape[0],
-                   summ_rows=args[1].shape[0])
-        split = getattr(ct, "far_split", None)
-        if split is not None:
-            row["split"] = split(kw["tile"])
+        split = {"far": ct.far_split, "far_single": ct.single_split,
+                 "near_panel": ct.panel_split}[key]
+        row.update(tile=kw["tile"], split=split(kw["tile"]))
+    if key == "far":
+        row.update(n=kw["n"], chunks=args[3].shape[0], summ_rows=args[1].shape[0])
+    elif key == "far_single":
+        row.update(n=kw["n"], k_s=args[2].shape[1])
     row["ms"] = time_ms(kernel, case["reps"])
     clock = sm_clock_mhz()   # just after the load
     row["by_kernel_ms"] = kernel_ms(kernel, case["reps"])
     row["device_ms"] = sum(row["by_kernel_ms"].values())
-    count = work.pop("pairs" if key == "vip" else "terms")
+    count = work.pop(count_key)
     row.update(work, clock_mhz=clock, issue_floor_ms=issue_floor_ms(count, slots, clock),
-               **{"pairs" if key == "vip" else "terms": count}, **tree_bound(key, args, kw))
-    if sweep and split is not None:
+               **{count_key: count}, **tree_bound(key, args, kw))
+    if sweep:
         row["sweep_device_ms"] = sweep_constants(kernel, got, case["reps"], *tree_sweep(key),
                                                  timer=device_ms)
     return row
 
 
 def tree_sweep(key: str) -> tuple[tuple[str, ...], list]:
-    """The ``cuda_treecode`` constants behind ``vip_split`` / ``far_split``
-    and the settings ``--sweep`` times."""
-    if key == "vip":
-        return ("VIP_BLOCKS", "VIP_MAX_PIECE"), VIP_SPLITS
-    return ("FAR_TARGETS", "FAR_PARTS", "FAR_STAGE_CHUNKS"), FAR_SPLITS
+    """The ``cuda_treecode`` constants behind ``vip_split``, ``far_split``,
+    ``single_split`` and ``panel_split``, and the settings ``--sweep``
+    times."""
+    return {"vip": (("VIP_BLOCKS", "VIP_MAX_PIECE"), VIP_SPLITS),
+            "far": (("FAR_TARGETS", "FAR_PARTS", "FAR_STAGE_CHUNKS"), FAR_SPLITS),
+            "far_single": (("SINGLE_THREADS", "SINGLE_ENTRIES"), SINGLE_SPLITS),
+            "near_panel": (("PANEL_THREADS", "PANEL_STAGE"), PANEL_SPLITS)}[key]
 
 
 def cap_row(n: int) -> dict:
@@ -705,6 +753,8 @@ def main(argv=None) -> int:
     ap.add_argument("--near", default="65536,524288,20480f,65536f,20480t")
     ap.add_argument("--vip", default="65536,524288,20480t")
     ap.add_argument("--far", default="65536,524288,20480t")
+    ap.add_argument("--far-single", default="65536f,20480d,2560f")
+    ap.add_argument("--near-panel", default="20480d,1024d")
     ap.add_argument("--cap", default="")
     ap.add_argument("--json", type=pathlib.Path, default=None)
     args = ap.parse_args(argv)
@@ -744,7 +794,7 @@ def main(argv=None) -> int:
     for tok in filter(None, args.near.split(",")):
         case = tree_case("near", tok)
         add(case, near_row(case, args.sweep))
-    for key in ("vip", "far"):
+    for key in ("vip", "far", "far_single", "near_panel"):
         for tok in filter(None, getattr(args, key).split(",")):
             case = tree_case(key, tok)
             add(case, tree_row(case, args.sweep))
@@ -752,7 +802,7 @@ def main(argv=None) -> int:
     if args.before:
         in_turns(cases, rows, args.before.resolve())
     record = {"symmetric": [], "allpairs": [], "symmetric_bf16x3": [], "near": [], "vip": [],
-              "far": []}
+              "far": [], "far_single": [], "near_panel": []}
     for case, row in zip(cases, rows):
         record[case["kernel"]].append(row)
         if args.before:

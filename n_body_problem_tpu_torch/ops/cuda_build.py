@@ -33,11 +33,9 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 LIB_NAME = "libnbody_kernels.so"
 # The kernels index float triples and quads with 32-bit ints.
 MAX_BODIES = (1 << 31) // 4
-# The smallest normal float32. allpairs.cu, symmetric.cu, symmetric_bf16x3.cu,
-# near.cu, vip.cu and far_hier.cu take the bare rsqrt instruction
-# (csrc/pairs.cuh), which flushes a denormal argument to zero: c^2 |d|^2 +
-# eps2 is normal for every pair only if eps2 is. far_single.cu and
-# near_panel.cu still call rsqrtf().
+# The smallest normal float32. Every pair and term kernel takes the bare
+# rsqrt instruction (csrc/pairs.cuh), which flushes a denormal argument to
+# zero: c^2 |d|^2 + eps2 is normal for every pair only if eps2 is.
 MIN_EPS2 = 1.1754944e-38
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -60,13 +58,14 @@ _SIGNATURES = {
     # (bodies4, n, tile, sub, parts, stage_chunks, summ12, far_src, far_tgt,
     #  n_chunks, out, c2, eps2, gc, stream) -> cudaError_t
     "nbody_far_field": ((_P, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P, _F, _F, _F, _P), _I),
-    # (bodies4, n, tile, summ12, k_s, mask, out, c2, eps2, gc, stream)
-    #  -> cudaError_t
-    "nbody_far_single": ((_P, _I, _I, _P, _I, _P, _P, _F, _F, _F, _P), _I),
+    # (bodies4, n, tile, parts, per, summ12, k_s, mask, out, c2, eps2, gc,
+    #  stream) -> cudaError_t
+    "nbody_far_single": ((_P, _I, _I, _I, _I, _P, _I, _P, _P, _F, _F, _F, _P), _I),
     # (bodies4, tile, near_idx, k, m_near, out, stream) -> cudaError_t
     "nbody_gather_panels": ((_P, _I, _P, _I, _I, _P, _P), _I),
-    # (bodies4, tile, panels4, k, width, out, c2, eps2, stream) -> cudaError_t
-    "nbody_near_panel": ((_P, _I, _P, _I, _I, _P, _F, _F, _P), _I),
+    # (bodies4, tile, panels4, k, width, parts, stage, out, c2, eps2, stream)
+    #  -> cudaError_t
+    "nbody_near_panel": ((_P, _I, _P, _I, _I, _I, _I, _P, _F, _F, _P), _I),
     # (rows4, n, panel4, w, pieces, piece, react_part, act_part, action,
     #  react, c2, eps2, stream) -> cudaError_t
     "nbody_vip_both": ((_P, _I, _P, _I, _I, _I, _P, _P, _P, _P, _F, _F, _P), _I),

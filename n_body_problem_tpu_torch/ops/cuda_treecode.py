@@ -72,6 +72,29 @@ FAR_STAGE_CHUNKS = 2
 VIP_ROWS = 512
 VIP_BLOCKS = 2048
 VIP_MAX_PIECE = 512
+# The single-level far kernel's block: one target row, two targets a thread,
+# times as many parts as bring it to about SINGLE_THREADS threads; each
+# thread reads SINGLE_ENTRIES mask entries a stage (single_split). Its
+# compiled limits (csrc/far_single.cu): at most SINGLE_MAX_THREADS threads
+# and SINGLE_MAX_ENTRIES entries a thread. On an NVIDIA H100 80GB HBM3 at
+# 700.00 W, at 65,536 flat bodies: 0.097 ms at 256 threads and two
+# entries, 0.100 at 128, 0.104 at 512, 0.103 at one entry a thread
+# (kernel_compare --sweep).
+SINGLE_THREADS = 256
+SINGLE_ENTRIES = 2
+SINGLE_MAX_THREADS = 512
+SINGLE_MAX_ENTRIES = 2
+# The near-panel kernel's block: one target tile, PANEL_ROWS targets a
+# thread, times as many parts as bring it to about PANEL_THREADS threads; it
+# stages PANEL_STAGE panel rows at a time, twice (panel_split). PANEL_ROWS
+# and PANEL_MAX_THREADS are compiled into csrc/near_panel.cu. On an NVIDIA
+# H100 80GB HBM3 at 700.00 W 512 threads took 0.0056 ms at 1,024 dense
+# bodies against 0.0065 for 256, and the same 0.189-0.191 ms at 20,480; 128
+# threads 0.20, stages of 512 rows 0.20 (kernel_compare --sweep).
+PANEL_ROWS = 4
+PANEL_MAX_THREADS = 512
+PANEL_THREADS = 512
+PANEL_STAGE = 1024
 # Largest pair block a plain version materialises at once.
 _PLAIN_PAIRS = 1 << 22
 
@@ -148,7 +171,9 @@ def near_split(tile: int, entries: int, src_tile: int | None = None) -> tuple[in
 def near_parts(n_entries: int, parts: int, piece: int) -> list[list[int]]:
     """The near kernel's split of a row's ``n_entries`` source entries (its
     chunks' entries in order): for each part, the entries it sums, in its
-    order. Every entry lies in exactly one part."""
+    order. Every entry lies in exactly one part. The near-panel kernel
+    splits a panel's rows the same way, ``piece`` rows a stage
+    (:func:`panel_split`)."""
     out: list[list[int]] = [[] for _ in range(parts)]
     for e0 in range(0, n_entries, piece):
         for p in range(parts):
@@ -330,6 +355,33 @@ def far_field_single_plain(bodies, summ, near_mask, *, n: int, tile: int,
     return torch.cat(out) if out else bodies.new_zeros((0, 3))
 
 
+def single_split(tile: int) -> tuple[int, int, int]:
+    """``(parts, per, stage)`` of the single-level far kernel's block for
+    target rows of ``tile`` bodies: one row, ``tile / 2`` threads of two
+    targets times ``parts`` (about :data:`SINGLE_THREADS` threads, at least
+    one part), rounded up to whole warps (the extra threads stage, they do
+    not sum); each thread reads ``per`` mask entries a stage, so a stage is
+    ``stage`` = ``per`` x threads entries (:func:`single_parts`)."""
+    half = tile // 2
+    parts = max(1, min(SINGLE_THREADS, SINGLE_MAX_THREADS) // half)
+    per = max(1, min(SINGLE_ENTRIES, SINGLE_MAX_ENTRIES))
+    return parts, per, per * -(-half * parts // 32) * 32
+
+
+def single_parts(masked, parts: int, stage: int) -> list[list[int]]:
+    """The single-level far kernel's split of one target row's source
+    tiles, ``masked[e]`` true for a near tile: each stage of ``stage``
+    entries keeps its unmasked tiles in index order, and part ``p`` sums the
+    kept tiles ``p, p + parts, ...`` of each stage. For each part, the tiles
+    it sums, in its order; every unmasked tile lies in exactly one part."""
+    out: list[list[int]] = [[] for _ in range(parts)]
+    for e0 in range(0, len(masked), stage):
+        kept = [e for e in range(e0, min(e0 + stage, len(masked))) if not masked[e]]
+        for p in range(parts):
+            out[p].extend(kept[p::parts])
+    return out
+
+
 def far_field_single(bodies, summ, near_mask, *, n: int, tile: int, eps2: float,
                      c2: float, G: float) -> torch.Tensor:
     """Single-level far field (N, 3) of the level-0 summaries, the near
@@ -355,11 +407,13 @@ def far_field_single(bodies, summ, near_mask, *, n: int, tile: int, eps2: float,
     if near_mask.device != dev or near_mask.dtype not in (torch.bool, torch.uint8) \
             or not near_mask.is_contiguous():
         raise ValueError(f"near_mask must be a contiguous bool or uint8 tensor on {dev}")
+    cuda_build.require_normal_eps2("far_field_single", eps2)
     out = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    parts, per, _ = single_split(tile)
     lib = cuda_build.load_library()
     with torch.cuda.device(dev):
-        rc = lib.nbody_far_single(bodies.data_ptr(), n, tile, summ.data_ptr(), k_s,
-                                  near_mask.data_ptr(), out.data_ptr(), c2, eps2,
+        rc = lib.nbody_far_single(bodies.data_ptr(), n, tile, parts, per, summ.data_ptr(),
+                                  k_s, near_mask.data_ptr(), out.data_ptr(), c2, eps2,
                                   G * math.sqrt(c2), _stream(dev))
         far_field_single.launches += 1
     cuda_build.check(rc, "far_single_kernel")
@@ -425,6 +479,17 @@ def near_panel_plain(bodies, panels, *, tile: int, eps2: float,
     return torch.cat(out).reshape(k * tile, 3)
 
 
+def panel_split(tile: int) -> tuple[int, int]:
+    """``(parts, stage)`` of the near-panel kernel's block for target tiles
+    of ``tile`` bodies: one tile, ``tile /`` :data:`PANEL_ROWS` threads of
+    four targets times ``parts`` (about :data:`PANEL_THREADS` threads, at
+    least one part); it stages ``stage`` panel rows at a time, and part
+    ``p`` sums the rows ``p, p + parts, ...`` of each stage
+    (:func:`near_parts`)."""
+    group = tile // PANEL_ROWS
+    return max(1, min(PANEL_THREADS, PANEL_MAX_THREADS) // group), max(1, PANEL_STAGE)
+
+
 def near_panel(bodies, panels, *, tile: int, eps2: float, c2: float) -> torch.Tensor:
     """Exact near field (K T, 3) of each target tile against its gathered
     panel (:func:`gather_panels`).
@@ -444,11 +509,13 @@ def near_panel(bodies, panels, *, tile: int, eps2: float, c2: float) -> torch.Te
     cuda_build.require_f32("bodies", bodies, (bodies.shape[0], 4), dev)
     if bodies.shape[0] < k * tile or k * max(width, tile) > cuda_build.MAX_BODIES:
         raise ValueError(f"near_panel: {k} tiles of {tile} need that many body rows")
+    cuda_build.require_normal_eps2("near_panel", eps2)
     out = torch.empty((k * tile, 3), dtype=torch.float32, device=dev)
+    parts, stage = panel_split(tile)
     lib = cuda_build.load_library()
     with torch.cuda.device(dev):
-        rc = lib.nbody_near_panel(bodies.data_ptr(), tile, panels.data_ptr(), k, width,
-                                  out.data_ptr(), c2, eps2, _stream(dev))
+        rc = lib.nbody_near_panel(bodies.data_ptr(), tile, panels.data_ptr(), k, width, parts,
+                                  stage, out.data_ptr(), c2, eps2, _stream(dev))
         near_panel.launches += 1
     cuda_build.check(rc, "near_panel_kernel")
     return out

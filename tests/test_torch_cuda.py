@@ -118,11 +118,22 @@ def test_symmetric_kernel_matches_plain_at_its_tile(cuda, n, n_real):
     assert float((mass[:, None] * got).sum(0).abs().max()) < 1e-6
 
 
-# The bare rsqrt instruction of the all-pairs, the two symmetric, the near,
-# the VIP and the far kernel flushes denormals, so their wrappers take a
-# normal float32 softening only; at 1e-24, the smallest at which a coincident
-# pair's 1 / eps^3 is still finite in float32, they agree with their twins as
-# at any other.
+# The bare rsqrt instruction of every pair and term kernel (all-pairs, the
+# two symmetric, near, VIP, far, single-level far, near-panel) flushes
+# denormals, so their wrappers take a normal float32 softening only; at
+# 1e-24, the smallest at which a coincident pair's 1 / eps^3 is still finite
+# in float32, they agree with their twins as at any other.
+
+
+def _single_level_inputs(device):
+    """The single-level far field's arguments on the flat path N chooses
+    (3,072 bodies) and the near-panel kernel's on the dense one (1,024)."""
+    from n_body_problem_tpu_torch.treecode_profile import kernel_inputs
+
+    return {"far_single": kernel_inputs(3072, device, seed=3)["kernels"]["far_single"],
+            "near_panel": kernel_inputs(1024, device, seed=3)["kernels"]["near_panel"]}
+
+
 @pytest.mark.parametrize("eps2", [0.0, 1e-39])
 def test_pair_kernels_reject_a_denormal_softening(cuda, eps2):
     from n_body_problem_tpu_torch.ops import cuda_treecode as ct
@@ -137,8 +148,9 @@ def test_pair_kernels_reject_a_denormal_softening(cuda, eps2):
         with pytest.raises(ValueError, match="eps2"):
             cuda_symmetric.symmetric_acc_bf16x3(pos, mass, eps2=eps2, compensate=0.1,
                                                 tile=64, precision=precision)
-    tree = kernel_inputs(8192, cuda, seed=3)["kernels"]
-    for key, fn in (("near", ct.near_field), ("vip", ct.vip_both), ("far", ct.far_field_hier)):
+    tree = {**kernel_inputs(8192, cuda, seed=3)["kernels"], **_single_level_inputs(cuda)}
+    for key, fn in (("near", ct.near_field), ("vip", ct.vip_both), ("far", ct.far_field_hier),
+                    ("far_single", ct.far_field_single), ("near_panel", ct.near_panel)):
         args, kw = tree[key]
         with pytest.raises(ValueError, match="eps2"):
             fn(*args, **{**kw, "eps2": eps2})
@@ -164,10 +176,12 @@ def test_pair_kernels_match_plain_at_a_tiny_softening(cuda):
         twin = cuda_symmetric.symmetric_acc_plain(pos, mass, **fast)
         assert torch.isfinite(got).all()
         assert float((got - twin).norm() / (twin - f32_twin).norm()) <= 0.3
-    tree = kernel_inputs(8192, cuda, seed=3)["kernels"]
+    tree = {**kernel_inputs(8192, cuda, seed=3)["kernels"], **_single_level_inputs(cuda)}
     for key, fn, plain in (("near", ct.near_field, ct.near_field_plain),
                            ("vip", ct.vip_both, ct.vip_both_plain),
-                           ("far", ct.far_field_hier, ct.far_field_hier_plain)):
+                           ("far", ct.far_field_hier, ct.far_field_hier_plain),
+                           ("far_single", ct.far_field_single, ct.far_field_single_plain),
+                           ("near_panel", ct.near_panel, ct.near_panel_plain)):
         args, kw = tree[key]
         kw = {**kw, "eps2": 1e-24}
         got, want = fn(*args, **kw), plain(*args, **kw)
@@ -616,3 +630,115 @@ def test_far_kernel_writes_zeros_for_a_row_without_chunks(cuda):
                                **TOL)
     none = torch.full_like(far_tgt, kw["n"] // kw["tile"])
     assert not ct.far_field_hier(bodies, summ, far_src, none, **kw).any()
+
+
+# ------------------------------------- single-level far field and near panel
+@pytest.mark.parametrize("label,n,overrides,path", SINGLE_CASES[:3])
+def test_far_single_kernel_matches_plain_at_every_split(cuda, monkeypatch, label, n, overrides,
+                                                        path):
+    """Every (threads, mask entries a thread) setting of kernel_compare's
+    sweep, on the flat and dense paths' lists: the twin within tolerance,
+    the same bits twice, one launch a call."""
+    from n_body_problem_tpu_torch.kernel_compare import SINGLE_SPLITS
+    from n_body_problem_tpu_torch.ops import cuda_treecode as ct
+
+    _, cases = _single_case(cuda, n, overrides)
+    args, kw = cases["far_single"]
+    want = ct.far_field_single_plain(*args, **kw)
+    splits = set()
+    for threads, per in SINGLE_SPLITS:
+        monkeypatch.setattr(ct, "SINGLE_THREADS", threads)
+        monkeypatch.setattr(ct, "SINGLE_ENTRIES", per)
+        splits.add(ct.single_split(kw["tile"]))
+        before = ct.far_field_single.launches
+        got, again = ct.far_field_single(*args, **kw), ct.far_field_single(*args, **kw)
+        torch.cuda.synchronize()
+        assert ct.far_field_single.launches - before == 2
+        torch.testing.assert_close(got, want, **TOL)
+        assert torch.equal(got, again), (threads, per)
+    assert len(splits) == len(SINGLE_SPLITS)
+
+
+@pytest.fixture(scope="module")
+def flat64k(cuda):
+    """The single-level far field's arguments on the 65,536-body flat path."""
+    from n_body_problem_tpu_torch.treecode_profile import kernel_inputs
+
+    return kernel_inputs(65536, cuda, seed=3, tree_hier=False)["kernels"]["far_single"]
+
+
+# (tile, K_s): rows of 64 and 96 (no power of two) and 1,024 bodies, K_s no
+# multiple of a stage, a single tile, and none.
+@pytest.mark.parametrize("tile,k_s", [(64, 1000), (96, 777), (1024, 1024), (32, 1), (32, 0)])
+def test_far_single_kernel_at_ragged_shapes(cuda, flat64k, tile, k_s):
+    """The 65,536-body flat path's bodies and summaries, its first K_s
+    source tiles, rows of ``tile`` bodies whose near mask is that of their
+    32-body rows (a tile near one of them is near the row: the expansion is
+    never taken inside a near tile), with more tiles masked at random and
+    one row with every tile masked: the twin within tolerance, the same bits
+    twice, and zero on every row with every tile masked (a massless tile,
+    all VIP bodies, adds exactly zero as well)."""
+    from n_body_problem_tpu_torch.ops import cuda_treecode as ct
+
+    (bodies, summ, mask32), kw = flat64k
+    n = 65536 // tile * tile
+    near = mask32.bool()[:n // 32, :k_s]
+    if tile % 32 == 0 and tile > 32:
+        near = near.reshape(n // tile, tile // 32, k_s).any(1)
+    gen = torch.Generator(device="cpu").manual_seed(tile + k_s)
+    mask = (near | (torch.rand(near.shape, generator=gen) < 0.3).to(cuda)).contiguous()
+    mask[1] = True
+    kw = {**kw, "n": n, "tile": tile}
+    got = ct.far_field_single(bodies, summ, mask, **kw)
+    again = ct.far_field_single(bodies, summ, mask, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ct.far_field_single_plain(bodies, summ, mask, **kw), **TOL)
+    assert torch.equal(got, again)
+    assert not got.reshape(n // tile, -1)[mask.all(1)].any()
+
+
+@pytest.mark.parametrize("label,n,overrides", [("dense", 20480, dict(tree_flat_cap=-1)),
+                                               ("dense exact", 1024, {})])
+def test_near_panel_kernel_matches_plain_at_every_split(cuda, monkeypatch, label, n, overrides):
+    """Every (threads, panel rows a stage) setting of kernel_compare's sweep
+    on the dense path's panels: the twin within tolerance, the same bits
+    twice, one launch a call."""
+    from n_body_problem_tpu_torch.kernel_compare import PANEL_SPLITS
+    from n_body_problem_tpu_torch.ops import cuda_treecode as ct
+
+    _, cases = _single_case(cuda, n, overrides)
+    args, kw = cases["near_panel"]
+    want = ct.near_panel_plain(*args, **kw)
+    for threads, stage in PANEL_SPLITS:
+        monkeypatch.setattr(ct, "PANEL_THREADS", threads)
+        monkeypatch.setattr(ct, "PANEL_STAGE", stage)
+        before = ct.near_panel.launches
+        got, again = ct.near_panel(*args, **kw), ct.near_panel(*args, **kw)
+        torch.cuda.synchronize()
+        assert ct.near_panel.launches - before == 2
+        torch.testing.assert_close(got, want, **TOL)
+        assert torch.equal(got, again), (threads, stage)
+
+
+# (tile, W): tiles of 64 and 96 (no power of two) and 1,024, W no multiple of
+# a stage, one row, no panel.
+@pytest.mark.parametrize("tile,width", [(64, 1000), (96, 4101), (1024, 2048), (32, 1),
+                                        (32, 0)])
+def test_near_panel_kernel_at_ragged_shapes(cuda, tile, width):
+    """Rows [x y z G c^3 m] of a Plummer sphere as targets, and panels of
+    its rows drawn at random, as the gather draws them from near tiles."""
+    from n_body_problem_tpu_torch.ops import cuda_treecode as ct
+
+    k = 5
+    rows, _ = _vip_rows(cuda, max(k * tile, width), 0, seed=tile + width)
+    gen = torch.Generator(device="cpu").manual_seed(tile + width)
+    bodies = rows[:k * tile].contiguous()
+    panels = rows[torch.randint(0, rows.shape[0], (k, width), generator=gen).to(cuda)]
+    kw = dict(tile=tile, eps2=1e-6, c2=0.01)
+    got, again = ct.near_panel(bodies, panels, **kw), ct.near_panel(bodies, panels, **kw)
+    torch.cuda.synchronize()
+    assert got.shape == (k * tile, 3)
+    torch.testing.assert_close(got, ct.near_panel_plain(bodies, panels, **kw), **TOL)
+    assert torch.equal(got, again)
+    if width == 0:
+        assert not got.any()

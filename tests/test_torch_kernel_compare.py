@@ -144,10 +144,11 @@ def test_far_work_counts_live_terms():
 
 def test_far_term_counts_are_the_kernels():
     """NODE_FLOPS and the 33 instructions of the far slot counts are what
-    far_hier.cu's far_term does: its FMAs (two operations each), multiplies,
-    subtractions and the rsqrt; two targets a thread halve the node row's
-    three shared loads a term, one target (kernel 3) keeps them."""
-    src = (cuda_build.CSRC_DIR / "far_hier.cu").read_text()
+    the shared far_term (csrc/nodes.cuh) does: its FMAs (two operations
+    each), multiplies, subtractions and the rsqrt. Both far kernels include
+    that header, define no term of their own and call it for two targets a
+    thread, which halve the node row's three shared loads a term."""
+    src = (cuda_build.CSRC_DIR / "nodes.cuh").read_text()
     body = src[src.index("void far_term("):]
     body = body[body.index("{"):body.index("\n}\n")]
     fmas, muls, subs = body.count("fmaf("), body.count(" * "), body.count(" - ")
@@ -155,15 +156,49 @@ def test_far_term_counts_are_the_kernels():
     assert rsqrts == 1
     assert fmas + muls + subs + rsqrts == kc.NODE_TERM_INSTRUCTIONS == 33
     assert 2 * fmas + muls + subs + rsqrts == kc.NODE_FLOPS == 52
-    assert kc.FAR_TERM_SLOTS == 33 + 3 / 2
-    assert kc.FAR_SINGLE_TERM_SLOTS == 33 + 3
+    for name in ("far_hier.cu", "far_single.cu"):
+        kernel = (cuda_build.CSRC_DIR / name).read_text()
+        assert '#include "nodes.cuh"' in kernel and "void far_term(" not in kernel
+        assert kernel.count("far_term(a, q, r, me0,") == kernel.count("far_term(a, q, r, me1,") == 1
+        assert "rsqrtf(" not in kernel
+    assert kc.FAR_TERM_SLOTS == kc.FAR_SINGLE_TERM_SLOTS == 33 + 3 / 2
 
 
-@pytest.mark.parametrize("key", ["vip", "far"])
+def test_single_work_leaves_masked_tiles_out():
+    """Three rows of 32 targets against 5 source tiles: the near mask's
+    tiles do no far work, a row with every tile masked none at all."""
+    mask = torch.tensor([[0, 1, 0, 0, 1], [1, 1, 1, 1, 1], [0, 0, 0, 0, 0]], dtype=torch.uint8)
+    args = (torch.zeros((96 + 64, 4)), torch.zeros((6, 12)), mask)
+    kw = dict(n=96, tile=32)
+    work = kc.single_work(args, kw)
+    assert work == {"terms": (3 + 0 + 5) * 32, "live_max": 5, "live_mean": pytest.approx(8 / 3)}
+    assert kc.single_work((*args[:2], mask.bool()), kw) == work
+    b = kc.tree_bound("far_single", args, kw)
+    assert b["bound_ms"] == pytest.approx(
+        max(kc.NODE_FLOPS * 8 * 32 / kc.PEAK_FLOPS,
+            (sum(a.numel() * a.element_size() for a in args) + 96 * 12) / kc.PEAK_BYTES) * 1e3)
+
+
+def test_panel_work_is_k_t_w():
+    """Every target of each of K tiles against all W rows of its panel,
+    zero-mass rows included; the bound at 20,480 dense (K = 640 tiles of
+    32, W = 13,312) is set by operations: 0.0814 ms."""
+    panels = torch.zeros((7, 96, 4))
+    work = kc.panel_work((torch.zeros((7 * 32, 4)), panels), dict(tile=32))
+    assert work == {"pairs": 7 * 32 * 96, "tiles": 7, "width": 96}
+    assert kc.TREE_WORK["near_panel"][1:] == ("pairs", kc.PAIR_SLOTS)
+    pairs = 640 * 32 * 13312
+    nbytes = 20512 * 16 + 640 * 13312 * 16 + 20480 * 12
+    assert kc.bound(kc.PAIR_FLOPS * pairs, nbytes) == {
+        "bound_ms": pytest.approx(0.0814, abs=1e-4), "bound_by": "operations"}
+
+
+@pytest.mark.parametrize("key", ["vip", "far", "far_single", "near_panel"])
 def test_tree_sweep_settings_are_schedules(key, monkeypatch):
     """Every setting --sweep times gives a schedule the kernel takes (the far
     kernel's whole warps, at most 512 threads, staging two node quads a
-    thread; the VIP sweep's whole sub-panels), each another one."""
+    thread; the VIP sweep's whole sub-panels; the single-level far kernel's
+    and the near-panel kernel's at most 512 threads), each another one."""
     from n_body_problem_tpu_torch.ops import cuda_treecode as ct
 
     names, settings = kc.tree_sweep(key)
@@ -175,11 +210,19 @@ def test_tree_sweep_settings_are_schedules(key, monkeypatch):
             split = (ct.vip_split(65536, 1024), ct.vip_split(524288, 4096))
             for (groups, pieces, piece), w in zip(split, (1024, 4096)):
                 assert piece % 32 == 0 and pieces * piece >= w > (pieces - 1) * piece
-        else:
+        elif key == "far":
             split = ct.far_split(128)
             sub, parts, stage = split
             threads = sub // 2 * parts
             assert threads <= ct.FAR_MAX_THREADS and threads % 32 == 0
             assert 3 * ct.FAR_ENTRIES * stage <= ct.FAR_SLOTS * threads
+        elif key == "far_single":
+            split = ct.single_split(32)
+            parts, per, stage = split
+            assert stage == per * 16 * parts <= ct.SINGLE_MAX_ENTRIES * ct.SINGLE_MAX_THREADS
+        else:
+            split = ct.panel_split(32)
+            parts, stage = split
+            assert 8 * parts <= ct.PANEL_MAX_THREADS and stage >= 1
         seen.add(split)
     assert len(seen) == len(settings)   # no setting repeats another's schedule

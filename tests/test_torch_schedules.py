@@ -1,11 +1,13 @@
 """The schedules the all-pairs kernel, the symmetric kernels, the near
-kernel, the VIP sweep and the far field are launched with, on the CPU.
+kernel, the VIP sweep, the far field, the single-level far field and the
+near-panel kernel are launched with, on the CPU.
 
 The CUDA kernels run only on the card; what a block does there is decided
 by integers that Python computes (``cuda_force.allpairs_split``,
 ``allpairs_columns``; ``cuda_symmetric.symmetric_blocks``, ``block_tiles``,
 ``FAST_SHAPE``; ``cuda_treecode.near_split``, ``near_parts``, ``vip_split``,
-``far_split``, ``far_parts``). These tests
+``far_split``, ``far_parts``, ``single_split``, ``single_parts``,
+``panel_split``). These tests
 check those integers, and walk each schedule
 block by block in plain PyTorch, as the kernel does, against the plain twins
 and the JAX package's Pallas kernels in interpret mode, within rtol=1e-4,
@@ -700,3 +702,262 @@ def test_far_walk_leaves_a_row_without_chunks_zero(hier8k):
     assert not got[5 * 128:6 * 128].any() and got[6 * 128:7 * 128].any()
     torch.testing.assert_close(got, ct.far_field_hier_plain(ops["bodies"], ops["summ"],
                                                             aux[2], moved, **kw), **TOL)
+
+
+# ------------------------------------------------ the near-panel kernel's split
+# (tile, W): the dense path's 1,024 and 20,480 bodies (every tile near; 416
+# near tiles of 32), and ragged ones: rows that no block size divides, the
+# largest tile, W no multiple of the stage, no panel at all.
+PANEL_SHAPES = [(32, 1024), (32, 13312), (64, 1000), (96, 4101), (1024, 2048), (32, 0),
+                (128, 1)]
+
+
+@pytest.mark.parametrize("tile,width", PANEL_SHAPES)
+def test_panel_split_puts_every_pair_in_one_part(tile, width):
+    """Four targets a thread cover the tile once; each panel row lies in
+    exactly one part, so each (target, row) pair is summed once."""
+    parts, stage = ct.panel_split(tile)
+    group = tile // ct.PANEL_ROWS
+    assert group * ct.PANEL_ROWS == tile and 1 <= parts
+    assert group * parts <= ct.PANEL_MAX_THREADS
+    assert sorted(g + q * group for g in range(group) for q in range(ct.PANEL_ROWS)) == \
+        list(range(tile))
+    # Two stages, or the parts' sums, in a block's shared memory on the card.
+    assert max(2 * stage * 16, 3 * tile * parts * 4) <= 227 * 1024
+    split = ct.near_parts(width, parts, stage)
+    assert len(split) == parts
+    assert sorted(j for part in split for j in part) == list(range(width))
+    assert all(part == sorted(part) for part in split)
+    for part_rows in split:   # a part's rows of one stage are `parts` apart
+        for a, b in zip(part_rows, part_rows[1:]):
+            assert b - a == parts or b // stage > a // stage
+
+
+def test_panel_split_on_the_main_paths():
+    """Tiles of 32 (the dense path): 8 threads of four targets in 64 parts,
+    512 threads, 1,024 rows a stage; a tile of 1,024 is two parts of 256."""
+    assert ct.panel_split(32) == (64, 1024)
+    assert ct.panel_split(64) == (32, 1024)
+    assert ct.panel_split(1024) == (2, 1024)
+
+
+@pytest.mark.parametrize("threads,stage,want", [((128, 512), 32, (16, 512)),
+                                                ((512, 2048), 32, (64, 2048)),
+                                                ((64, 1024), 1024, (1, 1024))])
+def test_panel_split_follows_its_constants(threads, stage, want, monkeypatch):
+    monkeypatch.setattr(ct, "PANEL_THREADS", threads[0])
+    monkeypatch.setattr(ct, "PANEL_STAGE", threads[1])
+    assert ct.panel_split(stage) == want
+
+
+def _walk_panel(bodies, panels, *, tile, eps2, c2):
+    """The near-panel kernel's sums: every tile's parts (near_parts of
+    panel_split) summed separately, then added in part order."""
+    k, width = panels.shape[:2]
+    parts, stage = ct.panel_split(tile)
+    targets = bodies[:k * tile, :3].reshape(k, tile, 3)
+    out = torch.zeros((k, tile, 3))
+    for rows in ct.near_parts(width, parts, stage):
+        if not rows:
+            continue
+        pan = panels[:, rows]                                         # (K, R, 4)
+        d = pan[:, None, :, :3] - targets[:, :, None, :]               # (K, T, R, 3)
+        r2 = d[..., 2] * d[..., 2] + (d[..., 1] * d[..., 1] + d[..., 0] * d[..., 0])
+        inv = torch.rsqrt(r2 * c2 + eps2)
+        out = out + ((pan[:, None, :, 3] * (inv * inv * inv))[..., None] * d).sum(2)
+    return out.reshape(k * tile, 3)
+
+
+def _dense_case(n, max_near):
+    """Morton-sorted Plummer bodies (seed 3) through the port's dense
+    build (tests/test_torch_treecode_dense.py), and the kernel operands."""
+    pos, mass = _sorted_plummer(n, seed=3)
+    tpos, tmass = torch.from_numpy(pos.copy()), torch.from_numpy(mass.copy())
+    kw = dict(tile=32, theta=0.5, max_near=max_near, vip_tiles=16)
+    aux = ttc.build_tree(tpos, tmass, **kw)
+    ops = ttc.kernel_operands(tpos, tmass, aux[2], compensate=COMP, src_tile=32, vip_src=16,
+                              plan=(n // 32,))
+    return pos, mass, aux, ops
+
+
+@pytest.mark.parametrize("n,max_near", [(1024, 32), (2048, 48)])
+def test_panel_walk_matches_plain_and_jax(n, max_near):
+    """The dense path at 1,024 bodies (every tile near: W = 1,024) and at
+    2,048 (48 near tiles: W = 1,536) against the twin and the TPU kernel
+    ``_near_kernel`` (through ``_near_field_pallas``) in interpret mode."""
+    pos, _, aux, ops = _dense_case(n, max_near)
+    panels = ct.gather_panels_plain(ops["bodies"], aux[0], tile=32)
+    assert panels.shape == (n // 32, max_near * 32, 4)
+    got = _walk_panel(ops["bodies"], panels, tile=32, eps2=EPS2, c2=C2)
+    torch.testing.assert_close(got, ct.near_panel_plain(ops["bodies"], panels, tile=32,
+                                                        eps2=EPS2, c2=C2), **TOL)
+    want = np.asarray(jtc._near_field_pallas(
+        jnp.asarray(pos), jnp.asarray(panels.permute(2, 0, 1).numpy()), eps2=EPS2, c2=C2,
+        tile=32, interpret=True))
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+@pytest.mark.parametrize("tile,width", [(64, 1000), (96, 4101), (32, 0)])
+def test_panel_walk_at_ragged_shapes(tile, width):
+    """Tiles that no block size divides, W no multiple of the stage, no
+    panel (the sums stay zero). Rows [x y z G c^3 m] of a Plummer sphere as
+    targets, and panels of its rows drawn at random, as the gather draws
+    them from near tiles."""
+    k = 3
+    pos, mass = _sorted_plummer(max(k * tile, width, 1), seed=tile + width)
+    rows = torch.from_numpy(np.concatenate([pos, mass[:, None] * COMP ** 3], 1))
+    bodies = rows[:k * tile]
+    idx = np.random.default_rng(tile + width).integers(0, rows.shape[0], (k, width))
+    panels = rows[torch.from_numpy(idx)]
+    got = _walk_panel(bodies, panels, tile=tile, eps2=EPS2, c2=C2)
+    torch.testing.assert_close(got, ct.near_panel_plain(bodies, panels, tile=tile, eps2=EPS2,
+                                                        c2=C2), **TOL)
+    if width == 0:
+        assert not got.any()
+
+
+# ------------------------------------------ the single-level far field's split
+@pytest.mark.parametrize("tile", [32, 64, 96, 128, 544, 1024])
+def test_single_split_fits_a_block(tile):
+    """tile / 2 threads of two targets times parts, whole warps, at most
+    SINGLE_MAX_THREADS; a stage's entry counts fit one warp's scan; the
+    staged rows hold the parts' sums."""
+    parts, per, stage = ct.single_split(tile)
+    half = tile // 2
+    threads = -(-half * parts // 32) * 32
+    assert parts >= 1 and 1 <= per <= ct.SINGLE_MAX_ENTRIES
+    assert half * parts <= threads <= ct.SINGLE_MAX_THREADS and threads - half * parts < 32
+    assert stage == per * threads and threads // 32 * per <= 32
+    assert 3 * tile * parts * 4 <= per * threads * 48 <= 227 * 1024
+
+
+def test_single_split_on_the_main_paths():
+    """Rows of 32 (the flat and dense paths): 16 threads of two targets in
+    16 parts, 256 threads reading two mask entries each, 512 a stage."""
+    assert ct.single_split(32) == (16, 2, 512)
+    assert ct.single_split(128) == (4, 2, 512)
+    assert ct.single_split(96) == (5, 2, 512)    # 240 threads, 16 more that only stage
+    assert ct.single_split(1024) == (1, 2, 1024)
+
+
+@pytest.mark.parametrize("settings,want", [((128, 1), (8, 1, 128)), ((512, 2), (32, 2, 1024)),
+                                           ((64, 2), (4, 2, 128)), ((8, 9), (1, 2, 64))])
+def test_single_split_follows_its_constants(settings, want, monkeypatch):
+    """Each setting the card's sweep times for rows of 32, and one below a
+    part and above the kernel's entries a thread."""
+    monkeypatch.setattr(ct, "SINGLE_THREADS", settings[0])
+    monkeypatch.setattr(ct, "SINGLE_ENTRIES", settings[1])
+    assert ct.single_split(32) == want
+
+
+# (K_s, masked entries): the main paths' rows (1,024 source tiles at 65,536
+# flat, 640 at 20,480 dense, 40 at 2,560), K_s no multiple of a stage, a row
+# with every tile masked, a row with none, and no source tile.
+SINGLE_ROWS = [(1024, 0.2), (640, 0.65), (40, 0.3), (1000, 0.5), (513, 1.0), (700, 0.0), (0, 0.0)]
+
+
+@pytest.mark.parametrize("tile", [32, 64, 96, 1024])
+@pytest.mark.parametrize("k_s,frac", SINGLE_ROWS)
+def test_single_parts_put_every_unmasked_tile_in_one_part(tile, k_s, frac):
+    parts, _, stage = ct.single_split(tile)
+    masked = np.random.default_rng(k_s + tile).random(k_s) < frac
+    split = ct.single_parts(masked, parts, stage)
+    assert len(split) == parts
+    assert sorted(e for part in split for e in part) == list(np.flatnonzero(~masked))
+    assert all(part == sorted(part) for part in split)
+    if frac == 1.0:
+        assert not any(split)
+
+
+def _walk_single(bodies, summ, near_mask, *, n, tile, eps2, c2, G):
+    """The single-level far kernel's sums, row by row: the node constants
+    scaled as the kernel stages them, each part's tiles (single_parts) as
+    u^3 (m' + u^2 (tr' - 2.5 c^2 u^2 d'S'd)) d + u^5 S'd, the parts added in
+    order; a row with every tile masked stays zero."""
+    parts, _, stage = ct.single_split(tile)
+    gc = G * np.sqrt(c2)
+    c4 = c2 * c2
+    s = summ[:near_mask.shape[1]].clone()
+    s[:, 3] *= c2 * gc
+    s[:, 4:10] *= -3.0 * c4 * gc
+    s[:, 10] *= -1.5 * c4 * gc
+    out = torch.zeros((n // tile, tile, 3))
+    for t in range(n // tile):
+        me = bodies[t * tile:(t + 1) * tile, :3]
+        for part in ct.single_parts(near_mask[t].bool().tolist(), parts, stage):
+            if not part:
+                continue
+            node = s[part][None]                                        # (1, E, 12)
+            d = node[..., :3] - me[:, None, :]                          # (T, E, 3)
+            u = torch.rsqrt(c2 * (d * d).sum(-1) + eps2)
+            u2 = u * u
+            sd = torch.stack([node[..., 4] * d[..., 0] + node[..., 7] * d[..., 1]
+                              + node[..., 8] * d[..., 2],
+                              node[..., 7] * d[..., 0] + node[..., 5] * d[..., 1]
+                              + node[..., 9] * d[..., 2],
+                              node[..., 8] * d[..., 0] + node[..., 9] * d[..., 1]
+                              + node[..., 6] * d[..., 2]], -1)
+            dsd = (d * sd).sum(-1)
+            u3 = u2 * u
+            wd = u3 * (node[..., 3] + u2 * (node[..., 10] + (-2.5 * c2) * u2 * dsd))
+            out[t] = out[t] + (wd[..., None] * d + (u3 * u2)[..., None] * sd).sum(1)
+    return out.reshape(n, 3)
+
+
+def _flat_case(n):
+    """The 4,096-body flat lists of tests/test_torch_treecode_flat.py
+    (Plummer seed 3, Morton-sorted), built by the port."""
+    pos, mass = _sorted_plummer(n, seed=3)
+    tpos, tmass = torch.from_numpy(pos.copy()), torch.from_numpy(mass.copy())
+    kw = dict(tile=32, src_tile=64, vip_tiles=32, mac_tau=jtc.DEFAULT_MAC_TAU, eps2=EPS2,
+              compensate=COMP)
+    max_near = ttc.suggest_max_near(tpos, tmass, **kw)
+    aux = ttc.build_tree_flat(tpos, tmass, max_near=max_near,
+                              flat_cap=ttc.suggest_flat_cap(tpos, tmass, **kw), **kw)
+    st = ttc._flat_static(n, 32, 64, 0.55, max_near, 32)
+    ops = ttc.kernel_operands(tpos, tmass, aux[3], compensate=COMP, src_tile=64,
+                              vip_src=st[4], plan=(n // 64,))
+    return pos, mass, aux[2], aux[3], ops, 64
+
+
+@pytest.mark.parametrize("path,n", [("dense", 2048), ("flat", 4096)])
+def test_single_walk_matches_plain_and_jax(path, n):
+    """The dense path at 2,048 bodies (48 of 64 tiles near) and the flat
+    path at 4,096 against the twin and the TPU kernel ``_far_kernel``
+    (through ``_far_field_pallas_cols``) in interpret mode."""
+    if path == "dense":
+        pos, mass, aux, ops = _dense_case(n, 48)
+        mask, is_vip, src = aux[1], aux[2], 32
+    else:
+        pos, mass, mask, is_vip, ops, src = _flat_case(n)
+    assert mask.any() and not mask.all()
+    kw = dict(n=n, tile=32, eps2=EPS2, c2=C2, G=1.0)
+    got = _walk_single(ops["bodies"], ops["summ"], mask, **kw)
+    torch.testing.assert_close(got, ct.far_field_single_plain(ops["bodies"], ops["summ"], mask,
+                                                              **kw), **TOL)
+    cols = _jcols_of(pos)
+    mass_tree = jnp.where(jnp.asarray(is_vip.numpy()), 0.0, jnp.asarray(mass))
+    com, m_tot, _, quad = jtc.tile_summaries_cols(*cols, mass_tree, src)
+    want = np.asarray(jtc._far_field_pallas_cols(
+        *cols, com, m_tot, quad, jnp.asarray(mask.numpy()), eps2=EPS2, c2=C2, G=1.0, tile=32,
+        interpret=True))[:, :3]
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+@pytest.mark.parametrize("threads,per", [(256, 2), (16, 1)])
+def test_single_walk_leaves_a_fully_masked_row_zero(threads, per, monkeypatch):
+    """A row whose every source tile is near adds no far term; another with
+    none masked adds them all; at the rule's split (K_s = 64 in one stage)
+    and at one warp of one part reading one entry a thread (two stages)."""
+    monkeypatch.setattr(ct, "SINGLE_THREADS", threads)
+    monkeypatch.setattr(ct, "SINGLE_ENTRIES", per)
+    *_, mask, _, ops, _ = _flat_case(4096)
+    assert -(-mask.shape[1] // ct.single_split(32)[2]) == (1 if per == 2 else 2)
+    mask = mask.clone()
+    mask[5] = True
+    mask[6] = False
+    kw = dict(n=4096, tile=32, eps2=EPS2, c2=C2, G=1.0)
+    got = _walk_single(ops["bodies"], ops["summ"], mask, **kw)
+    assert not got[5 * 32:6 * 32].any() and got[6 * 32:7 * 32].all()
+    torch.testing.assert_close(got, ct.far_field_single_plain(ops["bodies"], ops["summ"], mask,
+                                                              **kw), **TOL)
