@@ -75,6 +75,22 @@ is non-zero:
 8. CLI: ``python -m n_body_problem_tpu_torch run`` on a galaxy collision of
    20,480 stars, with the default solver and with ``--solver treecode
    --tree-tuned``, in subprocesses.
+9. tools, each in a subprocess that counts its kernel launches from 0 and
+   reports them as it exits: the bench harness's treecode leg at 65,536
+   (``--n 65536 --solver treecode --steps 16``: finite record, ``backend``
+   cuda, probe p99 < 2.5e-3 and median < 5e-4); the CLI's ``bench`` with
+   its defaults (``auto``: the symmetric kernel at 65,536); ``run`` with no
+   ``--model`` and no data file (dataset 1's fallback, 81,920
+   galaxy_collision stars on ``auto``) with ``--export-snap --profile``:
+   ``final.npz`` at step 20, ``final.snap`` equal to it to the snap format's
+   printed precision, a profiler trace naming a device kernel; a Tipsy file
+   of galaxy_20K's layout (2,500 dark + 17,500 star, 860,032 bytes) run as
+   dataset 0 on the treecode with ``--tree-tuned`` (the hierarchical path,
+   padded to 20,224 as in the JAX package) and converted to 20,000 CSV
+   rows; and, beside them, ``validate --convergence --n 4096 --solver
+   pallas_symmetric``: leapfrog's fitted order >= 1.8 and the float64
+   oracle's p99 position delta <= 1e-5. Each tool must launch the kernels
+   of its path.
 
 The last three lines of standard output are the kernels' JSON record, the
 card's name and power limit, and ``{"ok": true, "device": {...}}``. The
@@ -839,6 +855,174 @@ def run_cli(out: pathlib.Path, n: int = 20480, device: str | None = None,
           f"{state.n_real} bodies at step 20", flush=True)
 
 
+# A tool run as ``__main__`` in a subprocess, with every launch counter set
+# to 0 first and written to a JSON file (argv[1]) as it exits.
+_COUNTED = """
+import json, runpy, sys
+from chip_smoke import counters
+wrappers = counters()
+for w in wrappers.values():
+    w.launches = 0
+out, module = sys.argv[1], sys.argv[2]
+sys.argv = [module] + sys.argv[3:]
+try:
+    runpy.run_module(module, run_name="__main__", alter_sys=True)
+finally:
+    with open(out, "w") as f:
+        json.dump({k: w.launches for k, w in wrappers.items()}, f)
+"""
+TOOLS_DIR = ROOT / "out" / "chip_smoke_tools"
+
+
+def start_tool(label: str, module: str, *args: str) -> tuple:
+    """Phase 9: start ``python -m module args`` with counted launches."""
+    import os
+
+    env = {k: v for k, v in os.environ.items() if k != "NBODY_DATA_DIR"}
+    counts = TOOLS_DIR / f"{label}.launches.json"
+    counts.unlink(missing_ok=True)
+    cmd = [sys.executable, "-c", _COUNTED, str(counts), module, *args]
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    return label, proc, counts, time.perf_counter()
+
+
+def finish_tool(started: tuple, timeout: float = 600) -> tuple[list[str], dict]:
+    """Wait for a started tool; its stdout lines and kernel launches."""
+    label, proc, counts, t0 = started
+    out, err = proc.communicate(timeout=timeout)
+    for line in err.splitlines()[-12:]:
+        print(f"  {label}| {line}")
+    check(proc.returncode == 0, f"tool [{label}]: rc={proc.returncode}")
+    launched = {k: v for k, v in json.loads(counts.read_text()).items() if v}
+    print(f"tool [{label}]: rc 0 in {time.perf_counter() - t0:.1f} s, launches {launched}",
+          flush=True)
+    return out.splitlines(), launched
+
+
+def run_tool(label: str, module: str, *args: str) -> tuple[list[str], dict]:
+    return finish_tool(start_tool(label, module, *args))
+
+
+def finite_record(label: str, lines: list[str]) -> dict:
+    rec = json.loads(lines[-1])
+    check(all(math.isfinite(rec[k]) and rec[k] > 0 for k in ("ms_per_step", "pairs_per_sec")),
+          f"tool [{label}]: non-finite record {rec}")
+    check(rec["backend"] == "cuda", f"tool [{label}]: backend {rec['backend']!r}")
+    return rec
+
+
+def needs(label: str, launched: dict, kernels: tuple[str, ...]) -> None:
+    missing = [k for k in kernels if not launched.get(k)]
+    check(not missing, f"tool [{label}]: never launched {missing}")
+
+
+def drive_tools() -> dict:
+    """Phase 9: the bench harness, the CLI's bench, run on datasets 1 and
+    0 with the snap export and the profiler, convert, and validate's
+    convergence study; returns the kernel launches of all of them."""
+    import numpy as np
+
+    from n_body_problem_tpu_torch.io import read_snap, write_tipsy
+    from n_body_problem_tpu_torch.io.checkpoint import load_checkpoint
+    from n_body_problem_tpu_torch.io.datasets import DATASETS, data_dir
+    from n_body_problem_tpu_torch.models import disk_galaxy
+
+    shutil.rmtree(TOOLS_DIR, ignore_errors=True)
+    TOOLS_DIR.mkdir(parents=True)
+    total: dict = {}
+
+    def add(launched: dict) -> None:
+        for k, v in launched.items():
+            total[k] = total.get(k, 0) + v
+
+    validate = start_tool("validate", "n_body_problem_tpu_torch.validate", "--convergence",
+                          "--n", "4096", "--solver", "pallas_symmetric")
+
+    lines, launched = run_tool("bench treecode 65536", "n_body_problem_tpu_torch.bench",
+                               "--n", "65536", "--solver", "treecode", "--steps", "16")
+    rec = finite_record("bench treecode 65536", lines)
+    check(rec["force_err_p99"] < ERR_P99 and rec["force_err_median"] < ERR_MEDIAN,
+          f"bench treecode: probe p99 {rec['force_err_p99']:.3e} "
+          f"median {rec['force_err_median']:.3e}")
+    needs("bench treecode 65536", launched, ("near", "far", "vip", "allpairs"))
+    add(launched)
+    print(f"bench [treecode, 65,536]: {rec['ms_per_step']:.4f} ms/step "
+          f"{rec['pairs_per_sec']:.4e} pairs/s vs_baseline {rec['vs_baseline']:.4f}; "
+          f"probe after {rec['probe_depth_steps']} steps p99 {rec['force_err_p99']:.3e} "
+          f"median {rec['force_err_median']:.3e}; {rec['device']}", flush=True)
+
+    lines, launched = run_tool("cli bench", "n_body_problem_tpu_torch", "bench")
+    rec = finite_record("cli bench", lines)
+    needs("cli bench", launched, ("symmetric",))
+    add(launched)
+    print(f"bench [cli defaults: {rec['solver']}, {rec['n']}]: {rec['ms_per_step']:.4f} "
+          f"ms/step {rec['pairs_per_sec']:.4e} pairs/s", flush=True)
+
+    # dataset 1 with no file: its fallback on auto, the snap export, the trace
+    check(not (data_dir() / DATASETS[1].filename).exists(),
+          f"{data_dir() / DATASETS[1].filename} exists: the fallback would not run")
+    out = TOOLS_DIR / "run_default"
+    _, launched = run_tool("run dataset 1", "n_body_problem_tpu_torch", "run", "--steps",
+                           "20", "--diag-every", "10", "--export-snap", "--profile",
+                           "--out", str(out))
+    needs("run dataset 1", launched, ("symmetric",))
+    add(launched)
+    state, _ = load_checkpoint(out / "final.npz")
+    pos = state.pos[:state.n_real].numpy()
+    check(int(state.step) == 20 and state.n_real == 81922 and np.isfinite(pos).all(),
+          f"run dataset 1: final.npz step {int(state.step)}, {state.n_real} bodies")
+    snap = read_snap(out / "final.snap")
+    # %.7g: 7 significant digits, then rounded to float32
+    check(snap.n == state.n_real and np.allclose(snap.pos, pos, rtol=1e-6, atol=0.0),
+          f"run dataset 1: final.snap differs from final.npz "
+          f"(max |d| {np.abs(snap.pos - pos).max():.3e})")
+    trace = json.loads((out / "profile" / "trace.json").read_text())
+    device_kernels = {e["name"] for e in trace["traceEvents"] if e.get("cat") == "kernel"}
+    check(bool(device_kernels), "run dataset 1: the profiler's trace names no device kernel")
+    print(f"run [dataset 1 fallback]: {state.n_real} bodies at step 20, final.snap = "
+          f"final.npz to 7 digits (max |d| {np.abs(snap.pos - pos).max():.3e}), trace "
+          f"names {len(device_kernels)} device kernels", flush=True)
+
+    # dataset 0: a Tipsy file of galaxy_20K's own layout
+    data = TOOLS_DIR / "data"
+    data.mkdir()
+    g = disk_galaxy(19999, seed=0)
+    tipsy = data / DATASETS[0].filename
+    write_tipsy(tipsy, g.pos.numpy(), g.vel.numpy(), g.mass.numpy(), time=0.0, n_dark=2500)
+    check(tipsy.stat().st_size == 860032, f"galaxy_20K layout: {tipsy.stat().st_size} bytes")
+    out = TOOLS_DIR / "run_dataset0"
+    _, launched = run_tool("run dataset 0 treecode", "n_body_problem_tpu_torch", "run",
+                           "--dataset", "0", "--data-dir", str(data), "--solver", "treecode",
+                           "--tree-tuned", "--steps", "20", "--out", str(out))
+    needs("run dataset 0 treecode", launched, ("near", "far", "vip"))
+    add(launched)
+    state, cfg = load_checkpoint(out / "final.npz")
+    check(int(state.step) == 20 and state.n == 20224 and state.n_real == 20000
+          and bool(state.pos.isfinite().all()),
+          f"run dataset 0: step {int(state.step)}, {state.n_real} of {state.n} bodies")
+    run_tool("convert", "n_body_problem_tpu_torch", "convert", str(tipsy),
+             str(TOOLS_DIR / "galaxy_20k.csv"))
+    rows = len((TOOLS_DIR / "galaxy_20k.csv").read_text().splitlines()) - 1
+    check(rows == 20000, f"convert: {rows} rows")
+    print(f"run [dataset 0, treecode tuned]: 20,000 of 20,224 bodies at step 20 "
+          f"(src_tile {cfg.tree_src_tile}); convert: {rows} rows", flush=True)
+
+    lines, launched = finish_tool(validate)
+    needs("validate", launched, ("symmetric",))
+    add(launched)
+    rep = json.loads(lines[-1])
+    orders = {k: v["fitted_order"] for k, v in rep["scaling"].items()}
+    oracle = rep["oracle_f64"]
+    print(f"validate [convergence, {rep['n']}, {rep['solver']}]: fitted orders "
+          + " ".join(f"{k} {v:.4f}" for k, v in orders.items()) + "; float64 oracle "
+          + " ".join(f"{k} {v:.4e}" for k, v in oracle.items()), flush=True)
+    check(orders["leapfrog"] >= 1.8, f"validate: leapfrog order {orders['leapfrog']:.3f}")
+    check(oracle["pos_delta_p99"] <= 1e-5,
+          f"validate: oracle pos_delta_p99 {oracle['pos_delta_p99']:.3e}")
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -892,6 +1076,10 @@ def main() -> int:
     run_cli(ROOT / "out" / "chip_smoke_cli")
     run_cli(ROOT / "out" / "chip_smoke_cli_tree",
             extra=("--solver", "treecode", "--tree-tuned"))
+    t0 = time.perf_counter()
+    for key, count in drive_tools().items():
+        launches[key] = launches.get(key, 0) + count
+    print(f"tools: {time.perf_counter() - t0:.1f} s", flush=True)
 
     records = (
         ("allpairs", "allpairs_acc_kernel", "allpairs.cu", "pallas_force.py:41"),

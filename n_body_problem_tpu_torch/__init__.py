@@ -10,8 +10,11 @@ all-pairs CUDA kernel and the symmetric half-pair kernels in the f32,
 bf16x3 and mixed precisions, both integrators, diagnostics, checkpoints, the
 ``run``/``info`` CLI) and the treecode run loop on its hierarchical,
 single-level flat and dense paths (Morton sort, acceptance builds, the near,
-far, panel-gather, near-panel and VIP CUDA kernels). Entry points run on
-``cuda`` unless asked for the CPU.
+far, panel-gather, near-panel and VIP CUDA kernels), with the JAX
+package's tools on one device: the dataset readers and writers (``io``),
+the bench harness (``bench``), the physics validation (``validate``),
+profiler traces (``utils.profiling``) and the ``run``/``info``/``convert``/
+``bench`` CLI. Entry points run on ``cuda`` unless asked for the CPU.
 
 Public API::
 

@@ -1,17 +1,24 @@
 """Command-line interface.
 
-Counterpart of ``n_body_problem_tpu.cli`` for the ported slice:
+Counterpart of ``n_body_problem_tpu.cli`` on one device, all but
+rendering:
 
+    python -m n_body_problem_tpu_torch run --steps 1000   # dataset 1
+    python -m n_body_problem_tpu_torch run --dataset 0 --data-dir data \
+        --solver treecode --tree-tuned --steps 100 --export-snap --profile
     python -m n_body_problem_tpu_torch run --model plummer --n 65536 --steps 100
-    python -m n_body_problem_tpu_torch run --model galaxy_collision --n 20480 \
-        --solver treecode --tree-tuned --steps 100
     python -m n_body_problem_tpu_torch info
+    python -m n_body_problem_tpu_torch convert data/galaxy_20K.bin out.csv
+    python -m n_body_problem_tpu_torch bench --n 65536 --steps 20
 
 ``run`` is headless: physics runs on ``--device`` (``cuda`` unless
 ``--device cpu`` is given; without a GPU that is an error) in
-``--steps-per-block`` chunks, with diagnostics and checkpoints in
-``--out``. Flags of features this package does not have yet are accepted
-and rejected with the ROADMAP item that will bring them.
+``--steps-per-block`` chunks, with diagnostics, checkpoints, the snap
+export and the profiler's trace in ``--out``. With no ``--model`` or
+``--resume`` it loads ``--dataset`` (default 1, as the reference), whose
+procedural fallback runs when the file is absent. The rendering flags and
+``--devices > 1`` are accepted and rejected with the ROADMAP item that
+will bring them.
 """
 
 from __future__ import annotations
@@ -28,14 +35,9 @@ _PHYSICS_FLAGS = ("dt", "eps2", "compensate", "G", "solver", "integrator")
 # Flag (argparse dest) -> the ROADMAP item that ports it. A flag counts as
 # used when its value differs from the parser's default.
 _NOT_PORTED = {
-    "dataset": "ROADMAP §1 item 7 (dataset readers; use --model)",
-    "data_dir": "ROADMAP §1 item 7 (dataset readers; use --model)",
-    "quirk_compat": "ROADMAP §1 item 7 (dataset readers)",
     "render_every": "ROADMAP §1 item 6 (rendering)",
     "serve": "ROADMAP §1 item 6 (live viewer)",
     "gif": "ROADMAP §1 item 6 (rendering)",
-    "export_snap": "ROADMAP §1 item 7 (export_snap)",
-    "profile": "ROADMAP §1 item 8 (bench and profiling)",
 }
 
 
@@ -79,26 +81,44 @@ def _reject_unported(args) -> None:
     if args.devices > 1:
         raise NotImplementedError(
             "--devices > 1 is not ported yet: ROADMAP §1 item 9 (multi-GPU)")
-    if not (args.model or args.resume):
-        raise NotImplementedError(
-            "dataset files are not ported yet: ROADMAP §1 item 7; "
-            "give --model or --resume")
+
+
+def _load_initial_state(args):
+    """Returns (state, scale_factors, camera_distance, checkpoint_cfg|None);
+    the state is on the CPU."""
+    from n_body_problem_tpu_torch.io.datasets import load_dataset
+    from n_body_problem_tpu_torch.models import make_model
+
+    if args.resume:
+        from n_body_problem_tpu_torch.io.checkpoint import load_checkpoint
+
+        # The checkpoint's saved config is the base for resumed runs: the
+        # run continues with the physics it was created with unless flags
+        # explicitly override.
+        state, ck_cfg = load_checkpoint(args.resume)
+        return state, (0.0, 0.0, 0.0), 1.0, ck_cfg
+    if args.model:
+        state = make_model(args.model, args.n, seed=args.seed)
+        return state, (0.0, 0.0, 0.0), 1.0, None
+    state, spec = load_dataset(
+        args.dataset, directory=args.data_dir, quirk_compat=args.quirk_compat,
+        seed=args.seed,
+    )
+    return state, spec.scale_factors, spec.camera_distance, None
 
 
 def cmd_run(args) -> int:
     import numpy as np
 
     from n_body_problem_tpu_torch import Simulation
-    from n_body_problem_tpu_torch.io.checkpoint import load_checkpoint, save_checkpoint
-    from n_body_problem_tpu_torch.models import make_model
+    from n_body_problem_tpu_torch.io.checkpoint import export_snap, save_checkpoint
+    from n_body_problem_tpu_torch.simulation import resolve_device
     from n_body_problem_tpu_torch.utils.metrics import StepTimer
+    from n_body_problem_tpu_torch.utils.profiling import trace
 
     _reject_unported(args)
-    ck_cfg = None
-    if args.resume:
-        state, ck_cfg = load_checkpoint(args.resume)
-    else:
-        state = make_model(args.model, args.n, seed=args.seed)
+    resolve_device(args.device)  # before any data is read
+    state, _, _, ck_cfg = _load_initial_state(args)
     cfg = _build_config(args, base=ck_cfg)
     if args.morton_sort:
         cfg = cfg.replace(morton_sort=True)
@@ -128,25 +148,28 @@ def cmd_run(args) -> int:
     intervals = [v for v in (args.diag_every, args.checkpoint_every) if v > 0]
     block = min([args.steps_per_block] + intervals)
     done = 0
-    while done < args.steps:
-        todo = min(block, args.steps - done)
-        timer.start()
-        sim.run(todo)
-        timer.stop(todo)
-        done += todo
-        if timer.window_full:
-            timer.report()
-        if args.diag_every and done % args.diag_every < todo:
-            d = sim.diagnostics()
-            drift = (d["energy"] - e0) / abs(e0) if e0 else 0.0
-            print(
-                f"[step {done}] E={d['energy']:.6e} drift={drift:+.2e} "
-                f"overspeed={d['overspeed']}", file=sys.stderr,
-            )
-        if args.checkpoint_every and done % args.checkpoint_every < todo:
-            save_checkpoint(out / f"ck_{done:08d}.npz", sim.state, cfg)
+    with trace(out / "profile" if args.profile else None):
+        while done < args.steps:
+            todo = min(block, args.steps - done)
+            timer.start()
+            sim.run(todo)
+            timer.stop(todo)
+            done += todo
+            if timer.window_full:
+                timer.report()
+            if args.diag_every and done % args.diag_every < todo:
+                d = sim.diagnostics()
+                drift = (d["energy"] - e0) / abs(e0) if e0 else 0.0
+                print(
+                    f"[step {done}] E={d['energy']:.6e} drift={drift:+.2e} "
+                    f"overspeed={d['overspeed']}", file=sys.stderr,
+                )
+            if args.checkpoint_every and done % args.checkpoint_every < todo:
+                save_checkpoint(out / f"ck_{done:08d}.npz", sim.state, cfg)
 
     save_checkpoint(out / "final.npz", sim.state, cfg)
+    if args.export_snap:
+        export_snap(out / "final.snap", sim.state)
     wall = timer.total_time
     print(
         f"done: {args.steps} steps in {wall:.2f}s "
@@ -161,6 +184,8 @@ def cmd_info(args) -> int:
 
     from n_body_problem_tpu_torch import __version__
     from n_body_problem_tpu_torch.config import INTEGRATORS, SOLVERS
+    from n_body_problem_tpu_torch.io import native
+    from n_body_problem_tpu_torch.io.datasets import DATASETS
     from n_body_problem_tpu_torch.models import MODELS
     from n_body_problem_tpu_torch.ops import cuda_build
 
@@ -174,9 +199,29 @@ def cmd_info(args) -> int:
     print(f"kernel sources: {', '.join(p.name for p in cuda_build.sources())}")
     print(f"kernel library: {cuda_build.library_path()}"
           f"{'' if cuda_build.library_path().is_file() else ' (built at first use)'}")
+    print(f"native io: {'available' if native.available() else 'python fallback'}")
     print(f"solvers: {', '.join(SOLVERS)}")
     print(f"integrators: {', '.join(INTEGRATORS)}")
     print(f"models: {', '.join(sorted(MODELS))}")
+    print("datasets:")
+    for i, spec in sorted(DATASETS.items()):
+        print(f"  {i}: {spec.name:<12} {spec.reader:<6} scales={spec.scale_factors}"
+              f"  {spec.description}")
+    return 0
+
+
+def cmd_convert(args) -> int:
+    from n_body_problem_tpu_torch.io.convert import tipsy_to_csv
+
+    n = tipsy_to_csv(args.src, args.dst)
+    print(f"wrote {n} bodies to {args.dst}", file=sys.stderr)
+    return 0
+
+
+def cmd_bench(args) -> int:
+    from n_body_problem_tpu_torch import bench
+
+    bench.run_single(args.n, args.solver, args.steps, device=args.device)
     return 0
 
 
@@ -186,13 +231,16 @@ def build_parser() -> argparse.ArgumentParser:
 
     r = sub.add_parser("run", help="run a simulation headlessly")
     src = r.add_argument_group("initial conditions")
-    src.add_argument("--model", help="procedural model (see `info`)")
+    src.add_argument("--dataset", type=int, default=1,
+                     help="dataset id 0-5 (default 1, as the reference)")
+    src.add_argument("--data-dir", default=None,
+                     help="dataset directory (default $NBODY_DATA_DIR, else ./data)")
+    src.add_argument("--model", help="procedural model instead of a dataset (see `info`)")
     src.add_argument("--n", type=int, default=8192)
     src.add_argument("--seed", type=int, default=0)
     src.add_argument("--resume", help="checkpoint .npz to resume from")
-    src.add_argument("--dataset", type=int, default=None, help="not ported yet")
-    src.add_argument("--data-dir", default=None, help="not ported yet")
-    src.add_argument("--quirk-compat", action="store_true", help="not ported yet")
+    src.add_argument("--quirk-compat", action="store_true",
+                     help="reproduce reference loader quirks (Q1)")
     _add_physics_flags(r)
     r.add_argument("--device", default="cuda",
                    help="torch device (default cuda; give cpu to run on the CPU)")
@@ -204,18 +252,33 @@ def build_parser() -> argparse.ArgumentParser:
     r.add_argument("--render-every", type=int, default=0, help="not ported yet")
     r.add_argument("--serve", type=int, default=0, metavar="PORT", help="not ported yet")
     r.add_argument("--gif", action="store_true", help="not ported yet")
-    r.add_argument("--export-snap", action="store_true", help="not ported yet")
+    r.add_argument("--export-snap", action="store_true",
+                   help="write the final state as <out>/final.snap")
     r.add_argument("--morton-sort", action="store_true",
                    help="Z-order bodies at init (tile locality)")
     r.add_argument("--tree-tuned", action="store_true",
                    help="apply the measured per-N treecode tuning table "
                         "(config.tuned_tree_overrides)")
-    r.add_argument("--profile", action="store_true", help="not ported yet")
+    r.add_argument("--profile", action="store_true",
+                   help="torch.profiler trace of the run in <out>/profile")
     r.add_argument("--devices", type=int, default=1, help="only 1 is ported")
     r.set_defaults(fn=cmd_run)
 
-    i = sub.add_parser("info", help="environment, kernels, solvers")
+    i = sub.add_parser("info", help="environment, kernels, solvers, datasets")
     i.set_defaults(fn=cmd_info)
+
+    c = sub.add_parser("convert", help="tipsy binary -> csv")
+    c.add_argument("src")
+    c.add_argument("dst")
+    c.set_defaults(fn=cmd_convert)
+
+    b = sub.add_parser("bench", help="throughput benchmark (one JSON line)")
+    b.add_argument("--n", type=int, default=65536)
+    b.add_argument("--steps", type=int, default=20)
+    b.add_argument("--solver", default="auto")
+    b.add_argument("--device", default="cuda",
+                   help="torch device (default cuda; give cpu to run on the CPU)")
+    b.set_defaults(fn=cmd_bench)
     return p
 
 

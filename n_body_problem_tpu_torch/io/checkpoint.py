@@ -1,4 +1,4 @@
-"""Checkpoint / resume.
+"""Checkpoint / resume, and export to the reference's snap format.
 
 Counterpart of ``n_body_problem_tpu.io.checkpoint`` with the same ``.npz``
 layout: the arrays of ``to_numpy`` plus a ``__meta__`` JSON string holding
@@ -14,7 +14,7 @@ import numpy as np
 import torch
 
 from n_body_problem_tpu_torch.config import SimConfig
-from n_body_problem_tpu_torch.state import SimState, from_numpy, to_numpy
+from n_body_problem_tpu_torch.state import SimState, from_numpy, to_numpy, unpad_state
 
 
 def save_checkpoint(
@@ -34,3 +34,19 @@ def load_checkpoint(
         state = from_numpy({k: z[k] for k in z.files if k != "__meta__"}, device)
     cfg = SimConfig.from_dict(meta["config"]) if meta.get("config") else None
     return state, cfg
+
+
+def export_snap(path: str | pathlib.Path, state: SimState) -> None:
+    """Write the reference-readable NEMO snap format (kernel.cu:433-544)
+    of the real bodies."""
+    from n_body_problem_tpu_torch.io.text import BodyData, write_snap
+
+    s = unpad_state(state)
+    write_snap(
+        path,
+        BodyData(
+            pos=s.pos.cpu().numpy(), vel=s.vel.cpu().numpy(),
+            mass=s.mass.cpu().numpy(), eps=s.eps.cpu().numpy(),
+            time=float(s.time),
+        ),
+    )

@@ -113,7 +113,7 @@ def make_treecode_run(cfg: SimConfig):
     return run
 
 
-def _resolve_device(device: str | torch.device | None) -> torch.device:
+def resolve_device(device: str | torch.device | None) -> torch.device:
     """The device a ``Simulation`` runs on: ``"cuda"`` unless the caller
     asks for another; never a quiet fallback to the CPU."""
     dev = torch.device("cuda" if device is None else device)
@@ -165,7 +165,7 @@ class Simulation:
 
     def __init__(self, cfg: SimConfig, state: SimState,
                  device: str | torch.device | None = None):
-        self.device = _resolve_device(device)
+        self.device = resolve_device(device)
         dev_type = self.device.type
         state = state.to(self.device)
         solver = resolve_solver(cfg.solver, dev_type, state.n)

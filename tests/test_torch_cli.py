@@ -5,6 +5,7 @@ import subprocess
 import sys
 
 import numpy as np
+import pytest
 
 from n_body_problem_tpu.io.checkpoint import load_checkpoint as jax_load
 from n_body_problem_tpu_torch.cli import main
@@ -38,7 +39,7 @@ def test_resume_continues_steps(tmp_path):
 
 def test_unported_flags_name_the_roadmap(tmp_path, capsys):
     for extra in (["--render-every", "10"], ["--devices", "2"],
-                  ["--dataset", "0"], ["--gif"], ["--serve", "8000"]):
+                  ["--gif"], ["--serve", "8000"]):
         rc = main(["run", "--model", "plummer", "--n", "64", "--steps", "1",
                    "--out", str(tmp_path), *extra])
         assert rc == 2, extra
@@ -81,22 +82,141 @@ def test_info(capsys):
     assert main(["info"]) == 0
     out = capsys.readouterr().out
     assert "solvers:" in out and "pallas_symmetric" in out and "symmetric.cu" in out
+    assert "native io: " in out
+    names = ("galaxy_20k", "dubinski", "tab65536", "stars", "k17c", "k17hp")
+    for i, name in enumerate(names):
+        assert f"  {i}: {name}" in out, name
+
+
+def _tipsy_file(directory, n=512):
+    """A galaxy_20K-layout tipsy file (dark bodies first) of ``n`` bodies."""
+    from n_body_problem_tpu_torch.io import write_tipsy
+    from n_body_problem_tpu_torch.models import plummer
+
+    s = plummer(n, seed=5)
+    path = directory / "galaxy_20K.bin"
+    write_tipsy(path, s.pos.numpy(), s.vel.numpy(), s.mass.numpy(),
+                np.full(n, 0.01, np.float32), n_dark=n // 8)
+    return path, s
+
+
+def test_run_dataset_export_snap_and_profile(tmp_path, capsys):
+    """``--dataset 0 --data-dir`` on a synthetic tipsy file; the snap export
+    read back by the JAX package's reader; the profiler's trace."""
+    import json
+
+    from n_body_problem_tpu.io import read_snap as jax_read_snap
+
+    _, s = _tipsy_file(tmp_path)
+    out = tmp_path / "o"
+    rc = main(["run", "--dataset", "0", "--data-dir", str(tmp_path), "--steps", "4",
+               "--steps-per-block", "2", "--solver", "direct", "--export-snap", "--profile",
+               "--device", "cpu", "--out", str(out)])
+    assert rc == 0
+    assert "n=512 (padded 512)" in capsys.readouterr().err
+    state, _ = jax_load(out / "final.npz")
+    assert int(state.step) == 4 and state.n_real == 512
+    snap = jax_read_snap(out / "final.snap")
+    assert snap.n == 512 and snap.time == pytest.approx(float(state.time))
+    # %.7g: the snap format's printed precision
+    np.testing.assert_allclose(snap.pos, np.asarray(state.pos)[:512], rtol=1e-6, atol=1e-7)
+    np.testing.assert_allclose(snap.eps, 0.01, rtol=1e-6)
+    trace = json.loads((out / "profile" / "trace.json").read_text())
+    assert any(e.get("name") == "aten::add" for e in trace["traceEvents"])
+
+
+def test_run_defaults_to_dataset_1(tmp_path):
+    """With no --model the run loads dataset 1, whose fallback is 81,920
+    galaxy_collision stars (+2 bulge particles) when the file is absent."""
+    from n_body_problem_tpu_torch.cli import _load_initial_state, build_parser
+
+    args = build_parser().parse_args(["run", "--data-dir", str(tmp_path)])
+    assert args.dataset == 1 and args.device == "cuda"
+    state, scales, cam, ck = _load_initial_state(args)
+    assert state.n_real == 81922 and scales == (100, 100, 100) and ck is None
+    assert state.pos.device.type == "cpu"
+
+
+def test_run_missing_dataset_file_is_an_error(tmp_path, capsys):
+    rc = main(["run", "--dataset", "3", "--data-dir", str(tmp_path), "--steps", "1",
+               "--device", "cpu", "--out", str(tmp_path / "o")])
+    assert rc == 2 and "stars.dat" in capsys.readouterr().err
+
+
+def test_convert(tmp_path, capsys):
+    from n_body_problem_tpu.io import read_csv as jax_read_csv
+
+    path, s = _tipsy_file(tmp_path, n=100)
+    assert main(["convert", str(path), str(tmp_path / "o.csv")]) == 0
+    assert "wrote 100 bodies" in capsys.readouterr().err
+    d = jax_read_csv(tmp_path / "o.csv")
+    assert d.n == 100
+    np.testing.assert_allclose(d.pos, s.pos.numpy(), rtol=1e-5, atol=1e-6)
+
+
+def test_bench_subcommand(capsys):
+    import json
+
+    assert main(["bench", "--n", "256", "--steps", "2", "--solver", "direct",
+                 "--device", "cpu"]) == 0
+    rec = json.loads(capsys.readouterr().out.splitlines()[-1])
+    assert rec["n"] == 256 and rec["steps_timed"] == 2 and rec["backend"] == "cpu"
+    assert np.isfinite(rec["ms_per_step"]) and rec["pairs_per_sec"] > 0
+
+
+def test_bench_subcommand_defaults():
+    from n_body_problem_tpu_torch.cli import build_parser
+
+    args = build_parser().parse_args(["bench"])
+    assert (args.n, args.steps, args.solver, args.device) == (65536, 20, "auto", "cuda")
 
 
 def test_import_leaves_jax_out():
     """In a fresh process (this one has JAX loaded by tests/conftest.py)."""
-    code = ("import sys, n_body_problem_tpu_torch, n_body_problem_tpu_torch.cli; "
+    code = ("import sys, n_body_problem_tpu_torch, n_body_problem_tpu_torch.cli, "
+            "n_body_problem_tpu_torch.bench, n_body_problem_tpu_torch.validate, "
+            "n_body_problem_tpu_torch.io, n_body_problem_tpu_torch.utils.profiling; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'n_body_problem_tpu.'))"
-            " or m == 'n_body_problem_tpu']; print(bad); sys.exit(1 if bad else 0)")
+            " or m in ('n_body_problem_tpu', 'bench', 'validate')]; print(bad); "
+            "sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
 def test_package_sources_never_import_jax():
+    """Nor the JAX system's root harness (``bench``) or validation
+    (``validate``): the port has its own."""
     for path in PACKAGE.rglob("*.py"):
         for line in path.read_text().splitlines():
-            words = line.split()
+            words = line.replace(",", " ").split()
             if words[:1] in (["import"], ["from"]):
-                assert words[1].split(".")[0] not in ("jax", "jaxlib", "n_body_problem_tpu"), (
-                    f"{path}: {line}")
+                names = words[1:2] if words[0] == "from" else words[1:]
+                for name in names:
+                    assert name.split(".")[0] not in (
+                        "jax", "jaxlib", "n_body_problem_tpu", "bench", "validate"), (
+                        f"{path}: {line}")
+
+
+def test_package_data_ships_every_build_input():
+    """Every file the kernel build hashes or includes, and the native
+    parser's source and Makefile, match a package-data pattern of
+    pyproject.toml, so that an installed port can build both."""
+    import fnmatch
+    import tomllib
+
+    from n_body_problem_tpu_torch.io import native
+    from n_body_problem_tpu_torch.ops import cuda_build
+
+    patterns = tomllib.loads((ROOT / "pyproject.toml").read_text())[
+        "tool"]["setuptools"]["package-data"]["n_body_problem_tpu_torch"]
+    inputs = sorted(cuda_build.CSRC_DIR.glob("*.cu*"))
+    assert {p.suffix for p in inputs} == {".cu", ".cuh"}
+    for src in cuda_build.sources():   # every header a source includes
+        for line in src.read_text().splitlines():
+            if line.startswith('#include "'):
+                assert cuda_build.CSRC_DIR / line.split('"')[1] in inputs, (src, line)
+    inputs += [native.SOURCE, native.NATIVE_DIR / "Makefile"]
+    for path in inputs:
+        rel = path.relative_to(PACKAGE).as_posix()
+        assert any(fnmatch.fnmatch(rel, pat) for pat in patterns), rel
