@@ -91,6 +91,22 @@ is non-zero:
    pallas_symmetric``: leapfrog's fitted order >= 1.8 and the float64
    oracle's p99 position delta <= 1e-5. Each tool must launch the kernels
    of its path.
+10. render, at full size: (a) a Plummer 65,536 state (seed 0) rendered at
+    1024x1024 with ``OrbitCamera(distance=2.0)`` on the card and on the
+    CPU, within rtol 1e-5 and atol 1e-5 x the frame's maximum; whether two
+    card renders are bitwise equal; the splat's ms a frame. (b) The bench's
+    step+render leg, ``bench_render(65536, "pallas_symmetric")``, beside
+    phase 5's exact step, with its 20 symmetric launches, peak memory and a
+    profiler breakdown. (c) The hierarchical treecode movie at 65,536, a
+    frame every ``tree_rebuild_every`` = 8 steps for 16 steps at 1024x768:
+    its final state bitwise that of ``run(16)``, and ``trajectory(16,
+    save_every=8)``'s last frame ``run(16)``'s positions in call-entry
+    order, bitwise. (d) A flat (20,480, ``tree_hier=False``) and a dense
+    (1,024, ``tree_flat_cap=-1``) movie, so that kernels 3, 4 and 5 run
+    under ``movie``. (e) The CLI: ``run --dataset 0 --steps 200
+    --render-every 50`` writes 4 PNGs, ``render`` a PNG of its
+    ``final.npz``; ``--gif`` and ``--serve`` where Pillow is installed.
+    Every phase-10 launch counts toward the kernels' record.
 
 The last three lines of standard output are the kernels' JSON record, the
 card's name and power limit, and ``{"ok": true, "device": {...}}``. The
@@ -613,11 +629,12 @@ def launches_a_step(cfg, n: int) -> dict:
 
 
 def drive_main_path(device, n: int = N_MAIN, prime: int = PRIME_STEPS,
-                    timed: int = TIMED_STEPS) -> None:
+                    timed: int = TIMED_STEPS) -> dict:
     """Phase 5: the default simulation, then solver="pallas", leapfrog, and
     the symmetric solver's "bf16x3" and "mixed" precisions, each through
     the public ``Simulation`` entry point; each run launches its kernel as
-    often a step as its schedule says (once) and no other kernel."""
+    often a step as its schedule says (once) and no other kernel. Returns
+    each run's ms/step by label."""
     import torch
 
     from n_body_problem_tpu_torch import SimConfig, Simulation, models
@@ -637,6 +654,7 @@ def drive_main_path(device, n: int = N_MAIN, prime: int = PRIME_STEPS,
         ("mixed", SimConfig(pallas_sym_precision="mixed"), "pallas_symmetric",
          "symmetric_bf16x3"),
     )
+    ms_a_step = {}
     for label, cfg, solver, key in runs:
         sim = Simulation(cfg, models.plummer(n, seed=0), device=device)
         check(sim.solver == solver, f"{label}: resolved {sim.solver!r}, expected {solver!r}")
@@ -656,12 +674,13 @@ def drive_main_path(device, n: int = N_MAIN, prime: int = PRIME_STEPS,
         d = sim.diagnostics()
         check(d["overspeed"] == 0, f"{label}: overspeed {d['overspeed']}")
         check(d["step"] == prime + timed, f"{label}: step {d['step']}")
-        ms = wall / timed * 1e3
+        ms = ms_a_step[label] = wall / timed * 1e3
         print(f"main path [{label}]: N={sim.state.n_real} solver={sim.solver} "
               f"precision={cfg.pallas_sym_precision} integrator={cfg.integrator} "
               f"{ms:.4f} ms/step {sim.pairs_per_step() * timed / wall:.4e} pairs/s "
               f"launches {launched} |dE/E| after {prime + timed} steps "
               f"{abs((d['energy'] - e0) / e0):.3e}", flush=True)
+    return ms_a_step
 
 
 def drive_pair_matrix(device, n: int = 4096, steps: int = 10) -> None:
@@ -1023,6 +1042,346 @@ def drive_tools() -> dict:
     return total
 
 
+RENDER_N, RENDER_W, RENDER_H = 65536, 1024, 1024   # the bench's render leg
+MOVIE_W, MOVIE_H = 1024, 768
+RENDER_TOL = 1e-5   # rtol, and atol x the frame's maximum: card against CPU
+
+
+def png_image(path: pathlib.Path) -> tuple[int, int, int]:
+    """(width, height, brightest byte) of an 8-bit RGB PNG as
+    ``render.image.write_png`` writes it; raises if it is not one."""
+    import struct
+    import zlib
+
+    raw = path.read_bytes()
+    check(raw[:8] == b"\x89PNG\r\n\x1a\n" and raw[12:16] == b"IHDR", f"{path}: not a PNG")
+    w, h, depth, color = struct.unpack(">IIBB", raw[16:26])
+    check(depth == 8 and color == 2, f"{path}: not 8-bit RGB")
+    start = raw.index(b"IDAT") + 4
+    size = int.from_bytes(raw[start - 8:start - 4], "big")
+    data = zlib.decompress(raw[start:start + size])
+    check(len(data) == h * (3 * w + 1), f"{path}: {len(data)} bytes of pixels for {w}x{h}")
+    return w, h, max(data)   # each row's filter byte is 0
+
+
+def frames_ok(label: str, frames, count: int, height: int, width: int) -> None:
+    import torch
+
+    check(tuple(frames.shape) == (count, height, width, 3),
+          f"{label}: frames {tuple(frames.shape)}")
+    check(frames.device.type == "cuda", f"{label}: frames on {frames.device}")
+    check(bool(torch.isfinite(frames).all()), f"{label}: non-finite frame")
+    lit = [float(f.max()) for f in frames]
+    check(min(lit) > 0, f"{label}: blank frame (maxima {lit})")
+
+
+def render_card_vs_cpu(device) -> dict:
+    """Phase 10 (a): one Plummer 65,536 state at 1024x1024 on the card and
+    on the CPU; two card renders compared bit for bit; no host sync in a
+    frame; the splat's time a frame and its three steps' (the sprite pass
+    beside the one-call 2-to-1 ``conv2d`` it replaces on the card); both
+    forms of the sprite pass on the host's CPU, where the port takes the
+    2-to-1."""
+    import torch
+    import torch.nn.functional as F
+
+    from n_body_problem_tpu_torch import models
+    from n_body_problem_tpu_torch.render import OrbitCamera, render_state
+    from n_body_problem_tpu_torch.render.splat import (_bilinear_scatter, _conv_sprites,
+                                                       _sprite_constants, project_to_screen,
+                                                       splat_frame)
+    from n_body_problem_tpu_torch.render.sprites import MASS_THRESHOLD
+    from n_body_problem_tpu_torch.treecode_profile import time_ms
+
+    s = models.plummer(RENDER_N, seed=0)
+    cam = OrbitCamera(distance=2.0)
+    kw = dict(width=RENDER_W, height=RENDER_H)
+    c = s.to(device)
+    card = render_state(c, cam, **kw)
+    again = render_state(c, cam, **kw)
+    cpu = render_state(s, cam, **kw)
+    frames_ok("render 65,536", torch.stack([card, again]), 2, RENDER_H, RENDER_W)
+    peak = float(cpu.max())
+    err = float((card.cpu() - cpu).abs().max())
+    check(torch.allclose(card.cpu(), cpu, rtol=RENDER_TOL, atol=RENDER_TOL * peak),
+          f"render: card frame max |d| {err:.3e} from the CPU's (max {peak:.4f}) outside "
+          f"rtol {RENDER_TOL}, atol {RENDER_TOL} x max")
+    bitwise = torch.equal(card, again)
+    args = (c.pos, c.mass, c.real_mask(), torch.as_tensor(cam.view_projection(), device=device),
+            torch.zeros(3, device=device))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        splat_frame(*args, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    ms = time_ms(lambda: splat_frame(*args, **kw), 20)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        splat_frame(*args, **kw)
+    enqueue_ms = (time.perf_counter() - t0) / 20 * 1e3
+    px, py, vis = project_to_screen(c.pos, *args[3:], RENDER_W, RENDER_H)
+    draw, large = vis & args[2], c.mass > MASS_THRESHOLD
+    steps = {
+        "project": time_ms(lambda: project_to_screen(c.pos, *args[3:], RENDER_W, RENDER_H), 20),
+        "scatter": time_ms(lambda: _bilinear_scatter(px, py, draw, large, RENDER_H, RENDER_W), 20),
+    }
+    planes = _bilinear_scatter(px, py, draw, large, RENDER_H, RENDER_W)
+    steps["sprites"] = time_ms(lambda: _conv_sprites(planes), 20)
+    k = _sprite_constants(device)[0].transpose(0, 1)
+    cudnn = torch.backends.cudnn
+
+    def library():
+        with cudnn.flags(enabled=True, benchmark=False, deterministic=True, allow_tf32=False):
+            return F.conv2d(planes[None], k, padding=k.shape[-1] // 2)[0, 0]
+
+    lib = library()
+    check(torch.allclose(_conv_sprites(planes), lib, rtol=RENDER_TOL,
+                         atol=RENDER_TOL * float(lib.max())),
+          "render: the depthwise sprite pass differs from the 2-to-1 conv2d")
+    library_ms = time_ms(library, 20)
+
+    def host_ms(fn, reps: int = 3) -> float:
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return (time.perf_counter() - t0) / reps * 1e3
+
+    host = planes.cpu()
+    depthwise = _sprite_constants(host.device)[0]
+    cpu_ms = {"2-to-1 (the port's)": host_ms(lambda: _conv_sprites(host)),
+              "depthwise": host_ms(lambda: F.conv2d(host[None], depthwise, padding=k.shape[-1] // 2,
+                                                    groups=2)[0].sum(0))}
+    print(f"render [a, card vs CPU]: Plummer {RENDER_N:,} at {RENDER_W}x{RENDER_H}, frame max "
+          f"{peak:.4f}, max |card - CPU| {err:.3e} (rtol {RENDER_TOL}, atol {RENDER_TOL} x max); "
+          f"two card renders bitwise equal: {bitwise}; no host sync in a frame; splat "
+          f"{ms:.4f} ms a frame (CUDA events, mean of 20; host enqueue {enqueue_ms:.4f}); "
+          f"steps: " + ", ".join(f"{k_} {v:.4f}" for k_, v in steps.items())
+          + f"; one 2-to-1 conv2d in place of the sprite pass {library_ms:.4f} ms; the sprite "
+          f"pass on the host's CPU ({torch.get_num_threads()} threads, mean of 3): "
+          + ", ".join(f"{k_} {v:.4f} ms" for k_, v in cpu_ms.items()), flush=True)
+    return {"splat_ms": ms, "bitwise": bitwise, "max_abs_err": err}
+
+
+def render_bench_leg(device, exact_ms: float) -> None:
+    """Phase 10 (b): the bench's step+render leg, beside the exact step of
+    phase 5; its symmetric launches (the warm movie and the timed one), peak
+    memory and a profiler breakdown of one more movie."""
+    import torch
+
+    from n_body_problem_tpu_torch import SimConfig, Simulation, models
+    from n_body_problem_tpu_torch.bench import bench_render
+    from n_body_problem_tpu_torch.render import OrbitCamera
+    from n_body_problem_tpu_torch.treecode_profile import _busy_us, _device_events, _trace
+
+    sym = counters()["symmetric"]
+    before = sym.launches
+    torch.cuda.reset_peak_memory_stats(device)
+    ms = bench_render(RENDER_N, "pallas_symmetric")
+    launched = sym.launches - before
+    peak = torch.cuda.max_memory_allocated(device) / 2**30
+    check(math.isfinite(ms) and ms > 0, f"bench_render: {ms} ms/step")
+    check(launched == 20, f"bench_render: symmetric kernel launched {launched} times, not 10 + 10")
+    sim = Simulation(SimConfig(), models.plummer(RENDER_N, seed=0), device=device)
+    cam = OrbitCamera(distance=2.0)
+    sim.movie(2, render_every=1, camera=cam, width=RENDER_W, height=RENDER_H)
+    events, wall_us = _trace(lambda: sim.movie(10, render_every=1, camera=cam,
+                                               width=RENDER_W, height=RENDER_H))
+    gpu = _device_events(events)
+    by_name: dict = {}
+    for e in gpu:
+        by_name[e["name"][:60]] = by_name.get(e["name"][:60], 0.0) + e["dur"] / 1e3 / 10
+    busy = _busy_us(gpu)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    print(f"render [b, bench leg]: bench_render({RENDER_N}, pallas_symmetric) "
+          f"{ms:.4f} ms/step with a {RENDER_W}x{RENDER_H} frame a step, against the exact "
+          f"step's {exact_ms:.4f} ms/step (phase 5); symmetric launches {launched} (10 warm + "
+          f"10 timed); peak device memory {peak:.3f} GiB; profiled movie of 10: device busy "
+          f"{busy / 1e3 / 10:.4f} ms a step of {wall_us / 1e3 / 10:.4f}, idle share "
+          f"{1 - busy / wall_us:.3f}; device ms a step by kernel: "
+          + "; ".join(f"{k} {v:.4f}" for k, v in top), flush=True)
+
+
+def render_tree_movies(device) -> None:
+    """Phase 10 (c) and (d): the treecode movies. The hierarchical movie at
+    65,536 with ``render_every == tree_rebuild_every`` ends bitwise where
+    ``run`` ends, and the trajectory's last frame is ``run``'s positions in
+    call-entry order, bitwise; then a flat and a dense movie."""
+    import torch
+
+    from n_body_problem_tpu_torch import SimConfig, Simulation, models
+    from n_body_problem_tpu_torch.ops.registry import tree_path
+    from n_body_problem_tpu_torch.render import OrbitCamera
+    from n_body_problem_tpu_torch.treecode_profile import _busy_us, _device_events, _trace
+
+    wrappers = counters()
+    cam = OrbitCamera(distance=2.0, aspect=MOVIE_W / MOVIE_H)
+    kw = dict(width=MOVIE_W, height=MOVIE_H)
+    cfg = SimConfig(solver="treecode")
+    r = cfg.tree_rebuild_every
+    sims = [Simulation(cfg, models.plummer(RENDER_N, seed=0), device=device) for _ in range(3)]
+    ref, mov, traj = sims
+    check(all(tree_path(x.cfg) == "hier" for x in sims),
+          "treecode movie: not the hierarchical path")
+    entry = torch.from_numpy(traj.sort_perm.astype("int64")).to(device)
+    before = {k: w.launches for k, w in wrappers.items()}
+    frames = mov.movie(2 * r, r, cam, **kw)
+    moved = {k: w.launches - before[k] for k, w in wrappers.items() if w.launches > before[k]}
+    frames_ok("hierarchical movie", frames, 2, MOVIE_H, MOVIE_W)
+    ref.run(2 * r)
+    check(torch.equal(mov.state.pos, ref.state.pos) and torch.equal(mov.state.vel, ref.state.vel),
+          "hierarchical movie: final state differs from run()'s "
+          f"(max |d| {float((mov.state.pos - ref.state.pos).abs().max()):.3e})")
+    check((mov.sort_perm == ref.sort_perm).all(), "hierarchical movie: sort_perm differs")
+    hist = traj.trajectory(2 * r, save_every=r)
+    check(tuple(hist.shape) == (2, ref.state.n, 3), f"trajectory: shape {tuple(hist.shape)}")
+    # run()'s positions in call-entry order: body sort_perm[i] of the input
+    # is at slot i now, and at entry slot inverse(entry)[sort_perm[i]].
+    ids = torch.from_numpy(ref.sort_perm.astype("int64")).to(device)
+    slot_of = torch.empty_like(entry)
+    slot_of[entry] = torch.arange(len(entry), device=device)
+    n_real = ref.state.n_real
+    want = torch.empty_like(ref.state.pos[:n_real])
+    want[slot_of[ids]] = ref.state.pos[:n_real]
+    check(torch.equal(hist[-1][:n_real], want),
+          "trajectory: last frame is not run()'s positions in call-entry order, bitwise")
+    # times: five calls of each, alternated, from one state (run and movie
+    # stay bitwise equal), then one profiled call of each. A 16-step call
+    # varies by tens of per cent from one call to the next, so one sample
+    # of each cannot tell them apart.
+    reps = 5
+    wall = {"movie": [], "run": []}
+    calls = {"movie": lambda: mov.movie(2 * r, r, cam, **kw), "run": lambda: ref.run(2 * r)}
+    for _ in range(reps):
+        for label, x in (("movie", mov), ("run", ref)):
+            w0 = x.wall_seconds
+            calls[label]()
+            wall[label].append((x.wall_seconds - w0) / (2 * r) * 1e3)
+    check(torch.equal(mov.state.pos, ref.state.pos),
+          "hierarchical movie: later calls differ from run()'s")
+    prof = {}
+    for label in ("movie", "run"):
+        events, wall_us = _trace(calls[label])
+        busy = _busy_us(_device_events(events))
+        prof[label] = (busy / 1e3 / (2 * r), wall_us / 1e3 / (2 * r), 1 - busy / wall_us)
+    spread = {k: f"mean {sum(v) / reps:.4f} (min {min(v):.4f}, max {max(v):.4f})"
+              for k, v in wall.items()}
+    print(f"render [c, hierarchical movie]: {RENDER_N:,} bodies, {2 * r} steps, a frame every "
+          f"{r} ({MOVIE_W}x{MOVIE_H}); final state = run({2 * r})'s bitwise; trajectory's last "
+          f"frame = run's positions in call-entry order bitwise; launches in the movie {moved}; "
+          f"{reps} later calls each, alternated: movie {spread['movie']} ms/step, run "
+          f"{spread['run']} ms/step; profiled: "
+          + "; ".join(f"{k} device busy {b:.4f} ms/step of {w:.4f}, idle share {i:.3f}"
+                      for k, (b, w, i) in prof.items()), flush=True)
+    del sims, ref, mov, traj, hist
+    torch.cuda.empty_cache()
+
+    for label, n, over, kernels in (
+            ("flat", 20480, dict(tree_hier=False), ("near", "far_single", "vip")),
+            ("dense", 1024, dict(tree_flat_cap=-1), ("gather", "near_panel", "vip"))):
+        sim = Simulation(SimConfig(solver="treecode", **over), models.plummer(n, seed=0),
+                         device=device)
+        check(tree_path(sim.cfg) == label, f"{label} movie: path {tree_path(sim.cfg)}")
+        before = {k: w.launches for k, w in wrappers.items()}
+        frames = sim.movie(2 * r, r, cam, **kw)
+        moved = {k: w.launches - before[k] for k, w in wrappers.items() if w.launches > before[k]}
+        frames_ok(f"{label} movie", frames, 2, MOVIE_H, MOVIE_W)
+        check(all(moved.get(k, 0) >= 2 * r for k in kernels),
+              f"{label} movie: launches {moved}, expected each of {kernels} every step")
+        check(bool(torch.isfinite(sim.state.pos).all()), f"{label} movie: non-finite positions")
+        print(f"render [d, {label} movie]: {n:,} bodies, {2 * r} steps, 2 frames; launches "
+              f"{moved}; {sim.wall_seconds / (2 * r) * 1e3:.4f} ms/step with the frames "
+              f"(first call)", flush=True)
+
+
+def render_cli(device) -> dict:
+    """Phase 10 (e): ``run --render-every`` (and, where Pillow is present,
+    ``--gif`` and ``--serve``) and ``render`` on the card, each counting its
+    kernel launches."""
+    import importlib.util
+
+    data = TOOLS_DIR / "data"        # phase 9's galaxy_20K-layout file
+    out = TOOLS_DIR / "render_run"
+    shutil.rmtree(out, ignore_errors=True)
+    total: dict = {}
+    pil = importlib.util.find_spec("PIL") is not None
+    extra = ("--gif",) if pil else ()
+    _, launched = run_tool("run render-every 50", "n_body_problem_tpu_torch", "run",
+                           "--dataset", "0", "--data-dir", str(data), "--steps", "200",
+                           "--render-every", "50", "--out", str(out), *extra)
+    needs("run render-every 50", launched, ("symmetric",))
+    for k, v in launched.items():
+        total[k] = total.get(k, 0) + v
+    pngs = sorted((out / "frames").glob("*.png"))
+    check(len(pngs) == 4, f"run --render-every 50: {len(pngs)} frames, not 4")
+    for path in pngs:
+        w, h, lit = png_image(path)
+        check((w, h) == (1024, 768) and lit > 0, f"{path.name}: {w}x{h}, brightest {lit}")
+    if pil:
+        check((out / "movie.gif").stat().st_size > 0, "run --gif: no movie.gif")
+    _, launched = run_tool("render", "n_body_problem_tpu_torch", "render",
+                           str(out / "final.npz"), str(out / "frame.png"))
+    w, h, lit = png_image(out / "frame.png")
+    check((w, h) == (1024, 768) and lit > 0, f"render: frame.png {w}x{h}, brightest {lit}")
+    served = "skipped: Pillow is not installed"
+    if pil:
+        served = serve_in_process(device)
+    print(f"render [e, CLI]: run --dataset 0 --steps 200 --render-every 50: 4 PNGs "
+          f"(1024x768, lit){', movie.gif' if pil else ''}; render final.npz: frame.png "
+          f"{w}x{h}; Pillow {'found' if pil else 'not found: --gif and --serve not run'}; "
+          f"--serve: {served}", flush=True)
+    return total
+
+
+def serve_in_process(device) -> str:
+    """``run --serve`` through the CLI's ``main`` in this process, so that
+    the viewer it starts can be read after the run."""
+    import socket
+
+    from n_body_problem_tpu_torch.cli import main as cli_main
+    from n_body_problem_tpu_torch.render.server import LiveViewer
+
+    seen = {}
+    orig = LiveViewer.__init__
+
+    def spy(self, port, camera, **kw):
+        orig(self, port, camera, **kw)
+        seen["viewer"] = self
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    LiveViewer.__init__ = spy
+    try:
+        rc = cli_main(["run", "--model", "plummer", "--n", "20480", "--steps", "100",
+                       "--steps-per-block", "25", "--serve", str(port),
+                       "--out", str(TOOLS_DIR / "render_serve")])
+    finally:
+        LiveViewer.__init__ = orig
+    v = seen.get("viewer")
+    check(rc == 0 and v is not None, f"run --serve: rc {rc}")
+    deadline = time.time() + 10
+    while v._frame_no < 1 and time.time() < deadline:
+        time.sleep(0.05)
+    check(v.stats["step"] == 100 and v._frame_no >= 1,
+          f"run --serve: stats {v.stats}, {v._frame_no} frames encoded")
+    return f"{v._frame_no} JPEG frames encoded from card frames, stats {v.stats}"
+
+
+def drive_render(device, exact_ms: float) -> dict:
+    """Phase 10: rendering on the card. Returns the kernel launches of the
+    CLI's subprocesses (the in-process launches are on the counters)."""
+    t0 = time.perf_counter()
+    render_card_vs_cpu(device)
+    render_bench_leg(device, exact_ms)
+    render_tree_movies(device)
+    launched = render_cli(device)
+    print(f"render: phase 10 in {time.perf_counter() - t0:.1f} s", flush=True)
+    return launched
+
+
 def main() -> int:
     import torch
 
@@ -1064,7 +1423,7 @@ def main() -> int:
     wrappers = counters()
     for w in wrappers.values():
         w.launches = 0
-    drive_main_path(device)
+    main_ms = drive_main_path(device)
     launches = {k: wrappers[k].launches for k in ("allpairs", "symmetric", "symmetric_bf16x3")}
     drive_pair_matrix(device)
     for w in wrappers.values():
@@ -1080,6 +1439,11 @@ def main() -> int:
     for key, count in drive_tools().items():
         launches[key] = launches.get(key, 0) + count
     print(f"tools: {time.perf_counter() - t0:.1f} s", flush=True)
+    for w in wrappers.values():
+        w.launches = 0
+    rendered = drive_render(device, main_ms["default"])
+    for key, w in wrappers.items():
+        launches[key] = launches.get(key, 0) + w.launches + rendered.get(key, 0)
 
     records = (
         ("allpairs", "allpairs_acc_kernel", "allpairs.cu", "pallas_force.py:41"),

@@ -13,8 +13,10 @@ single-level flat and dense paths (Morton sort, acceptance builds, the near,
 far, panel-gather, near-panel and VIP CUDA kernels), with the JAX
 package's tools on one device: the dataset readers and writers (``io``),
 the bench harness (``bench``), the physics validation (``validate``),
-profiler traces (``utils.profiling``) and the ``run``/``info``/``convert``/
-``bench`` CLI. Entry points run on ``cuda`` unless asked for the CPU.
+profiler traces (``utils.profiling``), the splat renderer with
+``Simulation.movie``/``trajectory``, the frame writer and the live viewer
+(``render``), and the ``run``/``info``/``convert``/``render``/``bench``
+CLI. Entry points run on ``cuda`` unless asked for the CPU.
 
 Public API::
 
@@ -24,6 +26,7 @@ Public API::
                         device="cuda")
     sim.run(100)
     print(sim.diagnostics())
+    frames = sim.movie(20, render_every=10, camera=nb.render.OrbitCamera(distance=2.0))
 
     tree = nb.Simulation(nb.SimConfig(solver="treecode"),
                          nb.models.plummer(524288, seed=0), device="cuda")
@@ -43,6 +46,7 @@ from n_body_problem_tpu_torch.simulation import Simulation, make_step_fn, run_st
 from n_body_problem_tpu_torch import diagnostics
 from n_body_problem_tpu_torch import models
 from n_body_problem_tpu_torch import ops
+from n_body_problem_tpu_torch import render
 
 __version__ = "0.1.0"
 
@@ -60,4 +64,5 @@ __all__ = [
     "diagnostics",
     "models",
     "ops",
+    "render",
 ]

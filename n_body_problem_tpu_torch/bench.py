@@ -27,11 +27,10 @@ the most complete record. ``legs_done``/``legs_total`` mark partial
 snapshots.
 
 ``--full`` appends the secondary legs (N=262,144 sustained, the windowed
-variants, the 24k/32k crossover-bracket legs and the exact
-``pallas_symmetric`` legs at 20,480 and 65,536). The step-plus-render leg
-of the JAX harness waits for rendering (ROADMAP §1 item 6): ``--full``
-says so once on stderr and the record has no
-``ms_per_step_with_render_65k`` key. ``vs_baseline`` compares the headline
+variants, the 24k/32k crossover-bracket legs, the exact
+``pallas_symmetric`` legs at 20,480 and 65,536, and the step-plus-render
+leg, ``ms_per_step_with_render_65k``: ``pallas_symmetric`` at 65,536 with a
+1024x1024 frame rendered after every step). ``vs_baseline`` compares the headline
 (the sustained rate of the largest completed treecode leg) to the
 reference's derived RTX 4090 throughput of 2.6e11 directed interactions/s
 (BASELINE.md). With ``--n``/``--solver`` it benchmarks that single
@@ -197,6 +196,25 @@ def bench_config(n: int, solver: str, steps: int, warmup: int = 1,
     return out
 
 
+def bench_render(n: int, solver: str, device: str | torch.device = "cuda") -> float:
+    """ms/step including a rendered frame (the reference integrates once
+    per rendered frame): ``Simulation.movie`` of 10 steps with a 1024x1024
+    frame after each, timed after a warm movie of the same length."""
+    from n_body_problem_tpu_torch import SimConfig, Simulation, models
+    from n_body_problem_tpu_torch.render import OrbitCamera
+    from n_body_problem_tpu_torch.simulation import resolve_device
+
+    dev = resolve_device(device)
+    sim = Simulation(SimConfig(solver=solver), models.plummer(n, seed=0), device=dev)
+    cam = OrbitCamera(distance=2.0)
+    sim.movie(10, render_every=1, camera=cam, width=1024, height=1024)
+    _sync(dev)
+    t0 = time.perf_counter()
+    sim.movie(10, render_every=1, camera=cam, width=1024, height=1024)
+    _sync(dev)
+    return (time.perf_counter() - t0) / 10 * 1e3
+
+
 def run_single(n: int, solver: str, steps: int = 0, chunks: int = 1,
                windows: int = 3, device: str | torch.device = "cuda") -> dict:
     """Benchmark one configuration; returns (and prints) the JSON record.
@@ -271,8 +289,8 @@ def main(argv=None) -> int:
     ap.add_argument("--windows", type=int, default=3)
     ap.add_argument("--full", action="store_true",
                     help="append the secondary legs (windowed variants, "
-                         "262k, 24k/32k bracket, exact brute-force) after "
-                         "the headline suite")
+                         "262k, 24k/32k bracket, exact brute-force, "
+                         "render) after the headline suite")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; give cpu to run on the CPU)")
     args = ap.parse_args(argv)
@@ -290,14 +308,11 @@ def main(argv=None) -> int:
     if args.steps:
         print("bench: --steps is ignored in suite mode (leg step counts "
               "are fixed); use --n for single-config mode", file=sys.stderr)
-    if args.full:
-        print("bench: --full runs no step+render leg: rendering is not ported "
-              "yet (ROADMAP §1 item 6)", file=sys.stderr)
     legs = suite_legs(args.full)
 
     done: dict[str, dict] = {}
 
-    def snapshot(total: int, exact20=None, exact65=None):
+    def snapshot(total: int, exact20=None, exact65=None, ms_render=None):
         """Cumulative report over completed legs; printed after every leg
         so that a cut run keeps every finished timing."""
         # Largest sustained leg first; the 20k legs are the fallback
@@ -339,6 +354,8 @@ def main(argv=None) -> int:
             report["exact_pairs_per_sec_65k"] = exact65["pairs_per_sec"]
             report["exact_ms_per_step_65k"] = exact65["ms_per_step"]
             report["exact_vs_baseline"] = exact65["pairs_per_sec"] / BASELINE
+        if ms_render is not None:
+            report["ms_per_step_with_render_65k"] = ms_render
         print(json.dumps(report), flush=True)
 
     failed: list[str] = []
@@ -369,18 +386,20 @@ def main(argv=None) -> int:
         if safe(f"probe {tag}", probe) is not None:
             snapshot(total)
 
-    exact20 = exact65 = None
+    exact20 = exact65 = ms_render = None
     if args.full:
         exact20 = safe("leg exact_20k", bench_config, 20480, "pallas_symmetric",
                        steps=64, device=dev)
         exact65 = safe("leg exact_65k", bench_config, 65536, "pallas_symmetric",
                        steps=16, device=dev)
+        ms_render = safe("leg render_65k", bench_render, 65536, "pallas_symmetric",
+                         device=dev)
 
     if not done:
         print("bench: every treecode leg failed; no headline to report",
               file=sys.stderr)
         return 1
-    snapshot(total, exact20, exact65)
+    snapshot(total, exact20, exact65, ms_render)
     if failed:
         print(f"bench: {len(failed)} failed: {', '.join(failed)}", file=sys.stderr)
         return 1

@@ -1,29 +1,35 @@
 """Command-line interface.
 
-Counterpart of ``n_body_problem_tpu.cli`` on one device, all but
-rendering:
+Counterpart of ``n_body_problem_tpu.cli`` on one device:
 
     python -m n_body_problem_tpu_torch run --steps 1000   # dataset 1
     python -m n_body_problem_tpu_torch run --dataset 0 --data-dir data \
+        --steps 1000 --render-every 50 --gif
+    python -m n_body_problem_tpu_torch run --dataset 0 --data-dir data \
         --solver treecode --tree-tuned --steps 100 --export-snap --profile
-    python -m n_body_problem_tpu_torch run --model plummer --n 65536 --steps 100
+    python -m n_body_problem_tpu_torch run --model plummer --n 65536 --serve 8000
     python -m n_body_problem_tpu_torch info
     python -m n_body_problem_tpu_torch convert data/galaxy_20K.bin out.csv
+    python -m n_body_problem_tpu_torch render out/final.npz frame.png
     python -m n_body_problem_tpu_torch bench --n 65536 --steps 20
 
 ``run`` is headless: physics runs on ``--device`` (``cuda`` unless
 ``--device cpu`` is given; without a GPU that is an error) in
-``--steps-per-block`` chunks, with diagnostics, checkpoints, the snap
-export and the profiler's trace in ``--out``. With no ``--model`` or
-``--resume`` it loads ``--dataset`` (default 1, as the reference), whose
-procedural fallback runs when the file is absent. The rendering flags and
-``--devices > 1`` are accepted and rejected with the ROADMAP item that
-will bring them.
+``--steps-per-block`` chunks; frames are rendered on that device and
+written to ``--out``/frames by a background writer (``--render-every``,
+``--gif``) or streamed to the live viewer (``--serve``, which renders every
+block unless ``--render-every`` says otherwise); diagnostics, checkpoints,
+the snap export and the profiler's trace land in ``--out``. With no
+``--model`` or ``--resume`` it loads ``--dataset`` (default 1, as the
+reference), whose procedural fallback runs when the file is absent.
+``--gif`` and ``--serve`` need Pillow. ``--devices > 1`` is accepted and
+rejected with the ROADMAP item that will bring it.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import pathlib
 import sys
 
@@ -31,14 +37,6 @@ import sys
 # typed it" from "argparse default": a --config file's (or a resumed
 # checkpoint's) physics is not clobbered by defaults.
 _PHYSICS_FLAGS = ("dt", "eps2", "compensate", "G", "solver", "integrator")
-
-# Flag (argparse dest) -> the ROADMAP item that ports it. A flag counts as
-# used when its value differs from the parser's default.
-_NOT_PORTED = {
-    "render_every": "ROADMAP §1 item 6 (rendering)",
-    "serve": "ROADMAP §1 item 6 (live viewer)",
-    "gif": "ROADMAP §1 item 6 (rendering)",
-}
 
 
 def _add_physics_flags(p: argparse.ArgumentParser) -> None:
@@ -57,6 +55,15 @@ def _add_physics_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--config", help="JSON/TOML config file (flags override)")
 
 
+def _add_camera_flags(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--width", type=int, default=1024)
+    p.add_argument("--height", type=int, default=768)
+    p.add_argument("--exposure", type=float, default=1.0)
+    p.add_argument("--cam-theta", type=float, default=0.0)
+    p.add_argument("--cam-phi", type=float, default=20.0)
+    p.add_argument("--cam-zoom", type=float, default=1.0)
+
+
 def _build_config(args, base=None):
     """Config precedence: checkpoint < --config file < explicit CLI flags."""
     from n_body_problem_tpu_torch.config import SimConfig
@@ -73,11 +80,6 @@ def _build_config(args, base=None):
 
 
 def _reject_unported(args) -> None:
-    defaults = vars(build_parser().parse_args(["run"]))
-    for dest, item in _NOT_PORTED.items():
-        if getattr(args, dest) != defaults[dest]:
-            flag = "--" + dest.replace("_", "-")
-            raise NotImplementedError(f"{flag} is not ported yet: {item}")
     if args.devices > 1:
         raise NotImplementedError(
             "--devices > 1 is not ported yet: ROADMAP §1 item 9 (multi-GPU)")
@@ -112,13 +114,14 @@ def cmd_run(args) -> int:
 
     from n_body_problem_tpu_torch import Simulation
     from n_body_problem_tpu_torch.io.checkpoint import export_snap, save_checkpoint
+    from n_body_problem_tpu_torch.render import FrameWriter, OrbitCamera, render_state
     from n_body_problem_tpu_torch.simulation import resolve_device
     from n_body_problem_tpu_torch.utils.metrics import StepTimer
     from n_body_problem_tpu_torch.utils.profiling import trace
 
     _reject_unported(args)
     resolve_device(args.device)  # before any data is read
-    state, _, _, ck_cfg = _load_initial_state(args)
+    state, scales, cam_dist, ck_cfg = _load_initial_state(args)
     cfg = _build_config(args, base=ck_cfg)
     if args.morton_sort:
         cfg = cfg.replace(morton_sort=True)
@@ -142,30 +145,81 @@ def cmd_run(args) -> int:
         d = sim.diagnostics()
         e0 = d["energy"]
         print(f"E0={e0:.6e}  |p|={np.linalg.norm(d['momentum']):.3e}", file=sys.stderr)
+
+    camera = OrbitCamera(
+        theta_deg=args.cam_theta, phi_deg=args.cam_phi,
+        distance=cam_dist * args.cam_zoom, aspect=args.width / args.height,
+    )
+    render_every = args.render_every
+    live = None
+    if args.serve:
+        from n_body_problem_tpu_torch.render.server import LiveViewer
+
+        live = LiveViewer(args.serve, camera, exposure=args.exposure,
+                          host=args.serve_host)
+        live.stats["n"] = sim.state.n_real
+        render_every = render_every or args.steps_per_block
+        print(f"live viewer: http://{args.serve_host}:{live.port}/",
+              file=sys.stderr)
+    viewer = (
+        FrameWriter(out / "frames", exposure=args.exposure)
+        if args.render_every else None
+    )
     timer = StepTimer(n_bodies=sim.state.n_real)
 
     # A block must not straddle any output interval, or events get skipped.
-    intervals = [v for v in (args.diag_every, args.checkpoint_every) if v > 0]
+    intervals = [v for v in (render_every, args.diag_every,
+                             args.checkpoint_every) if v > 0]
     block = min([args.steps_per_block] + intervals)
     done = 0
-    with trace(out / "profile" if args.profile else None):
-        while done < args.steps:
-            todo = min(block, args.steps - done)
-            timer.start()
-            sim.run(todo)
-            timer.stop(todo)
-            done += todo
-            if timer.window_full:
-                timer.report()
-            if args.diag_every and done % args.diag_every < todo:
-                d = sim.diagnostics()
-                drift = (d["energy"] - e0) / abs(e0) if e0 else 0.0
-                print(
-                    f"[step {done}] E={d['energy']:.6e} drift={drift:+.2e} "
-                    f"overspeed={d['overspeed']}", file=sys.stderr,
-                )
-            if args.checkpoint_every and done % args.checkpoint_every < todo:
-                save_checkpoint(out / f"ck_{done:08d}.npz", sim.state, cfg)
+    frame_idx = 0
+    try:
+        with trace(out / "profile" if args.profile else None):
+            while done < args.steps:
+                todo = min(block, args.steps - done)
+                timer.start()
+                sim.run(todo)
+                timer.stop(todo)
+                done += todo
+                if timer.window_full:
+                    timer.report()
+                if render_every and done % render_every < todo:
+                    lock = live.camera_lock if live else contextlib.nullcontext()
+                    with lock:  # /control mutates the camera concurrently
+                        frame = render_state(
+                            sim.state, camera, scales,
+                            width=args.width, height=args.height,
+                        )
+                    if live:
+                        live.submit(frame)
+                        live.stats.update(
+                            step=done,
+                            ms_per_step=timer.total_time
+                            / max(timer.total_steps, 1) * 1e3,
+                        )
+                    if viewer:
+                        viewer.submit(frame_idx, frame)
+                        frame_idx += 1
+                if args.diag_every and done % args.diag_every < todo:
+                    d = sim.diagnostics()
+                    drift = (d["energy"] - e0) / abs(e0) if e0 else 0.0
+                    print(
+                        f"[step {done}] E={d['energy']:.6e} drift={drift:+.2e} "
+                        f"overspeed={d['overspeed']}", file=sys.stderr,
+                    )
+                if args.checkpoint_every and done % args.checkpoint_every < todo:
+                    save_checkpoint(out / f"ck_{done:08d}.npz", sim.state, cfg)
+    finally:
+        if viewer:
+            viewer.close()
+        if live:
+            live.close()
+
+    if args.gif and viewer and viewer.frames_written:
+        from n_body_problem_tpu_torch.render.viewer import assemble_gif
+
+        n_frames = assemble_gif(out / "frames", out / "movie.gif", fps=args.gif_fps)
+        print(f"assembled movie.gif ({n_frames} frames)", file=sys.stderr)
 
     save_checkpoint(out / "final.npz", sim.state, cfg)
     if args.export_snap:
@@ -218,6 +272,25 @@ def cmd_convert(args) -> int:
     return 0
 
 
+def cmd_render(args) -> int:
+    from n_body_problem_tpu_torch.io.checkpoint import load_checkpoint
+    from n_body_problem_tpu_torch.render import OrbitCamera, render_state, tonemap, write_png
+    from n_body_problem_tpu_torch.render.image import to_host
+    from n_body_problem_tpu_torch.simulation import resolve_device
+
+    state, _ = load_checkpoint(args.checkpoint, resolve_device(args.device))
+    camera = OrbitCamera(
+        theta_deg=args.cam_theta, phi_deg=args.cam_phi, distance=args.cam_zoom,
+        aspect=args.width / args.height,
+    )
+    frame = render_state(
+        state, camera, tuple(args.scales), width=args.width, height=args.height
+    )
+    write_png(args.output, tonemap(to_host(frame), exposure=args.exposure))
+    print(f"wrote {args.output}", file=sys.stderr)
+    return 0
+
+
 def cmd_bench(args) -> int:
     from n_body_problem_tpu_torch import bench
 
@@ -249,9 +322,17 @@ def build_parser() -> argparse.ArgumentParser:
     r.add_argument("--out", default="out")
     r.add_argument("--diag-every", type=int, default=0)
     r.add_argument("--checkpoint-every", type=int, default=0)
-    r.add_argument("--render-every", type=int, default=0, help="not ported yet")
-    r.add_argument("--serve", type=int, default=0, metavar="PORT", help="not ported yet")
-    r.add_argument("--gif", action="store_true", help="not ported yet")
+    r.add_argument("--render-every", type=int, default=0,
+                   help="write a frame to <out>/frames every this many steps")
+    r.add_argument("--serve", type=int, default=0, metavar="PORT",
+                   help="live HTTP viewer (MJPEG + orbit/zoom controls; needs "
+                        "Pillow); renders every --render-every steps (default: "
+                        "every steps-per-block)")
+    r.add_argument("--serve-host", default="127.0.0.1")
+    r.add_argument("--gif", action="store_true",
+                   help="assemble frames into movie.gif (needs Pillow)")
+    r.add_argument("--gif-fps", type=float, default=25.0)
+    _add_camera_flags(r)
     r.add_argument("--export-snap", action="store_true",
                    help="write the final state as <out>/final.snap")
     r.add_argument("--morton-sort", action="store_true",
@@ -271,6 +352,15 @@ def build_parser() -> argparse.ArgumentParser:
     c.add_argument("src")
     c.add_argument("dst")
     c.set_defaults(fn=cmd_convert)
+
+    rr = sub.add_parser("render", help="render one frame from a checkpoint")
+    rr.add_argument("checkpoint")
+    rr.add_argument("output")
+    rr.add_argument("--scales", type=float, nargs=3, default=[0.0, 0.0, 0.0])
+    _add_camera_flags(rr)
+    rr.add_argument("--device", default="cuda",
+                    help="torch device (default cuda; give cpu to render on the CPU)")
+    rr.set_defaults(fn=cmd_render)
 
     b = sub.add_parser("bench", help="throughput benchmark (one JSON line)")
     b.add_argument("--n", type=int, default=65536)

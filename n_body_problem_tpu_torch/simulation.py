@@ -50,6 +50,35 @@ def run_steps(state: SimState, step_fn: StepFn, n_steps: int) -> SimState:
     return state
 
 
+def _spans(n_steps: int, every: int, name: str) -> int:
+    """The frames of a span of ``n_steps`` taken every ``every`` steps."""
+    if n_steps % every:
+        raise ValueError(f"n_steps must be a multiple of {name}")
+    return n_steps // every
+
+
+def run_frames(
+    state: SimState,
+    advance: Callable[[SimState, int], SimState],
+    n_steps: int,
+    every: int,
+    name: str,
+    frame_shape: tuple[int, ...],
+    record: Callable[[torch.Tensor, SimState], object],
+) -> tuple[SimState, torch.Tensor]:
+    """Advance ``n_steps`` in spans of ``every`` steps (``advance(state,
+    every)``); after span i, ``record(frames[i], state)`` fills frame i.
+    Returns ``(state, frames[n_steps // every, *frame_shape])``, on the
+    state's device: the movie's rendered frames (the reference's step+draw
+    frame loop, kernel.cu:1191-1282, without its per-frame host
+    round-trips) or the trajectory's positions."""
+    frames = state.pos.new_empty((_spans(n_steps, every, name), *frame_shape))
+    for i in range(len(frames)):
+        state = advance(state, every)
+        record(frames[i], state)
+    return state, frames
+
+
 def make_treecode_run(cfg: SimConfig):
     """The treecode run: every ``cfg.tree_rebuild_every`` steps, Z-order the
     bodies on the device and rebuild the acceptance lists of the config's
@@ -68,7 +97,12 @@ def make_treecode_run(cfg: SimConfig):
     is the input slot of the body now at slot i and ``aux`` the acceptance
     lists the last chunk stepped with (in the returned state's slot order;
     None when ``n_steps`` is 0). ``cfg`` must carry the resolved tile, VIP
-    count and capacities (``Simulation`` resolves them).
+    count and capacities (``Simulation`` resolves them). ``run`` is
+    ``finish(advance(state, start(state), n_steps))``, and carries the
+    three as ``run.start``, ``run.advance`` and ``run.finish``: the
+    movie and the trajectory take the same chunks between their frames
+    (the cadence restarts at every frame), so that long treecode movies
+    are as safe as ``run`` on the hierarchical and flat paths.
     """
     r = cfg.tree_rebuild_every
     dt = cfg.dt
@@ -98,18 +132,28 @@ def make_treecode_run(cfg: SimConfig):
                 pos = pos + vel * dt
         return dataclasses.replace(state, pos=pos, vel=vel, acc=acc), ids, aux
 
-    def run(state: SimState, n_steps: int):
-        ids = torch.arange(state.n, dtype=torch.int32, device=state.device)
+    def advance(state: SimState, ids: torch.Tensor, n_steps: int):
         aux = None
         full, rem = divmod(n_steps, r)
         for length in [r] * full + ([rem] if rem else []):
             state, ids, aux = chunk(state, ids, length)
-        if not dense:
-            state = dataclasses.replace(
-                state, time=state.time + torch.full_like(state.time, dt) * n_steps,
-                step=state.step + n_steps)
         return state, ids, aux
 
+    def start(state: SimState):
+        return torch.arange(state.n, dtype=torch.int32, device=state.device)
+
+    def finish(state: SimState, n_steps: int) -> SimState:
+        if dense:
+            return state
+        return dataclasses.replace(
+            state, time=state.time + torch.full_like(state.time, dt) * n_steps,
+            step=state.step + n_steps)
+
+    def run(state: SimState, n_steps: int):
+        state, ids, aux = advance(state, start(state), n_steps)
+        return finish(state, n_steps), ids, aux
+
+    run.start, run.advance, run.finish = start, advance, finish
     return run
 
 
@@ -273,9 +317,7 @@ class Simulation:
         t0 = _time.perf_counter()
         if self._tree_run is not None:
             self.state, ids, aux = self._tree_run(self.state, n_steps)
-            self._track_ids(ids)
-            if aux is not None:
-                self.tree_lists = aux
+            self._tree_moved(ids, aux)
         else:
             r = self.cfg.resort_every or n_steps
             done = 0
@@ -285,10 +327,21 @@ class Simulation:
                 done += todo
                 if done < n_steps:  # no sort after the last chunk
                     self._resort()
+        self._finish(t0)
+        return self.state
+
+    def _finish(self, t0: float) -> None:
+        """Wait for the device; add the call's wall time."""
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.wall_seconds += _time.perf_counter() - t0
-        return self.state
+
+    def _tree_moved(self, ids: torch.Tensor, aux) -> None:
+        """After a treecode run: compose its body permutation into
+        ``sort_perm`` and keep the lists it last stepped with."""
+        self._track_ids(ids)
+        if aux is not None:
+            self.tree_lists = aux
 
     def _track_ids(self, ids: torch.Tensor) -> None:
         """Compose a device run's body permutation into ``sort_perm``."""
@@ -305,13 +358,98 @@ class Simulation:
         self.sort_perm = (perm_real if self.sort_perm is None
                           else self.sort_perm[perm_real])
 
-    def trajectory(self, n_steps: int, save_every: int = 1):
-        raise NotImplementedError(
-            "Simulation.trajectory is not ported yet (ROADMAP §1 item 6)")
+    def _guard_dense_tree_span(self, n_steps: int) -> None:
+        """Refuse long movies and trajectories on the dense treecode path.
 
-    def movie(self, *args, **kwargs):
-        raise NotImplementedError(
-            "Simulation.movie is not ported yet (ROADMAP §1 item 6: rendering)")
+        That path runs the generic per-step loop: no Morton re-sort fires
+        inside it, tile locality decays, and once open counts outgrow the
+        static near capacity the leaked multipole errors heat the core
+        (the JAX package measured dE/E ~ 1e3 over a long un-resorted run).
+        The hierarchical and flat paths re-sort in chunks and have no limit.
+        """
+        if self._tree_run is not None and tree_path(self.cfg) == "dense":
+            limit = 4 * self.cfg.tree_rebuild_every
+            if n_steps > limit:
+                raise ValueError(
+                    f"movie/trajectory of {n_steps} steps on the dense "
+                    f"treecode path would run without mid-span Morton "
+                    f"re-sorts (locality decay corrupts long runs; "
+                    f"measured dE/E ~ 1e3). Use run(), split the span "
+                    f"into chunks of <= {limit} steps, or use the flat or "
+                    f"hierarchical treecode path (the GPU default).")
+
+    def _frames(self, n_steps: int, every: int, name: str, frame_shape: tuple[int, ...],
+                record: Callable[[torch.Tensor, SimState, torch.Tensor | None], object]
+                ) -> torch.Tensor:
+        """The movie's and the trajectory's loop (:func:`run_frames`): on the
+        treecode's hierarchical and flat paths each span takes the run's
+        chunks, and ``record(frame, state, ids)`` gets the chunks' body
+        permutation (``ids[i]``: the call-entry slot of the body at slot
+        i); elsewhere each span is ``every`` plain steps and ``ids`` is
+        None."""
+        self._guard_dense_tree_span(n_steps)
+        t0 = _time.perf_counter()
+        tree = self._tree_run
+        if tree is not None and tree_path(self.cfg) != "dense":
+            ids, aux = tree.start(self.state), None
+
+            def advance(state: SimState, k: int) -> SimState:
+                nonlocal ids, aux
+                state, ids, aux = tree.advance(state, ids, k)
+                return state
+
+            state, frames = run_frames(self.state, advance, n_steps, every, name,
+                                       frame_shape, lambda f, s: record(f, s, ids))
+            self.state = tree.finish(state, n_steps)
+            self._tree_moved(ids, aux)
+        else:
+            self.state, frames = run_frames(
+                self.state, lambda s, k: run_steps(s, self._step_fn, k), n_steps, every,
+                name, frame_shape, lambda f, s: record(f, s, None))
+        self._finish(t0)
+        return frames
+
+    def trajectory(self, n_steps: int, save_every: int = 1) -> torch.Tensor:
+        """Advance ``n_steps``; positions every ``save_every`` steps, (F, N,
+        3) on the device. On the treecode's hierarchical and flat paths
+        every frame is in the call-entry body order (scattered by the
+        chunks' permutation): the chunks re-sort the bodies, so raw frames
+        would each be in another Morton order."""
+        def record(frame, state, ids):
+            if ids is None:
+                frame.copy_(state.pos)
+            else:
+                frame.index_copy_(0, ids.long(), state.pos)
+
+        return self._frames(n_steps, save_every, "save_every", (self.state.n, 3), record)
+
+    def movie(
+        self,
+        n_steps: int,
+        render_every: int,
+        camera,
+        scale_factors=(0.0, 0.0, 0.0),
+        *,
+        width: int = 1024,
+        height: int = 768,
+    ) -> torch.Tensor:
+        """Simulate and render on the device: (F, H, W, 3) float32 frames,
+        one every ``render_every`` steps, the bodies drawn in their current
+        slot order."""
+        from n_body_problem_tpu_torch.render.splat import splat_frame
+
+        # on the device once, not a host copy every frame
+        vp = torch.as_tensor(camera.view_projection(), device=self.device)
+        scale_factors = torch.as_tensor(np.asarray(scale_factors, np.float32),
+                                        device=self.device)
+        mask = self.state.real_mask()
+
+        def record(frame, state, ids):
+            frame.copy_(splat_frame(state.pos, state.mass, mask, vp, scale_factors,
+                                    width=width, height=height))
+
+        return self._frames(n_steps, render_every, "render_every", (height, width, 3),
+                            record)
 
     # ------------------------------------------------------------ metrics
     def pairs_per_step(self) -> int:

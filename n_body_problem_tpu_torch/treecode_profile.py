@@ -197,6 +197,16 @@ def _device_events(events: list) -> list:
     return [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
 
 
+def _busy_us(gpu: list) -> float:
+    """µs the device was busy: the union of the device events' intervals."""
+    covered, end = 0.0, float("-inf")
+    for a, b in sorted((e["ts"], e["ts"] + e["dur"]) for e in gpu):
+        if b > end:
+            covered += b - max(a, end)
+            end = b
+    return covered
+
+
 def profile_tree_step(sim, steps: int = 16) -> dict:
     """Device time by kernel over ``steps`` steps of a treecode run, from a
     ``torch.profiler`` trace: each treecode kernel, the resort and the build
@@ -211,21 +221,14 @@ def profile_tree_step(sim, steps: int = 16) -> dict:
         if e.get("cat") == "gpu_user_annotation":
             spans.setdefault(e["name"], []).append((e["ts"], e["ts"] + e["dur"]))
     out = {"wall_ms": wall_us / 1e3}
-    busy = []
     for e in gpu:
-        busy.append((e["ts"], e["ts"] + e["dur"]))
         key = next((v for k, v in _KERNELS.items() if k in e["name"]), None)
         if key is None:
             key = next((label.split(".")[-1] for label, iv in spans.items()
                         if label.startswith("treecode.")
                         and any(a <= e["ts"] < b for a, b in iv)), "other")
         out[key] = out.get(key, 0.0) + e["dur"] / 1e3
-    busy.sort()
-    covered, end = 0.0, float("-inf")
-    for a, b in busy:   # union of the device intervals
-        if b > end:
-            covered += b - max(a, end)
-            end = b
+    covered = _busy_us(gpu)
     out["busy_ms"] = covered / 1e3
     out["idle_share"] = 1.0 - covered / wall_us
     return out

@@ -12,6 +12,7 @@ import json
 import pathlib
 import sys
 
+import numpy as np
 import pytest
 
 from n_body_problem_tpu_torch import bench
@@ -62,6 +63,10 @@ class Stub:
 
         return rec, (probe if solver == "treecode" else None)
 
+    def bench_render(self, n, solver, device=None):
+        self.events.append(("render", n, solver))
+        return 12.5
+
     def bench_config(self, n, solver, steps, warmup=1, probe_error=None, windows=3,
                      chunks=1, **cfg_kw):
         rec, probe = self.time_config(n, solver, steps, warmup, probe_error, windows,
@@ -74,6 +79,7 @@ class Stub:
 def _run_port(monkeypatch, capsys, stub, argv):
     monkeypatch.setattr(bench, "time_config", stub.time_config)
     monkeypatch.setattr(bench, "bench_config", stub.bench_config)
+    monkeypatch.setattr(bench, "bench_render", stub.bench_render)
     rc = bench.main(argv)
     out = capsys.readouterr()
     return rc, [json.loads(line) for line in out.out.splitlines()], out.err
@@ -82,7 +88,7 @@ def _run_port(monkeypatch, capsys, stub, argv):
 def _run_jax(monkeypatch, capsys, stub, argv):
     monkeypatch.setattr(jax_bench, "time_config", stub.time_config)
     monkeypatch.setattr(jax_bench, "bench_config", stub.bench_config)
-    monkeypatch.setattr(jax_bench, "bench_render", lambda n, solver: 12.5)
+    monkeypatch.setattr(jax_bench, "bench_render", stub.bench_render)
     monkeypatch.setattr(sys, "argv", ["bench.py", *argv])
     jax_bench.main()
     return [json.loads(line) for line in capsys.readouterr().out.splitlines()]
@@ -100,6 +106,10 @@ def test_protocol_matches_jax_line_for_line(monkeypatch, capsys, full):
     timed = [e for e in port.events if e[0] == "time"]
     legs = 12 if full else 4
     assert len(timed) == legs + (2 if full else 0)
+    # the step+render leg last, at 65,536 on the exact symmetric solver
+    assert [e for e in port.events if e[0] == "render"] == (
+        [("render", 65536, "pallas_symmetric")] if full else [])
+    assert port.events[-1][0] == ("render" if full else "probe")
     assert [e[1] for e in timed[:4]] == [524288, 1048576, 20480, 65536]
     # every treecode timing before any probe, the probes cheapest first
     probes = [e[1] for e in port.events if e[0] == "probe"]
@@ -112,12 +122,12 @@ def test_protocol_matches_jax_line_for_line(monkeypatch, capsys, full):
     for i, (ours, theirs) in enumerate(zip(lines, jax_lines)):
         assert ours.pop("backend") == "cpu" and ours.pop("device") == "cpu", i
         theirs.pop("backend")
-        if full and i == len(lines) - 1:
-            assert theirs.pop("ms_per_step_with_render_65k") == 12.5
         assert list(ours) == list(theirs), i
         assert ours == theirs, i
     assert lines[-1]["legs_done"] == legs and lines[0]["legs_done"] == 1
-    assert ("rendering is not ported" in err) == full
+    assert ("ms_per_step_with_render_65k" in lines[-1]) == full
+    assert all("ms_per_step_with_render_65k" not in line for line in lines[:-1])
+    assert "failed" not in err
 
 
 def test_failed_leg_flushes_the_others_and_fails_the_run(monkeypatch, capsys):
@@ -254,3 +264,10 @@ def test_single_config_mode_prints_one_line(capsys):
     assert rec["metric"] == "pairwise interactions/sec/chip (direct, N=256)"
     assert rec["vs_baseline"] == pytest.approx(rec["pairs_per_sec"] / bench.BASELINE)
     assert bench.BASELINE == jax_bench.BASELINE
+
+
+def test_bench_render_times_a_movie_step():
+    """The step+render leg itself on the CPU at a small N: a warm and a
+    timed 10-step movie at 1024x1024; its ms/step is finite."""
+    ms = bench.bench_render(256, "direct", device="cpu")
+    assert np.isfinite(ms) and ms > 0

@@ -38,12 +38,74 @@ def test_resume_continues_steps(tmp_path):
 
 
 def test_unported_flags_name_the_roadmap(tmp_path, capsys):
-    for extra in (["--render-every", "10"], ["--devices", "2"],
-                  ["--gif"], ["--serve", "8000"]):
-        rc = main(["run", "--model", "plummer", "--n", "64", "--steps", "1",
-                   "--out", str(tmp_path), *extra])
-        assert rc == 2, extra
-        assert "ROADMAP" in capsys.readouterr().err, extra
+    rc = main(["run", "--model", "plummer", "--n", "64", "--steps", "1",
+               "--out", str(tmp_path), "--devices", "2"])
+    assert rc == 2
+    assert "ROADMAP §1 item 9" in capsys.readouterr().err
+    assert not (tmp_path / "final.npz").exists()
+
+
+def test_run_render_every_writes_frames_and_gif(tmp_path, capsys):
+    """``--render-every 2 --gif`` on the CPU: a frame after every block that
+    crosses the interval (steps 2, 4, 6), then movie.gif of them."""
+    pytest.importorskip("PIL")
+    from PIL import Image
+
+    rc = main(["run", "--model", "plummer", "--n", "128", "--steps", "6", "--solver",
+               "direct", "--render-every", "2", "--gif", "--width", "48", "--height", "32",
+               "--device", "cpu", "--out", str(tmp_path)])
+    assert rc == 0
+    assert "assembled movie.gif (3 frames)" in capsys.readouterr().err
+    names = sorted(p.name for p in (tmp_path / "frames").glob("*.png"))
+    assert names == [f"frame_{i:06d}.png" for i in range(3)]
+    with Image.open(tmp_path / "frames" / names[0]) as im:
+        assert im.size == (48, 32)
+    with Image.open(tmp_path / "movie.gif") as gif:
+        assert gif.n_frames == 3 and gif.size == (48, 32)
+    state, _ = jax_load(tmp_path / "final.npz")
+    assert int(state.step) == 6
+
+
+def test_run_gif_without_pillow_is_an_error(tmp_path, capsys, monkeypatch):
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    rc = main(["run", "--model", "plummer", "--n", "64", "--steps", "2", "--solver",
+               "direct", "--render-every", "2", "--gif", "--width", "16", "--height",
+               "16", "--device", "cpu", "--out", str(tmp_path)])
+    assert rc == 2 and "Pillow" in capsys.readouterr().err
+    assert (tmp_path / "frames" / "frame_000000.png").exists()
+
+
+def test_render_reads_a_jax_checkpoint(tmp_path):
+    """``render`` on a checkpoint the JAX CLI wrote gives the JAX CLI's PNG
+    within 1 in 255 a channel (the frames are float32 sums in another
+    order, so a value on a rounding edge may land one step apart)."""
+    from n_body_problem_tpu.cli import main as jax_main
+    from PIL import Image
+
+    assert jax_main(["run", "--model", "disk_galaxy", "--n", "300", "--steps", "2",
+                     "--solver", "direct", "--out", str(tmp_path / "run")]) == 0
+    ck = str(tmp_path / "run" / "final.npz")
+    flags = ["--width", "96", "--height", "64", "--scales", "2", "2", "2",
+             "--exposure", "1.5", "--cam-theta", "30", "--cam-phi", "25", "--cam-zoom", "2.5"]
+    assert jax_main(["render", ck, str(tmp_path / "jax.png"), *flags]) == 0
+    assert main(["render", ck, str(tmp_path / "port.png"), *flags, "--device", "cpu"]) == 0
+    with Image.open(tmp_path / "jax.png") as a, Image.open(tmp_path / "port.png") as b:
+        want, got = np.asarray(a).astype(int), np.asarray(b).astype(int)
+    assert got.shape == want.shape == (64, 96, 3)
+    assert want.max() > 0
+    assert np.abs(got - want).max() <= 1
+
+
+def test_render_defaults_to_the_card(tmp_path, capsys, monkeypatch):
+    import torch
+
+    from n_body_problem_tpu_torch.cli import build_parser
+
+    args = build_parser().parse_args(["render", "a.npz", "b.png"])
+    assert (args.device, args.width, args.height, args.cam_phi) == ("cuda", 1024, 768, 20.0)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert main(["render", str(tmp_path / "a.npz"), str(tmp_path / "b.png")]) == 2
+    assert 'device="cpu"' in capsys.readouterr().err
 
 
 def test_run_without_a_gpu_names_the_cpu_device(tmp_path, capsys, monkeypatch):
@@ -175,7 +237,8 @@ def test_import_leaves_jax_out():
     """In a fresh process (this one has JAX loaded by tests/conftest.py)."""
     code = ("import sys, n_body_problem_tpu_torch, n_body_problem_tpu_torch.cli, "
             "n_body_problem_tpu_torch.bench, n_body_problem_tpu_torch.validate, "
-            "n_body_problem_tpu_torch.io, n_body_problem_tpu_torch.utils.profiling; "
+            "n_body_problem_tpu_torch.io, n_body_problem_tpu_torch.utils.profiling, "
+            "n_body_problem_tpu_torch.render.server; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'n_body_problem_tpu.'))"
             " or m in ('n_body_problem_tpu', 'bench', 'validate')]; print(bad); "
             "sys.exit(1 if bad else 0)")

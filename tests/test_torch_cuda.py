@@ -742,3 +742,31 @@ def test_near_panel_kernel_at_ragged_shapes(cuda, tile, width):
     assert torch.equal(got, again)
     if width == 0:
         assert not got.any()
+
+
+@pytest.mark.parametrize("width,height", [(1024, 1024), (640, 480)])
+def test_splat_on_card_matches_cpu(cuda, width, height):
+    """The card's frame (its depthwise sprite convolution, TF32 off) against
+    the CPU's within rtol 1e-5 and atol 1e-5 x the frame's maximum; two
+    card frames bitwise equal (the accumulation sorts its indices); no host
+    sync when the camera and scales come as tensors on the card."""
+    from n_body_problem_tpu_torch.render import OrbitCamera, splat_frame
+
+    s = tnb.models.plummer(65536, seed=0)
+    cam = OrbitCamera(distance=2.0, aspect=width / height)
+    vp, sc = cam.view_projection(), torch.zeros(3)
+    kw = dict(width=width, height=height)
+    cpu = splat_frame(s.pos, s.mass, s.real_mask(), vp, sc, **kw)
+    c = s.to(cuda)
+    args = (c.pos, c.mass, c.real_mask(), torch.as_tensor(vp, device=cuda), sc.to(cuda))
+    splat_frame(*args, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        card = splat_frame(*args, **kw)
+        again = splat_frame(*args, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert card.device.type == "cuda" and card.shape == (height, width, 3)
+    torch.testing.assert_close(card.cpu(), cpu, rtol=1e-5, atol=1e-5 * float(cpu.max()))
+    assert torch.equal(card, again)

@@ -179,13 +179,19 @@ def test_energy_drift_plummer(integrator, tol):
     assert abs((e1 - e0) / e0) < tol
 
 
-def test_trajectory_and_movie_not_ported():
+def test_trajectory_and_movie_run():
+    """Both run on the CPU and continue the state; the JAX comparison is
+    tests/test_torch_movie.py."""
+    from n_body_problem_tpu_torch.render import OrbitCamera
+
     sim = tnb.Simulation(tnb.SimConfig(solver="direct"), tnb.models.plummer(16, seed=0),
                          device="cpu")
-    with pytest.raises(NotImplementedError):
-        sim.trajectory(4)
-    with pytest.raises(NotImplementedError):
-        sim.movie(4, 2, None)
+    hist = sim.trajectory(4)
+    assert hist.shape == (4, 16, 3) and int(sim.state.step) == 4
+    torch.testing.assert_close(hist[-1], sim.state.pos, rtol=0, atol=0)
+    frames = sim.movie(4, 2, OrbitCamera(distance=2.0), width=32, height=24)
+    assert frames.shape == (2, 24, 32, 3) and int(sim.state.step) == 8
+    assert bool(frames.isfinite().all()) and float(frames.max()) > 0
 
 
 def test_pairs_per_step_counts_real_bodies():
