@@ -107,6 +107,30 @@ is non-zero:
     --render-every 50`` writes 4 PNGs, ``render`` a PNG of its
     ``final.npz``; ``--gif`` and ``--serve`` where Pillow is installed.
     Every phase-10 launch counts toward the kernels' record.
+11. multi-GPU: (a) an NCCL world of min(GPUs, 4) ranks (``parallel.spawn_ring``;
+    one rank on a one-GPU machine) runs ``ShardedSimulation`` at the sizes of
+    BASELINE.json configs 4 and 5: ``ring`` and ``half_ring`` at 262,144 with
+    leapfrog (1 step compared, 4 timed), ``treecode`` at 1,048,576
+    (hierarchical), 65,536 with ``tree_hier=False`` (flat) and 20,480 with
+    ``tree_flat_cap=-1`` (dense), 8 steps compared and 8 timed; each against
+    the single-device ``Simulation`` of the same state on the same card
+    (exact: rtol 1e-5, atol 1e-6 after one step; treecode: rtol 5e-4, atol
+    5e-5 through ``sort_perm``), whether bitwise equal, finite, overspeed 0,
+    ms/step beside the single device's, peak memory, and exactly the kernels
+    of its path a step (``sharded_launches_a_step``); these launches count
+    toward the kernels' record. (b) D = 4 on one card, rank by rank, through
+    the per-rank functions (``ring.ring_acc_ranks``,
+    ``tree.treecode_acc_ranks``): ring and half ring at 262,144, hierarchical
+    at 524,288, flat at 65,536, dense at 20,480, against the single-device
+    force on the same positions (the all-pairs kernel; the treecode on the
+    ranks' merged lists) within rtol 1e-4, atol 2e-6; every kernel call they
+    made (local rows, global sources) again against its plain twin and for
+    bitwise repeatability; kernel 7's local form timed at 524,288 / 4 beside
+    the single-device call (``at_524288_rank_of_4`` in its record); kernel 7
+    with one array as targets and sources bitwise its output before the two
+    were split (``kernel_compare.NEAR_GOLDEN_SHA256``). (c) ``run --devices
+    2`` on ``cuda``: exit 2 with ``make_ring_mesh``'s message on one GPU,
+    ``final.npz`` with two or more. (b)'s launches are not counted.
 
 The last three lines of standard output are the kernels' JSON record, the
 card's name and power limit, and ``{"ok": true, "device": {...}}``. The
@@ -1382,6 +1406,393 @@ def drive_render(device, exact_ms: float) -> dict:
     return launched
 
 
+# ------------------------------------------------------------ 11. multi-GPU
+# (label, N, strategy, SimConfig overrides, steps): BASELINE.json configs 4
+# and 5 (262,144 exact over a ring, 1,048,576 treecode) and the flat and
+# dense treecode paths.
+MULTI_RUNS = (
+    ("ring 262,144", 262144, "ring", dict(integrator="leapfrog"), 4),
+    ("half_ring 262,144", 262144, "half_ring", dict(integrator="leapfrog"), 4),
+    ("treecode 1,048,576", 1048576, "treecode", {}, 8),
+    ("treecode 65,536 flat", 65536, "treecode", dict(tree_hier=False), 8),
+    ("treecode 20,480 dense", 20480, "treecode", dict(tree_flat_cap=-1), 8),
+)
+MULTI_EXACT_TOL = dict(rtol=1e-5, atol=1e-6)   # tests/test_parallel.py, one step
+MULTI_TREE_TOL = dict(rtol=5e-4, atol=5e-5)    # tests/test_parallel.py:270-273
+RANKS = 4   # the rank-by-rank check's ring
+
+
+def sharded_launches_a_step(cfg, n: int, strategy: str, size: int) -> dict:
+    """Kernel launches rank 0 makes a sharded step: the exact ring's
+    ``block_acc`` calls (``size`` a force; the half ring one for its own
+    block and two a stage it computes, rank 0 computing every stage), each
+    one launch or two where ``allpairs_split`` cuts the columns; the
+    treecode paths' kernels as one device's, the dense path's single-level
+    far field on every step (the sharded force always calls it)."""
+    from n_body_problem_tpu_torch.ops import treecode
+    from n_body_problem_tpu_torch.ops.cuda_force import allpairs_split
+    from n_body_problem_tpu_torch.parallel import tree as ptree
+
+    want = dict.fromkeys(("allpairs",) + TREE_KERNELS, 0)
+    if strategy != "treecode":
+        b = n // size
+        calls = size if strategy == "ring" else 1 + 2 * (size // 2)
+        want["allpairs"] = calls * (2 if allpairs_split(b, b)[2] > 1 else 1)
+        return want
+    path = ptree.sharded_path(cfg)
+    if path == "dense":
+        vip = ptree._dense_static(cfg, n)[0]
+        want.update(gather=1, near_panel=1, far_single=1)
+    else:
+        vip = treecode._flat_src_static(n, cfg.tree_tile, cfg.tree_src_tile,
+                                        cfg.tree_max_near, cfg.tree_vip_tiles)[3]
+        want.update({"near": 1, "far" if path == "hier" else "far_single": 1})
+    want["vip"] = 2 if vip else 0
+    return want
+
+
+def multi_gpu_rank(mesh, runs) -> list[dict]:
+    """Phase 11 (a) on one rank of the NCCL world: each run of ``runs``
+    through ``ShardedSimulation``, then on rank 0 the single-device
+    ``Simulation`` of the same state on the same card. Returns rank 0's
+    records."""
+    import numpy as np
+    import torch
+
+    from n_body_problem_tpu_torch import SimConfig, Simulation, models
+    from n_body_problem_tpu_torch import diagnostics as diag
+    from n_body_problem_tpu_torch.parallel import ShardedSimulation
+
+    wrappers = counters()
+    dev, out = mesh.device, []
+    for label, n, strategy, overrides, steps in runs:
+        exact = strategy != "treecode"
+        cfg = SimConfig(solver="pallas" if exact else "treecode", **overrides)
+        state = models.plummer(n, seed=0)
+        for w in wrappers.values():
+            w.launches = 0
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        sim = ShardedSimulation(cfg, state, mesh, strategy=strategy)
+        first = 1 if exact else steps      # compared, then ``steps`` timed
+        sim.run(first)
+        after_first = sim.gather_state()
+        perm_first = None if exact else np.asarray(sim.sort_perm).copy()
+        start = {k: w.launches for k, w in wrappers.items()}
+        wall0 = sim.wall_seconds
+        sim.run(steps)
+        ms = (sim.wall_seconds - wall0) / steps * 1e3
+        rec = {"label": label, "n": n, "strategy": strategy, "devices": mesh.size,
+               "ms_per_step": ms, "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+               "launched": {k: w.launches for k, w in wrappers.items()},
+               "timed": {k: w.launches - start[k] for k, w in wrappers.items()},
+               "want": sharded_launches_a_step(sim.cfg, sim.n, strategy, mesh.size),
+               "steps": steps, "cfg": sim.cfg.to_dict()}
+        final = sim.gather_state()
+        del sim
+        if mesh.rank == 0:
+            rec["finite"] = bool(torch.isfinite(final.pos).all())
+            rec["overspeed"] = int(diag.overspeed_count(final))
+            del final
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            ref = Simulation(cfg, state, device=dev)
+            ref.run(first)
+            k = n
+            got, want = after_first.pos[:k], ref.state.pos[:k]
+            if exact:
+                rec["bitwise"] = bool(torch.equal(got, want)
+                                      and torch.equal(after_first.vel[:k], ref.state.vel[:k]))
+                rec["ok"] = bool(torch.allclose(got, want, **MULTI_EXACT_TOL)
+                                 and torch.allclose(after_first.vel[:k], ref.state.vel[:k],
+                                                    **MULTI_EXACT_TOL))
+            else:
+                inv_a = torch.as_tensor(np.argsort(perm_first), device=dev)
+                inv_b = torch.as_tensor(np.argsort(np.asarray(ref.sort_perm)), device=dev)
+                got, want = got[inv_a], want[inv_b]
+                rec["bitwise"] = bool(torch.equal(got, want))
+                rec["ok"] = bool(torch.allclose(got, want, **MULTI_TREE_TOL))
+            rec["max_abs_diff"] = float((got - want).abs().max())
+            wall0 = ref.wall_seconds
+            ref.run(steps)
+            rec["single_ms_per_step"] = (ref.wall_seconds - wall0) / steps * 1e3
+            rec["single_peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+            del ref
+        del after_first
+        torch.cuda.empty_cache()
+        out.append(rec)
+    return out
+
+
+def nccl_world(runs=MULTI_RUNS, device_type: str = "cuda", size: int | None = None) -> dict:
+    """Phase 11 (a): a real NCCL world of min(GPUs, 4) ranks, spawned by
+    ``parallel.spawn_ring``; each run checked against the single-device
+    run; rank 0's launches, by kernel, returned for the kernels' record."""
+    import torch
+
+    from n_body_problem_tpu_torch.parallel import spawn_ring
+
+    size = size or min(torch.cuda.device_count(), 4)
+    print(f"multi-GPU: an NCCL world of {size} rank(s) on {torch.cuda.device_count()} "
+          f"GPU(s)", flush=True)
+    t0 = time.perf_counter()
+    records = spawn_ring(multi_gpu_rank, size, device_type=device_type, args=(runs,))
+    launched: dict = {}
+    for rec in records:
+        keys = set(rec["want"]) | set(rec["timed"])
+        want = {k: rec["want"].get(k, 0) * rec["steps"] for k in keys}
+        timed = {k: rec["timed"].get(k, 0) for k in keys}
+        check(timed == want, f"{rec['label']}: timed steps launched {timed}, expected {want}")
+        check(rec["ok"], f"{rec['label']}: sharded vs single-device max |diff| "
+                         f"{rec['max_abs_diff']:.3e} outside tolerance")
+        check(rec["finite"] and rec["overspeed"] == 0,
+              f"{rec['label']}: finite {rec['finite']}, overspeed {rec['overspeed']}")
+        for k, v in rec["launched"].items():
+            launched[k] = launched.get(k, 0) + v
+        print(f"multi-GPU [{rec['label']}]: D={rec['devices']} {rec['strategy']} "
+              f"{rec['ms_per_step']:.4f} ms/step vs single-device "
+              f"{rec['single_ms_per_step']:.4f}; peak {rec['peak_gib']:.3f} GiB vs "
+              f"{rec['single_peak_gib']:.3f}; max |diff| {rec['max_abs_diff']:.3e} after "
+              f"{1 if rec['strategy'] != 'treecode' else rec['steps']} step(s), bitwise "
+              f"{rec['bitwise']}; launches a step {dict((k, v) for k, v in rec['want'].items() if v)}; "
+              f"overspeed 0", flush=True)
+    print(f"multi-GPU: NCCL world in {time.perf_counter() - t0:.1f} s", flush=True)
+    return {"launched": launched, "records": records}
+
+
+class _Recorded:
+    """The kernel wrappers replaced, for the duration, by recorders that
+    keep each call's arguments and then call the wrapper."""
+
+    NAMES = (("cuda_treecode", "near_field"), ("cuda_treecode", "far_field_hier"),
+             ("cuda_treecode", "far_field_single"), ("cuda_treecode", "gather_panels"),
+             ("cuda_treecode", "near_panel"), ("cuda_treecode", "vip_both"),
+             ("cuda_force", "block_acc"))
+
+    def __enter__(self):
+        from n_body_problem_tpu_torch.ops import cuda_force, cuda_treecode
+
+        mods = {"cuda_treecode": cuda_treecode, "cuda_force": cuda_force}
+        self.calls, self.saved = [], []
+        for mod_name, name in self.NAMES:
+            mod = mods[mod_name]
+            orig = getattr(mod, name)
+
+            def recorder(*args, _orig=orig, _name=name, **kw):
+                self.calls.append((_name, args, kw))
+                return _orig(*args, **kw)
+
+            recorder.launches = orig.launches
+            self.saved.append((mod, name, orig))
+            setattr(mod, name, recorder)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, orig in self.saved:
+            setattr(mod, name, orig)
+
+
+def _plain_of(name: str):
+    from n_body_problem_tpu_torch.ops import cuda_force, cuda_treecode
+
+    if name == "block_acc":
+        return lambda *a, tile_i=1, tile_j=1, **kw: cuda_force.block_acc_plain(*a, **kw)
+    return getattr(cuda_treecode, f"{name}_plain")
+
+
+def replay_against_plain(calls, res: dict, label: str) -> int:
+    """Each recorded call (each distinct shape once for ``block_acc``)
+    again through its kernel, twice, and through its plain twin: within
+    rtol=1e-4, atol=2e-6 and bitwise repeatable. Returns the calls checked."""
+    import torch
+
+    from n_body_problem_tpu_torch.ops import cuda_force, cuda_treecode
+
+    seen, checked = set(), 0
+    for name, args, kw in calls:
+        shape = (name, tuple(tuple(a.shape) for a in args if hasattr(a, "shape")))
+        if name == "block_acc" and shape in seen:
+            continue
+        seen.add(shape)
+        kernel = getattr(cuda_force if name == "block_acc" else cuda_treecode, name)
+        got, again, want = kernel(*args, **kw), kernel(*args, **kw), _plain_of(name)(*args, **kw)
+        got, again, want = ((x,) if name != "vip_both" else x for x in (got, again, want))
+        key = {"block_acc": "allpairs", "near_field": "near", "far_field_hier": "far",
+               "far_field_single": "far_single", "gather_panels": "gather",
+               "vip_both": "vip", "near_panel": "near_panel"}[name]
+        for g, a, w in zip(got, again, want):
+            if name == "gather_panels":
+                check(torch.equal(g, w), f"{label}: gather kernel != plain copy")
+            else:
+                agree(res, key, f"{label} {name} {shape[1]}", g, w)
+            check(torch.equal(g, a), f"{label}: {name} launches differ bitwise")
+        checked += 1
+    return checked
+
+
+RANK_TREES = (("hier 524,288", 524288, {}), ("flat 65,536", 65536, dict(tree_hier=False)),
+              ("dense 20,480", 20480, dict(tree_flat_cap=-1)))
+
+
+def ranks_on_one_card(device, res: dict, n_ring: int = N_LARGE, trees=RANK_TREES) -> dict:
+    """Phase 11 (b): the D = 4 forces rank by rank on one card through the
+    per-rank functions (``ring.ring_acc_ranks``, ``tree.treecode_acc_ranks``:
+    the visiting tiles sliced, the VIP reactions added over the ranks),
+    against the single-device force on the same positions (the all-pairs
+    kernel; the treecode on the ranks' merged lists), within rtol=1e-4,
+    atol=2e-6; every kernel call they made against its plain twin at its
+    shape, and repeated for bitwise equality; the near kernel's local form
+    timed at 524,288 / 4 beside the single-device call on the merged lists."""
+    import torch
+
+    from n_body_problem_tpu_torch import SimConfig, models
+    from n_body_problem_tpu_torch.ops import cuda_force, cuda_treecode as ct, treecode as tc
+    from n_body_problem_tpu_torch.parallel import tree as ptree
+    from n_body_problem_tpu_torch.parallel.ring import ring_acc_ranks
+    from n_body_problem_tpu_torch.parallel.sharded import plan_treecode
+    from n_body_problem_tpu_torch.treecode_profile import time_ms
+
+    phys = dict(eps2=PHYS["eps2"], compensate=PHYS["compensate"], G=PHYS["G"])
+    s = models.plummer(n_ring, seed=0).to(device)
+    single = cuda_force.allpairs_acc(s.pos, s.mass, **phys)
+    for strategy, blocks in (("ring", 16), ("half_ring", 10)):
+        with _Recorded() as rec:
+            got = ring_acc_ranks(s.pos, s.mass, RANKS, strategy=strategy, **phys)
+        calls = sum(1 for name, *_ in rec.calls if name == "block_acc")
+        check(calls == (16 if strategy == "ring" else 4 + 2 * 6),
+              f"ranks {strategy}: {calls} block_acc calls")
+        err = float((got - single).abs().max())
+        check(torch.allclose(got, single, **TOL),
+              f"ranks {strategy}: max |ranks - single device| {err:.3e} outside rtol=1e-4, "
+              "atol=2e-6")
+        n_checked = replay_against_plain(rec.calls, res, f"ranks {strategy}")
+        print(f"multi-GPU ranks: {strategy} D={RANKS} at {n_ring} ({blocks} blocks of "
+              f"{n_ring // RANKS} rows, {calls} block_acc calls): max |ranks - single| "
+              f"{err:.3e}; {n_checked} shape(s) vs plain, bitwise-repeatable", flush=True)
+    del s, single
+    local_near = {}
+    for label, n, overrides in trees:
+        cfg, st, _ = plan_treecode(SimConfig(solver="treecode", **overrides),
+                                   models.plummer(n, seed=0).to(device), RANKS, device.type)
+        path = ptree.sharded_path(cfg)
+        with _Recorded() as rec:
+            acc, lists = ptree.treecode_acc_ranks(cfg, st.pos, st.mass, RANKS)
+        entries = tc.CHUNK_LANES // cfg.tree_src_tile
+        merged = ptree.merge_rank_lists(path, lists, st.n // RANKS // cfg.tree_tile, entries)
+        kw = dict(eps2=cfg.eps2, compensate=cfg.compensate, G=cfg.G, tile=cfg.tree_tile,
+                  theta=cfg.tree_theta, vip_tiles=cfg.tree_vip_tiles)
+        if path == "dense":
+            want = tc.treecode_acc(st.pos, st.mass, merged, max_near=merged[0].shape[1], **kw)
+        elif path == "flat":
+            want = tc.treecode_acc_flat(st.pos, st.mass, merged, src_tile=cfg.tree_src_tile,
+                                        max_near=cfg.tree_max_near, **kw)
+        else:
+            want = tc.treecode_acc_hier(st.pos, st.mass, merged, src_tile=cfg.tree_src_tile,
+                                        max_near=cfg.tree_max_near, far_max=cfg.tree_far_max,
+                                        **kw)
+        torch.cuda.synchronize(device)
+        err = float((acc - want).abs().max())
+        check(torch.allclose(acc, want, **TOL),
+              f"ranks {label}: max |ranks - single device| {err:.3e} outside rtol=1e-4, "
+              "atol=2e-6")
+        n_checked = replay_against_plain(rec.calls, res, f"ranks {label}")
+        names = sorted({name for name, *_ in rec.calls})
+        print(f"multi-GPU ranks: {label} path={path} D={RANKS}: max |ranks - single| "
+              f"{err:.3e} (bitwise {bool(torch.equal(acc, want))}); kernels {names}, "
+              f"{n_checked} calls vs plain, bitwise-repeatable", flush=True)
+        if path == "hier":
+            near = [(a, k) for name, a, k in rec.calls if name == "near_field"]
+            args, kw0 = near[0]
+            rank_ms = [time_ms(lambda a=a, k=k: ct.near_field(*a, **k), 20) for a, k in near]
+            b = tc.kernel_operands(st.pos, st.mass, merged[-1], compensate=cfg.compensate,
+                                   G=cfg.G, src_tile=cfg.tree_src_tile,
+                                   vip_src=tc._flat_src_static(st.n, cfg.tree_tile,
+                                                               cfg.tree_src_tile,
+                                                               cfg.tree_max_near,
+                                                               cfg.tree_vip_tiles)[3],
+                                   plan=None)["bodies"]
+            one = ((b, b, merged[0], merged[1]), dict(kw0, n=st.n))
+            check(torch.equal(ct.near_field(*one[0], **one[1]),
+                              torch.cat([ct.near_field(*a, **k) for a, k in near])),
+                  "near local form: the ranks' rows != the single-device call's, bitwise")
+            local_near = {"ms": rank_ms[0], "ranks_ms": rank_ms,
+                          "single_device_ms": time_ms(lambda: ct.near_field(*one[0],
+                                                                           **one[1]), 20),
+                          **tree_work("near", args, kw0)}
+            print(f"multi-GPU ranks: near local form at {n} / {RANKS}: rank 0 "
+                  f"{rank_ms[0]:.4f} ms (ranks {', '.join(f'{m:.4f}' for m in rank_ms)}; "
+                  f"sum {sum(rank_ms):.4f}) vs the single-device call on the merged lists "
+                  f"{local_near['single_device_ms']:.4f} ms, bitwise equal row for row; "
+                  f"bound {local_near['bound_ms']:.4f} ms ({local_near['bound_by']})",
+                  flush=True)
+        del st, acc, want, rec, lists, merged
+        torch.cuda.empty_cache()
+    return local_near
+
+
+def near_golden(device) -> bool:
+    """Kernel 7 at D = 1 (one ``bodies`` as targets and sources) on the
+    golden inputs: its output digest against the one the kernel gave
+    before it took targets and sources apart."""
+    import hashlib
+
+    import torch
+
+    from n_body_problem_tpu_torch.kernel_compare import NEAR_GOLDEN_SHA256, near_golden_case
+    from n_body_problem_tpu_torch.ops import cuda_treecode as ct
+
+    args, kw = near_golden_case(device)
+    out = ct.near_field(*args, **kw)
+    torch.cuda.synchronize(device)
+    digest = hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest()
+    same = digest == NEAR_GOLDEN_SHA256
+    check(same, f"near kernel at D = 1: output sha256 {digest} != {NEAR_GOLDEN_SHA256} "
+                "(the kernel's before targets and sources were split)")
+    print(f"multi-GPU: near kernel at D = 1 on the golden inputs: sha256 {digest[:16]}..., "
+          "bitwise the kernel's output before the split", flush=True)
+    return same
+
+
+def devices_cli(device) -> None:
+    """Phase 11 (c): ``run --devices 2`` on ``cuda``: with one GPU it exits 2
+    with ``make_ring_mesh``'s message; with two or more it writes
+    ``final.npz``."""
+    import torch
+
+    out = ROOT / "out" / "chip_smoke_devices"
+    shutil.rmtree(out, ignore_errors=True)
+    proc = subprocess.run(
+        [sys.executable, "-m", "n_body_problem_tpu_torch", "run", "--model", "plummer",
+         "--n", "4096", "--steps", "4", "--devices", "2", "--strategy", "half_ring",
+         "--out", str(out)], cwd=ROOT, capture_output=True, text=True, timeout=600)
+    if torch.cuda.device_count() < 2:
+        want = f"requested 2 devices, have {torch.cuda.device_count()}"
+        check(proc.returncode == 2 and want in proc.stderr,
+              f"run --devices 2 on one GPU: rc {proc.returncode}, stderr {proc.stderr[-500:]}")
+        print(f"multi-GPU: run --devices 2 on {torch.cuda.device_count()} GPU exits 2: "
+              f"{proc.stderr.strip().splitlines()[-1]}", flush=True)
+    else:
+        check(proc.returncode == 0 and (out / "final.npz").is_file(),
+              f"run --devices 2: rc {proc.returncode}, stderr {proc.stderr[-500:]}")
+        print("multi-GPU: run --devices 2 wrote final.npz", flush=True)
+
+
+def drive_multi_gpu(device, res: dict) -> dict:
+    """Phase 11: (a) the NCCL world, (b) the D = 4 ranks on one card, (c)
+    the CLI, and kernel 7 at D = 1 against its earlier output. Returns the
+    launches of (a) by kernel; (b)'s and the comparisons' are not counted."""
+    t0 = time.perf_counter()
+    world = nccl_world()
+    saved = {k: w.launches for k, w in counters().items()}
+    near_golden(device)
+    res["near"]["at_524288_rank_of_4"] = ranks_on_one_card(device, res)
+    devices_cli(device)
+    for k, w in counters().items():
+        w.launches = saved[k]
+    print(f"multi-GPU: phase 11 in {time.perf_counter() - t0:.1f} s", flush=True)
+    return world["launched"]
+
+
 def main() -> int:
     import torch
 
@@ -1444,6 +1855,8 @@ def main() -> int:
     rendered = drive_render(device, main_ms["default"])
     for key, w in wrappers.items():
         launches[key] = launches.get(key, 0) + w.launches + rendered.get(key, 0)
+    for key, count in drive_multi_gpu(device, res).items():
+        launches[key] = launches.get(key, 0) + count
 
     records = (
         ("allpairs", "allpairs_acc_kernel", "allpairs.cu", "pallas_force.py:41"),

@@ -16,7 +16,10 @@ the bench harness (``bench``), the physics validation (``validate``),
 profiler traces (``utils.profiling``), the splat renderer with
 ``Simulation.movie``/``trajectory``, the frame writer and the live viewer
 (``render``), and the ``run``/``info``/``convert``/``render``/``bench``
-CLI. Entry points run on ``cuda`` unless asked for the CPU.
+CLI; and on several devices, the exact ring, the half ring and the sharded
+treecode (``parallel``: ``ShardedSimulation`` on ``torch.distributed``, the
+CLI's ``--devices``/``--strategy``). Entry points run on ``cuda`` unless
+asked for the CPU.
 
 Public API::
 
@@ -46,6 +49,7 @@ from n_body_problem_tpu_torch.simulation import Simulation, make_step_fn, run_st
 from n_body_problem_tpu_torch import diagnostics
 from n_body_problem_tpu_torch import models
 from n_body_problem_tpu_torch import ops
+from n_body_problem_tpu_torch import parallel
 from n_body_problem_tpu_torch import render
 
 __version__ = "0.1.0"
@@ -64,5 +68,6 @@ __all__ = [
     "diagnostics",
     "models",
     "ops",
+    "parallel",
     "render",
 ]

@@ -1,6 +1,6 @@
 """Command-line interface.
 
-Counterpart of ``n_body_problem_tpu.cli`` on one device:
+Counterpart of ``n_body_problem_tpu.cli``:
 
     python -m n_body_problem_tpu_torch run --steps 1000   # dataset 1
     python -m n_body_problem_tpu_torch run --dataset 0 --data-dir data \
@@ -8,6 +8,8 @@ Counterpart of ``n_body_problem_tpu.cli`` on one device:
     python -m n_body_problem_tpu_torch run --dataset 0 --data-dir data \
         --solver treecode --tree-tuned --steps 100 --export-snap --profile
     python -m n_body_problem_tpu_torch run --model plummer --n 65536 --serve 8000
+    python -m n_body_problem_tpu_torch run --model plummer --n 262144 --devices 4 \
+        --strategy half_ring --steps 100
     python -m n_body_problem_tpu_torch info
     python -m n_body_problem_tpu_torch convert data/galaxy_20K.bin out.csv
     python -m n_body_problem_tpu_torch render out/final.npz frame.png
@@ -22,8 +24,12 @@ block unless ``--render-every`` says otherwise); diagnostics, checkpoints,
 the snap export and the profiler's trace land in ``--out``. With no
 ``--model`` or ``--resume`` it loads ``--dataset`` (default 1, as the
 reference), whose procedural fallback runs when the file is absent.
-``--gif`` and ``--serve`` need Pillow. ``--devices > 1`` is accepted and
-rejected with the ROADMAP item that will bring it.
+``--gif`` and ``--serve`` need Pillow. ``--devices D > 1`` shards the
+bodies over D ranks, one process each (``parallel.spawn_ring``), with the
+``--strategy`` of ``ShardedSimulation``: NCCL on ``cuda``, where D is at
+most the number of GPUs, and gloo with ``--device cpu``. Rank 0 alone
+prints and writes; every output is of the state gathered from all ranks.
+``--strategy treecode_staged`` is not ported yet.
 """
 
 from __future__ import annotations
@@ -80,9 +86,10 @@ def _build_config(args, base=None):
 
 
 def _reject_unported(args) -> None:
-    if args.devices > 1:
+    if args.devices > 1 and args.strategy == "treecode_staged":
         raise NotImplementedError(
-            "--devices > 1 is not ported yet: ROADMAP §1 item 9 (multi-GPU)")
+            "--strategy treecode_staged is not ported yet: ROADMAP §1 item 9c "
+            "(the staged strategy)")
 
 
 def _load_initial_state(args):
@@ -110,17 +117,36 @@ def _load_initial_state(args):
 
 
 def cmd_run(args) -> int:
+    from n_body_problem_tpu_torch.simulation import resolve_device
+
+    _reject_unported(args)
+    device = resolve_device(args.device)  # before any data is read
+    if args.devices > 1:
+        from n_body_problem_tpu_torch.parallel import spawn_ring
+
+        return spawn_ring(_run_rank, args.devices, device_type=device.type, args=(args,))
+    return _run(args)
+
+
+def _run_rank(mesh, args) -> int:
+    """``run`` on one rank of a ring (:func:`parallel.spawn_ring`'s target)."""
+    return _run(args, mesh)
+
+
+def _run(args, mesh=None) -> int:
+    """``run`` on one device, or as one rank of ``mesh``: then every rank
+    steps its shard and gathers the whole state at the same steps, and rank
+    0 alone prints, renders and writes."""
     import numpy as np
 
     from n_body_problem_tpu_torch import Simulation
     from n_body_problem_tpu_torch.io.checkpoint import export_snap, save_checkpoint
     from n_body_problem_tpu_torch.render import FrameWriter, OrbitCamera, render_state
-    from n_body_problem_tpu_torch.simulation import resolve_device
     from n_body_problem_tpu_torch.utils.metrics import StepTimer
     from n_body_problem_tpu_torch.utils.profiling import trace
 
-    _reject_unported(args)
-    resolve_device(args.device)  # before any data is read
+    lead = mesh is None or mesh.rank == 0
+    log = (lambda *a: print(*a, file=sys.stderr)) if lead else (lambda *a: None)
     state, scales, cam_dist, ck_cfg = _load_initial_state(args)
     cfg = _build_config(args, base=ck_cfg)
     if args.morton_sort:
@@ -134,17 +160,24 @@ def cmd_run(args) -> int:
         padded = required_padding("treecode", state.n_real, cfg.block_size)
         cfg = cfg.replace(**tuned_tree_overrides(padded))
     out = pathlib.Path(args.out)
-    out.mkdir(parents=True, exist_ok=True)
+    if lead:
+        out.mkdir(parents=True, exist_ok=True)
 
-    sim = Simulation(cfg, state, device=args.device)
-    print(
-        f"n={sim.state.n_real} (padded {sim.state.n})  solver={cfg.solver}  "
-        f"integrator={cfg.integrator}  dt={cfg.dt}", file=sys.stderr,
-    )
+    if mesh is None:
+        sim = Simulation(cfg, state, device=args.device)
+        padded, whole = sim.state.n, lambda: sim.state
+    else:
+        from n_body_problem_tpu_torch.parallel import ShardedSimulation
+
+        sim = ShardedSimulation(cfg, state, mesh, strategy=args.strategy)
+        padded, whole = sim.n, sim.gather_state
+    log(f"n={sim.state.n_real} (padded {padded})  solver={cfg.solver}  "
+        f"integrator={cfg.integrator}  dt={cfg.dt}"
+        + (f"  devices={mesh.size} strategy={args.strategy}" if mesh else ""))
     if args.diag_every:
         d = sim.diagnostics()
         e0 = d["energy"]
-        print(f"E0={e0:.6e}  |p|={np.linalg.norm(d['momentum']):.3e}", file=sys.stderr)
+        log(f"E0={e0:.6e}  |p|={np.linalg.norm(d['momentum']):.3e}")
 
     camera = OrbitCamera(
         theta_deg=args.cam_theta, phi_deg=args.cam_phi,
@@ -152,18 +185,19 @@ def cmd_run(args) -> int:
     )
     render_every = args.render_every
     live = None
-    if args.serve:
+    if args.serve and lead:
         from n_body_problem_tpu_torch.render.server import LiveViewer
 
         live = LiveViewer(args.serve, camera, exposure=args.exposure,
                           host=args.serve_host)
         live.stats["n"] = sim.state.n_real
-        render_every = render_every or args.steps_per_block
         print(f"live viewer: http://{args.serve_host}:{live.port}/",
               file=sys.stderr)
+    if args.serve:
+        render_every = render_every or args.steps_per_block
     viewer = (
         FrameWriter(out / "frames", exposure=args.exposure)
-        if args.render_every else None
+        if args.render_every and lead else None
     )
     timer = StepTimer(n_bodies=sim.state.n_real)
 
@@ -174,22 +208,23 @@ def cmd_run(args) -> int:
     done = 0
     frame_idx = 0
     try:
-        with trace(out / "profile" if args.profile else None):
+        with trace(out / "profile" if args.profile and lead else None):
             while done < args.steps:
                 todo = min(block, args.steps - done)
                 timer.start()
                 sim.run(todo)
                 timer.stop(todo)
                 done += todo
-                if timer.window_full:
+                if timer.window_full and lead:
                     timer.report()
                 if render_every and done % render_every < todo:
+                    current = whole()   # every rank gathers; rank 0 renders
                     lock = live.camera_lock if live else contextlib.nullcontext()
                     with lock:  # /control mutates the camera concurrently
                         frame = render_state(
-                            sim.state, camera, scales,
+                            current, camera, scales,
                             width=args.width, height=args.height,
-                        )
+                        ) if lead else None
                     if live:
                         live.submit(frame)
                         live.stats.update(
@@ -203,12 +238,12 @@ def cmd_run(args) -> int:
                 if args.diag_every and done % args.diag_every < todo:
                     d = sim.diagnostics()
                     drift = (d["energy"] - e0) / abs(e0) if e0 else 0.0
-                    print(
-                        f"[step {done}] E={d['energy']:.6e} drift={drift:+.2e} "
-                        f"overspeed={d['overspeed']}", file=sys.stderr,
-                    )
+                    log(f"[step {done}] E={d['energy']:.6e} drift={drift:+.2e} "
+                        f"overspeed={d['overspeed']}")
                 if args.checkpoint_every and done % args.checkpoint_every < todo:
-                    save_checkpoint(out / f"ck_{done:08d}.npz", sim.state, cfg)
+                    current = whole()
+                    if lead:
+                        save_checkpoint(out / f"ck_{done:08d}.npz", current, cfg)
     finally:
         if viewer:
             viewer.close()
@@ -221,15 +256,16 @@ def cmd_run(args) -> int:
         n_frames = assemble_gif(out / "frames", out / "movie.gif", fps=args.gif_fps)
         print(f"assembled movie.gif ({n_frames} frames)", file=sys.stderr)
 
-    save_checkpoint(out / "final.npz", sim.state, cfg)
+    final = whole()
+    if not lead:
+        return 0
+    save_checkpoint(out / "final.npz", final, cfg)
     if args.export_snap:
-        export_snap(out / "final.snap", sim.state)
+        export_snap(out / "final.snap", final)
     wall = timer.total_time
-    print(
-        f"done: {args.steps} steps in {wall:.2f}s "
+    log(f"done: {args.steps} steps in {wall:.2f}s "
         f"({sim.pairs_per_step() * args.steps / max(wall, 1e-9):.3e} pairs/s); "
-        f"outputs in {out}", file=sys.stderr,
-    )
+        f"outputs in {out}")
     return 0
 
 
@@ -342,7 +378,17 @@ def build_parser() -> argparse.ArgumentParser:
                         "(config.tuned_tree_overrides)")
     r.add_argument("--profile", action="store_true",
                    help="torch.profiler trace of the run in <out>/profile")
-    r.add_argument("--devices", type=int, default=1, help="only 1 is ported")
+    r.add_argument("--devices", type=int, default=1,
+                   help="shard bodies over a ring of this many devices, one rank "
+                        "each: GPUs (NCCL) on cuda, CPU processes (gloo) with "
+                        "--device cpu")
+    r.add_argument("--strategy", default="ring",
+                   choices=["ring", "half_ring", "treecode", "treecode_staged"],
+                   help="distributed force strategy (with --devices > 1): "
+                        "exact ring rotation, Newton's-3rd-law half ring, "
+                        "the sharded Barnes-Hut treecode (replicated "
+                        "sources - the throughput path), or the "
+                        "ring-streamed staged treecode (not ported yet)")
     r.set_defaults(fn=cmd_run)
 
     i = sub.add_parser("info", help="environment, kernels, solvers, datasets")

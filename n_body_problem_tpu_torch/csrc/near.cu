@@ -3,14 +3,18 @@
 // Replaces n_body_problem_tpu/ops/treecode.py:_near_flat_kernel (:1286),
 // the TPU kernel behind _near_field_flat_cols (:1352).
 //
-// What it computes: for every target row t (T = tile consecutive Morton
-// bodies) the exact softened pull of the source tiles its work chunks name,
+// What it computes: for every target row t (T = tile consecutive target
+// bodies, in Morton order) the exact softened pull of the source tiles its
+// work chunks name,
 //   d = p_j - p_i;  w = m_j' rsqrt(|d|^2 c^2 + eps2)^3;  acc_i += w d,
 // with m_j' = G c^3 m_j pre-scaled (and zero for VIP bodies) by the wrapper.
 // Chunk p holds `entries` source tiles flat_src[p E:(p+1) E] of src_tile
 // bodies each for target row chunk_tgt[p]. The chunks of one target are
 // contiguous and chunk_tgt is non-decreasing, with the sentinel K_t on the
 // unused tail; a source id of K_s names the zero tile after the last body.
+// Targets and sources are two arrays: one device passes its bodies as both;
+// a rank of the sharded treecode passes its own rows as the targets (row
+// ids local) and every rank's bodies as the sources (tile ids global).
 //
 // What bounds it on the card: instruction issue on the FP32 pipe, as in the
 // all-pairs kernel: about 13 FP32 instructions, one MUFU rsqrt and one
@@ -55,7 +59,8 @@ constexpr int kChunkBodies = 2048;  // CHUNK_LANES in ops/treecode.py
 constexpr int kMaxThreads = 1024;
 
 __global__ void __launch_bounds__(kMaxThreads)
-near_field_kernel(const float4* __restrict__ bodies, int tile, int sub, int src_tile,
+near_field_kernel(const float4* __restrict__ targets, const float4* __restrict__ sources,
+                  int tile, int sub, int src_tile,
                   int entries, int parts, int piece, int k_s,
                   const int* __restrict__ flat_src,
                   const int* __restrict__ chunk_tgt, int n_chunks,
@@ -68,7 +73,7 @@ near_field_kernel(const float4* __restrict__ bodies, int tile, int sub, int src_
   const int warp = threadIdx.x >> 5;
   const int n_warps = blockDim.x >> 5;
   const int i = blockIdx.x * sub + b;
-  const float4 me = bodies[i];
+  const float4 me = targets[i];
   const int c0 = lower_bound(chunk_tgt, n_chunks, t);
   const int c1 = lower_bound(chunk_tgt, n_chunks, t + 1);
   // The row's source ids, chunk after chunk.
@@ -82,7 +87,7 @@ near_field_kernel(const float4* __restrict__ bodies, int tile, int sub, int src_
     for (int e = warp; e < cnt; e += n_warps) {
       const int s = ids[e0 + e];
       if (s == k_s) continue;
-      const float4* src = bodies + static_cast<size_t>(s) * src_tile;
+      const float4* src = sources + static_cast<size_t>(s) * src_tile;
       for (int j = lane; j < src_tile; j += 32) cp_async16(dst + e * src_tile + j, src + j);
     }
     cp_async_commit();
@@ -138,20 +143,22 @@ near_field_kernel(const float4* __restrict__ bodies, int tile, int sub, int src_
 
 }  // namespace
 
-// bodies: (n + src_tile, 4) float32 [x y z G c^3 m_tree], zero tile last;
-// flat_src: (>= n_chunks * entries,) int32; chunk_tgt: (n_chunks,) int32;
-// out: (n, 3) float32. tile divides n; sub divides tile and is a multiple of
-// 32; a block is sub * parts <= 1,024 threads and stages `piece` source tiles
-// at a time (near_split in ops/cuda_treecode.py); entries * src_tile <= 2,048 and
-// piece <= entries. Launches on `stream`; returns cudaGetLastError().
-extern "C" int nbody_near_field(const float* bodies, int n, int tile, int sub, int src_tile,
-                                int entries, int parts, int piece, const int* flat_src,
-                                const int* chunk_tgt, int n_chunks, float* out, float c2,
-                                float eps2, void* stream) {
-  if (n <= 0) return 0;
-  if (tile <= 0 || n % tile || sub <= 0 || sub % 32 || tile % sub || src_tile <= 0 ||
-      entries <= 0 || entries * src_tile > kChunkBodies || parts <= 0 ||
-      sub * parts > kMaxThreads || piece <= 0 || piece > entries)
+// targets: (>= n_t, 4) float32, xyz read; sources: (n_s + src_tile, 4) float32
+// [x y z G c^3 m_tree], zero tile last; flat_src: (>= n_chunks * entries,)
+// int32 source tile ids in [0, n_s / src_tile]; chunk_tgt: (n_chunks,) int32
+// target row ids; out: (n_t, 3) float32. tile divides n_t and src_tile n_s;
+// sub divides tile and is a multiple of 32; a block is sub * parts <= 1,024
+// threads and stages `piece` source tiles at a time (near_split in
+// ops/cuda_treecode.py); entries * src_tile <= 2,048 and piece <= entries.
+// Launches on `stream`; returns cudaGetLastError().
+extern "C" int nbody_near_field(const float* targets, int n_t, const float* sources, int n_s,
+                                int tile, int sub, int src_tile, int entries, int parts,
+                                int piece, const int* flat_src, const int* chunk_tgt,
+                                int n_chunks, float* out, float c2, float eps2, void* stream) {
+  if (n_t <= 0) return 0;
+  if (tile <= 0 || n_t % tile || sub <= 0 || sub % 32 || tile % sub || src_tile <= 0 ||
+      n_s <= 0 || n_s % src_tile || entries <= 0 || entries * src_tile > kChunkBodies ||
+      parts <= 0 || sub * parts > kMaxThreads || piece <= 0 || piece > entries)
     return static_cast<int>(cudaErrorInvalidValue);
   const int threads = sub * parts;
   const size_t shmem = static_cast<size_t>(2) * piece * src_tile * sizeof(float4) +
@@ -162,8 +169,9 @@ extern "C" int nbody_near_field(const float* bodies, int n, int tile, int sub, i
         static_cast<int>(shmem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  near_field_kernel<<<n / sub, threads, shmem, static_cast<cudaStream_t>(stream)>>>(
-      reinterpret_cast<const float4*>(bodies), tile, sub, src_tile, entries, parts, piece,
-      n / src_tile, flat_src, chunk_tgt, n_chunks, out, c2, eps2);
+  near_field_kernel<<<n_t / sub, threads, shmem, static_cast<cudaStream_t>(stream)>>>(
+      reinterpret_cast<const float4*>(targets), reinterpret_cast<const float4*>(sources), tile,
+      sub, src_tile, entries, parts, piece, n_s / src_tile, flat_src, chunk_tgt, n_chunks, out,
+      c2, eps2);
   return static_cast<int>(cudaGetLastError());
 }

@@ -76,6 +76,7 @@ import subprocess
 import sys
 import tempfile
 
+import numpy as np
 import torch
 
 PHYS = dict(eps2=1e-6, compensate=0.1, G=1.0)
@@ -228,11 +229,11 @@ def near_work(args, kw) -> dict:
     (sentinels and the unused tail left out) times the source tile times the
     target row; and the largest and the mean number of chunks a target row
     has (their ratio bounds what a schedule of whole rows can reach)."""
-    _, flat_src, chunk_tgt = args
-    n, e = kw["n"], kw["entries"]
-    k_t = n // kw["tile"]
+    _, _, flat_src, chunk_tgt = args
+    e = kw["entries"]
+    k_t = kw["n"] // kw["tile"]
     ids = flat_src[:chunk_tgt.shape[0] * e].reshape(-1, e)
-    live = (ids != n // kw["src_tile"]) & (chunk_tgt < k_t)[:, None]
+    live = (ids != kw["n_s"] // kw["src_tile"]) & (chunk_tgt < k_t)[:, None]
     per_row = torch.bincount(chunk_tgt[chunk_tgt < k_t].long(), minlength=k_t)
     return {"pairs": int(live.sum()) * kw["src_tile"] * kw["tile"],
             "chunks_max": int(per_row.max()), "chunks_mean": float(per_row.float().mean())}
@@ -418,6 +419,34 @@ def fast_case(n: int, precision: str, tile: int = FAST_TILE) -> dict:
     return {"kernel": "symmetric_bf16x3", "label": f"{n}:{tile} {precision}",
             "args": [s.pos, s.mass], "kw": dict(tile=tile, precision=precision, **PHYS),
             "reps": _reps(n * n)}
+
+
+def near_golden_case(device) -> tuple[tuple, dict]:
+    """``(args, kw)`` of one device's near-kernel call on fixed inputs made
+    with numpy from a seed (65,536 bodies, rows of 128, 32 entries of 64
+    bodies a chunk, 1-4 chunks a row, a tenth of the entries the sentinel, a
+    sentinel tail): the call whose output digest :data:`NEAR_GOLDEN_SHA256`
+    records, so that a change to the kernel can be held to its earlier
+    output bit for bit."""
+    n, tile, src_tile, entries = 65536, 128, 64, 32
+    k_t, k_s = n // tile, n // src_tile
+    rng = np.random.default_rng(11)
+    bodies = np.zeros((n + src_tile, 4), np.float32)
+    bodies[:n, :3] = rng.standard_normal((n, 3), np.float32)
+    bodies[:n, 3] = rng.uniform(0.5, 1.5, n).astype(np.float32) * np.float32(1e-3 / n)
+    chunk_tgt = np.concatenate([np.repeat(np.arange(k_t), rng.integers(1, 5, k_t)),
+                                np.full(16, k_t)]).astype(np.int32)
+    flat_src = rng.integers(0, k_s, chunk_tgt.shape[0] * entries).astype(np.int32)
+    flat_src[rng.random(flat_src.shape[0]) < 0.1] = k_s
+    b = torch.from_numpy(bodies).to(device)
+    return ((b, b, torch.from_numpy(flat_src).to(device), torch.from_numpy(chunk_tgt).to(device)),
+            dict(n=n, n_s=n, tile=tile, src_tile=src_tile, entries=entries, eps2=1e-6, c2=0.01))
+
+
+# sha256 of ``near_field(*near_golden_case(cuda))``'s output bytes, from the
+# kernel before it took targets and sources apart (one ``bodies`` array; an
+# NVIDIA H100 80GB HBM3 at 700.00 W), which the split must leave bit for bit.
+NEAR_GOLDEN_SHA256 = "cc95763ebe3915d38d233c8c458181c77b75bdc9d953e842250904605a905bf0"
 
 
 def tree_case(kernel: str, tok: str) -> dict:

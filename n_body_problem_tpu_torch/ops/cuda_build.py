@@ -52,9 +52,10 @@ _SIGNATURES = {
     # (body4, n, tile, centers4, near_s, warps, step, out, c2, eps2, stream)
     #  -> cudaError_t
     "nbody_symmetric_bf16x3": ((_P, _I, _I, _P, _I, _I, _I, _P, _F, _F, _P), _I),
-    # (bodies4, n, tile, sub, src_tile, entries, parts, piece, flat_src,
-    #  chunk_tgt, n_chunks, out, c2, eps2, stream) -> cudaError_t
-    "nbody_near_field": ((_P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _I, _P, _F, _F, _P), _I),
+    # (targets4, n_t, sources4, n_s, tile, sub, src_tile, entries, parts, piece,
+    #  flat_src, chunk_tgt, n_chunks, out, c2, eps2, stream) -> cudaError_t
+    "nbody_near_field": ((_P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _I, _P, _F, _F,
+                          _P), _I),
     # (bodies4, n, tile, sub, parts, stage_chunks, summ12, far_src, far_tgt,
     #  n_chunks, out, c2, eps2, gc, stream) -> cudaError_t
     "nbody_far_field": ((_P, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P, _F, _F, _F, _P), _I),

@@ -12,9 +12,13 @@ Layouts (the GPU's, not the TPU's lane-padded ones):
 
 - ``bodies`` (N + S, 4) float32 rows [x y z m'], with m' = G c^3 m_tree
   (VIP bodies massless) and a zero sentinel tile of S = ``src_tile`` rows
-  last. The near kernel reads source tile j as rows [j S, (j+1) S); the
-  other kernels read target row t as the xyz of rows [t T, (t+1) T),
-  T = ``tile``.
+  last. The near kernel reads source tile j as rows [j S, (j+1) S) of its
+  ``sources``; every kernel reads target row t as the xyz of rows
+  [t T, (t+1) T), T = ``tile``, of the bodies it is given as targets. On one
+  device the near kernel's targets and sources are the same ``bodies``; a
+  rank of the sharded treecode passes its own rows as the targets (row ids
+  local, ``n`` of them) and every rank's ``bodies`` as the sources (tile ids
+  global, ``n_s`` bodies), as it passes its own rows to the far fields.
 - ``flat_src`` (flat_cap,) / ``chunk_tgt`` (flat_cap / E,) int32: near
   chunk p holds source tiles ``flat_src[p E:(p+1) E]`` for target row
   ``chunk_tgt[p]``; ``chunk_tgt`` is non-decreasing, sentinel K_t last.
@@ -122,18 +126,20 @@ def _stream(dev: torch.device) -> int:
 
 
 # -------------------------------------------------------------- near field
-def near_field_plain(bodies, flat_src, chunk_tgt, *, n: int, tile: int,
-                     src_tile: int, entries: int, eps2: float,
+def near_field_plain(targets, sources, flat_src, chunk_tgt, *, n: int, n_s: int,
+                     tile: int, src_tile: int, entries: int, eps2: float,
                      c2: float) -> torch.Tensor:
-    """Exact near field (N, 3): for each live chunk, the target row's bodies
-    against every body of the chunk's source tiles, summed into the row."""
-    k_t, k_s = n // tile, n // src_tile
+    """Exact near field (n, 3) of the first ``n`` target rows: for each live
+    chunk, the target row's bodies against every body of the chunk's source
+    tiles (of the ``n_s`` sources and their zero tile), summed into the
+    row."""
+    k_t, k_s = n // tile, n_s // src_tile
     live = _live_chunks(chunk_tgt, k_t)
     src = flat_src[:live * entries].long().reshape(live, entries)
     tgt = chunk_tgt[:live].long()
-    tiles = bodies.reshape(k_s + 1, src_tile, 4)
-    targets = bodies[:n, :3].reshape(k_t, tile, 3)
-    acc = bodies.new_zeros((k_t, tile, 3))
+    tiles = sources.reshape(k_s + 1, src_tile, 4)
+    targets = targets[:n, :3].reshape(k_t, tile, 3)
+    acc = targets.new_zeros((k_t, tile, 3))
     batch = max(1, _PLAIN_PAIRS // (tile * entries * src_tile))
     for b in range(0, live, batch):
         s = tiles[src[b:b + batch]].reshape(-1, entries * src_tile, 4)
@@ -181,39 +187,46 @@ def near_parts(n_entries: int, parts: int, piece: int) -> list[list[int]]:
     return out
 
 
-def near_field(bodies, flat_src, chunk_tgt, *, n: int, tile: int,
-               src_tile: int, entries: int, eps2: float,
-               c2: float) -> torch.Tensor:
-    """Exact near field (N, 3) over the compacted near lists.
+def near_field(targets, sources, flat_src, chunk_tgt, *, n: int, n_s: int, tile: int,
+               src_tile: int, entries: int, eps2: float, c2: float) -> torch.Tensor:
+    """Exact near field (n, 3) over the compacted near lists: ``n`` target
+    bodies (rows of ``targets``), ``n_s`` source bodies (``sources``, (n_s +
+    src_tile, 4) with the zero tile last). One device passes its ``bodies``
+    as both.
 
     ``near_field.launches`` counts the kernel's launches.
     """
-    kw = dict(n=n, tile=tile, src_tile=src_tile, entries=entries, eps2=eps2, c2=c2)
-    if bodies.device.type == "cpu":
-        return near_field_plain(bodies, flat_src, chunk_tgt, **kw)
-    if bodies.device.type != "cuda":
-        raise ValueError(f"near_field: no kernel for device {bodies.device}")
-    dev = bodies.device
+    kw = dict(n=n, n_s=n_s, tile=tile, src_tile=src_tile, entries=entries, eps2=eps2,
+              c2=c2)
+    if targets.device.type == "cpu":
+        return near_field_plain(targets, sources, flat_src, chunk_tgt, **kw)
+    if targets.device.type != "cuda":
+        raise ValueError(f"near_field: no kernel for device {targets.device}")
+    dev = targets.device
     _check_block(tile)
     if entries * src_tile > NEAR_CHUNK_BODIES:
         raise ValueError(f"near_field: a chunk of {entries} x {src_tile} bodies "
                          f"exceeds {NEAR_CHUNK_BODIES}")
-    cuda_build.require_f32("bodies", bodies, (n + src_tile, 4), dev)
+    cuda_build.require_f32("targets", targets, (targets.shape[0], 4), dev)
+    cuda_build.require_f32("sources", sources, (n_s + src_tile, 4), dev)
     cuda_build.require_normal_eps2("near_field", eps2)
     _require_i32("flat_src", flat_src, dev)
     _require_i32("chunk_tgt", chunk_tgt, dev)
     n_chunks = chunk_tgt.shape[0]
     if flat_src.shape[0] < n_chunks * entries:
         raise ValueError("near_field: flat_src shorter than its chunks")
-    if n > cuda_build.MAX_BODIES or n % tile or n % src_tile:
-        raise ValueError(f"near_field: N={n} must divide tile and src_tile")
+    if targets.shape[0] < n or max(n, n_s) > cuda_build.MAX_BODIES or n % tile \
+            or n_s % src_tile:
+        raise ValueError(f"near_field: {n} targets must divide tile={tile} and {n_s} "
+                         f"sources src_tile={src_tile}")
     out = torch.empty((n, 3), dtype=torch.float32, device=dev)
     sub, parts, piece = near_split(tile, entries, src_tile)
     lib = cuda_build.load_library()
     with torch.cuda.device(dev):
-        rc = lib.nbody_near_field(bodies.data_ptr(), n, tile, sub, src_tile, entries,
-                                  parts, piece, flat_src.data_ptr(), chunk_tgt.data_ptr(),
-                                  n_chunks, out.data_ptr(), c2, eps2, _stream(dev))
+        rc = lib.nbody_near_field(targets.data_ptr(), n, sources.data_ptr(), n_s, tile, sub,
+                                  src_tile, entries, parts, piece, flat_src.data_ptr(),
+                                  chunk_tgt.data_ptr(), n_chunks, out.data_ptr(), c2, eps2,
+                                  _stream(dev))
         near_field.launches += 1
     cuda_build.check(rc, "near_field_kernel")
     return out

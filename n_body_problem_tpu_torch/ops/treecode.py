@@ -151,6 +151,11 @@ def _tiles(a: torch.Tensor, k: int) -> torch.Tensor:
     return a.reshape(k, a.shape[0] // k)
 
 
+def tile_summaries(pos, mass, tile: int):
+    """:func:`tile_summaries_cols` of (N, 3) positions."""
+    return tile_summaries_cols(*pos.unbind(1), mass, tile)
+
+
 def tile_summaries_cols(xc, yc, zc, mass, tile: int):
     """Per-tile (com (K,3), m_tot (K,), radius (K,), quad (K,6)).
 
@@ -324,9 +329,11 @@ def _median_monopole_acc(xc, yc, zc, cx, cy, cz, m_tot, *, eps2, c2):
 
 
 def _self_overlap(k_t: int, k_s: int, tile: int, src_tile: int,
-                  device) -> torch.Tensor:
-    """(K_t, K_s) bool: target row i and source column j share bodies."""
-    rows = torch.arange(k_t, device=device)[:, None]
+                  device, row_offset: int = 0) -> torch.Tensor:
+    """(K_t, K_s) bool: target row i and source column j share bodies.
+    ``row_offset`` maps local target rows to global source columns (a rank
+    of the sharded treecode holds rows ``row_offset`` onwards)."""
+    rows = torch.arange(k_t, device=device)[:, None] + row_offset
     cols = torch.arange(k_s, device=device)[None, :]
     return (rows // max(src_tile // tile, 1)) == (cols // max(tile // src_tile, 1))
 
@@ -340,11 +347,14 @@ def _flat_mac(min_d, m, radius, a_med, tau: float):
 
 
 def _opening_scores(xc, yc, zc, cx, cy, cz, m_tot, radius, tile: int, *,
-                    theta: float, mac_tau: float, src_tile: int | None = None,
-                    eps2: float = 1e-6, c2: float = 0.01):
+                    theta: float, mac_tau: float, row_offset: int = 0,
+                    src_tile: int | None = None, eps2: float = 1e-6,
+                    c2: float = 0.01):
     """(scores (K_t, K_s), threshold) of the single-level opening test, self
     tiles +inf: the mass-aware MAC when ``mac_tau > 0``, else the geometric
-    radius / min-body-distance against ``theta``."""
+    radius / min-body-distance against ``theta``. The MAC's median scale
+    comes from the target rows given (a rank's own rows on the sharded
+    path, as in the JAX package)."""
     src_tile = src_tile or tile
     k_t = xc.shape[0] // tile
     min_d = torch.clamp(_min_tile_dist(xc, yc, zc, cx, cy, cz, tile), min=_TINY)
@@ -354,7 +364,7 @@ def _opening_scores(xc, yc, zc, cx, cy, cz, m_tot, radius, tile: int, *,
         score, thresh = _flat_mac(min_d, m_tot, radius, a_med, mac_tau)
     else:
         score, thresh = radius[None, :] / min_d, theta
-    overlap = _self_overlap(k_t, cx.shape[0], tile, src_tile, xc.device)
+    overlap = _self_overlap(k_t, cx.shape[0], tile, src_tile, xc.device, row_offset)
     return torch.where(overlap, torch.inf, score), thresh
 
 
@@ -372,6 +382,7 @@ def _row_bounds(xc, yc, zc, tile: int):
 
 def _hier_open_masks(xc, yc, zc, levels, tile: int, src_tile: int, *,
                      mac_tau: float, theta: float, eps2: float, c2: float,
+                     row_offset: int = 0, a_med=None,
                      mac_tau0: float | None = None, union_coarse: bool = True):
     """Per-level (opens, min_d) and the level-0 score matrix for near
     ranking (self-overlapping nodes forced to +inf).
@@ -383,10 +394,13 @@ def _hier_open_masks(xc, yc, zc, levels, tile: int, src_tile: int, *,
     ``mac_tau0 > 0``: level 0 uses the flat criterion
     m r^3 / d^5 > mac_tau0 * sqrt(MAC_REF_KSRC / K_s) * a_med instead.
     ``mac_tau == 0``: the geometric radius / theta test.
+
+    ``a_med`` defaults to the median over the rows in ``xc``; the sharded
+    path passes the whole population's, so that every rank applies the same
+    threshold, and its rows' ``row_offset``.
     """
     cx0, cy0, cz0, m0 = levels[0][:4]
-    a_med = None
-    if mac_tau > 0:
+    if mac_tau > 0 and a_med is None:
         a_med = torch.clamp(_median_monopole_acc(
             xc, yc, zc, cx0, cy0, cz0, m0, eps2=eps2, c2=c2), min=_TINY)
     opens, minds = [], []
@@ -417,7 +431,7 @@ def _hier_open_masks(xc, yc, zc, levels, tile: int, src_tile: int, *,
         k_l = score.shape[1]
         node_bodies = levels[0][0].shape[0] * src_tile // k_l
         score = torch.where(
-            _self_overlap(k_t, k_l, tile, node_bodies, xc.device),
+            _self_overlap(k_t, k_l, tile, node_bodies, xc.device, row_offset),
             torch.inf, score)
         if lvl == 0:
             score0, thresh0 = score, thresh
@@ -448,13 +462,17 @@ def _top_k(x: torch.Tensor, k: int):
 
 
 def _acceptance(xc, yc, zc, level0, tile: int, theta: float, max_near: int,
-                mac_tau: float = 0.0, eps2: float = 1e-6, c2: float = 0.01):
-    """Dense near lists: (near_idx (K, M) int32, the ``max_near`` highest
-    scores of each row, self first; near_mask (K, K) bool). The mask is
-    scattered from the lists, never compared through a (K, M, K) tensor."""
+                mac_tau: float = 0.0, eps2: float = 1e-6, c2: float = 0.01,
+                row_offset: int = 0):
+    """Dense near lists of the target rows in ``xc`` against the tiles of
+    ``level0``: (near_idx (K_t, M) int32, the ``max_near`` highest scores of
+    each row, self first; near_mask (K_t, K) bool). The mask is scattered
+    from the lists, never compared through a (K_t, M, K) tensor. A rank of
+    the sharded treecode passes its own rows and their ``row_offset``."""
     cx, cy, cz, m_tot, radius = level0[:5]
     score, _ = _opening_scores(xc, yc, zc, cx, cy, cz, m_tot, radius, tile,
-                               theta=theta, mac_tau=mac_tau, eps2=eps2, c2=c2)
+                               theta=theta, mac_tau=mac_tau, row_offset=row_offset,
+                               eps2=eps2, c2=c2)
     near_idx = _top_k(score, max_near)[1]
     near_mask = torch.zeros(score.shape, dtype=torch.bool, device=score.device)
     near_mask.scatter_(1, near_idx, True)
@@ -577,6 +595,15 @@ def build_tree_hier_cols(
                            branch=branch, mac_tau=mac_tau, mac_tau0=mac_tau0,
                            eps2=eps2, c2=compensate * compensate,
                            union_coarse=union_coarse)
+    return (*_hier_compact(levels, minds, score0, thresh0, evals, reach0, slack=slack,
+                           flat_cap=flat_cap, entries=entries, max_near=max_near,
+                           far_cap=far_cap, far_max=far_max), is_vip_body)
+
+
+def _hier_compact(levels, minds, score0, thresh0, evals, reach0, *, slack, flat_cap,
+                  entries, max_near, far_cap, far_max):
+    """The hierarchical build's work lists from its open masks:
+    ``(flat_src, chunk_tgt, far_src, far_tgt)``."""
     # Near: only leaves the chain reaches (a leaf under an accepted
     # ancestor is already covered: score -1 ranks it out as a sentinel).
     score0 = torch.where(reach0, score0, -1.0)
@@ -585,12 +612,12 @@ def build_tree_hier_cols(
     # Far: level-0 complements of the near entries that landed, plus the
     # chain evals at coarser levels, ranked by monopole strength m / d^2 so
     # an overflow sheds the weakest contributors.
-    evals[0] = reach0 & ~near_mask
+    evals = [reach0 & ~near_mask] + list(evals[1:])
     key = torch.cat([torch.where(ev, lv[3][None, :] / (md * md), -1.0)
                      for ev, lv, md in zip(evals, levels, minds)], 1)
     far_src, far_tgt, _ = _compact_open_lists(
         key, 0.0, 0, far_cap, FAR_ENTRIES, far_max)
-    return flat_src, chunk_tgt, far_src, far_tgt, is_vip_body
+    return flat_src, chunk_tgt, far_src, far_tgt
 
 
 def _tree_mass(xc, yc, zc, mass, tile: int, vip_tiles: int):
@@ -745,8 +772,8 @@ def treecode_acc_hier(
     ops = kernel_operands(pos.to(_f32), mass.to(_f32), is_vip_body,
                           compensate=compensate, G=G, src_tile=src_tile,
                           vip_src=vip_src, plan=plan, branch=branch)
-    acc = cuda_treecode.near_field(ops["bodies"], flat_src, chunk_tgt, n=n,
-                                   tile=tile, src_tile=src_tile,
+    acc = cuda_treecode.near_field(ops["bodies"], ops["bodies"], flat_src, chunk_tgt,
+                                   n=n, n_s=n, tile=tile, src_tile=src_tile,
                                    entries=CHUNK_LANES // src_tile,
                                    eps2=eps2, c2=c2)
     # One far kernel whatever the panel's size (the TPU kept small panels
@@ -789,9 +816,9 @@ def treecode_acc_flat(
     ops = kernel_operands(pos.to(_f32), mass.to(_f32), is_vip_body,
                           compensate=compensate, G=G, src_tile=src_tile,
                           vip_src=vip_src, plan=(k_s,))
-    acc = cuda_treecode.near_field(ops["bodies"], flat_src, chunk_tgt, n=n,
-                                   tile=tile, src_tile=src_tile, entries=entries,
-                                   eps2=eps2, c2=c2)
+    acc = cuda_treecode.near_field(ops["bodies"], ops["bodies"], flat_src, chunk_tgt,
+                                   n=n, n_s=n, tile=tile, src_tile=src_tile,
+                                   entries=entries, eps2=eps2, c2=c2)
     acc = acc + cuda_treecode.far_field_single(ops["bodies"], ops["summ"], near_mask,
                                                n=n, tile=tile, eps2=eps2, c2=c2, G=G)
     return _add_vips(acc, ops, src_tile, eps2=eps2, c2=c2) if vip_src else acc
@@ -841,6 +868,165 @@ def treecode_acc(
         acc = acc + cuda_treecode.far_field_single(ops["bodies"], ops["summ"], near_mask,
                                                    n=n, tile=tile, eps2=eps2, c2=c2, G=G)
     return _add_vips(acc, ops, tile, eps2=eps2, c2=c2) if vip_tiles else acc
+
+
+# ---------------------------------------------------------- sharded helpers
+# A rank of the sharded treecode (``parallel/tree.py``) holds a contiguous
+# block of target rows and every body as a source (the gathered columns,
+# suffix ``g``; its own, suffix ``l``). Each rank computes the same global VIP
+# split and source summaries from the gathered columns, then builds and
+# evaluates work lists for its own rows only: row ids are local, source ids
+# global. Named as in the JAX package.
+def _flat_src_static(n_g: int, tile: int, src_tile: int, max_near: int,
+                     vip_tiles: int):
+    """(k_s, entries, max_near, vip_src) of a global source population of
+    ``n_g`` bodies (the sharded path checks rows and sources apart)."""
+    if n_g % src_tile:
+        raise ValueError(f"flat treecode: global N={n_g} must be a "
+                         f"multiple of src_tile={src_tile}")
+    k_s = n_g // src_tile
+    entries = CHUNK_LANES // src_tile
+    if k_s < entries:
+        raise ValueError(f"flat path needs K_src >= {entries}")
+    max_near = max(-(-max_near // entries) * entries, entries)
+    max_near = min(max_near, k_s - (k_s % entries) or k_s)
+    vip_src = _clamp_vip(_vip_src_tiles(vip_tiles, tile, src_tile), k_s)
+    return k_s, entries, max_near, vip_src
+
+
+def build_flat_local(xl, yl, zl, xg, yg, zg, mass_g, *, tile: int, src_tile: int,
+                     theta: float, max_near: int, vip_tiles: int, slack: int,
+                     flat_cap: int, row_offset: int, mac_tau: float = 0.0,
+                     eps2: float = 1e-6, compensate: float = 0.1):
+    """Flat acceptance of a rank's target rows against every source:
+    ``(flat_src, chunk_tgt, near_mask (K_t local, K_s), is_vip_g (N,))``;
+    ``flat_cap`` is the rank's capacity (:func:`suggest_flat_cap_sharded`),
+    ``row_offset`` the global id of its first row. The MAC's median scale
+    is that of the rank's own rows, as in the JAX package."""
+    n_g = xg.shape[0]
+    k_s, entries, max_near, vip_src = _flat_src_static(n_g, tile, src_tile, max_near,
+                                                       vip_tiles)
+    xl, yl, zl, xg, yg, zg, mass_g = (a.to(_f32) for a in (xl, yl, zl, xg, yg, zg, mass_g))
+    mass_tree_g, is_vip_g = _tree_mass(xg, yg, zg, mass_g, src_tile, vip_src)
+    cx, cy, cz, m_tot, radius = _level0(xg, yg, zg, mass_tree_g, src_tile)[:5]
+    score, thresh = _opening_scores(
+        xl, yl, zl, cx, cy, cz, m_tot, radius, tile, theta=theta, mac_tau=mac_tau,
+        row_offset=row_offset, src_tile=src_tile, eps2=eps2, c2=compensate * compensate)
+    flat_src, chunk_tgt, near_mask = _compact_open_lists(
+        score, thresh, slack, flat_cap, entries, max_near)
+    return flat_src, chunk_tgt, near_mask.contiguous(), is_vip_g
+
+
+def _local_rows(xl, yl, zl, ml, gc3: float) -> torch.Tensor:
+    """A rank's rows (N local, 4) [x y z G c^3 m]: the targets of its near
+    and far fields and the rows of its VIP sweep."""
+    return torch.stack([xl, yl, zl, ml * gc3], 1).to(_f32)
+
+
+def _local_vips(acc, rows, ops, src_tile: int, vip_src: int, *, eps2: float, c2: float):
+    """``(acc, react (W, 3) | None, vip_body_idx (W,) | None)``: the rank's
+    acceleration with the VIP panel's pull added, its partial pull on the
+    panel (the caller sums it over the ranks and writes it into the VIP rows
+    it holds) and the panel's global body ids."""
+    if not vip_src:
+        return acc, None, None
+    action, react = cuda_treecode.vip_both(rows, ops["panel"], eps2=eps2, c2=c2)
+    idx = ops["vip_tile_idx"]
+    vip_body_idx = (idx[:, None] * src_tile
+                    + torch.arange(src_tile, device=idx.device)[None, :]).reshape(-1)
+    return acc + action, react, vip_body_idx
+
+
+def flat_local_acc(xl, yl, zl, ml, xg, yg, zg, mass_g, aux, *, eps2: float,
+                   compensate: float, G: float, tile: int, src_tile: int,
+                   max_near: int, vip_tiles: int):
+    """Flat treecode acceleration of a rank's rows from every source,
+    ``aux`` from :func:`build_flat_local`: ``(ax, ay, az, react, vip_body_idx)``
+    (:func:`_local_vips`; columns, as the JAX package returns them). The near kernel takes the rank's rows as its
+    targets and the gathered bodies as its sources; the far fields read the
+    rank's rows only."""
+    flat_src, chunk_tgt, near_mask, is_vip_g = aux
+    n_g, n_l = xg.shape[0], xl.shape[0]
+    k_s, entries, _, vip_src = _flat_src_static(n_g, tile, src_tile, max_near, vip_tiles)
+    c2 = compensate * compensate
+    ops = kernel_operands(torch.stack([xg, yg, zg], 1).to(_f32), mass_g.to(_f32), is_vip_g,
+                          compensate=compensate, G=G, src_tile=src_tile, vip_src=vip_src,
+                          plan=(k_s,))
+    rows = _local_rows(xl, yl, zl, ml, G * c2 * compensate)
+    acc = cuda_treecode.near_field(rows, ops["bodies"], flat_src, chunk_tgt, n=n_l, n_s=n_g,
+                                   tile=tile, src_tile=src_tile, entries=entries,
+                                   eps2=eps2, c2=c2)
+    acc = acc + cuda_treecode.far_field_single(rows, ops["summ"], near_mask, n=n_l,
+                                               tile=tile, eps2=eps2, c2=c2, G=G)
+    acc, react, idx = _local_vips(acc, rows, ops, src_tile, vip_src, eps2=eps2, c2=c2)
+    return acc[:, 0], acc[:, 1], acc[:, 2], react, idx
+
+
+def build_hier_local(xl, yl, zl, xg, yg, zg, mass_g, *, tile: int, src_tile: int,
+                     theta: float, max_near: int, vip_tiles: int, slack: int,
+                     flat_cap: int, far_max: int, far_cap: int, row_offset: int,
+                     branch: int = HIER_BRANCH, mac_tau: float = DEFAULT_HIER_TAU,
+                     mac_tau0: float | None = None, eps2: float = 1e-6,
+                     compensate: float = 0.1, union_coarse: bool = True):
+    """Hierarchical acceptance of a rank's target rows against every source:
+    ``(flat_src, chunk_tgt, far_src, far_tgt, is_vip_g)``, the multi-level
+    form of :func:`build_flat_local`. ``flat_cap`` and ``far_cap`` are the
+    rank's capacities (:func:`suggest_hier_sharded`). The MAC's median
+    scale is the whole population's, so every rank applies one threshold."""
+    n_g = xg.shape[0]
+    (_, _, entries, max_near, vip_src, plan, _,
+     far_max) = _hier_static(n_g, tile, src_tile, theta, max_near, vip_tiles, far_max,
+                             branch)
+    xl, yl, zl, xg, yg, zg, mass_g = (a.to(_f32) for a in (xl, yl, zl, xg, yg, zg, mass_g))
+    c2 = compensate * compensate
+    mass_tree_g, is_vip_g = _tree_mass(xg, yg, zg, mass_g, src_tile, vip_src)
+    levels = _level_summaries(xg, yg, zg, mass_tree_g, src_tile, plan, branch)
+    a_med = None
+    if mac_tau > 0:
+        cx0, cy0, cz0, m0 = levels[0][:4]
+        a_med = torch.clamp(_median_monopole_acc(xg, yg, zg, cx0, cy0, cz0, m0,
+                                                 eps2=eps2, c2=c2), min=_TINY)
+    opens, minds, score0, thresh0 = _hier_open_masks(
+        xl, yl, zl, levels, tile, src_tile, mac_tau=mac_tau, theta=theta, eps2=eps2,
+        c2=c2, row_offset=row_offset, a_med=a_med, mac_tau0=mac_tau0,
+        union_coarse=union_coarse)
+    evals, reach0 = _chain_evals(opens, branch)
+    return (*_hier_compact(levels, minds, score0, thresh0, evals, reach0, slack=slack,
+                           flat_cap=flat_cap, entries=entries, max_near=max_near,
+                           far_cap=far_cap, far_max=far_max), is_vip_g)
+
+
+def hier_local_acc(xl, yl, zl, ml, xg, yg, zg, mass_g, aux, *, eps2: float,
+                   compensate: float, G: float, tile: int, src_tile: int,
+                   max_near: int, vip_tiles: int, far_max: int,
+                   theta: float = DEFAULT_THETA, branch: int = HIER_BRANCH):
+    """Hierarchical treecode acceleration of a rank's rows from every source,
+    ``aux`` from :func:`build_hier_local`: ``(ax, ay, az, react,
+    vip_body_idx)``, the multi-level form of :func:`flat_local_acc`."""
+    flat_src, chunk_tgt, far_src, far_tgt, is_vip_g = aux
+    n_g, n_l = xg.shape[0], xl.shape[0]
+    (_, _, entries, _, vip_src, plan, _, _) = _hier_static(
+        n_g, tile, src_tile, theta, max_near, vip_tiles, far_max, branch)
+    c2 = compensate * compensate
+    ops = kernel_operands(torch.stack([xg, yg, zg], 1).to(_f32), mass_g.to(_f32), is_vip_g,
+                          compensate=compensate, G=G, src_tile=src_tile, vip_src=vip_src,
+                          plan=plan, branch=branch)
+    rows = _local_rows(xl, yl, zl, ml, G * c2 * compensate)
+    acc = cuda_treecode.near_field(rows, ops["bodies"], flat_src, chunk_tgt, n=n_l, n_s=n_g,
+                                   tile=tile, src_tile=src_tile, entries=entries,
+                                   eps2=eps2, c2=c2)
+    acc = acc + cuda_treecode.far_field_hier(rows, ops["summ"], far_src, far_tgt, n=n_l,
+                                             tile=tile, eps2=eps2, c2=c2, G=G)
+    acc, react, idx = _local_vips(acc, rows, ops, src_tile, vip_src, eps2=eps2, c2=c2)
+    return acc[:, 0], acc[:, 1], acc[:, 2], react, idx
+
+
+def _near_field_xla(rows, panels, *, eps2: float, c2: float, tile: int) -> torch.Tensor:
+    """The dense path's near field (K T, 3) of target rows ``rows`` against
+    their gathered ``panels`` (K, M T, 4): the near-panel kernel on the
+    card, its plain twin on the CPU (the JAX package's CPU form of the
+    same step has this name)."""
+    return cuda_treecode.near_panel(rows, panels, tile=tile, eps2=eps2, c2=c2)
 
 
 # ----------------------------------------------------------------- planners
@@ -965,3 +1151,75 @@ def suggest_flat_cap(pos, mass, *, tile: int = DEFAULT_TILE,
     need = int(math.ceil(float(v.sum()) * margin))
     need = max(need, max(pos.shape[0] // tile, 1) * entries)
     return ((need + entries - 1) // entries) * entries
+
+
+def _per_rank(v: np.ndarray, n_dev: int) -> np.ndarray:
+    """Sums of ``v`` (K_t,) over each rank's contiguous row block."""
+    k_t = len(v)
+    if k_t % n_dev:
+        raise ValueError(f"K_t={k_t} not divisible by n_dev={n_dev}")
+    return v.reshape(n_dev, k_t // n_dev).sum(1)
+
+
+def suggest_flat_cap_sharded(pos, mass, n_dev: int, *, tile: int = DEFAULT_TILE,
+                             src_tile: int = DEFAULT_SRC_TILE,
+                             theta: float = DEFAULT_THETA,
+                             vip_tiles: int = DEFAULT_VIP_TILES,
+                             slack: int = DEFAULT_NEAR_SLACK, margin: float = 1.4,
+                             mac_tau: float = 0.0, eps2: float = 1e-6,
+                             compensate: float = 0.1) -> int:
+    """Host-side flat-list capacity of one rank when the target rows are
+    split over ``n_dev`` ranks: the worst rank's demand (the core's rows
+    open more tiles than the halo's) with a margin above
+    :func:`suggest_flat_cap`'s for drift."""
+    counts = open_counts(pos, mass, tile=tile, theta=theta, vip_tiles=vip_tiles,
+                         src_tile=src_tile, mac_tau=mac_tau, eps2=eps2,
+                         compensate=compensate).cpu().numpy()
+    entries = CHUNK_LANES // src_tile
+    v = np.maximum(((counts + slack + entries - 1) // entries) * entries, entries)
+    per_rank = _per_rank(v, n_dev)
+    need = int(math.ceil(float(per_rank.max()) * margin))
+    need = max(need, (len(v) // n_dev) * entries)
+    return ((need + entries - 1) // entries) * entries
+
+
+def suggest_hier_sharded(pos, mass, n_dev: int, *, tile: int = DEFAULT_HIER_TILE,
+                         src_tile: int = DEFAULT_SRC_TILE,
+                         theta: float = DEFAULT_THETA,
+                         vip_tiles: int = DEFAULT_VIP_TILES,
+                         slack: int = DEFAULT_NEAR_SLACK,
+                         branch: int = HIER_BRANCH,
+                         mac_tau: float = DEFAULT_HIER_TAU,
+                         mac_tau0: float | None = None,
+                         eps2: float = 1e-6,
+                         compensate: float = 0.1,
+                         union_coarse: bool = True,
+                         margin: float = 1.4,
+                         far_margin: float = 1.6) -> dict:
+    """Capacity planner of one rank on the sharded hierarchical path:
+    ``max_near`` and ``far_max`` stay global bounds a row; ``flat_cap`` and
+    ``far_cap`` are the worst rank's demand, with margins above
+    :func:`suggest_hier`'s for drift."""
+    near, far = hier_counts(
+        pos, mass, tile=tile, src_tile=src_tile, theta=theta,
+        vip_tiles=vip_tiles, branch=branch, mac_tau=mac_tau,
+        mac_tau0=mac_tau0, eps2=eps2, compensate=compensate,
+        union_coarse=union_coarse)
+    near = near.cpu().numpy()
+    far = far.cpu().numpy()
+    entries = CHUNK_LANES // src_tile
+    k_l = len(near) // n_dev
+
+    def rnd(v, e):
+        return ((v + e - 1) // e) * e
+
+    max_near = int(rnd(int(math.ceil(near.max() * margin)), entries))
+    v = np.maximum(rnd(near + slack, entries), entries)
+    flat_cap = int(rnd(max(int(math.ceil(_per_rank(v, n_dev).max() * margin)),
+                           k_l * entries), entries))
+    far_max = int(rnd(int(math.ceil(far.max() * far_margin)), FAR_ENTRIES))
+    w = np.maximum(rnd(far, FAR_ENTRIES), FAR_ENTRIES)
+    far_cap = int(rnd(max(int(math.ceil(_per_rank(w, n_dev).max() * far_margin)),
+                          k_l * FAR_ENTRIES), FAR_ENTRIES))
+    return {"max_near": max_near, "flat_cap": flat_cap,
+            "far_max": far_max, "far_cap": far_cap}

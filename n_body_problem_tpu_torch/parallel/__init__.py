@@ -1,0 +1,32 @@
+"""Multi-GPU: the bodies sharded over a ring of ranks on ``torch.distributed``.
+
+Counterpart of ``n_body_problem_tpu.parallel`` for the exact ring, the half
+ring and the sharded treecode with replicated sources; the staged treecode
+(``make_staged_force``, ``make_staged_run``) is not ported yet.
+"""
+
+from n_body_problem_tpu_torch.parallel.mesh import RingMesh, make_ring_mesh, spawn_ring
+from n_body_problem_tpu_torch.parallel.ring import (
+    half_ring_acc,
+    make_sharded_step,
+    ring_acc,
+    shard_state,
+)
+from n_body_problem_tpu_torch.parallel.sharded import ShardedSimulation
+from n_body_problem_tpu_torch.parallel.tree import (
+    make_sharded_treecode_force,
+    make_sharded_treecode_run,
+)
+
+__all__ = [
+    "RingMesh",
+    "make_ring_mesh",
+    "spawn_ring",
+    "ring_acc",
+    "half_ring_acc",
+    "make_sharded_step",
+    "shard_state",
+    "ShardedSimulation",
+    "make_sharded_treecode_force",
+    "make_sharded_treecode_run",
+]

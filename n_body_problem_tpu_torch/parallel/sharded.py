@@ -1,0 +1,207 @@
+"""ShardedSimulation: the multi-GPU counterpart of ``Simulation``.
+
+Counterpart of ``n_body_problem_tpu.parallel.sharded``. Bodies are sharded
+over the ranks of a :class:`~n_body_problem_tpu_torch.parallel.mesh.RingMesh`
+(BASELINE.json configs 4-5: 262,144 bodies over 4 devices, 1,048,576 and
+up). Every rank builds the same ``ShardedSimulation`` from the same whole
+state and keeps only its own shard; ``gather_state`` (a collective) gives
+the whole state back on every rank.
+
+- ``"ring"`` / ``"half_ring"``: the exact ring (``parallel/ring.py``), the
+  tile rotation or the half ring's packets between ranks every force.
+- ``"treecode"``: the sharded Barnes-Hut (``parallel/tree.py``), replicated
+  sources and sharded target rows, on the path the JAX package takes for
+  the same configuration (the card plays the TPU's part in the rule).
+- ``"treecode_staged"`` is not ported yet (ROADMAP §1 item 9c).
+
+>>> sim = ShardedSimulation(cfg, state, mesh, strategy="half_ring")  # on each rank
+>>> sim.run(1000)
+>>> sim.diagnostics()["energy"]                                      # on each rank
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import time as _time
+
+import torch
+
+from n_body_problem_tpu_torch.config import SimConfig, resolve_vip_tiles
+from n_body_problem_tpu_torch.ops import treecode
+from n_body_problem_tpu_torch.parallel.mesh import RingMesh, make_ring_mesh
+from n_body_problem_tpu_torch.parallel.ring import make_sharded_step, ring_force, shard_state
+from n_body_problem_tpu_torch.parallel.tree import (make_sharded_treecode_force,
+                                                    make_sharded_treecode_run)
+from n_body_problem_tpu_torch.simulation import require_card_softening
+from n_body_problem_tpu_torch.state import SimState, pad_state, unpad_state
+from n_body_problem_tpu_torch.utils.morton import apply_permutation, morton_argsort
+
+STRATEGIES = ("ring", "half_ring", "treecode", "treecode_staged")
+
+
+def auto_tile(cfg: SimConfig, strategy: str, n: int, device_type: str) -> SimConfig:
+    """``cfg`` with the auto target row (``tree_tile`` 0) resolved by
+    ``ShardedSimulation``'s own copy of the rule, not ``Simulation``'s: 128
+    where the hierarchical far field will engage on each rank, 32 on the
+    single-level paths (and for the exact ring, which has no rows)."""
+    if cfg.tree_tile:
+        return cfg
+    hier = (strategy == "treecode" and cfg.tree_hier
+            and n >= max(treecode.CHUNK_LANES, treecode.FAR_ENTRIES * cfg.tree_src_tile)
+            and ((cfg.tree_flat_cap == 0 and device_type == "cuda")
+                 or (cfg.tree_flat_cap > 0 and cfg.tree_far_cap > 0)))
+    return cfg.replace(tree_tile=treecode.DEFAULT_HIER_TILE if hier else 32)
+
+
+def plan_treecode(cfg: SimConfig, state: SimState, n_dev: int, device_type: str):
+    """The distributed Barnes-Hut's set-up on the whole state:
+    ``(cfg, state, init_perm)``. Bodies Morton-sorted on the host (``init_perm``
+    the input index of each sorted real body), padded to ``lcm(D tile,
+    src_tile, 256)`` so that every rank holds whole target rows, the VIP
+    count resolved and the capacities planned for one rank's row block
+    (``suggest_hier_sharded``, ``suggest_flat_cap_sharded``), on the paths
+    the JAX package takes: on the card with ``tree_flat_cap`` at 0, flat from
+    2,048 bodies and hierarchical from ``FAR_ENTRIES`` source tiles;
+    otherwise the capacities given, or the dense path."""
+    cfg = auto_tile(cfg, "treecode", state.n, device_type)
+    real = unpad_state(state) if state.n != state.n_real else state
+    init_perm = morton_argsort(real.pos)
+    state = apply_permutation(real, init_perm)
+    state = pad_state(state, multiple=math.lcm(n_dev * cfg.tree_tile, cfg.tree_src_tile, 256))
+    n, src = state.n, cfg.tree_src_tile
+    if cfg.tree_vip_tiles == -1:
+        cfg = cfg.replace(tree_vip_tiles=resolve_vip_tiles(-1, n))
+    whole_rows = (n // cfg.tree_tile) % n_dev == 0
+    use_flat = (cfg.tree_flat_cap == 0 and device_type == "cuda"
+                and n >= treecode.CHUNK_LANES and n % src == 0 and whole_rows)
+    use_hier = (cfg.tree_hier and n >= treecode.FAR_ENTRIES * src and whole_rows
+                and (use_flat or (cfg.tree_flat_cap > 0 and cfg.tree_far_cap > 0)))
+    mac = dict(mac_tau=cfg.tree_mac_tau, eps2=cfg.eps2, compensate=cfg.compensate)
+    sel = dict(tile=cfg.tree_tile, theta=cfg.tree_theta, vip_tiles=cfg.tree_vip_tiles)
+    if use_hier:
+        caps = treecode.suggest_hier_sharded(
+            state.pos, state.mass, n_dev, src_tile=src, slack=cfg.tree_near_slack,
+            **dict(mac, mac_tau=cfg.tree_hier_tau, mac_tau0=cfg.tree_mac_tau,
+                   union_coarse=cfg.tree_hier_union), **sel)
+        for field, key in (("tree_max_near", "max_near"), ("tree_flat_cap", "flat_cap"),
+                           ("tree_far_max", "far_max"), ("tree_far_cap", "far_cap")):
+            if getattr(cfg, field) == 0:
+                cfg = cfg.replace(**{field: caps[key]})
+    else:
+        if cfg.tree_max_near == 0:
+            cfg = cfg.replace(tree_max_near=treecode.suggest_max_near(
+                state.pos, state.mass,
+                src_tile=src if use_flat or cfg.tree_flat_cap > 0 else None, **mac, **sel))
+        if use_flat:
+            cfg = cfg.replace(tree_flat_cap=treecode.suggest_flat_cap_sharded(
+                state.pos, state.mass, n_dev, src_tile=src, slack=cfg.tree_near_slack,
+                **mac, **sel))
+    return cfg, state, init_perm
+
+
+class ShardedSimulation:
+    """Stateful wrapper of one rank's shard; every rank of the mesh makes
+    one, from the same config and whole state, and calls its methods in
+    the same order (``run``, ``gather_state`` and ``diagnostics`` are
+    collectives).
+
+    ``local_solver`` picks the exact strategies' stage solver
+    (``parallel.ring``: on the card always the all-pairs kernel). With
+    ``strategy="treecode"`` ``sort_perm[i]`` is the input index of the body
+    now at global slot i, as in ``Simulation``.
+    """
+
+    def __init__(self, cfg: SimConfig, state: SimState, mesh: RingMesh | None = None, *,
+                 strategy: str = "ring", local_solver: str = "xla"):
+        if strategy == "treecode_staged":
+            raise NotImplementedError(
+                'strategy "treecode_staged" is not ported yet: ROADMAP §1 item 9c '
+                "(the staged strategy)")
+        if strategy not in STRATEGIES:
+            raise ValueError(f"unknown strategy {strategy!r}; expected one of {STRATEGIES}")
+        self.mesh = mesh if mesh is not None else make_ring_mesh()
+        self.strategy = strategy
+        dev_type = self.mesh.device.type
+        require_card_softening("treecode" if strategy == "treecode" else "pallas", cfg.eps2,
+                               dev_type)
+        self.cfg = cfg = auto_tile(cfg, strategy, state.n, dev_type)
+        self.sort_perm = None
+        self.wall_seconds = 0.0
+        self._step = self._tree_run = None
+        state = state.to(self.mesh.device)
+        if strategy == "treecode":
+            self._init_treecode(cfg, state)
+            return
+        if cfg.morton_sort:
+            real = unpad_state(state) if state.n != state.n_real else state
+            state = apply_permutation(real, morton_argsort(real.pos))
+        if state.n % self.mesh.size:
+            state = pad_state(state, multiple=self.mesh.size)
+        self.n = state.n
+        self.state = shard_state(state, self.mesh)
+        if cfg.integrator == "leapfrog":
+            # Leapfrog's first half-kick needs the force at the start.
+            force = ring_force(strategy, self.mesh, cfg, local_solver)
+            self.state = dataclasses.replace(
+                self.state, acc=force(self.state.pos, self.state.mass))
+        self._step = make_sharded_step(cfg, self.mesh, strategy, local_solver)
+
+    def _init_treecode(self, cfg: SimConfig, state: SimState) -> None:
+        """The distributed Barnes-Hut (:func:`plan_treecode`), primed for
+        leapfrog with the sharded force."""
+        cfg, state, self.sort_perm = plan_treecode(cfg, state, self.mesh.size,
+                                                   self.mesh.device.type)
+        self.cfg, self.n = cfg, state.n
+        self.state = shard_state(state, self.mesh)
+        if cfg.integrator == "leapfrog":
+            force = make_sharded_treecode_force(cfg, self.mesh)
+            self.state = dataclasses.replace(
+                self.state, acc=force(self.state.pos, self.state.mass))
+        self._tree_run = make_sharded_treecode_run(cfg, self.mesh)
+
+    def run(self, n_steps: int) -> SimState:
+        """Advance ``n_steps``; returns this rank's shard when its device has
+        finished them. A collective: every rank calls it."""
+        t0 = _time.perf_counter()
+        if self._tree_run is not None:
+            self.state, ids = self._tree_run(self.state, n_steps)
+            ids = self.mesh.all_gather(ids)[:self.state.n_real].cpu().numpy()
+            self.sort_perm = ids if self.sort_perm is None else self.sort_perm[ids]
+        else:
+            for _ in range(n_steps):
+                self.state = self._step(self.state)
+        if self.mesh.device.type == "cuda":
+            torch.cuda.synchronize(self.mesh.device)
+        self.wall_seconds += _time.perf_counter() - t0
+        return self.state
+
+    def step(self) -> SimState:
+        """One step (``run(1)``)."""
+        return self.run(1)
+
+    def gather_state(self) -> SimState:
+        """The whole state, every rank's rows in rank order, on every rank
+        (one ``all_gather``; a collective)."""
+        s = self.state
+        cols = self.mesh.all_gather(torch.cat([s.pos, s.vel, s.acc, s.mass[:, None],
+                                               s.eps[:, None]], 1))
+        return dataclasses.replace(
+            s, pos=cols[:, 0:3].contiguous(), vel=cols[:, 3:6].contiguous(),
+            acc=cols[:, 6:9].contiguous(), mass=cols[:, 9].contiguous(),
+            eps=cols[:, 10].contiguous())
+
+    # ------------------------------------------------------------ metrics
+    def pairs_per_step(self) -> int:
+        """Physical directed pair interactions per step (real bodies only)."""
+        k = self.state.n_real
+        return k * (k - 1)
+
+    def padded_pairs_per_step(self) -> int:
+        return self.n * self.n
+
+    def diagnostics(self) -> dict:
+        """``diagnostics.summary`` of the gathered state (a collective)."""
+        from n_body_problem_tpu_torch import diagnostics as diag
+
+        return diag.summary(self.gather_state(), self.cfg)

@@ -1,0 +1,289 @@
+"""Multi-GPU Barnes-Hut: replicated sources, sharded target rows.
+
+Counterpart of ``n_body_problem_tpu.parallel.tree``. Bodies stay globally
+Morton-sorted and each rank holds a contiguous block of them, so a
+contiguous range of target rows. Per force evaluation every rank gathers
+every position (one ``all_gather``), rebuilds the global source summaries
+itself, and evaluates its own rows only: the acceptance and work lists are
+(K_t / D, ...) against all K_s sources, the near fields read the gathered
+bodies, the far fields the global summaries. The VIP split is global and
+the same on every rank; each rank's VIP sweep gives a partial reaction,
+the ranks' reactions are summed (one ``all_reduce``) and each rank writes
+the VIP rows it holds. Every ``tree_rebuild_every`` steps each rank sorts
+the gathered columns (the same sort on every rank) and keeps its own slice.
+
+Each force is one per-rank function of tensors, :func:`rank_acc` (its own
+rows, the gathered columns and its rank in; its acceleration and partial
+VIP reaction out), built on lists from :func:`rank_lists`; the collectives
+sit in the thin layer around them (:func:`make_sharded_treecode_run`,
+:func:`make_sharded_treecode_force`). :func:`treecode_acc_ranks` runs the
+per-rank functions for every rank in one process, the reactions added over
+the ranks, which is what the collectives deliver.
+
+The paths (:func:`sharded_path`): hierarchical (near kernel 7 in its local
+form, far kernels 8/9, VIP kernel 6), single-level flat (7, far kernel 3,
+6) and dense (gather 4, near-panel 5, far 3, 6); on the CPU each wrapper
+runs its plain twin.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import torch
+
+from n_body_problem_tpu_torch.config import SimConfig
+from n_body_problem_tpu_torch.ops import cuda_treecode
+from n_body_problem_tpu_torch.ops import treecode as tc
+from n_body_problem_tpu_torch.parallel.mesh import RingMesh
+from n_body_problem_tpu_torch.state import SimState
+from n_body_problem_tpu_torch.utils.morton import morton_order
+
+
+def sharded_path(cfg: SimConfig) -> str:
+    """The path a resolved config runs sharded: ``"hier"`` with both list
+    capacities and the far bound, ``"flat"`` with the near capacity alone,
+    else ``"dense"`` (the JAX package's ``make_sharded_treecode_run``)."""
+    if cfg.tree_flat_cap > 0:
+        hier = cfg.tree_hier and cfg.tree_far_cap > 0 and cfg.tree_far_max > 0
+        return "hier" if hier else "flat"
+    return "dense"
+
+
+def _dense_static(cfg: SimConfig, n_g: int) -> tuple[int, int]:
+    """(vip_tiles, max_near) of the sharded dense path at ``n_g`` bodies:
+    the VIP count clamped, the near capacity at least 4 and at most K."""
+    k = n_g // cfg.tree_tile
+    return tc._clamp_vip(cfg.tree_vip_tiles, k), min(max(cfg.tree_max_near, 4), k)
+
+
+def _dense_lists(pos_l, pos_g, mass_g, cfg: SimConfig, row_offset: int):
+    """The dense path's acceptance of a rank's rows: ``(near_idx (K_t local,
+    M) int32, near_mask (K_t local, K) bool, is_vip_g (N,) bool)``."""
+    tile = cfg.tree_tile
+    vip_tiles, max_near = _dense_static(cfg, pos_g.shape[0])
+    xg, yg, zg = pos_g.unbind(1)
+    mass_tree_g, is_vip_g = tc._tree_mass(xg, yg, zg, mass_g, tile, vip_tiles)
+    near_idx, near_mask = tc._acceptance(
+        *pos_l.unbind(1), tc._level0(xg, yg, zg, mass_tree_g, tile), tile, cfg.tree_theta,
+        max_near, mac_tau=cfg.tree_mac_tau, eps2=cfg.eps2, c2=cfg.compensate ** 2,
+        row_offset=row_offset)
+    return near_idx, near_mask.contiguous(), is_vip_g
+
+
+def _local_treecode_acc(pos_l, mass_l, pos_g, mass_g, aux, *, eps2: float,
+                        compensate: float, G: float, tile: int, vip_tiles: int):
+    """The dense path's acceleration of a rank's rows from every body,
+    ``aux = (near_idx_l, near_mask_l, is_vip_g)``: ``(acc, react, vip_body_g)``
+    as :func:`rank_acc` returns them. The near tiles are gathered from the
+    global bodies into one panel a local target tile and swept exactly; the
+    single-level far field covers the rest."""
+    near_idx_l, near_mask_l, is_vip_g = aux
+    n_l, k = pos_l.shape[0], pos_g.shape[0] // tile
+    c2 = compensate * compensate
+    ops = tc.kernel_operands(pos_g, mass_g, is_vip_g, compensate=compensate, G=G,
+                             src_tile=tile, vip_src=vip_tiles, plan=(k,))
+    rows = tc._local_rows(*pos_l.unbind(1), mass_l, G * c2 * compensate)
+    panels = cuda_treecode.gather_panels(ops["bodies"], near_idx_l, tile=tile)
+    acc = tc._near_field_xla(rows, panels, eps2=eps2, c2=c2, tile=tile)
+    acc = acc + cuda_treecode.far_field_single(rows, ops["summ"], near_mask_l, n=n_l,
+                                               tile=tile, eps2=eps2, c2=c2, G=G)
+    return tc._local_vips(acc, rows, ops, tile, vip_tiles, eps2=eps2, c2=c2)
+
+
+def _tiles(cfg: SimConfig) -> dict:
+    """The static keywords the local builds and forces share."""
+    return dict(tile=cfg.tree_tile, src_tile=cfg.tree_src_tile, max_near=cfg.tree_max_near,
+                vip_tiles=cfg.tree_vip_tiles)
+
+
+def rank_lists(path: str, cfg: SimConfig, pos_l, pos_g, mass_g, rank: int):
+    """The work lists of rank ``rank``'s rows ``pos_l`` (B, 3) against every
+    body (``pos_g``, ``mass_g``), on ``path``: those of
+    ``treecode.build_hier_local``, ``build_flat_local`` or the dense
+    acceptance. Every rank computes the same global VIP split."""
+    row_offset = rank * (pos_l.shape[0] // cfg.tree_tile)
+    if path == "dense":
+        return _dense_lists(pos_l, pos_g, mass_g, cfg, row_offset)
+    common = dict(slack=cfg.tree_near_slack, flat_cap=cfg.tree_flat_cap, row_offset=row_offset,
+                  theta=cfg.tree_theta, eps2=cfg.eps2, compensate=cfg.compensate,
+                  **_tiles(cfg))
+    cols = (*pos_l.unbind(1), *pos_g.unbind(1), mass_g)
+    if path == "hier":
+        return tc.build_hier_local(*cols, far_max=cfg.tree_far_max, far_cap=cfg.tree_far_cap,
+                                   mac_tau=cfg.tree_hier_tau, mac_tau0=cfg.tree_mac_tau,
+                                   union_coarse=cfg.tree_hier_union, **common)
+    return tc.build_flat_local(*cols, mac_tau=cfg.tree_mac_tau, **common)
+
+
+def rank_acc(path: str, cfg: SimConfig, pos_l, mass_l, pos_g, mass_g, aux):
+    """A rank's treecode force: ``(acc (B, 3), react (W, 3) | None,
+    vip_body_g (W,) | None)``, its rows' acceleration with the VIP panel's
+    pull added, its partial pull on the panel and the panel's global body
+    ids. The reactions, summed over the ranks, are the VIP bodies' whole
+    accelerations (:func:`apply_reaction`)."""
+    phys = dict(eps2=cfg.eps2, compensate=cfg.compensate, G=cfg.G)
+    if path == "dense":
+        return _local_treecode_acc(pos_l, mass_l, pos_g, mass_g, aux, tile=cfg.tree_tile,
+                                   vip_tiles=_dense_static(cfg, pos_g.shape[0])[0], **phys)
+    cols = (*pos_l.unbind(1), mass_l, *pos_g.unbind(1), mass_g, aux)
+    if path == "hier":
+        ax, ay, az, react, idx = tc.hier_local_acc(*cols, far_max=cfg.tree_far_max,
+                                                   theta=cfg.tree_theta, **_tiles(cfg), **phys)
+    else:
+        ax, ay, az, react, idx = tc.flat_local_acc(*cols, **_tiles(cfg), **phys)
+    return torch.stack([ax, ay, az], 1), react, idx
+
+
+def apply_reaction(acc_l, react, vip_body_g, rank: int) -> torch.Tensor:
+    """``acc_l`` with the rows of the VIP bodies this rank holds set to
+    their summed reactions. The write is masked: the other VIPs go to a
+    discard row past the end (an index there would raise, or assert on the
+    card, where JAX drops it)."""
+    if react is None:
+        return acc_l
+    n_l = acc_l.shape[0]
+    rel = vip_body_g - rank * n_l
+    dest = torch.where((rel >= 0) & (rel < n_l), rel, n_l)
+    out = torch.cat([acc_l, acc_l.new_zeros((1, 3))])
+    out[dest] = react.to(out.dtype)
+    return out[:n_l]
+
+
+def _reduced(mesh: RingMesh, acc, react, vip_body_g) -> torch.Tensor:
+    """A rank's force with the reactions summed over the ranks (one
+    ``all_reduce``) written into its VIP rows."""
+    if react is None:
+        return acc
+    return apply_reaction(acc, mesh.all_reduce(react), vip_body_g, mesh.rank)
+
+
+def _ranked_force(path: str, cfg: SimConfig, mesh: RingMesh, mass_l, mass_g, aux) -> Callable:
+    """``pos_l -> acc_l`` of a chunk's steps: gather the positions, then the
+    rank's force on the chunk's lists (:func:`rank_acc`, :func:`_reduced`)."""
+    return lambda pos_l: _reduced(mesh, *rank_acc(path, cfg, pos_l, mass_l,
+                                                  mesh.all_gather(pos_l), mass_g, aux))
+
+
+def treecode_acc_ranks(cfg: SimConfig, pos, mass, size: int):
+    """The sharded force of every rank of a ring of ``size``, in this
+    process, one rank after another: ``(acc (N, 3), lists)``, the ranks'
+    accelerations in rank order and each rank's work lists. Each rank's
+    slice of ``pos`` is its rows and all of ``pos`` its gathered columns;
+    the partial reactions are added in rank order."""
+    path = sharded_path(cfg)
+    b = pos.shape[0] // size
+    if b * size != pos.shape[0]:
+        raise ValueError(f"N={pos.shape[0]} not divisible by {size} ranks")
+    mine = [slice(r * b, (r + 1) * b) for r in range(size)]
+    lists = [rank_lists(path, cfg, pos[m], pos, mass, r) for r, m in enumerate(mine)]
+    parts = [rank_acc(path, cfg, pos[m], mass[m], pos, mass, aux)
+             for m, aux in zip(mine, lists)]
+    if parts[0][1] is None:
+        return torch.cat([p[0] for p in parts]), lists
+    react = parts[0][1]
+    for p in parts[1:]:
+        react = react + p[1]
+    return torch.cat([apply_reaction(acc, react, idx, r)
+                      for r, (acc, _, idx) in enumerate(parts)]), lists
+
+
+def merge_rank_lists(path: str, lists, rows: int, entries: int):
+    """The ranks' work lists as one device's: each rank's live chunks in
+    rank order with its ``rows`` local row ids made global (so the tags
+    stay non-decreasing), the masks and dense lists stacked; ``entries``
+    source tiles a near chunk. The single-device force
+    (``treecode.treecode_acc_hier``, ``treecode_acc_flat``, ``treecode_acc``)
+    on them computes what the ranks computed."""
+    if path == "dense":
+        return (torch.cat([a[0] for a in lists]), torch.cat([a[1] for a in lists]),
+                lists[0][2])
+
+    def merged(src_at: int, entries: int):
+        src, tgt = [], []
+        for r, a in enumerate(lists):
+            live = a[src_at + 1] < rows
+            src.append(a[src_at].reshape(-1, entries)[live].reshape(-1))
+            tgt.append(a[src_at + 1][live] + r * rows)
+        return torch.cat(src), torch.cat(tgt).to(torch.int32)
+
+    if path == "flat":
+        return (*merged(0, entries), torch.cat([a[2] for a in lists]), lists[0][3])
+    return (*merged(0, entries), *merged(2, tc.FAR_ENTRIES), lists[0][4])
+
+
+def _resorted(state: SimState, ids: torch.Tensor, mesh: RingMesh):
+    """The global Morton resort, the same on every rank: gather the body
+    columns, sort them by the gathered keys, keep this rank's slice.
+    Returns ``(state, ids, pos_g, mass_g)`` with the sorted global
+    positions and masses."""
+    b = state.n
+    cols = mesh.all_gather(torch.cat([state.pos, state.vel, state.acc, state.mass[:, None],
+                                      state.eps[:, None]], 1))
+    ids_g = mesh.all_gather(ids)
+    perm = morton_order(cols[:, 0], cols[:, 1], cols[:, 2], state.n_real)
+    mine = perm[mesh.rank * b:(mesh.rank + 1) * b]
+    loc = cols[mine]
+    state = dataclasses.replace(
+        state, pos=loc[:, 0:3].contiguous(), vel=loc[:, 3:6].contiguous(),
+        acc=loc[:, 6:9].contiguous(), mass=loc[:, 9].contiguous(), eps=loc[:, 10].contiguous())
+    srt = cols[perm]
+    return state, ids_g[mine], srt[:, 0:3].contiguous(), srt[:, 9].contiguous()
+
+
+def make_sharded_treecode_run(cfg: SimConfig, mesh: RingMesh) -> Callable:
+    """``run(state, n_steps) -> (state, ids)`` of this rank's shard: the
+    multi-GPU counterpart of ``simulation.make_treecode_run``. Every
+    ``cfg.tree_rebuild_every`` steps the global resort and this rank's
+    lists (:func:`rank_lists`), then the steps with both kept; ``ids[i]`` is
+    the input slot (global) of the body now at this rank's row i. The time
+    and step advance once, at the end, as in the JAX package's sharded
+    run. ``cfg`` must carry the resolved tile, VIP count and capacities
+    (``ShardedSimulation`` resolves them)."""
+    path = sharded_path(cfg)
+    every, dt = cfg.tree_rebuild_every, cfg.dt
+    leapfrog = cfg.integrator == "leapfrog"
+
+    def chunk(state: SimState, ids: torch.Tensor, length: int):
+        state, ids, pos_g, mass_g = _resorted(state, ids, mesh)
+        aux = rank_lists(path, cfg, state.pos, pos_g, mass_g, mesh.rank)
+        force = _ranked_force(path, cfg, mesh, state.mass, mass_g, aux)
+        pos, vel, acc = state.pos, state.vel, state.acc
+        for _ in range(length):
+            if leapfrog:   # KDK, stored-acceleration form
+                vel = vel + acc * (0.5 * dt)
+                pos = pos + vel * dt
+                acc = force(pos)
+                vel = vel + acc * (0.5 * dt)
+            else:
+                acc = force(pos)
+                vel = vel + acc * dt
+                pos = pos + vel * dt
+        return dataclasses.replace(state, pos=pos, vel=vel, acc=acc), ids
+
+    def run(state: SimState, n_steps: int):
+        b = state.n
+        ids = torch.arange(mesh.rank * b, (mesh.rank + 1) * b, dtype=torch.int32,
+                           device=state.device)
+        full, rem = divmod(n_steps, every)
+        for length in [every] * full + ([rem] if rem else []):
+            state, ids = chunk(state, ids, length)
+        state = dataclasses.replace(
+            state, time=state.time + torch.full_like(state.time, n_steps * dt),
+            step=state.step + n_steps)
+        return state, ids
+
+    return run
+
+
+def make_sharded_treecode_force(cfg: SimConfig, mesh: RingMesh) -> Callable:
+    """One sharded treecode force, ``(pos_l, mass_l) -> acc_l``, with the
+    acceptance built afresh (the leapfrog prime): the dense path, whatever
+    the capacities say, as in the JAX package."""
+    def force(pos_l, mass_l):
+        pos_g, mass_g = mesh.all_gather(pos_l), mesh.all_gather(mass_l)
+        aux = rank_lists("dense", cfg, pos_l, pos_g, mass_g, mesh.rank)
+        return _reduced(mesh, *rank_acc("dense", cfg, pos_l, mass_l, pos_g, mass_g, aux))
+
+    return force

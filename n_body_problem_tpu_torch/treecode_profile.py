@@ -126,8 +126,9 @@ def kernel_inputs(n: int, device, seed: int = 0, **overrides) -> dict:
                                        G=cfg.G, src_tile=src, vip_src=st[4],
                                        plan=st[5] if hier else (st[1],))
         b = ops["bodies"]
-        kernels = {"near": ((b, aux[0], aux[1]),
-                            dict(n=s.n, tile=tile, src_tile=src, entries=st[2], **phys))}
+        kernels = {"near": ((b, b, aux[0], aux[1]),
+                            dict(n=s.n, n_s=s.n, tile=tile, src_tile=src, entries=st[2],
+                                 **phys))}
         if hier:
             kernels["far"] = ((b, ops["summ"], aux[2], aux[3]), far_kw)
         else:

@@ -39,10 +39,27 @@ def test_resume_continues_steps(tmp_path):
 
 def test_unported_flags_name_the_roadmap(tmp_path, capsys):
     rc = main(["run", "--model", "plummer", "--n", "64", "--steps", "1",
-               "--out", str(tmp_path), "--devices", "2"])
+               "--out", str(tmp_path), "--devices", "2", "--strategy", "treecode_staged"])
     assert rc == 2
-    assert "ROADMAP §1 item 9" in capsys.readouterr().err
+    assert "ROADMAP §1 item 9c" in capsys.readouterr().err
     assert not (tmp_path / "final.npz").exists()
+
+
+def test_run_devices_shards_over_gloo_ranks(tmp_path):
+    """``--device cpu --devices 2 --strategy half_ring``: two gloo ranks,
+    rank 0 writes final.npz (the gathered state), equal to the one-device
+    run's real bodies within tests/test_parallel.py's multi-step tolerance."""
+    common = ["run", "--model", "plummer", "--n", "64", "--steps", "4", "--steps-per-block",
+              "2", "--checkpoint-every", "2", "--device", "cpu"]
+    assert main(common + ["--devices", "2", "--strategy", "half_ring",
+                          "--out", str(tmp_path / "d2")]) == 0
+    assert main(common + ["--out", str(tmp_path / "d1")]) == 0
+    two, _ = jax_load(tmp_path / "d2" / "final.npz")
+    one, _ = jax_load(tmp_path / "d1" / "final.npz")
+    assert int(two.step) == 4 and two.n_real == 64 and two.n == 64
+    np.testing.assert_allclose(np.asarray(two.pos), np.asarray(one.pos)[:64], rtol=2e-5,
+                               atol=1e-5)
+    assert (tmp_path / "d2" / "ck_00000002.npz").exists()
 
 
 def test_run_render_every_writes_frames_and_gif(tmp_path, capsys):
@@ -238,7 +255,7 @@ def test_import_leaves_jax_out():
     code = ("import sys, n_body_problem_tpu_torch, n_body_problem_tpu_torch.cli, "
             "n_body_problem_tpu_torch.bench, n_body_problem_tpu_torch.validate, "
             "n_body_problem_tpu_torch.io, n_body_problem_tpu_torch.utils.profiling, "
-            "n_body_problem_tpu_torch.render.server; "
+            "n_body_problem_tpu_torch.render.server, n_body_problem_tpu_torch.parallel; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'n_body_problem_tpu.'))"
             " or m in ('n_body_problem_tpu', 'bench', 'validate')]; print(bad); "
             "sys.exit(1 if bad else 0)")

@@ -290,8 +290,8 @@ def _tree_case(device, n, overrides):
                                    vip_src=st[4], plan=st[5])
     c2 = PHYS["compensate"] ** 2
     return {
-        "near": ((ops["bodies"], aux[0], aux[1]),
-                 dict(n=s.n, tile=cfg.tree_tile, src_tile=cfg.tree_src_tile,
+        "near": ((ops["bodies"], ops["bodies"], aux[0], aux[1]),
+                 dict(n=s.n, n_s=s.n, tile=cfg.tree_tile, src_tile=cfg.tree_src_tile,
                       entries=st[2], eps2=PHYS["eps2"], c2=c2)),
         "far": ((ops["bodies"], ops["summ"], aux[2], aux[3]),
                 dict(n=s.n, tile=cfg.tree_tile, eps2=PHYS["eps2"], c2=c2, G=1.0)),
@@ -358,16 +358,17 @@ def test_near_kernel_writes_zeros_for_a_row_without_chunks(cuda):
     from n_body_problem_tpu_torch.ops import cuda_treecode as ct
     from n_body_problem_tpu_torch.treecode_profile import kernel_inputs
 
-    (bodies, flat_src, chunk_tgt), kw = kernel_inputs(8192, cuda, seed=3)["kernels"]["near"]
+    (bodies, _, flat_src, chunk_tgt), kw = kernel_inputs(8192, cuda, seed=3)["kernels"]["near"]
     # Row 5's chunks go to row 6: still non-decreasing and contiguous.
     moved = torch.where(chunk_tgt == 5, 6, chunk_tgt).to(torch.int32)
-    got = ct.near_field(bodies, flat_src, moved, **kw)
+    got = ct.near_field(bodies, bodies, flat_src, moved, **kw)
     torch.cuda.synchronize()
     assert not got[5 * kw["tile"]:6 * kw["tile"]].any()
-    torch.testing.assert_close(got, ct.near_field_plain(bodies, flat_src, moved, **kw), **TOL)
+    torch.testing.assert_close(got, ct.near_field_plain(bodies, bodies, flat_src, moved, **kw),
+                               **TOL)
     # No live chunk at all (every tag the sentinel): all zeros.
     none = torch.full_like(chunk_tgt, kw["n"] // kw["tile"])
-    assert not ct.near_field(bodies, flat_src, none, **kw).any()
+    assert not ct.near_field(bodies, bodies, flat_src, none, **kw).any()
 
 
 def test_tree_wrappers_count_launches(cuda):
@@ -439,9 +440,9 @@ def _single_case(device, n, overrides):
         ops = treecode.kernel_operands(s.pos, s.mass, aux[3], src_tile=cfg.tree_src_tile,
                                        vip_src=st[4], plan=(st[1],))
         return sim, {
-            "near": ((ops["bodies"], aux[0], aux[1]),
-                     dict(n=s.n, tile=tile, src_tile=cfg.tree_src_tile, entries=st[2],
-                          **phys)),
+            "near": ((ops["bodies"], ops["bodies"], aux[0], aux[1]),
+                     dict(n=s.n, n_s=s.n, tile=tile, src_tile=cfg.tree_src_tile,
+                          entries=st[2], **phys)),
             "far_single": ((ops["bodies"], ops["summ"], aux[2]),
                            dict(n=s.n, tile=tile, G=1.0, **phys))}
     k, max_near, vip = treecode._static_args(s.n, tile, cfg.tree_theta, cfg.tree_max_near,
@@ -770,3 +771,62 @@ def test_splat_on_card_matches_cpu(cuda, width, height):
     assert card.device.type == "cuda" and card.shape == (height, width, 3)
     torch.testing.assert_close(card.cpu(), cpu, rtol=1e-5, atol=1e-5 * float(cpu.max()))
     assert torch.equal(card, again)
+
+
+# ------------------------------------------------- kernel 7's local form
+def _rank_near_calls(cuda, monkeypatch, overrides):
+    """Four ranks' treecode forces at 65,536 bodies, rank by rank
+    (``tree.treecode_acc_ranks``), with each near-kernel call's arguments
+    recorded: each rank's rows are the targets, every body the sources."""
+    from n_body_problem_tpu_torch.ops import cuda_treecode as ct
+    from n_body_problem_tpu_torch.parallel import tree as ptree
+    from n_body_problem_tpu_torch.parallel.sharded import plan_treecode
+
+    calls, kernel = [], ct.near_field
+
+    def recorder(*args, **kw):
+        calls.append((args, kw))
+        return kernel(*args, **kw)
+
+    recorder.launches = 0
+    monkeypatch.setattr(ct, "near_field", recorder)
+    cfg, st, _ = plan_treecode(tnb.SimConfig(solver="treecode", **overrides),
+                               tnb.models.plummer(65536, seed=3).to(cuda), 4, "cuda")
+    _, lists = ptree.treecode_acc_ranks(cfg, st.pos, st.mass, 4)
+    monkeypatch.undo()
+    return cfg, st, lists, calls
+
+
+@pytest.mark.parametrize("overrides", [{}, dict(tree_hier=False)])
+def test_near_local_form_matches_plain_at_four_ranks(cuda, monkeypatch, overrides):
+    from n_body_problem_tpu_torch.ops import cuda_treecode as ct
+    from n_body_problem_tpu_torch.ops import treecode
+    from n_body_problem_tpu_torch.parallel import tree as ptree
+
+    cfg, st, lists, calls = _rank_near_calls(cuda, monkeypatch, overrides)
+    assert len(calls) == 4
+    for args, kw in calls:
+        assert (kw["n"], kw["n_s"]) == (st.n // 4, st.n) and args[0] is not args[1]
+        got, again = ct.near_field(*args, **kw), ct.near_field(*args, **kw)
+        torch.testing.assert_close(got, ct.near_field_plain(*args, **kw), **TOL)
+        assert torch.equal(got, again)
+    # The ranks' rows are the rows of one call on their merged lists, bitwise.
+    path = ptree.sharded_path(cfg)
+    merged = ptree.merge_rank_lists(path, lists, st.n // 4 // cfg.tree_tile,
+                                    treecode.CHUNK_LANES // cfg.tree_src_tile)
+    bodies = calls[0][0][1]
+    one = ct.near_field(bodies, bodies, merged[0], merged[1], **dict(calls[0][1], n=st.n))
+    assert torch.equal(one, torch.cat([ct.near_field(*a, **k) for a, k in calls]))
+
+
+def test_near_kernel_at_one_device_is_its_earlier_output(cuda):
+    """The same array as targets and sources: bitwise the output the kernel
+    gave before it took them apart (``kernel_compare.NEAR_GOLDEN_SHA256``)."""
+    import hashlib
+
+    from n_body_problem_tpu_torch.kernel_compare import NEAR_GOLDEN_SHA256, near_golden_case
+    from n_body_problem_tpu_torch.ops import cuda_treecode as ct
+
+    args, kw = near_golden_case(cuda)
+    out = ct.near_field(*args, **kw)
+    assert hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest() == NEAR_GOLDEN_SHA256

@@ -94,8 +94,8 @@ def test_near_work_counts_live_entries():
     n, tile, src_tile, entries = 8, 4, 2, 2
     flat_src = torch.tensor([0, 1, 2, 4, 3, 4, 0, 0], dtype=torch.int32)
     chunk_tgt = torch.tensor([0, 0, 1, 2], dtype=torch.int32)
-    work = kc.near_work((None, flat_src, chunk_tgt),
-                        dict(n=n, tile=tile, src_tile=src_tile, entries=entries))
+    work = kc.near_work((None, None, flat_src, chunk_tgt),
+                        dict(n=n, n_s=n, tile=tile, src_tile=src_tile, entries=entries))
     assert work["pairs"] == 4 * src_tile * tile
     assert work["chunks_max"] == 2 and work["chunks_mean"] == pytest.approx(1.5)
 

@@ -407,7 +407,8 @@ def test_near_walk_matches_plain_and_jax(path, n, tile):
                               vip_src=st[4], plan=plan)
     near_kw = dict(n=n, tile=tile, src_tile=64, entries=32, eps2=EPS2, c2=C2)
     got = _walk_near(ops["bodies"], aux[0], aux[1], **near_kw)
-    plain = ct.near_field_plain(ops["bodies"], aux[0], aux[1], **near_kw)
+    plain = ct.near_field_plain(ops["bodies"], ops["bodies"], aux[0], aux[1], n_s=n,
+                                **near_kw)
     torch.testing.assert_close(got, plain, **TOL)
     want = _jax_near(pos, mass, aux[-1].numpy(), aux[0].numpy(), aux[1].numpy(), n, tile)
     np.testing.assert_allclose(got.numpy(), want, **TOL)
@@ -430,8 +431,8 @@ def test_near_walk_leaves_a_row_without_chunks_zero():
     near_kw = dict(n=n, tile=tile, src_tile=64, entries=32, eps2=EPS2, c2=C2)
     got = _walk_near(ops["bodies"], flat_src, moved, **near_kw)
     assert not got[5 * tile:6 * tile].any()
-    torch.testing.assert_close(got, ct.near_field_plain(ops["bodies"], flat_src, moved,
-                                                        **near_kw), **TOL)
+    torch.testing.assert_close(got, ct.near_field_plain(ops["bodies"], ops["bodies"], flat_src,
+                                                        moved, n_s=n, **near_kw), **TOL)
 
 
 # ----------------------------------------------------- the VIP sweep's split

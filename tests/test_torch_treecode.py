@@ -202,8 +202,8 @@ def test_near_plain_matches_jax_kernel(case):
     want = np.asarray(jtc._near_field_flat_cols(
         x, y, z, tiles, jnp.asarray(case["jaux"][0]), jnp.asarray(case["jaux"][1]),
         eps2=EPS2, c2=C2, tile=128, src_tile=64, interpret=True))[:N, :3]
-    got = ct.near_field_plain(ops["bodies"], aux[0], aux[1], n=N, tile=128,
-                              src_tile=64, entries=32, eps2=EPS2, c2=C2)
+    got = ct.near_field_plain(ops["bodies"], ops["bodies"], aux[0], aux[1], n=N, n_s=N,
+                              tile=128, src_tile=64, entries=32, eps2=EPS2, c2=C2)
     np.testing.assert_allclose(got.numpy(), want, **TOL)
 
 
@@ -295,7 +295,7 @@ def test_wrappers_refuse_devices_without_a_kernel():
     meta = torch.empty((8256, 4), device="meta")
     lists = torch.zeros(32, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="no kernel"):
-        ct.near_field(meta, lists, lists[:1], n=8192, tile=128, src_tile=64,
-                      entries=32, eps2=EPS2, c2=C2)
+        ct.near_field(meta, meta, lists, lists[:1], n=8192, n_s=8192, tile=128,
+                      src_tile=64, entries=32, eps2=EPS2, c2=C2)
     with pytest.raises(ValueError, match="no kernel"):
         ct.vip_both(meta, meta, eps2=EPS2, c2=C2)

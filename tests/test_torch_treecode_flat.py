@@ -138,8 +138,8 @@ def test_near_plain_at_tile_32_matches_jax_kernel(case):
     want = np.asarray(jtc._near_field_flat_cols(
         *_jcols(case), tiles, jnp.asarray(case["jaux"][0]), jnp.asarray(case["jaux"][1]),
         eps2=EPS2, c2=C2, tile=32, src_tile=64, interpret=True))[:N, :3]
-    got = ct.near_field_plain(ops["bodies"], aux[0], aux[1], n=N, tile=32, src_tile=64,
-                              entries=32, eps2=EPS2, c2=C2)
+    got = ct.near_field_plain(ops["bodies"], ops["bodies"], aux[0], aux[1], n=N, n_s=N,
+                              tile=32, src_tile=64, entries=32, eps2=EPS2, c2=C2)
     np.testing.assert_allclose(got.numpy(), want, **TOL)
 
 
