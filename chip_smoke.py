@@ -112,13 +112,16 @@ is non-zero:
     BASELINE.json configs 4 and 5: ``ring`` and ``half_ring`` at 262,144 with
     leapfrog (1 step compared, 4 timed), ``treecode`` at 1,048,576
     (hierarchical), 65,536 with ``tree_hier=False`` (flat) and 20,480 with
-    ``tree_flat_cap=-1`` (dense), 8 steps compared and 8 timed; each against
+    ``tree_flat_cap=-1`` (dense), and ``treecode_staged`` at 1,048,576
+    (hierarchical, VIPs; also against the replicated run of the same state),
+    8 steps compared and 8 timed; each against
     the single-device ``Simulation`` of the same state on the same card
     (exact: rtol 1e-5, atol 1e-6 after one step; treecode: rtol 5e-4, atol
     5e-5 through ``sort_perm``), whether bitwise equal, finite, overspeed 0,
     ms/step beside the single device's, peak memory, and exactly the kernels
-    of its path a step (``sharded_launches_a_step``); these launches count
-    toward the kernels' record. (b) D = 4 on one card, rank by rank, through
+    of its path a step (``sharded_launches_a_step``; the staged near kernel
+    once a stage, D a step); these launches count toward the kernels'
+    record. (b) D = 4 on one card, rank by rank, through
     the per-rank functions (``ring.ring_acc_ranks``,
     ``tree.treecode_acc_ranks``): ring and half ring at 262,144, hierarchical
     at 524,288, flat at 65,536, dense at 20,480, against the single-device
@@ -128,9 +131,21 @@ is non-zero:
     bitwise repeatability; kernel 7's local form timed at 524,288 / 4 beside
     the single-device call (``at_524288_rank_of_4`` in its record); kernel 7
     with one array as targets and sources bitwise its output before the two
-    were split (``kernel_compare.NEAR_GOLDEN_SHA256``). (c) ``run --devices
-    2`` on ``cuda``: exit 2 with ``make_ring_mesh``'s message on one GPU,
-    ``final.npz`` with two or more. (b)'s launches are not counted.
+    were split (``kernel_compare.NEAR_GOLDEN_SHA256``). Then the staged
+    ranks (``stream.staged_acc_ranks``) at hierarchical 1,048,576 and flat
+    65,536 beside the replicated ranks, both against the all-pairs kernel's
+    exact force: the staged within the treecode's envelope (p99 2.5e-3,
+    median 5e-4) and no further from it than the replicated, their
+    difference beside test_stream.py's bar (p99 8e-4, max 8e-3); the exact
+    limit (16,384, 8 VIP tiles) within rtol 2e-5 of the single device;
+    every call against its twin and bitwise repeatable; kernel 7's 16 stage
+    calls at 1,048,576 / 4 (262,144 x 262,144 each) timed beside the
+    replicated ranks' 4 (``at_1048576_staged_rank_of_4``), and a rank's
+    resident bytes reckoned. (c) ``run --devices 2`` on ``cuda``: exit 2
+    with ``make_ring_mesh``'s message on one GPU, ``final.npz`` with two or
+    more; ``python -m n_body_problem_tpu_torch.multichip --devices 1
+    --device cuda``, all seven legs. (b)'s and (c)'s launches are not
+    counted.
 
 The last three lines of standard output are the kernels' JSON record, the
 card's name and power limit, and ``{"ok": true, "device": {...}}``. The
@@ -1416,7 +1431,9 @@ MULTI_RUNS = (
     ("treecode 1,048,576", 1048576, "treecode", {}, 8),
     ("treecode 65,536 flat", 65536, "treecode", dict(tree_hier=False), 8),
     ("treecode 20,480 dense", 20480, "treecode", dict(tree_flat_cap=-1), 8),
+    ("treecode_staged 1,048,576", 1048576, "treecode_staged", {}, 8),
 )
+TREE_STRATEGIES = ("treecode", "treecode_staged")
 MULTI_EXACT_TOL = dict(rtol=1e-5, atol=1e-6)   # tests/test_parallel.py, one step
 MULTI_TREE_TOL = dict(rtol=5e-4, atol=5e-5)    # tests/test_parallel.py:270-273
 RANKS = 4   # the rank-by-rank check's ring
@@ -1428,16 +1445,22 @@ def sharded_launches_a_step(cfg, n: int, strategy: str, size: int) -> dict:
     block and two a stage it computes, rank 0 computing every stage), each
     one launch or two where ``allpairs_split`` cuts the columns; the
     treecode paths' kernels as one device's, the dense path's single-level
-    far field on every step (the sharded force always calls it)."""
+    far field on every step (the sharded force always calls it); the
+    staged treecode's near kernel once a stage, ``size`` a step."""
     from n_body_problem_tpu_torch.ops import treecode
     from n_body_problem_tpu_torch.ops.cuda_force import allpairs_split
-    from n_body_problem_tpu_torch.parallel import tree as ptree
+    from n_body_problem_tpu_torch.parallel import stream, tree as ptree
 
     want = dict.fromkeys(("allpairs",) + TREE_KERNELS, 0)
-    if strategy != "treecode":
+    if strategy not in TREE_STRATEGIES:
         b = n // size
         calls = size if strategy == "ring" else 1 + 2 * (size // 2)
         want["allpairs"] = calls * (2 if allpairs_split(b, b)[2] > 1 else 1)
+        return want
+    if strategy == "treecode_staged":
+        *_, vip, hier = stream.staged_shapes(cfg, n // size, size)
+        want.update({"near": size, "far" if hier else "far_single": 1,
+                     "vip": 2 if vip else 0})
         return want
     path = ptree.sharded_path(cfg)
     if path == "dense":
@@ -1465,8 +1488,9 @@ def multi_gpu_rank(mesh, runs) -> list[dict]:
 
     wrappers = counters()
     dev, out = mesh.device, []
+    replicated = {}   # N: the replicated treecode's positions in input order
     for label, n, strategy, overrides, steps in runs:
-        exact = strategy != "treecode"
+        exact = strategy not in TREE_STRATEGIES
         cfg = SimConfig(solver="pallas" if exact else "treecode", **overrides)
         state = models.plummer(n, seed=0)
         for w in wrappers.values():
@@ -1512,6 +1536,14 @@ def multi_gpu_rank(mesh, runs) -> list[dict]:
                 got, want = got[inv_a], want[inv_b]
                 rec["bitwise"] = bool(torch.equal(got, want))
                 rec["ok"] = bool(torch.allclose(got, want, **MULTI_TREE_TOL))
+                if strategy == "treecode":
+                    replicated[n] = got
+                elif n in replicated:
+                    other = replicated.pop(n)
+                    rec["vs_replicated"] = {
+                        "max_abs_diff": float((got - other).abs().max()),
+                        "bitwise": bool(torch.equal(got, other)),
+                        "ok": bool(torch.allclose(got, other, **MULTI_TREE_TOL))}
             rec["max_abs_diff"] = float((got - want).abs().max())
             wall0 = ref.wall_seconds
             ref.run(steps)
@@ -1547,13 +1579,20 @@ def nccl_world(runs=MULTI_RUNS, device_type: str = "cuda", size: int | None = No
                          f"{rec['max_abs_diff']:.3e} outside tolerance")
         check(rec["finite"] and rec["overspeed"] == 0,
               f"{rec['label']}: finite {rec['finite']}, overspeed {rec['overspeed']}")
+        vs = rec.get("vs_replicated")
+        if vs:
+            check(vs["ok"], f"{rec['label']}: vs the replicated treecode's world run max |diff| "
+                            f"{vs['max_abs_diff']:.3e} outside tolerance")
+            print(f"multi-GPU [{rec['label']}]: vs the replicated treecode world run of the "
+                  f"same state: max |diff| {vs['max_abs_diff']:.3e}, bitwise {vs['bitwise']}",
+                  flush=True)
         for k, v in rec["launched"].items():
             launched[k] = launched.get(k, 0) + v
         print(f"multi-GPU [{rec['label']}]: D={rec['devices']} {rec['strategy']} "
               f"{rec['ms_per_step']:.4f} ms/step vs single-device "
               f"{rec['single_ms_per_step']:.4f}; peak {rec['peak_gib']:.3f} GiB vs "
               f"{rec['single_peak_gib']:.3f}; max |diff| {rec['max_abs_diff']:.3e} after "
-              f"{1 if rec['strategy'] != 'treecode' else rec['steps']} step(s), bitwise "
+              f"{rec['steps'] if rec['strategy'] in TREE_STRATEGIES else 1} step(s), bitwise "
               f"{rec['bitwise']}; launches a step {dict((k, v) for k, v in rec['want'].items() if v)}; "
               f"overspeed 0", flush=True)
     print(f"multi-GPU: NCCL world in {time.perf_counter() - t0:.1f} s", flush=True)
@@ -1730,6 +1769,163 @@ def ranks_on_one_card(device, res: dict, n_ring: int = N_LARGE, trees=RANK_TREES
     return local_near
 
 
+STAGED_TREES = (("hier 1,048,576", 1048576, {}),
+                ("flat 65,536", 65536, dict(tree_hier=False)))
+# tests/test_stream.py's production-MAC bar (per-body relative force, the
+# staged ranks against the replicated ranks), the treecode's envelope
+# against the exact force (tests/test_treecode_hier.py:126-127), and
+# test_stream.py's exact-limit VIP config (lines 95-100: every tile near, 8
+# VIP tiles) with its bar.
+STAGED_P99, STAGED_MAX = 8e-4, 8e-3
+ENVELOPE_P99, ENVELOPE_MEDIAN = 2.5e-3, 5e-4
+STAGED_EXACT = (16384, 17, dict(tree_tile=128, tree_src_tile=128, tree_theta=1e-30,
+                                tree_mac_tau=0.0, tree_max_near=2048, tree_near_slack=0,
+                                tree_vip_tiles=8, tree_flat_cap=16 * 128, tree_hier=False))
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def staged_on_one_card(device, res: dict, trees=STAGED_TREES) -> dict:
+    """Phase 11 (b), staged: ``stream.staged_acc_ranks`` at D = 4 on one
+    card beside ``tree.treecode_acc_ranks`` on the same positions and
+    config, both against the exact force (the all-pairs kernel): the staged
+    force within the treecode's envelope (per-body relative p99 < 2.5e-3,
+    median < 5e-4) and no further from it than the replicated one at p99
+    and median (each shard's lists take at least the replicated lists'
+    exact work); the staged-to-replicated difference printed beside
+    test_stream.py's bar (p99 8e-4, max 8e-3), which assumes a reference
+    within it of the exact force. At the exact limit, against the
+    single-device flat force (rtol 2e-5, atol 2e-6 x max). Every kernel
+    call again against its plain twin and bitwise repeatable.
+    At 1,048,576 the D stage calls of kernel 7 of each rank are timed beside
+    the replicated ranks' one call, and each rank's resident bytes between
+    steps are reckoned from the tensors it keeps. Returns kernel 7's staged
+    record."""
+    import numpy as np
+    import torch
+
+    from n_body_problem_tpu_torch import SimConfig, models
+    from n_body_problem_tpu_torch.ops import cuda_force, cuda_treecode as ct, treecode as tc
+    from n_body_problem_tpu_torch.parallel import stream, tree as ptree
+    from n_body_problem_tpu_torch.parallel.sharded import plan_treecode
+    from n_body_problem_tpu_torch.treecode_profile import time_ms
+    from n_body_problem_tpu_torch.utils.morton import apply_permutation, morton_argsort
+
+    record = {}
+    for label, n, overrides in trees:
+        cfg, st, _ = plan_treecode(SimConfig(solver="treecode", **overrides),
+                                   models.plummer(n, seed=0).to(device), RANKS, device.type,
+                                   "treecode_staged")
+        with _Recorded() as rec:
+            acc, lists = stream.staged_acc_ranks(cfg, st.pos, st.mass, RANKS)
+        with _Recorded() as rep:
+            want, rep_lists = ptree.treecode_acc_ranks(cfg, st.pos, st.mass, RANKS)
+        exact = cuda_force.allpairs_acc(st.pos, st.mass, eps2=cfg.eps2,
+                                        compensate=cfg.compensate, G=cfg.G)
+        torch.cuda.synchronize(device)
+
+        def rel(a, b):
+            r = ((a - b).norm(dim=1) / b.norm(dim=1).clamp(min=1e-12))[:st.n_real].cpu().numpy()
+            return {"p99": float(np.percentile(r, 99)), "median": float(np.median(r)),
+                    "max": float(r.max())}
+
+        err = {"staged": rel(acc, exact), "replicated": rel(want, exact),
+               "staged_vs_replicated": rel(acc, want)}
+        st_e, rp_e, diff = err["staged"], err["replicated"], err["staged_vs_replicated"]
+        check(st_e["p99"] < ENVELOPE_P99 and st_e["median"] < ENVELOPE_MEDIAN,
+              f"staged ranks {label}: against the exact force p99 {st_e['p99']:.3e}, median "
+              f"{st_e['median']:.3e} (envelope {ENVELOPE_P99:g} / {ENVELOPE_MEDIAN:g})")
+        check(st_e["p99"] <= rp_e["p99"] and st_e["median"] <= rp_e["median"],
+              f"staged ranks {label}: p99 {st_e['p99']:.3e}, median {st_e['median']:.3e} "
+              f"against the exact force, further than the replicated ranks' "
+              f"{rp_e['p99']:.3e}, {rp_e['median']:.3e}")
+        n_checked = replay_against_plain(rec.calls, res, f"staged ranks {label}")
+        names = sorted({name for name, *_ in rec.calls})
+        near = [(a, k) for name, a, k in rec.calls if name == "near_field"]
+        check(len(near) == RANKS * RANKS, f"staged ranks {label}: {len(near)} near calls, "
+                                          f"expected {RANKS} a rank")
+        bar = diff["p99"] < STAGED_P99 and diff["max"] < STAGED_MAX
+        print(f"multi-GPU staged ranks: {label} D={RANKS} hier={cfg.tree_far_max > 0}: "
+              f"against the exact force staged p99 {st_e['p99']:.3e} median "
+              f"{st_e['median']:.3e} max {st_e['max']:.3e}, replicated p99 {rp_e['p99']:.3e} "
+              f"median {rp_e['median']:.3e} max {rp_e['max']:.3e}; staged vs replicated p99 "
+              f"{diff['p99']:.3e} max {diff['max']:.3e} ({'inside' if bar else 'outside'} "
+              f"test_stream.py's {STAGED_P99:g} / {STAGED_MAX:g}; bitwise "
+              f"{bool(torch.equal(acc, want))}); kernels {names}, {n_checked} calls vs plain, "
+              f"bitwise-repeatable", flush=True)
+        b = st.n // RANKS
+        state_bytes = b * 11 * 4   # pos, vel, acc, mass, eps of a shard
+        kept = {"staged": state_bytes + _nbytes(*lists[0]),
+                "replicated": state_bytes + _nbytes(*rep_lists[0]) + st.n * 4}   # + mass_g
+        moved = {"staged": stream.staged_shapes(cfg, b, RANKS)[5] * 11 * 4 + (b + cfg.tree_src_tile) * 16,
+                 "replicated": st.n * 12 + (st.n + cfg.tree_src_tile) * 16}
+        print(f"multi-GPU staged ranks: {label} rank 0 keeps between steps "
+              f"{kept['staged'] / 2**20:.2f} MiB staged vs {kept['replicated'] / 2**20:.2f} MiB "
+              f"replicated (shard columns + lists, + the gathered masses); per force it holds "
+              f"{moved['staged'] / 2**20:.2f} MiB of others' data staged (summaries + one "
+              f"visiting shard) vs {moved['replicated'] / 2**20:.2f} MiB replicated (gathered "
+              f"positions + source rows)", flush=True)
+        if cfg.tree_far_max > 0:
+            stage_ms = [time_ms(lambda a=a, k=k: ct.near_field(*a, **k), 20) for a, k in near]
+            rep_near = [(a, k) for name, a, k in rep.calls if name == "near_field"]
+            rep_ms = [time_ms(lambda a=a, k=k: ct.near_field(*a, **k), 20) for a, k in rep_near]
+            per_rank = [sum(stage_ms[r * RANKS:(r + 1) * RANKS]) for r in range(RANKS)]
+            record = {"ms": stage_ms[0], "stage_ms": stage_ms, "rank_sum_ms": per_rank,
+                      "force_error": err,
+                      "sum_ms": sum(stage_ms), "replicated_rank_ms": rep_ms,
+                      "launches_a_force": RANKS, "resident_bytes": kept,
+                      "others_bytes_a_force": moved, **tree_work("near", *near[0])}
+            print(f"multi-GPU staged ranks: near staged form at {n} / {RANKS} "
+                  f"({b:,} x {b:,} a stage): stages "
+                  + "; ".join(f"rank {r} " + ", ".join(f"{m:.4f}" for m in
+                                                     stage_ms[r * RANKS:(r + 1) * RANKS])
+                              + f" (sum {per_rank[r]:.4f})" for r in range(RANKS))
+                  + f" ms; all {sum(stage_ms):.4f} vs the replicated ranks' one call each "
+                  f"{', '.join(f'{m:.4f}' for m in rep_ms)} (sum {sum(rep_ms):.4f}); rank 0 "
+                  f"stage 0 bound {record['bound_ms']:.4f} ms ({record['bound_by']}), issue "
+                  f"floor {record['issue_floor_ms']:.4f}", flush=True)
+        del st, acc, want, exact, lists, rep_lists, rec, rep, near
+        torch.cuda.empty_cache()
+
+    n, seed, kw = STAGED_EXACT
+    cfg = SimConfig(solver="treecode", **kw)
+    st = apply_permutation(models.plummer(n, seed=seed), morton_argsort(
+        models.plummer(n, seed=seed).pos)).to(device)
+    pos, mass = st.pos.contiguous(), st.mass.contiguous()
+    with _Recorded() as rec:
+        acc, _ = stream.staged_acc_ranks(cfg, pos, mass, RANKS)
+    sel = dict(tile=128, src_tile=128, theta=cfg.tree_theta, max_near=cfg.tree_max_near,
+               vip_tiles=cfg.tree_vip_tiles)
+    aux = tc.build_tree_flat(pos, mass, slack=0, flat_cap=cfg.tree_flat_cap * 8,
+                             mac_tau=0.0, eps2=cfg.eps2, compensate=cfg.compensate, **sel)
+    want = tc.treecode_acc_flat(pos, mass, aux, eps2=cfg.eps2, compensate=cfg.compensate,
+                                G=cfg.G, **sel)
+    err = float((acc - want).abs().max())
+    check(torch.allclose(acc, want, rtol=2e-5, atol=2e-6 * float(want.abs().max())),
+          f"staged ranks exact limit: max |d| {err:.3e} outside rtol 2e-5, atol 2e-6 x max")
+    n_checked = replay_against_plain(rec.calls, res, "staged ranks exact limit")
+    print(f"multi-GPU staged ranks: exact limit {n} (VIP 8) D={RANKS}: max |ranks - single "
+          f"device| {err:.3e}; {n_checked} calls vs plain, bitwise-repeatable", flush=True)
+    return record
+
+
+def multichip_cli() -> None:
+    """Phase 11 (c): ``python -m n_body_problem_tpu_torch.multichip --devices
+    1 --device cuda``, the seven legs of the dry run in an NCCL world of one
+    rank, each within its tolerance of the single device."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "n_body_problem_tpu_torch.multichip", "--devices", "1",
+         "--device", "cuda"], cwd=ROOT, capture_output=True, text=True, timeout=600)
+    legs = [ln for ln in proc.stdout.splitlines() if "sharded == single-chip" in ln]
+    check(proc.returncode == 0 and len(legs) == 7,
+          f"multichip --devices 1: rc {proc.returncode}, {len(legs)} legs, stderr "
+          f"{proc.stderr[-800:]}")
+    for line in legs:
+        print(f"multi-GPU: {line}", flush=True)
+
+
 def near_golden(device) -> bool:
     """Kernel 7 at D = 1 (one ``bodies`` as targets and sources) on the
     golden inputs: its output digest against the one the kernel gave
@@ -1778,15 +1974,19 @@ def devices_cli(device) -> None:
 
 
 def drive_multi_gpu(device, res: dict) -> dict:
-    """Phase 11: (a) the NCCL world, (b) the D = 4 ranks on one card, (c)
-    the CLI, and kernel 7 at D = 1 against its earlier output. Returns the
-    launches of (a) by kernel; (b)'s and the comparisons' are not counted."""
+    """Phase 11: (a) the NCCL world, (b) the D = 4 ranks on one card, the
+    replicated and the staged treecode, (c) the CLI and the multi-device dry
+    run, and kernel 7 at D = 1 against its earlier output. Returns the
+    launches of (a) by kernel; (b)'s, (c)'s and the comparisons' are not
+    counted."""
     t0 = time.perf_counter()
     world = nccl_world()
     saved = {k: w.launches for k, w in counters().items()}
     near_golden(device)
     res["near"]["at_524288_rank_of_4"] = ranks_on_one_card(device, res)
+    res["near"]["at_1048576_staged_rank_of_4"] = staged_on_one_card(device, res)
     devices_cli(device)
+    multichip_cli()
     for k, w in counters().items():
         w.launches = saved[k]
     print(f"multi-GPU: phase 11 in {time.perf_counter() - t0:.1f} s", flush=True)

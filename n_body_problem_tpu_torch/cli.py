@@ -10,6 +10,8 @@ Counterpart of ``n_body_problem_tpu.cli``:
     python -m n_body_problem_tpu_torch run --model plummer --n 65536 --serve 8000
     python -m n_body_problem_tpu_torch run --model plummer --n 262144 --devices 4 \
         --strategy half_ring --steps 100
+    python -m n_body_problem_tpu_torch run --model plummer --n 1048576 --devices 4 \
+        --strategy treecode_staged --steps 100
     python -m n_body_problem_tpu_torch info
     python -m n_body_problem_tpu_torch convert data/galaxy_20K.bin out.csv
     python -m n_body_problem_tpu_torch render out/final.npz frame.png
@@ -29,7 +31,8 @@ bodies over D ranks, one process each (``parallel.spawn_ring``), with the
 ``--strategy`` of ``ShardedSimulation``: NCCL on ``cuda``, where D is at
 most the number of GPUs, and gloo with ``--device cpu``. Rank 0 alone
 prints and writes; every output is of the state gathered from all ranks.
-``--strategy treecode_staged`` is not ported yet.
+The staged treecode (``--strategy treecode_staged``) needs at least 2,048
+bodies a rank; below, it exits 2 with ``ShardedSimulation``'s message.
 """
 
 from __future__ import annotations
@@ -85,13 +88,6 @@ def _build_config(args, base=None):
     return base.replace(**overrides) if overrides else base
 
 
-def _reject_unported(args) -> None:
-    if args.devices > 1 and args.strategy == "treecode_staged":
-        raise NotImplementedError(
-            "--strategy treecode_staged is not ported yet: ROADMAP §1 item 9c "
-            "(the staged strategy)")
-
-
 def _load_initial_state(args):
     """Returns (state, scale_factors, camera_distance, checkpoint_cfg|None);
     the state is on the CPU."""
@@ -119,7 +115,6 @@ def _load_initial_state(args):
 def cmd_run(args) -> int:
     from n_body_problem_tpu_torch.simulation import resolve_device
 
-    _reject_unported(args)
     device = resolve_device(args.device)  # before any data is read
     if args.devices > 1:
         from n_body_problem_tpu_torch.parallel import spawn_ring
@@ -388,7 +383,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "exact ring rotation, Newton's-3rd-law half ring, "
                         "the sharded Barnes-Hut treecode (replicated "
                         "sources - the throughput path), or the "
-                        "ring-streamed staged treecode (not ported yet)")
+                        "ring-streamed staged treecode (replicated "
+                        "summaries - the capacity path, N >= 2048 D)")
     r.set_defaults(fn=cmd_run)
 
     i = sub.add_parser("info", help="environment, kernels, solvers, datasets")

@@ -231,6 +231,16 @@ def _level_summaries(xc, yc, zc, mass, src_tile: int, plan, branch: int):
     return _merge_levels(_level0(xc, yc, zc, mass, src_tile), plan, branch)
 
 
+def _level0_from_summaries(com, m_tot, radius, quad):
+    """The level-0 tuple from per-tile summaries as :func:`tile_summaries_cols`
+    returns them: the staged sharded treecode builds level 0 on each rank,
+    gathers these four arrays and merges the coarser levels from them
+    (:func:`_merge_levels`); positions never leave their rank. Bitwise
+    :func:`_level0` of the same tiles."""
+    return _finish(m_tot, com[:, 0], com[:, 1], com[:, 2], radius,
+                   *(quad[:, i] for i in range(6)))
+
+
 def _merge_levels(level0, plan, branch: int):
     """Branch-``branch`` upward merges of the level tuples."""
     levels = [level0]
@@ -609,15 +619,22 @@ def _hier_compact(levels, minds, score0, thresh0, evals, reach0, *, slack, flat_
     score0 = torch.where(reach0, score0, -1.0)
     flat_src, chunk_tgt, near_mask = _compact_open_lists(
         score0, thresh0, slack, flat_cap, entries, max_near)
-    # Far: level-0 complements of the near entries that landed, plus the
-    # chain evals at coarser levels, ranked by monopole strength m / d^2 so
-    # an overflow sheds the weakest contributors.
+    return (flat_src, chunk_tgt,
+            *_far_lists(levels, minds, evals, reach0, near_mask, far_cap=far_cap,
+                        far_max=far_max))
+
+
+def _far_lists(levels, minds, evals, reach0, near_mask, *, far_cap, far_max):
+    """``(far_src, far_tgt)``: the level-0 complements of the near entries
+    that landed (``near_mask``), plus the chain evals at coarser levels,
+    ranked by monopole strength m / d^2 so an overflow sheds the weakest
+    contributors."""
     evals = [reach0 & ~near_mask] + list(evals[1:])
     key = torch.cat([torch.where(ev, lv[3][None, :] / (md * md), -1.0)
                      for ev, lv, md in zip(evals, levels, minds)], 1)
     far_src, far_tgt, _ = _compact_open_lists(
         key, 0.0, 0, far_cap, FAR_ENTRIES, far_max)
-    return flat_src, chunk_tgt, far_src, far_tgt
+    return far_src, far_tgt
 
 
 def _tree_mass(xc, yc, zc, mass, tile: int, vip_tiles: int):

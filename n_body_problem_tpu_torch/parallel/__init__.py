@@ -1,8 +1,8 @@
 """Multi-GPU: the bodies sharded over a ring of ranks on ``torch.distributed``.
 
-Counterpart of ``n_body_problem_tpu.parallel`` for the exact ring, the half
-ring and the sharded treecode with replicated sources; the staged treecode
-(``make_staged_force``, ``make_staged_run``) is not ported yet.
+Counterpart of ``n_body_problem_tpu.parallel``: the exact ring, the half
+ring, the sharded treecode with replicated sources and the staged treecode
+(replicated summaries, the near sources streamed round the ring).
 """
 
 from n_body_problem_tpu_torch.parallel.mesh import RingMesh, make_ring_mesh, spawn_ring
@@ -13,6 +13,12 @@ from n_body_problem_tpu_torch.parallel.ring import (
     shard_state,
 )
 from n_body_problem_tpu_torch.parallel.sharded import ShardedSimulation
+from n_body_problem_tpu_torch.parallel.stream import (
+    make_staged_flat_force,
+    make_staged_force,
+    make_staged_run,
+    staged_acc_ranks,
+)
 from n_body_problem_tpu_torch.parallel.tree import (
     make_sharded_treecode_force,
     make_sharded_treecode_run,
@@ -29,4 +35,8 @@ __all__ = [
     "ShardedSimulation",
     "make_sharded_treecode_force",
     "make_sharded_treecode_run",
+    "make_staged_force",
+    "make_staged_flat_force",
+    "make_staged_run",
+    "staged_acc_ranks",
 ]

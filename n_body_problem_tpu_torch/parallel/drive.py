@@ -3,7 +3,8 @@
 :func:`run_cases` is a :func:`~n_body_problem_tpu_torch.parallel.mesh.spawn_ring`
 target: every rank runs the same list of cases, each through the public
 entry points (``shard_state`` with ``make_sharded_step``,
-``sharded_kinetic_energy``, ``ShardedSimulation``), and rank 0 returns
+``sharded_kinetic_energy``, ``make_staged_force``, ``ShardedSimulation``),
+and rank 0 returns
 their results as numpy arrays, gathered from every rank. It lives in the
 package so that a spawned rank imports nothing but the port.
 
@@ -22,6 +23,7 @@ from n_body_problem_tpu_torch.parallel.ring import (make_sharded_step, ring_acc_
                                                     ring_force, shard_state,
                                                     sharded_kinetic_energy)
 from n_body_problem_tpu_torch.parallel.sharded import ShardedSimulation
+from n_body_problem_tpu_torch.parallel.stream import make_staged_force
 from n_body_problem_tpu_torch.state import from_numpy
 
 
@@ -67,6 +69,19 @@ def _ranks(mesh: RingMesh, *, cfg: SimConfig, state: dict, strategy: str,
     return dict(world=world.cpu().numpy(), ranks=alone.cpu().numpy())
 
 
+def _staged(mesh: RingMesh, *, cfg: SimConfig, pos: np.ndarray, mass: np.ndarray):
+    """One staged force of the rows ``pos`` (N, 3) sharded over the ring,
+    gathered; or the message of the ``ValueError`` it raises."""
+    b = pos.shape[0] // mesh.size
+    mine = slice(mesh.rank * b, (mesh.rank + 1) * b)
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a[mine])).to(mesh.device)  # noqa: E731
+    try:
+        acc = make_staged_force(cfg, mesh)(to(pos), to(mass))
+    except ValueError as e:
+        return str(e)
+    return _gathered(mesh, acc)[0]
+
+
 def _sim(mesh: RingMesh, *, cfg: SimConfig, state: dict, steps: int, strategy: str,
          local_solver: str = "xla") -> dict:
     """``ShardedSimulation``: the gathered state after construction (the
@@ -83,7 +98,7 @@ def _sim(mesh: RingMesh, *, cfg: SimConfig, state: dict, steps: int, strategy: s
 
 
 CASES = {"step": _step, "kinetic": _kinetic, "shard_error": _shard_error,
-         "ranks": _ranks, "sim": _sim}
+         "ranks": _ranks, "staged": _staged, "sim": _sim}
 
 
 def run_cases(mesh: RingMesh, cases: list[dict]) -> list:

@@ -12,7 +12,9 @@ the whole state back on every rank.
 - ``"treecode"``: the sharded Barnes-Hut (``parallel/tree.py``), replicated
   sources and sharded target rows, on the path the JAX package takes for
   the same configuration (the card plays the TPU's part in the rule).
-- ``"treecode_staged"`` is not ported yet (ROADMAP §1 item 9c).
+- ``"treecode_staged"``: the staged Barnes-Hut (``parallel/stream.py``),
+  replicated source summaries and the near sources streamed round the ring,
+  on the flat-list paths on any device.
 
 >>> sim = ShardedSimulation(cfg, state, mesh, strategy="half_ring")  # on each rank
 >>> sim.run(1000)
@@ -31,6 +33,7 @@ from n_body_problem_tpu_torch.config import SimConfig, resolve_vip_tiles
 from n_body_problem_tpu_torch.ops import treecode
 from n_body_problem_tpu_torch.parallel.mesh import RingMesh, make_ring_mesh
 from n_body_problem_tpu_torch.parallel.ring import make_sharded_step, ring_force, shard_state
+from n_body_problem_tpu_torch.parallel.stream import make_staged_force, make_staged_run
 from n_body_problem_tpu_torch.parallel.tree import (make_sharded_treecode_force,
                                                     make_sharded_treecode_run)
 from n_body_problem_tpu_torch.simulation import require_card_softening
@@ -38,23 +41,28 @@ from n_body_problem_tpu_torch.state import SimState, pad_state, unpad_state
 from n_body_problem_tpu_torch.utils.morton import apply_permutation, morton_argsort
 
 STRATEGIES = ("ring", "half_ring", "treecode", "treecode_staged")
+TREE_STRATEGIES = ("treecode", "treecode_staged")
 
 
 def auto_tile(cfg: SimConfig, strategy: str, n: int, device_type: str) -> SimConfig:
     """``cfg`` with the auto target row (``tree_tile`` 0) resolved by
     ``ShardedSimulation``'s own copy of the rule, not ``Simulation``'s: 128
     where the hierarchical far field will engage on each rank, 32 on the
-    single-level paths (and for the exact ring, which has no rows)."""
+    single-level paths (and for the exact ring, which has no rows). The
+    staged strategy plans its lists on any device, so it takes the
+    hierarchical tile off the card too."""
     if cfg.tree_tile:
         return cfg
-    hier = (strategy == "treecode" and cfg.tree_hier
+    hier = (strategy in TREE_STRATEGIES and cfg.tree_hier
             and n >= max(treecode.CHUNK_LANES, treecode.FAR_ENTRIES * cfg.tree_src_tile)
-            and ((cfg.tree_flat_cap == 0 and device_type == "cuda")
+            and ((cfg.tree_flat_cap == 0
+                  and (device_type == "cuda" or strategy == "treecode_staged"))
                  or (cfg.tree_flat_cap > 0 and cfg.tree_far_cap > 0)))
     return cfg.replace(tree_tile=treecode.DEFAULT_HIER_TILE if hier else 32)
 
 
-def plan_treecode(cfg: SimConfig, state: SimState, n_dev: int, device_type: str):
+def plan_treecode(cfg: SimConfig, state: SimState, n_dev: int, device_type: str,
+                  strategy: str = "treecode"):
     """The distributed Barnes-Hut's set-up on the whole state:
     ``(cfg, state, init_perm)``. Bodies Morton-sorted on the host (``init_perm``
     the input index of each sorted real body), padded to ``lcm(D tile,
@@ -63,8 +71,11 @@ def plan_treecode(cfg: SimConfig, state: SimState, n_dev: int, device_type: str)
     (``suggest_hier_sharded``, ``suggest_flat_cap_sharded``), on the paths
     the JAX package takes: on the card with ``tree_flat_cap`` at 0, flat from
     2,048 bodies and hierarchical from ``FAR_ENTRIES`` source tiles;
-    otherwise the capacities given, or the dense path."""
-    cfg = auto_tile(cfg, "treecode", state.n, device_type)
+    otherwise the capacities given, or the dense path. The staged strategy
+    is built on the flat lists, so it plans them on any device and raises
+    ``ValueError`` where it cannot."""
+    staged = strategy == "treecode_staged"
+    cfg = auto_tile(cfg, strategy, state.n, device_type)
     real = unpad_state(state) if state.n != state.n_real else state
     init_perm = morton_argsort(real.pos)
     state = apply_permutation(real, init_perm)
@@ -73,8 +84,14 @@ def plan_treecode(cfg: SimConfig, state: SimState, n_dev: int, device_type: str)
     if cfg.tree_vip_tiles == -1:
         cfg = cfg.replace(tree_vip_tiles=resolve_vip_tiles(-1, n))
     whole_rows = (n // cfg.tree_tile) % n_dev == 0
-    use_flat = (cfg.tree_flat_cap == 0 and device_type == "cuda"
+    use_flat = (cfg.tree_flat_cap == 0 and (device_type == "cuda" or staged)
                 and n >= treecode.CHUNK_LANES and n % src == 0 and whole_rows)
+    if staged and not use_flat and cfg.tree_flat_cap <= 0:
+        raise ValueError(
+            "treecode_staged needs the flat-list machinery: N must "
+            f"be >= {treecode.CHUNK_LANES}, a multiple of src_tile="
+            f"{src}, with K_t divisible by "
+            f"n_dev={n_dev} (or pass an explicit tree_flat_cap)")
     use_hier = (cfg.tree_hier and n >= treecode.FAR_ENTRIES * src and whole_rows
                 and (use_flat or (cfg.tree_flat_cap > 0 and cfg.tree_far_cap > 0)))
     mac = dict(mac_tau=cfg.tree_mac_tau, eps2=cfg.eps2, compensate=cfg.compensate)
@@ -108,29 +125,25 @@ class ShardedSimulation:
 
     ``local_solver`` picks the exact strategies' stage solver
     (``parallel.ring``: on the card always the all-pairs kernel). With
-    ``strategy="treecode"`` ``sort_perm[i]`` is the input index of the body
-    now at global slot i, as in ``Simulation``.
+    ``strategy="treecode"`` or ``"treecode_staged"`` ``sort_perm[i]`` is the
+    input index of the body now at global slot i, as in ``Simulation``.
     """
 
     def __init__(self, cfg: SimConfig, state: SimState, mesh: RingMesh | None = None, *,
                  strategy: str = "ring", local_solver: str = "xla"):
-        if strategy == "treecode_staged":
-            raise NotImplementedError(
-                'strategy "treecode_staged" is not ported yet: ROADMAP §1 item 9c '
-                "(the staged strategy)")
         if strategy not in STRATEGIES:
             raise ValueError(f"unknown strategy {strategy!r}; expected one of {STRATEGIES}")
         self.mesh = mesh if mesh is not None else make_ring_mesh()
         self.strategy = strategy
         dev_type = self.mesh.device.type
-        require_card_softening("treecode" if strategy == "treecode" else "pallas", cfg.eps2,
-                               dev_type)
+        require_card_softening("treecode" if strategy in TREE_STRATEGIES else "pallas",
+                               cfg.eps2, dev_type)
         self.cfg = cfg = auto_tile(cfg, strategy, state.n, dev_type)
         self.sort_perm = None
         self.wall_seconds = 0.0
         self._step = self._tree_run = None
         state = state.to(self.mesh.device)
-        if strategy == "treecode":
+        if strategy in TREE_STRATEGIES:
             self._init_treecode(cfg, state)
             return
         if cfg.morton_sort:
@@ -149,16 +162,21 @@ class ShardedSimulation:
 
     def _init_treecode(self, cfg: SimConfig, state: SimState) -> None:
         """The distributed Barnes-Hut (:func:`plan_treecode`), primed for
-        leapfrog with the sharded force."""
+        leapfrog with the sharded force: the dense one for ``"treecode"``,
+        the staged one for ``"treecode_staged"``, each on lists built
+        afresh, as in the JAX package."""
         cfg, state, self.sort_perm = plan_treecode(cfg, state, self.mesh.size,
-                                                   self.mesh.device.type)
+                                                   self.mesh.device.type, self.strategy)
         self.cfg, self.n = cfg, state.n
         self.state = shard_state(state, self.mesh)
+        staged = self.strategy == "treecode_staged"
         if cfg.integrator == "leapfrog":
-            force = make_sharded_treecode_force(cfg, self.mesh)
+            force = (make_staged_force if staged else make_sharded_treecode_force)(cfg,
+                                                                                   self.mesh)
             self.state = dataclasses.replace(
                 self.state, acc=force(self.state.pos, self.state.mass))
-        self._tree_run = make_sharded_treecode_run(cfg, self.mesh)
+        self._tree_run = (make_staged_run if staged else make_sharded_treecode_run)(cfg,
+                                                                                   self.mesh)
 
     def run(self, n_steps: int) -> SimState:
         """Advance ``n_steps``; returns this rank's shard when its device has

@@ -242,13 +242,27 @@ def make_sharded_treecode_run(cfg: SimConfig, mesh: RingMesh) -> Callable:
     run. ``cfg`` must carry the resolved tile, VIP count and capacities
     (``ShardedSimulation`` resolves them)."""
     path = sharded_path(cfg)
+
+    def chunk_force(state: SimState, pos_g, mass_g) -> Callable:
+        aux = rank_lists(path, cfg, state.pos, pos_g, mass_g, mesh.rank)
+        return _ranked_force(path, cfg, mesh, state.mass, mass_g, aux)
+
+    return chunked_run(cfg, mesh, chunk_force)
+
+
+def chunked_run(cfg: SimConfig, mesh: RingMesh, chunk_force: Callable) -> Callable:
+    """The sharded treecode's run loop, ``run(state, n_steps) -> (state,
+    ids)``: every ``cfg.tree_rebuild_every`` steps the global resort
+    (:func:`_resorted`) and ``chunk_force(state, pos_g, mass_g)``, the
+    chunk's force ``pos_l -> acc_l`` on lists built once, then the chunk's
+    steps with it (Euler or KDK leapfrog)."""
     every, dt = cfg.tree_rebuild_every, cfg.dt
     leapfrog = cfg.integrator == "leapfrog"
 
     def chunk(state: SimState, ids: torch.Tensor, length: int):
         state, ids, pos_g, mass_g = _resorted(state, ids, mesh)
-        aux = rank_lists(path, cfg, state.pos, pos_g, mass_g, mesh.rank)
-        force = _ranked_force(path, cfg, mesh, state.mass, mass_g, aux)
+        force = chunk_force(state, pos_g, mass_g)
+        del pos_g, mass_g
         pos, vel, acc = state.pos, state.vel, state.acc
         for _ in range(length):
             if leapfrog:   # KDK, stored-acceleration form
