@@ -146,6 +146,22 @@ is non-zero:
     more; ``python -m n_body_problem_tpu_torch.multichip --devices 1
     --device cuda``, all seven legs. (b)'s and (c)'s launches are not
     counted.
+12. tools and examples, each in a subprocess that counts its kernel
+    launches from 0 (they count toward the kernels' record): (a)
+    ``tune_small_n --mode sweep --legs default,flat,rebuild32 --steps 64``,
+    every leg finite with its probe's p99 inside 2.5e-3, the summary naming
+    a best leg and the card; (b) ``tune_small_n --mode crossover --n 65536
+    --steps 64``; (c) ``hier_census.row_counts`` at 8,192 on the card and on
+    the CPU: the integer fields equal, at least 99 % of rows with the same
+    near and far counts (a float32 score may flip at its threshold), how
+    many differ printed; (d) ``dataset_sweep --steps 20``: the fallbacks of
+    ids 1 and 2 ``ok`` and finite; (e) the four examples at their default
+    sizes (the movie at 2 blocks): exit 0, finite energies, overspeed 0, a
+    GIF of 40 frames (the ring example's ranks are processes of its own:
+    their launches are not counted); (f) ``validate --solver treecode --integrator
+    semi_implicit_euler --n 65536 --steps 1000 --check-every 250``:
+    overspeed 0 at every check, max |dE/E| <= 1e-4, the card's name and
+    power limit in the report.
 
 The last three lines of standard output are the kernels' JSON record, the
 card's name and power limit, and ``{"ok": true, "device": {...}}``. The
@@ -161,6 +177,7 @@ from __future__ import annotations
 import json
 import math
 import pathlib
+import re
 import shutil
 import subprocess
 import sys
@@ -1993,6 +2010,163 @@ def drive_multi_gpu(device, res: dict) -> dict:
     return world["launched"]
 
 
+# ------------------------------------------------------- 12. tools and examples
+TUNE_LEGS = ("default", "rebuild32", "flat")   # in SWEEP order, as they run
+CROSS_N = 65536
+CENSUS_N = 8192
+CENSUS_ROWS = 0.99   # rows with identical counts, card against CPU, where a tie flips
+LONG_RUN = ("--solver", "treecode", "--integrator", "semi_implicit_euler", "--n", "65536",
+            "--steps", "1000", "--check-every", "250")
+LONG_RUN_DRIFT = 1e-4
+_ENERGY = re.compile(r"\bE0?=(\S+)")
+
+
+def census_card_vs_cpu(device) -> None:
+    """Phase 12 (c): ``hier_census`` at 8,192 on the card and on the CPU:
+    the integer fields equal, and every row's near and far counts, or (a
+    float32 score that flips at its threshold) at least 99 % of rows."""
+    import numpy as np
+
+    from n_body_problem_tpu_torch import hier_census
+
+    t0 = time.perf_counter()
+    info, card = hier_census.row_counts(CENSUS_N, device=device)
+    info_cpu, cpu = hier_census.row_counts(CENSUS_N, device="cpu")
+    check(info == info_cpu, f"census: {info} on the card, {info_cpu} on the CPU")
+    for union in (False, True):
+        (near, far), (near_c, far_c) = card[union], cpu[union]
+        same = (near == near_c) & np.all([a == b for a, b in zip(far, far_c)], axis=0)
+        print(f"census [{CENSUS_N:,}, union_coarse={union}]: {int((~same).sum())} of "
+              f"{len(same)} rows differ from the CPU's", flush=True)
+        check(same.mean() >= CENSUS_ROWS, f"census: {int((~same).sum())} rows differ")
+    recs, recs_cpu = hier_census.records(info, card), hier_census.records(info, cpu)
+    ints = ("n", "src", "k_src", "union_coarse", "near_max", "far_max")
+    check([[r[k] for k in ints] for r in recs] == [[r[k] for k in ints] for r in recs_cpu],
+          f"census: integer fields {recs} on the card, {recs_cpu} on the CPU")
+    for rec in recs:
+        print(f"census: {json.dumps(rec)}", flush=True)
+    print(f"census: card and CPU in {time.perf_counter() - t0:.1f} s; records "
+          f"{'equal' if recs == recs_cpu else 'differ in a mean'}", flush=True)
+
+
+def finite_energies(label: str, lines: list[str], count: int) -> list[float]:
+    energies = [float(e) for line in lines for e in _ENERGY.findall(line)]
+    check(len(energies) == count and all(math.isfinite(e) for e in energies),
+          f"{label}: energies {energies}")
+    return energies
+
+
+def drive_phase12(device) -> dict:
+    """Phase 12: ``tune_small_n`` (a sweep of three legs and the crossover at
+    65,536), ``hier_census`` on the card against the CPU, ``dataset_sweep``,
+    the four examples and a 1,000-step Euler treecode long run at 65,536,
+    each tool in a subprocess that counts its launches. Returns the launches
+    by kernel."""
+    from n_body_problem_tpu_torch.bench import device_name
+
+    t0 = time.perf_counter()
+    out = TOOLS_DIR / "phase12"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    total: dict = {}
+
+    def add(label: str, launched: dict, kernels: tuple[str, ...]) -> None:
+        needs(label, launched, kernels)
+        for k, v in launched.items():
+            total[k] = total.get(k, 0) + v
+
+    # (f) and the ring example (mostly its world's start-up) beside (a)
+    validate = start_tool("validate long", "n_body_problem_tpu_torch.validate", *LONG_RUN)
+    ring = start_tool("example multichip_ring",
+                      "n_body_problem_tpu_torch.examples.multichip_ring")
+    lines, launched = run_tool("tune sweep", "n_body_problem_tpu_torch.tune_small_n",
+                               "--mode", "sweep", "--legs", ",".join(TUNE_LEGS),
+                               "--steps", "64")
+    add("tune sweep", launched, ("near", "far", "far_single", "vip", "allpairs"))
+    *legs, summary = [json.loads(line) for line in lines]
+    check([r["leg"] for r in legs] == list(TUNE_LEGS), f"tune sweep: legs {legs}")
+    for r in legs:
+        check(all(math.isfinite(r[k]) and r[k] > 0 for k in
+                  ("ms_per_step", "pairs_per_sec", "force_err_p99", "force_err_median")),
+              f"tune sweep: leg {r['leg']} {r}")
+        check(r["force_err_p99"] < ERR_P99, f"tune sweep: {r['leg']} p99 {r['force_err_p99']}")
+        print(f"tune [sweep, 20,480, 64 steps]: {r['leg']} {r['ms_per_step']:.4f} ms/step "
+              f"vs_baseline {r['vs_baseline']:.4f} p99 {r['force_err_p99']:.3e}", flush=True)
+    check(summary["best_leg"] in TUNE_LEGS and summary["device"] == device_name(device),
+          f"tune sweep: summary {summary}")
+    print(f"tune [sweep]: best leg {summary['best_leg']} ({summary['power_limit']})", flush=True)
+
+    lines, launched = run_tool("tune crossover", "n_body_problem_tpu_torch.tune_small_n",
+                               "--mode", "crossover", "--n", str(CROSS_N), "--steps", "64")
+    add("tune crossover", launched, ("near", "far", "vip", "allpairs"))
+    rec, summary = [json.loads(line) for line in lines]
+    check(rec["leg"] == f"n{CROSS_N}" and math.isfinite(rec["vs_baseline"])
+          and rec["force_err_p99"] < ERR_P99, f"tune crossover: {rec}")
+    check(list(summary["vs_baseline_by_n"]) == [str(CROSS_N)], f"tune crossover: {summary}")
+    print(f"tune [crossover, 65,536, 64 steps]: {rec['ms_per_step']:.4f} ms/step vs_baseline "
+          f"{rec['vs_baseline']:.4f} p99 {rec['force_err_p99']:.3e}", flush=True)
+
+    started = [
+        start_tool("dataset_sweep", "n_body_problem_tpu_torch.dataset_sweep", "--steps", "20",
+                   "--out", str(out / "dataset_sweep.json")),
+        start_tool("example quickstart", "n_body_problem_tpu_torch.examples.quickstart"),
+        start_tool("example galaxy_collision_movie",
+                   "n_body_problem_tpu_torch.examples.galaxy_collision_movie",
+                   str(out / "collision"), "--blocks", "2"),
+        start_tool("example treecode_large_n",
+                   "n_body_problem_tpu_torch.examples.treecode_large_n"),
+    ]
+    census_card_vs_cpu(device)
+    (_, launched), (lines_q, launched_q), (lines_m, launched_m), (lines_t, launched_t) = (
+        finish_tool(s) for s in started)
+
+    add("dataset_sweep", launched, ("symmetric",))
+    report = json.loads((out / "dataset_sweep.json").read_text())
+    check(report["device"] == device_name(device), f"dataset_sweep: {report['device']}")
+    for r in report["results"]:
+        print(f"dataset_sweep: {json.dumps(r)}", flush=True)
+    ok = {r["dataset"]: r for r in report["results"] if r["status"] == "ok"}
+    check(all(i in ok and ok[i]["finite"] and math.isfinite(ok[i]["ms_per_step"])
+              for i in (1, 2)), f"dataset_sweep: fallbacks of ids 1 and 2 {ok}")
+
+    add("example quickstart", launched_q, ("symmetric",))
+    finite_energies("example quickstart", lines_q, 6)
+    add("example galaxy_collision_movie", launched_m, ("symmetric",))
+    gif = out / "collision" / "movie.gif"
+    check(lines_m[-1] == f"wrote {gif} (40 frames)" and gif.read_bytes()[:6] == b"GIF89a",
+          f"example galaxy_collision_movie: {lines_m}")
+    add("example treecode_large_n", launched_t, ("near", "far", "vip"))
+    match = re.search(r"dE/E=(\S+)  overspeed=(\d+)$", lines_t[-1])
+    check(bool(match) and math.isfinite(float(match[1])) and match[2] == "0",
+          f"example treecode_large_n: {lines_t}")
+    # its ranks are processes of their own, whose launches this count cannot
+    # see (phase 11 (a) counts a world's launches rank by rank)
+    lines_r, _ = finish_tool(ring)
+    finite_energies("example multichip_ring", lines_r, 3)
+    check(all(line.endswith("overspeed=0") for line in lines_r[-3:]),
+          f"example multichip_ring: {lines_r}")
+    for label, lines in (("quickstart", lines_q), ("galaxy_collision_movie", lines_m),
+                         ("treecode_large_n", lines_t), ("multichip_ring", lines_r)):
+        for line in lines:
+            print(f"example [{label}]: {line}", flush=True)
+
+    lines, launched = finish_tool(validate)
+    add("validate long", launched, ("near", "far", "vip"))
+    rep = json.loads(lines[-1])
+    history = rep["history"]
+    check(rep["max_abs_drift"] <= LONG_RUN_DRIFT
+          and all(h["overspeed"] == 0 and math.isfinite(h["energy"]) for h in history)
+          and rep["device"] == device_name(device) and rep["power_limit"],
+          f"validate long: {rep}")
+    print(f"validate [treecode Euler, 65,536, 1,000 steps]: max |dE/E| "
+          f"{rep['max_abs_drift']:.3e}, drift at " + ", ".join(
+              f"{h['step']} {h['rel_energy_drift']:+.3e}" for h in history)
+          + f"; momentum err {rep['momentum_err_final']:.3e}; overspeed 0; "
+          f"{rep['wall_seconds']:.1f} s; {rep['device']}, {rep['power_limit']}", flush=True)
+    print(f"tools and examples: phase 12 in {time.perf_counter() - t0:.1f} s", flush=True)
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -2056,6 +2230,8 @@ def main() -> int:
     for key, w in wrappers.items():
         launches[key] = launches.get(key, 0) + w.launches + rendered.get(key, 0)
     for key, count in drive_multi_gpu(device, res).items():
+        launches[key] = launches.get(key, 0) + count
+    for key, count in drive_phase12(device).items():
         launches[key] = launches.get(key, 0) + count
 
     records = (

@@ -52,6 +52,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import subprocess
 import sys
 import time
 
@@ -69,6 +70,20 @@ def _sync(device: torch.device) -> None:
 def device_name(device: torch.device) -> str:
     """The card's name, or the device type off the card."""
     return torch.cuda.get_device_name(device) if device.type == "cuda" else device.type
+
+
+def card(device: torch.device) -> dict:
+    """``{"device": name, "power_limit": limit}`` for a record: the card's
+    name and its power limit as ``nvidia-smi --query-gpu=name,power.limit``
+    reports it (``"700.00 W"``; a card set below its maximum runs slower
+    under load); off the card the device type and ``None``."""
+    if device.type != "cuda":
+        return {"device": device.type, "power_limit": None}
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    line = subprocess.run(
+        ["nvidia-smi", f"--id={index}", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True).stdout
+    return {"device": device_name(device), "power_limit": line.strip().rsplit(",", 1)[1].strip()}
 
 
 def time_config(n: int, solver: str, steps: int, warmup: int = 1,

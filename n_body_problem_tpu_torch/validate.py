@@ -15,7 +15,9 @@ writes no file:
         --check-every 10 --solver direct
 
 Runs on ``--device cuda`` unless ``--device cpu`` is given; without a GPU
-that is an error. ``backend`` in the report is the device type.
+that is an error. ``backend`` in the report is the device type; the long
+run's report also names the card and its power limit (``device``,
+``power_limit``: the device type and ``null`` on the CPU).
 """
 
 from __future__ import annotations
@@ -138,8 +140,10 @@ def run_convergence(args) -> dict:
 
 def run_long(args) -> dict:
     """The long run: conserved quantities every ``--check-every`` steps;
-    prints and returns the report."""
+    prints and returns the report (with the card's name and power limit,
+    ``bench.card``)."""
     from n_body_problem_tpu_torch import SimConfig, Simulation, models
+    from n_body_problem_tpu_torch.bench import card
 
     cfg = SimConfig(dt=args.dt, solver=args.solver, integrator=args.integrator)
     if args.dataset >= 0:
@@ -197,6 +201,7 @@ def run_long(args) -> dict:
         "max_abs_drift": max(abs(h["rel_energy_drift"]) for h in history),
         "momentum_err_final": history[-1]["momentum_err"],
         "backend": sim.device.type,
+        **card(sim.device),
         "history": history,
     }
     print(json.dumps(report))

@@ -279,7 +279,12 @@ def test_import_leaves_jax_out():
             "n_body_problem_tpu_torch.io, n_body_problem_tpu_torch.utils.profiling, "
             "n_body_problem_tpu_torch.render.server, n_body_problem_tpu_torch.parallel, "
             "n_body_problem_tpu_torch.multichip, n_body_problem_tpu_torch.sharded_equality, "
-            "n_body_problem_tpu_torch.mesh_scaling; "
+            "n_body_problem_tpu_torch.mesh_scaling, n_body_problem_tpu_torch.tune_small_n, "
+            "n_body_problem_tpu_torch.hier_census, n_body_problem_tpu_torch.dataset_sweep, "
+            "n_body_problem_tpu_torch.examples.quickstart, "
+            "n_body_problem_tpu_torch.examples.galaxy_collision_movie, "
+            "n_body_problem_tpu_torch.examples.multichip_ring, "
+            "n_body_problem_tpu_torch.examples.treecode_large_n; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'n_body_problem_tpu.'))"
             " or m in ('n_body_problem_tpu', 'bench', 'validate')]; print(bad); "
             "sys.exit(1 if bad else 0)")

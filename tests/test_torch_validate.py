@@ -77,8 +77,9 @@ def test_long_run_report_matches_jax(monkeypatch, solver, integrator):
     ours = _last_json(validate.main, argv + ["--device", "cpu"])
     monkeypatch.setattr(sys, "argv", ["validate.py", *argv])
     theirs = _last_json(jax_validate.main)
-    assert list(ours) == list(theirs)
-    assert ours["backend"] == "cpu"
+    # the JAX report's keys in its order, and the card's name and power limit
+    assert [k for k in ours if k not in ("device", "power_limit")] == list(theirs)
+    assert ours["backend"] == ours["device"] == "cpu" and ours["power_limit"] is None
     for key in ("metric", "unit", "steps", "n", "solver", "integrator", "dt"):
         assert ours[key] == theirs[key], key
     assert [list(h) for h in ours["history"]] == [list(h) for h in theirs["history"]]
@@ -111,6 +112,30 @@ def test_long_run_on_a_dataset(tmp_path, capsys):
                           "--device", "cpu"]) == 0
     report = json.loads(capsys.readouterr().out.splitlines()[-1])
     assert report["n"] == 256 and [h["step"] for h in report["history"]] == [2, 4]
+
+
+def test_card_reads_name_and_power_limit(monkeypatch):
+    """A long-run record names the card and its power limit: the name from
+    ``torch.cuda``, the limit from the ``nvidia-smi`` query of that card."""
+    import subprocess
+
+    import torch
+
+    from n_body_problem_tpu_torch import bench
+
+    calls = []
+
+    def smi(cmd, **kw):
+        calls.append(cmd)
+        return subprocess.CompletedProcess(cmd, 0, stdout="NVIDIA H100 80GB HBM3, 700.00 W\n")
+
+    monkeypatch.setattr(subprocess, "run", smi)
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda d: "NVIDIA H100 80GB HBM3")
+    assert bench.card(torch.device("cuda", 1)) == {"device": "NVIDIA H100 80GB HBM3",
+                                                  "power_limit": "700.00 W"}
+    assert calls == [["nvidia-smi", "--id=1", "--query-gpu=name,power.limit",
+                      "--format=csv,noheader"]]
+    assert bench.card(torch.device("cpu")) == {"device": "cpu", "power_limit": None}
 
 
 def test_convergence_matches_jax():
