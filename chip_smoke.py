@@ -162,6 +162,24 @@ is non-zero:
     semi_implicit_euler --n 65536 --steps 1000 --check-every 250``:
     overspeed 0 at every check, max |dE/E| <= 1e-4, the card's name and
     power limit in the report.
+13. CUDA graphs (every earlier phase already runs ``Simulation`` through
+    its graphs, ``n_body_problem_tpu_torch.graphs``): on each
+    single-device path, the graph run beside the eager loop
+    (``make_treecode_run``, ``run_steps``) on the same state for two whole
+    chunks and a remainder (19 steps; 67 at 20,480 tuned, whose chunks are
+    32 steps): the hierarchical path at 65,536 (Euler and leapfrog), 20,480
+    tuned, 524,288 and 1,048,576; the flat path at 20,480 and 65,536; the
+    dense path at 1,024 and 20,480; ``auto`` at 4,096 and 65,536 and
+    ``pallas`` at 65,536. Positions, velocities, accelerations, time, step
+    and ``sort_perm`` bitwise the eager loop's (the symmetric kernel
+    within rtol 1e-4, atol 2e-6 after one step); the replays under
+    ``set_sync_debug_mode("error")``; launches a step as
+    ``launches_a_step`` says, replays counted. Prints ms/step of both in
+    turns (eager, graph, graph, eager), capture seconds, the idle share of
+    each from ``torch.profiler`` and peak memory of each, and the card's
+    name and power limit; writes ``out/chip_smoke_graphs.json``. The graph
+    runs' launches count toward the kernels' record, the eager reference's
+    do not.
 
 The last three lines of standard output are the kernels' JSON record, the
 card's name and power limit, and ``{"ok": true, "device": {...}}``. The
@@ -2167,6 +2185,174 @@ def drive_phase12(device) -> dict:
     return total
 
 
+# ------------------------------------------------- phase 13: CUDA graphs
+GRAPH_REM = 3   # steps of the remainder chunk after two whole chunks
+
+
+def graph_runs():
+    """(label, N, config) of phase 13: every single-device path."""
+    from n_body_problem_tpu_torch import SimConfig
+    from n_body_problem_tpu_torch.config import tuned_tree_overrides
+
+    tree = dict(solver="treecode")
+    return (
+        ("hier 65,536 euler", 65536, SimConfig(**tree)),
+        ("hier 65,536 leapfrog", 65536, SimConfig(integrator="leapfrog", **tree)),
+        ("hier 20,480 tuned", 20480, SimConfig(**tree, **tuned_tree_overrides(20480))),
+        ("hier 524,288", 524288, SimConfig(**tree)),
+        ("hier 1,048,576", 1048576, SimConfig(**tree)),
+        ("flat 20,480", 20480, SimConfig(tree_hier=False, **tree)),
+        ("flat 65,536", 65536, SimConfig(tree_hier=False, **tree)),
+        ("dense 1,024", 1024, SimConfig(tree_flat_cap=-1, **tree)),
+        ("dense 20,480", 20480, SimConfig(tree_flat_cap=-1, **tree)),
+        ("auto 4,096", 4096, SimConfig()),
+        ("auto 65,536", 65536, SimConfig()),
+        ("pallas 65,536", 65536, SimConfig(solver="pallas")),
+    )
+
+
+def idle_share(fn) -> float:
+    """The device's idle share of the wall time of ``fn()`` (a
+    ``torch.profiler`` trace; ``treecode_profile``'s measure)."""
+    from n_body_problem_tpu_torch.treecode_profile import _busy_us, _device_events, _trace
+
+    events, wall_us = _trace(fn)
+    gpu = _device_events(events)
+    check(bool(gpu), "profiler: the trace holds no device activity")
+    return 1.0 - _busy_us(gpu) / wall_us
+
+
+def exact_launches_a_step(sim) -> dict:
+    """Kernel launches an exact step makes, by wrapper."""
+    from n_body_problem_tpu_torch.ops.cuda_force import allpairs_split
+
+    if sim.solver == "pallas":
+        return {"allpairs": 2 if allpairs_split(sim.state.n, sim.state.n)[2] > 1 else 1}
+    key = "symmetric" if sim.cfg.pallas_sym_precision == "f32" else "symmetric_bf16x3"
+    return {key: 1}
+
+
+def drive_graphs(device, runs=None, smi: str = "") -> dict:
+    """Phase 13: ``Simulation.run`` through its CUDA graphs beside the eager
+    loop (``make_treecode_run``, ``run_steps``) on the same state, for two
+    whole chunks and a remainder. Checks: positions and ``sort_perm``
+    bitwise the eager loop's (the symmetric kernel, whose atomics make it
+    not bitwise repeatable, within rtol 1e-4 / atol 2e-6 after one step);
+    no host sync in the replays; the launches a step ``launches_a_step``,
+    replays counted. Prints ms/step of both (eager, graph, graph, eager),
+    capture seconds, idle share of each from ``torch.profiler`` and the peak
+    memory of each (the graphs' in their first run, the capture's).
+    Returns the launches of the graph runs (the eager reference's are not
+    counted)."""
+    import torch
+
+    from n_body_problem_tpu_torch import Simulation, models
+    from n_body_problem_tpu_torch.graphs import clone_state
+    from n_body_problem_tpu_torch.ops.registry import tree_path
+    from n_body_problem_tpu_torch.simulation import make_step_fn, make_treecode_run, run_steps
+
+    t_phase = time.perf_counter()
+    wrappers = counters()
+    start = {k: w.launches for k, w in wrappers.items()}
+    eager_launches = dict.fromkeys(wrappers, 0)   # the reference's: not counted
+    records = []
+    for label, n, cfg in runs or graph_runs():
+        sim = Simulation(cfg, models.plummer(n, seed=0), device=device)
+        tree = sim.solver == "treecode"
+        r = sim.cfg.tree_rebuild_every if tree else 8
+        steps = 2 * r + GRAPH_REM
+        s0, perm0 = clone_state(sim.state), sim.sort_perm
+        ref = (make_treecode_run(sim.cfg) if tree else
+               lambda st, k, f=make_step_fn(sim.cfg, "cuda", sim.state.n):
+               (run_steps(st, f, k), None, None))
+
+        def eager(state, k=steps):
+            before = {key: w.launches for key, w in wrappers.items()}
+            out = ref(state, k)
+            torch.cuda.synchronize(device)
+            for key, w in wrappers.items():
+                eager_launches[key] += w.launches - before[key]
+            return out
+        symmetric = sim.solver == "pallas_symmetric"
+        # the eager reference, then the graphs' first run (the capture)
+        torch.cuda.reset_peak_memory_stats(device)
+        state_e, ids_e, _ = eager(clone_state(s0), 1 if symmetric else steps)
+        peak_e = torch.cuda.max_memory_allocated(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        sim.run(1 if symmetric else steps)
+        peak_g = torch.cuda.max_memory_allocated(device)
+        got = sim.state
+        if symmetric:
+            same = torch.equal(got.pos, state_e.pos)
+            check(torch.allclose(got.pos, state_e.pos, **TOL) and
+                  torch.allclose(got.acc, state_e.acc, **TOL),
+                  f"graphs [{label}]: one step outside rtol 1e-4, atol 2e-6 of the eager loop")
+        else:
+            same = all(torch.equal(getattr(got, k), getattr(state_e, k))
+                       for k in ("pos", "vel", "acc", "time", "step"))
+            check(same, f"graphs [{label}]: state not bitwise the eager loop's")
+        if tree:
+            want = ids_e[: sim.state.n_real].cpu().numpy()
+            check((sim.sort_perm == (want if perm0 is None else perm0[want])).all(),
+                  f"graphs [{label}]: sort_perm differs from the eager loop's")
+        # no host sync in a replay; the launches a step, replays counted
+        g, programs = sim._prepare(tree, steps)
+        before = {k: w.launches for k, w in wrappers.items()}
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            if tree:
+                sim._chunks(programs, steps)
+            else:
+                g.repeat(programs[0], steps)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        moved = {k: w.launches - before[k] for k, w in wrappers.items()}
+        if tree:
+            sim._unload_tree(steps)
+            a_step = launches_a_step(sim.cfg, sim.state.n)
+        else:
+            sim.state = g.unload()
+            a_step = exact_launches_a_step(sim)
+        torch.cuda.synchronize(device)
+        want = {k: a_step.get(k, 0) * steps for k in wrappers}
+        check(moved == want, f"graphs [{label}]: launches {moved}, expected {want}")
+        # times: eager, graph, graph, eager over the same number of steps
+        state = clone_state(sim.state)
+        ms = {"eager": [], "graph": []}
+        for kind in ("eager", "graph", "graph", "eager"):
+            t0 = time.perf_counter()
+            if kind == "eager":
+                state = eager(state)[0]
+            else:
+                sim.run(steps)
+            ms[kind].append((time.perf_counter() - t0) / steps * 1e3)
+        idle = {"eager": idle_share(lambda: eager(clone_state(sim.state))),
+                "graph": idle_share(lambda: sim.run(steps))}
+        check(bool(torch.isfinite(sim.state.pos).all()), f"graphs [{label}]: non-finite")
+        rec = {"label": label, "n": sim.state.n_real,
+               "path": tree_path(sim.cfg) if tree else sim.solver,
+               "steps": steps, "bitwise": same, "eager_ms": ms["eager"], "graph_ms": ms["graph"],
+               "capture_s": sim.capture_seconds,
+               "launches_a_step": {k: v for k, v in a_step.items() if v},
+               "idle_eager": idle["eager"], "idle_graph": idle["graph"],
+               "peak_gib_eager": peak_e / 2**30, "peak_gib_graph": peak_g / 2**30}
+        records.append(rec)
+        print(f"graphs [{label}]: N={rec['n']} path={rec['path']} {steps} steps; bitwise "
+              f"{same}; ms/step eager {ms['eager'][0]:.4f} {ms['eager'][1]:.4f} graph "
+              f"{ms['graph'][0]:.4f} {ms['graph'][1]:.4f}; capture {sim.capture_seconds:.3f} s; "
+              f"launches a step {rec['launches_a_step']}; idle eager {idle['eager']:.4f} graph "
+              f"{idle['graph']:.4f}; peak GiB eager {rec['peak_gib_eager']:.3f} graph "
+              f"{rec['peak_gib_graph']:.3f}", flush=True)
+        del sim, state, state_e, s0
+        torch.cuda.empty_cache()
+    out = ROOT / "out" / "chip_smoke_graphs.json"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(records, indent=1))
+    print(f"graphs: phase 13 in {time.perf_counter() - t_phase:.1f} s on {smi} -> {out}",
+          flush=True)
+    return {k: w.launches - start[k] - eager_launches[k] for k, w in wrappers.items()}
+
+
 def main() -> int:
     import torch
 
@@ -2232,6 +2418,11 @@ def main() -> int:
     for key, count in drive_multi_gpu(device, res).items():
         launches[key] = launches.get(key, 0) + count
     for key, count in drive_phase12(device).items():
+        launches[key] = launches.get(key, 0) + count
+    graphed = drive_graphs(device, smi=smi)
+    for key in ("allpairs", "symmetric") + TREE_KERNELS:
+        check(graphed[key] > 0, f"phase 13 never replayed the {key} kernel")
+    for key, count in graphed.items():
         launches[key] = launches.get(key, 0) + count
 
     records = (

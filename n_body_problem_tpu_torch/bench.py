@@ -43,9 +43,12 @@ when every leg and probe ran.
 Timing: each timed window ends with ``torch.cuda.synchronize()`` on the
 card. ``backend`` is the device type (``"cuda"`` or ``"cpu"``) and
 ``device`` the card's name. Every entry point runs on ``--device cuda``
-unless ``--device cpu`` is given; without a GPU that is an error. Each
-leg's wall time and, on the card, its peak device memory
-(``torch.cuda.max_memory_allocated``) go to stderr, not into the record.
+unless ``--device cpu`` is given; without a GPU that is an error. On the
+card ``Simulation.run`` replays CUDA graphs that its first call captures
+(``graphs``): the capture falls in the warm-up, and its seconds go to
+stderr on a line of their own. Each leg's wall time and, on the card, its
+peak device memory (``torch.cuda.max_memory_allocated``) go to stderr too,
+not into the record.
 """
 
 from __future__ import annotations
@@ -117,6 +120,8 @@ def time_config(n: int, solver: str, steps: int, warmup: int = 1,
     for _ in range(max(warmup, 1)):
         sim.run(steps)
     _sync(dev)
+    print(f"bench: capture {sim.capture_seconds:.3f} s (the CUDA graphs' warm-up and "
+          f"capture, in the warm-up)", file=sys.stderr)
 
     # Snapshot the post-warmup state for the error probe before the timed
     # windows evolve it further: the probe depth is a fixed function of the

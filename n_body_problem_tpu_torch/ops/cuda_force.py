@@ -176,6 +176,10 @@ def block_acc(
 
 block_acc.launches = 0
 
+# The wrappers whose ``.launches`` a captured CUDA graph adds to on every
+# replay (``graphs.Program``).
+COUNTED = (block_acc,)
+
 
 def allpairs_acc(pos: torch.Tensor, mass: torch.Tensor, **kw) -> torch.Tensor:
     """acc (N, 3) from pos (N, 3) and mass (N,) — all-pairs block solve."""

@@ -322,3 +322,7 @@ def symmetric_acc(
 
 
 symmetric_acc.launches = 0
+
+# The wrappers whose ``.launches`` a captured CUDA graph adds to on every
+# replay (``graphs.Program``).
+COUNTED = (symmetric_acc, symmetric_acc_bf16x3)

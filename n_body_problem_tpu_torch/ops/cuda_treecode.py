@@ -611,3 +611,7 @@ def vip_both(rows, panel, *, eps2: float,
 
 
 vip_both.launches = 0
+
+# The wrappers whose ``.launches`` a captured CUDA graph adds to on every
+# replay (``graphs.Program``).
+COUNTED = (near_field, far_field_hier, far_field_single, gather_panels, near_panel, vip_both)

@@ -1,22 +1,27 @@
 """Step loop: build a step function and run it on a device.
 
-Counterpart of ``n_body_problem_tpu.simulation``. A Python loop takes the
-place of ``lax.scan``: PyTorch runs eagerly, each step enqueues its kernels
-on the device's stream, and only the end of :meth:`Simulation.run` waits
-for the device.
+Counterpart of ``n_body_problem_tpu.simulation``. Where the JAX package
+jits a run into one device program (``lax.scan`` over the steps),
+:class:`Simulation` runs on the static buffers of ``graphs.StaticRun``: on
+``cuda`` each step (and each treecode resort and acceptance build) is the
+replay of a CUDA graph captured on the first call, on the CPU the same
+function called directly. Only the end of :meth:`Simulation.run` waits for
+the device. :func:`run_steps` and :func:`make_treecode_run` are the eager
+loop, a Python loop of the same functions, kept as the reference.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time as _time
-from typing import Callable
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
 from torch.profiler import record_function
 
 from n_body_problem_tpu_torch.config import SimConfig, resolve_vip_tiles
+from n_body_problem_tpu_torch.graphs import StaticRun, step_program, tree_programs
 from n_body_problem_tpu_torch.ops import cuda_build, treecode
 from n_body_problem_tpu_torch.ops.forces import required_padding
 from n_body_problem_tpu_torch.ops.integrators import make_integrator, prime_leapfrog
@@ -79,19 +84,77 @@ def run_frames(
     return state, frames
 
 
+class TreeParts(NamedTuple):
+    """The pieces of a treecode run: ``resort(state, ids) -> (state, ids)``,
+    ``build(state) -> aux``, ``step(state, aux) -> state`` (the force and the
+    update of one step) and ``finish(state, n_steps) -> state`` (the time and
+    step counter of the hierarchical and flat paths, set once at the end)."""
+    rebuild_every: int
+    resort: Callable
+    build: Callable
+    step: Callable
+    finish: Callable
+
+
+def tree_parts(cfg: SimConfig) -> TreeParts:
+    """The :class:`TreeParts` of ``cfg``'s treecode path. The hierarchical
+    and flat paths update positions in the loop and the time once at the
+    end, as the JAX package's columnar run does; the dense path steps
+    through the generic integrator, as the JAX package's dense run does."""
+    dt = cfg.dt
+    dense = tree_path(cfg) == "dense"
+    build_fn, force = tree_fns(cfg)
+    leapfrog = cfg.integrator == "leapfrog"
+
+    def build(state: SimState):
+        return build_fn(state.pos, state.mass)
+
+    def step(state: SimState, aux) -> SimState:
+        if dense:
+            return make_integrator(cfg.integrator,
+                                   lambda pos, mass: force(pos, mass, aux), dt)(state)
+        pos, vel, acc = state.pos, state.vel, state.acc
+        if leapfrog:  # KDK, stored-acceleration form
+            vel = vel + acc * (0.5 * dt)
+            pos = pos + vel * dt
+            acc = force(pos, state.mass, aux)
+            vel = vel + acc * (0.5 * dt)
+        else:
+            acc = force(pos, state.mass, aux)
+            vel = vel + acc * dt
+            pos = pos + vel * dt
+        return dataclasses.replace(state, pos=pos, vel=vel, acc=acc)
+
+    def finish(state: SimState, n_steps: int) -> SimState:
+        if dense:
+            return state
+        return dataclasses.replace(
+            state, time=state.time + torch.full_like(state.time, dt) * n_steps,
+            step=state.step + n_steps)
+
+    return TreeParts(cfg.tree_rebuild_every, device_resort, build, step, finish)
+
+
+def chunk_lengths(n_steps: int, every: int) -> list[int]:
+    """The chunks of a treecode run of ``n_steps``: whole chunks of
+    ``every`` steps, then the remainder."""
+    full, rem = divmod(n_steps, every)
+    return [every] * full + ([rem] if rem else [])
+
+
 def make_treecode_run(cfg: SimConfig):
-    """The treecode run: every ``cfg.tree_rebuild_every`` steps, Z-order the
-    bodies on the device and rebuild the acceptance lists of the config's
-    path (``ops.registry.tree_path``), then run the steps with both kept.
+    """The treecode run as an eager loop, the reference of the graphs that
+    ``Simulation.run`` replays (``graphs.tree_programs``): every
+    ``cfg.tree_rebuild_every`` steps, Z-order the bodies on the device and
+    rebuild the acceptance lists of the config's path
+    (``ops.registry.tree_path``), then run the steps with both kept
+    (:func:`tree_parts`).
 
     The resort is load-bearing: Morton tile locality decays as bodies move,
     and once open counts outgrow the static capacities the leaked tiles'
     multipole errors heat the core. Nothing in the loop waits for the host.
     The resort and the build are labelled for ``torch.profiler``
-    (``treecode.resort``, ``treecode.build``). The hierarchical and flat
-    paths update positions in the loop and the time once at the end, as
-    the JAX package's columnar run does; the dense path steps through the
-    generic integrator, as the JAX package's dense run does.
+    (``treecode.resort``, ``treecode.build``).
 
     Returns ``run(state, n_steps) -> (state, ids, aux)``, where ``ids[i]``
     is the input slot of the body now at slot i and ``aux`` the acceptance
@@ -101,59 +164,29 @@ def make_treecode_run(cfg: SimConfig):
     ``finish(advance(state, start(state), n_steps))``, and carries the
     three as ``run.start``, ``run.advance`` and ``run.finish``: the
     movie and the trajectory take the same chunks between their frames
-    (the cadence restarts at every frame), so that long treecode movies
-    are as safe as ``run`` on the hierarchical and flat paths.
+    (the cadence restarts at every frame).
     """
-    r = cfg.tree_rebuild_every
-    dt = cfg.dt
-    dense = tree_path(cfg) == "dense"
-    build, force = tree_fns(cfg)
-    leapfrog = cfg.integrator == "leapfrog"
-
-    def chunk(state: SimState, ids: torch.Tensor, length: int):
-        with record_function("treecode.resort"):
-            state, ids = device_resort(state, ids)
-        with record_function("treecode.build"):
-            aux = build(state.pos, state.mass)
-        if dense:
-            step = make_integrator(cfg.integrator,
-                                   lambda pos, mass: force(pos, mass, aux), dt)
-            return run_steps(state, step, length), ids, aux
-        pos, vel, acc, mass = state.pos, state.vel, state.acc, state.mass
-        for _ in range(length):
-            if leapfrog:  # KDK, stored-acceleration form
-                vel = vel + acc * (0.5 * dt)
-                pos = pos + vel * dt
-                acc = force(pos, mass, aux)
-                vel = vel + acc * (0.5 * dt)
-            else:
-                acc = force(pos, mass, aux)
-                vel = vel + acc * dt
-                pos = pos + vel * dt
-        return dataclasses.replace(state, pos=pos, vel=vel, acc=acc), ids, aux
+    parts = tree_parts(cfg)
 
     def advance(state: SimState, ids: torch.Tensor, n_steps: int):
         aux = None
-        full, rem = divmod(n_steps, r)
-        for length in [r] * full + ([rem] if rem else []):
-            state, ids, aux = chunk(state, ids, length)
+        for length in chunk_lengths(n_steps, parts.rebuild_every):
+            with record_function("treecode.resort"):
+                state, ids = parts.resort(state, ids)
+            with record_function("treecode.build"):
+                aux = parts.build(state)
+            for _ in range(length):
+                state = parts.step(state, aux)
         return state, ids, aux
 
     def start(state: SimState):
         return torch.arange(state.n, dtype=torch.int32, device=state.device)
 
-    def finish(state: SimState, n_steps: int) -> SimState:
-        if dense:
-            return state
-        return dataclasses.replace(
-            state, time=state.time + torch.full_like(state.time, dt) * n_steps,
-            step=state.step + n_steps)
-
     def run(state: SimState, n_steps: int):
         state, ids, aux = advance(state, start(state), n_steps)
-        return finish(state, n_steps), ids, aux
+        return parts.finish(state, n_steps), ids, aux
 
-    run.start, run.advance, run.finish = start, advance, finish
+    run.start, run.advance, run.finish = start, advance, parts.finish
     return run
 
 
@@ -194,7 +227,9 @@ class Simulation:
 
     ``device`` defaults to ``"cuda"``; without a GPU the constructor raises
     unless ``device="cpu"`` is given. On ``"cuda"`` a solver that reaches a
-    kernel needs a normal float32 ``eps2`` (:func:`require_card_softening`).
+    kernel needs a normal float32 ``eps2`` (:func:`require_card_softening`),
+    and the first ``run``, ``movie`` or ``trajectory`` captures the CUDA
+    graphs that every later step replays (``graphs``; ``capture_seconds``).
     The state is padded
     with zero-mass bodies to the solver's multiple, exactly as the JAX
     package pads it, and leapfrog runs are primed with one force
@@ -234,10 +269,10 @@ class Simulation:
         )
         if state.n < need:
             state = pad_state_to(state, need)
-        self._tree_run = self.tree_lists = None
+        self._tree = self.tree_lists = self._static = None
         if solver == "treecode":
             cfg = self._plan_treecode(cfg, state)
-            self._tree_run = make_treecode_run(cfg)
+            self._tree = tree_parts(cfg)
         self.cfg = cfg
         if cfg.integrator == "leapfrog":
             state = prime_leapfrog(state, make_force_fn(cfg, dev_type, state.n))
@@ -308,40 +343,90 @@ class Simulation:
     def step_fn(self) -> StepFn:
         return self._step_fn
 
+    @property
+    def capture_seconds(self) -> float:
+        """Seconds this simulation spent warming up and capturing its CUDA
+        graphs (``graphs.StaticRun.capture``; 0 on the CPU). They fall in
+        the first ``run``, ``movie`` or ``trajectory`` call that needs them."""
+        return 0.0 if self._static is None else self._static.capture_seconds
+
     def run(self, n_steps: int) -> SimState:
         """Advance ``n_steps``; returns when the device has finished them.
 
-        The treecode re-sorts on the device inside its run; every other
-        solver with ``cfg.resort_every = r`` runs in chunks of r steps with
-        a host Morton sort between them."""
+        On ``cuda`` the steps are replays of CUDA graphs captured on the
+        first call (``graphs``): a treecode chunk is one replay of the
+        resort, one of the acceptance build and one a step; every other
+        solver replays one step, and with ``cfg.resort_every = r`` runs in
+        chunks of r steps with a host Morton sort between them. The returned
+        state, ``tree_lists`` and ``sort_perm`` are copies that no later call
+        rewrites."""
         t0 = _time.perf_counter()
-        if self._tree_run is not None:
-            self.state, ids, aux = self._tree_run(self.state, n_steps)
-            self._tree_moved(ids, aux)
+        if n_steps == 0:
+            if self._tree is not None:
+                self.state = self._tree.finish(self.state, 0)
+        elif self._tree is not None:
+            g, programs = self._prepare(True, n_steps)
+            self._chunks(programs, n_steps)
+            self._unload_tree(n_steps)
         else:
+            g, (step,) = self._prepare(False, n_steps)
             r = self.cfg.resort_every or n_steps
             done = 0
             while done < n_steps:
                 todo = min(r, n_steps - done)
-                self.state = run_steps(self.state, self._step_fn, todo)
+                g.repeat(step, todo)
                 done += todo
                 if done < n_steps:  # no sort after the last chunk
+                    self.state = g.state
                     self._resort()
+                    g.load(self.state)
+            self.state = g.unload()
         self._finish(t0)
         return self.state
+
+    def _prepare(self, chunked: bool, n_steps: int):
+        """``(static run, programs)`` with the state loaded: the treecode's
+        ``(resort, build, step)`` when ``chunked``, else the one step of
+        ``step_fn``; captured (on first use, before the load) when the call
+        has steps to take."""
+        if self._static is None:
+            self._static = StaticRun(self.state)
+        g = self._static
+        programs = (tree_programs(g, self._tree) if chunked
+                    else (g.program("step", step_program(self._step_fn)),))
+        if n_steps:
+            g.capture(*programs)
+        g.load(self.state)
+        if chunked:
+            g.ids.copy_(torch.arange(g.state.n, dtype=torch.int32, device=self.device))
+        return g, programs
+
+    def _chunks(self, programs, n_steps: int) -> None:
+        """``n_steps`` treecode steps on the loaded buffers, in chunks of
+        ``tree_rebuild_every``: replays only, no host sync."""
+        resort, build, step = programs
+        g = self._static
+        for length in chunk_lengths(n_steps, self._tree.rebuild_every):
+            with record_function("treecode.resort"):
+                resort(g)
+            with record_function("treecode.build"):
+                build(g)
+            g.repeat(step, length)
+
+    def _unload_tree(self, n_steps: int) -> None:
+        """After ``n_steps`` treecode steps: the state copied out and
+        finished, the chunks' body permutation composed into ``sort_perm``,
+        and a copy of the lists the last steps were taken with."""
+        g = self._static
+        self.state = self._tree.finish(g.unload(), n_steps)
+        self._track_ids(g.ids)
+        self.tree_lists = g.unload_aux()
 
     def _finish(self, t0: float) -> None:
         """Wait for the device; add the call's wall time."""
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.wall_seconds += _time.perf_counter() - t0
-
-    def _tree_moved(self, ids: torch.Tensor, aux) -> None:
-        """After a treecode run: compose its body permutation into
-        ``sort_perm`` and keep the lists it last stepped with."""
-        self._track_ids(ids)
-        if aux is not None:
-            self.tree_lists = aux
 
     def _track_ids(self, ids: torch.Tensor) -> None:
         """Compose a device run's body permutation into ``sort_perm``."""
@@ -367,7 +452,7 @@ class Simulation:
         (the JAX package measured dE/E ~ 1e3 over a long un-resorted run).
         The hierarchical and flat paths re-sort in chunks and have no limit.
         """
-        if self._tree_run is not None and tree_path(self.cfg) == "dense":
+        if self._tree is not None and tree_path(self.cfg) == "dense":
             limit = 4 * self.cfg.tree_rebuild_every
             if n_steps > limit:
                 raise ValueError(
@@ -381,31 +466,32 @@ class Simulation:
     def _frames(self, n_steps: int, every: int, name: str, frame_shape: tuple[int, ...],
                 record: Callable[[torch.Tensor, SimState, torch.Tensor | None], object]
                 ) -> torch.Tensor:
-        """The movie's and the trajectory's loop (:func:`run_frames`): on the
-        treecode's hierarchical and flat paths each span takes the run's
-        chunks, and ``record(frame, state, ids)`` gets the chunks' body
-        permutation (``ids[i]``: the call-entry slot of the body at slot
-        i); elsewhere each span is ``every`` plain steps and ``ids`` is
-        None."""
+        """The movie's and the trajectory's loop (:func:`run_frames`), on
+        the same replays as :meth:`run`; the frames are recorded eagerly
+        between spans. On the treecode's hierarchical and flat paths each
+        span takes the run's chunks, and ``record(frame, state, ids)`` gets
+        the chunks' body permutation (``ids[i]``: the call-entry slot of the
+        body at slot i); elsewhere each span is ``every`` steps of
+        ``step_fn`` and ``ids`` is None."""
         self._guard_dense_tree_span(n_steps)
+        _spans(n_steps, every, name)
         t0 = _time.perf_counter()
-        tree = self._tree_run
-        if tree is not None and tree_path(self.cfg) != "dense":
-            ids, aux = tree.start(self.state), None
+        chunked = self._tree is not None and tree_path(self.cfg) != "dense"
+        g, programs = self._prepare(chunked, n_steps)
 
-            def advance(state: SimState, k: int) -> SimState:
-                nonlocal ids, aux
-                state, ids, aux = tree.advance(state, ids, k)
-                return state
+        def advance(state: SimState, k: int) -> SimState:
+            if chunked:
+                self._chunks(programs, k)
+            else:
+                g.repeat(programs[0], k)
+            return state
 
-            state, frames = run_frames(self.state, advance, n_steps, every, name,
-                                       frame_shape, lambda f, s: record(f, s, ids))
-            self.state = tree.finish(state, n_steps)
-            self._tree_moved(ids, aux)
+        _, frames = run_frames(g.state, advance, n_steps, every, name, frame_shape,
+                               lambda f, s: record(f, s, g.ids if chunked else None))
+        if chunked and n_steps:
+            self._unload_tree(n_steps)
         else:
-            self.state, frames = run_frames(
-                self.state, lambda s, k: run_steps(s, self._step_fn, k), n_steps, every,
-                name, frame_shape, lambda f, s: record(f, s, None))
+            self.state = g.unload()
         self._finish(t0)
         return frames
 

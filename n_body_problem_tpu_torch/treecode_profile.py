@@ -14,8 +14,13 @@ single-level flat path (``tree_hier=False``), ``d`` the dense path
 - ``force_enqueue_ms``: the host's time to enqueue one force evaluation;
 - ``launches_per_force``: host kernel launches (``cudaLaunchKernel`` in a
   ``torch.profiler`` trace) and device kernels of one force evaluation;
-- ``step_ms``: ``Simulation.run`` over ``--steps`` steps, no profiler;
-- a ``torch.profiler`` trace of another ``--steps`` steps: device ms of
+- ``step_ms``: ``Simulation.run`` over ``--steps`` steps, no profiler (the
+  replays of its CUDA graphs; ``capture_s``: their warm-up and capture, in
+  the primed steps); ``eager_step_ms``: the eager loop
+  (``simulation.make_treecode_run``) over as many steps from a copy of the
+  state;
+- a ``torch.profiler`` trace of another ``--steps`` steps (``profile_ms``;
+  ``eager_profile_ms`` the eager loop's): device ms of
   each treecode kernel (the VIP sweep's pair kernel as ``vip``, its summing
   kernel as ``vip_sum``), the ``treecode.build`` and
   ``treecode.resort`` spans and everything else, device busy time, the
@@ -208,12 +213,21 @@ def _busy_us(gpu: list) -> float:
     return covered
 
 
-def profile_tree_step(sim, steps: int = 16) -> dict:
+def profile_tree_step(sim, steps: int = 16, eager: bool = False) -> dict:
     """Device time by kernel over ``steps`` steps of a treecode run, from a
     ``torch.profiler`` trace: each treecode kernel, the resort and the build
-    (their ``record_function`` labels), everything else, and the device's
-    idle share of the wall time of the window."""
-    events, wall_us = _trace(lambda: sim.run(steps))
+    (their ``record_function`` labels, around the eager calls or the graph
+    replays), everything else, and the device's idle share of the wall time
+    of the window. ``sim.run`` (the graphs' replays), or with ``eager`` the
+    eager loop (``make_treecode_run``) on a copy of ``sim``'s state."""
+    if eager:
+        from n_body_problem_tpu_torch.graphs import clone_state
+        from n_body_problem_tpu_torch.simulation import make_treecode_run
+
+        run, state = make_treecode_run(sim.cfg), clone_state(sim.state)
+        events, wall_us = _trace(lambda: run(state, steps))
+    else:
+        events, wall_us = _trace(lambda: sim.run(steps))
     gpu = _device_events(events)
     if not gpu:
         raise RuntimeError("profiler: the trace holds no device activity")
@@ -263,10 +277,29 @@ def profile_size(tok: str, steps: int) -> dict:
     wall0 = sim.wall_seconds
     sim.run(steps)
     out["step_ms"] = (sim.wall_seconds - wall0) / steps * 1e3
+    out["eager_step_ms"] = eager_step_ms(sim, steps)
+    out["capture_s"] = sim.capture_seconds
     out["rebuild_every"] = sim.cfg.tree_rebuild_every
     out["profile_steps"] = steps
     out["profile_ms"] = profile_tree_step(sim, steps)
+    out["eager_profile_ms"] = profile_tree_step(sim, steps, eager=True)
     return out
+
+
+def eager_step_ms(sim, steps: int) -> float:
+    """ms/step of the eager loop (``make_treecode_run``, the reference of the
+    graphs) over ``steps`` steps from a copy of ``sim``'s state, after one
+    warm call of the same length; host clock to a synchronize."""
+    from n_body_problem_tpu_torch.graphs import clone_state
+    from n_body_problem_tpu_torch.simulation import make_treecode_run
+
+    run = make_treecode_run(sim.cfg)
+    state = run(clone_state(sim.state), steps)[0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run(state, steps)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / steps * 1e3
 
 
 def main(argv=None) -> int:
@@ -296,11 +329,12 @@ def main(argv=None) -> int:
     for tok in filter(None, args.sizes.split(",")):
         row = profile_size(tok, args.steps)
         rows.append(row)
-        prof = row.pop("profile_ms")
+        prof, eager = row.pop("profile_ms"), row.pop("eager_profile_ms")
         print(" ".join(f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
                        for k, v in row.items()) + " | profile ms: " + " ".join(
-                  f"{k} {v:.4f}" for k, v in prof.items()), flush=True)
-        row["profile_ms"] = prof
+                  f"{k} {v:.4f}" for k, v in prof.items()) + " | eager: " + " ".join(
+                  f"{k} {v:.4f}" for k, v in eager.items()), flush=True)
+        row["profile_ms"], row["eager_profile_ms"] = prof, eager
         torch.cuda.empty_cache()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -396,14 +396,18 @@ def test_treecode_simulation_on_card_matches_cpu(cuda):
 
 
 def test_treecode_run_never_waits_for_the_host(cuda):
-    """The run loop (resort, acceptance build, forces, update) enqueues
-    without one host synchronisation: capacity overflow is a torch.where."""
+    """The eager run loop (resort, acceptance build, forces, update), the
+    graphs' reference, enqueues without one host synchronisation: capacity
+    overflow is a torch.where."""
+    from n_body_problem_tpu_torch.simulation import make_treecode_run
+
     sim = tnb.Simulation(tnb.SimConfig(solver="treecode"), tnb.models.plummer(8192, seed=1),
                          device=cuda)
     sim.run(2)
+    run = make_treecode_run(sim.cfg)
     torch.cuda.set_sync_debug_mode("error")
     try:
-        state, ids, _ = sim._tree_run(sim.state, 10)
+        state, ids, _ = run(sim.state, 10)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
@@ -522,12 +526,15 @@ def test_single_level_run_never_waits_for_the_host(cuda, overrides):
     """10 flat and 10 dense steps (resort, build, forces, update) under
     ``set_sync_debug_mode("error")``: no host sync in the new build or force
     code."""
+    from n_body_problem_tpu_torch.simulation import make_treecode_run
+
     sim = tnb.Simulation(tnb.SimConfig(solver="treecode", **overrides),
                          tnb.models.plummer(8192, seed=1), device=cuda)
     sim.run(2)
+    run = make_treecode_run(sim.cfg)
     torch.cuda.set_sync_debug_mode("error")
     try:
-        state, ids, _ = sim._tree_run(sim.state, 10)
+        state, ids, _ = run(sim.state, 10)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
@@ -830,3 +837,113 @@ def test_near_kernel_at_one_device_is_its_earlier_output(cuda):
     args, kw = near_golden_case(cuda)
     out = ct.near_field(*args, **kw)
     assert hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest() == NEAR_GOLDEN_SHA256
+
+
+# ------------------------------------------------ CUDA graphs of the run
+GRAPH_PATHS = [{}, dict(tree_hier=False), dict(tree_flat_cap=-1)]   # hier, flat, dense
+
+
+def _graph_sim(cuda, overrides, n=8192):
+    return tnb.Simulation(tnb.SimConfig(solver="treecode", **overrides),
+                          tnb.models.plummer(n, seed=1), device=cuda)
+
+
+@pytest.mark.parametrize("overrides", GRAPH_PATHS)
+def test_graph_run_is_the_eager_loop_bitwise(cuda, overrides):
+    """``Simulation.run``'s replays against ``make_treecode_run`` on the same
+    state, two whole chunks and a remainder, over two calls: the state and
+    ``sort_perm`` bitwise (kernels 3-9 are bitwise repeatable)."""
+    from n_body_problem_tpu_torch.graphs import clone_state
+    from n_body_problem_tpu_torch.simulation import make_treecode_run
+
+    sim = _graph_sim(cuda, overrides)
+    ref = make_treecode_run(sim.cfg)
+    steps = 2 * sim.cfg.tree_rebuild_every + 3
+    state, perm = clone_state(sim.state), sim.sort_perm
+    for _ in range(2):
+        state, ids, aux = ref(state, steps)
+        perm = perm[ids[: state.n_real].cpu().numpy()]
+        got = sim.run(steps)
+        for f in ("pos", "vel", "acc", "mass", "time", "step"):
+            assert torch.equal(getattr(got, f), getattr(state, f)), f
+        assert (sim.sort_perm == perm).all()
+        assert all(torch.equal(a, b) for a, b in zip(sim.tree_lists, aux))
+    assert sim.capture_seconds > 0
+    assert all(p.graph is not None for p in sim._static._programs.values())
+
+
+@pytest.mark.parametrize("overrides", GRAPH_PATHS)
+def test_graph_replays_never_wait_for_the_host(cuda, overrides):
+    """The replays of 10 steps (resort, build and step graphs) under
+    ``set_sync_debug_mode("error")``."""
+    sim = _graph_sim(cuda, overrides)
+    sim.run(2)   # captures
+    g, programs = sim._prepare(True, 10)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        sim._chunks(programs, 10)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    sim._unload_tree(10)
+    torch.cuda.synchronize()
+    assert torch.isfinite(sim.state.pos).all() and int(sim.state.step) == 12
+
+
+@pytest.mark.parametrize("overrides", GRAPH_PATHS)
+def test_graph_counters_count_replays(cuda, overrides):
+    """Every replay adds the launches its capture recorded; the warm-up and
+    the capture add none: the first run counts as the later ones do."""
+    from n_body_problem_tpu_torch.graphs import counted
+
+    sim = _graph_sim(cuda, overrides)
+    wrappers = counted()
+    moves = []
+    for steps in (5, 5, 7):
+        before = [w.launches for w in wrappers]
+        sim.run(steps)
+        moves.append([(w.launches - b) / steps for w, b in zip(wrappers, before)])
+    assert moves[0] == moves[1] == moves[2] and sum(moves[0]) >= 3
+
+
+def test_exact_graph_run_matches_the_eager_loop(cuda):
+    """Kernel 1 bitwise after 12 steps; kernel 2 (atomics) within
+    rtol=1e-4, atol=2e-6 after one step; one launch a step each."""
+    from n_body_problem_tpu_torch.graphs import clone_state
+    from n_body_problem_tpu_torch.simulation import make_step_fn, run_steps
+
+    for solver, steps, wrapper in (("pallas", 12, cuda_force.block_acc),
+                                   ("pallas_symmetric", 1, cuda_symmetric.symmetric_acc)):
+        sim = tnb.Simulation(tnb.SimConfig(solver=solver), tnb.models.plummer(4096, seed=2),
+                             device=cuda)
+        want = run_steps(clone_state(sim.state), make_step_fn(sim.cfg, "cuda", sim.state.n),
+                         steps)
+        before = wrapper.launches
+        got = sim.run(steps)
+        a_step = (2 if cuda_force.allpairs_split(sim.state.n, sim.state.n)[2] > 1 else 1
+                  ) if solver == "pallas" else 1
+        assert wrapper.launches - before == steps * a_step
+        if solver == "pallas":
+            assert torch.equal(got.pos, want.pos) and torch.equal(got.acc, want.acc)
+        else:
+            torch.testing.assert_close(got.acc, want.acc, **TOL)
+            torch.testing.assert_close(got.pos, want.pos, **TOL)
+
+
+def test_graph_memory_is_released_with_its_simulation(cuda):
+    """A simulation's static buffers and graph pool go with it."""
+    import gc
+
+    for _ in range(2):   # the first round leaves what a process keeps
+        sim = _graph_sim(cuda, {})
+        sim.run(4)
+        del sim
+        gc.collect()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(cuda)
+    sim = _graph_sim(cuda, {})
+    sim.run(4)
+    assert torch.cuda.memory_allocated(cuda) > base
+    del sim
+    gc.collect()
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated(cuda) == base
