@@ -97,8 +97,10 @@ is non-zero:
     card renders are bitwise equal; the splat's ms a frame. (b) The bench's
     step+render leg, ``bench_render(65536, "pallas_symmetric")``, beside
     phase 5's exact step, with its 20 symmetric launches, peak memory and a
-    profiler breakdown. (c) The hierarchical treecode movie at 65,536, a
-    frame every ``tree_rebuild_every`` = 8 steps for 16 steps at 1024x768:
+    profiler breakdown; its steps and frames are replays of the movie's
+    graphs (phase 13 holds them to the eager frame loop). (c) The
+    hierarchical treecode movie at 65,536, a frame every
+    ``tree_rebuild_every`` = 8 steps for 16 steps at 1024x768:
     its final state bitwise that of ``run(16)``, and ``trajectory(16,
     save_every=8)``'s last frame ``run(16)``'s positions in call-entry
     order, bitwise. (d) A flat (20,480, ``tree_hier=False``) and a dense
@@ -114,14 +116,20 @@ is non-zero:
     (hierarchical), 65,536 with ``tree_hier=False`` (flat) and 20,480 with
     ``tree_flat_cap=-1`` (dense), and ``treecode_staged`` at 1,048,576
     (hierarchical, VIPs; also against the replicated run of the same state),
-    8 steps compared and 8 timed; each against
+    8 steps compared and 8 timed. Each world's ``run`` replays its CUDA
+    graphs: it must be bitwise its eager loop (``sharded.eager_run``) from
+    the same state (state and ``sort_perm``, every rank); ms/step of both in
+    turns (eager, replayed, replayed, eager), capture seconds, the peak
+    memory of each (the eager loop's and the capturing run's) and the size
+    of the static lists. Each world is held against
     the single-device ``Simulation`` of the same state on the same card
     (exact: rtol 1e-5, atol 1e-6 after one step; treecode: rtol 5e-4, atol
     5e-5 through ``sort_perm``), whether bitwise equal, finite, overspeed 0,
-    ms/step beside the single device's, peak memory, and exactly the kernels
-    of its path a step (``sharded_launches_a_step``; the staged near kernel
-    once a stage, D a step); these launches count toward the kernels'
-    record. (b) D = 4 on one card, rank by rank, through
+    ms/step beside the single device's, and exactly the kernels
+    of its path a step, replays counted (``sharded_launches_a_step``; the
+    staged near kernel once a stage, D a step); the prime's and the
+    replays' launches count toward the kernels' record, the eager loop's
+    do not. (b) D = 4 on one card, rank by rank, through
     the per-rank functions (``ring.ring_acc_ranks``,
     ``tree.treecode_acc_ranks``): ring and half ring at 262,144, hierarchical
     at 524,288, flat at 65,536, dense at 20,480, against the single-device
@@ -177,7 +185,19 @@ is non-zero:
     ``launches_a_step`` says, replays counted. Prints ms/step of both in
     turns (eager, graph, graph, eager), capture seconds, the idle share of
     each from ``torch.profiler`` and peak memory of each, and the card's
-    name and power limit; writes ``out/chip_smoke_graphs.json``. The graph
+    name and power limit; writes ``out/chip_smoke_graphs.json``. Then the
+    frame rows (``drive_frame_graphs``): ``movie`` (1024x1024) and
+    ``trajectory`` with a frame every step, 19 steps, at hierarchical
+    65,536 (every frame its own chunk), ``pallas`` 65,536 and (the movie)
+    ``auto`` 65,536, against the eager frame loop (``eager_movie``,
+    ``eager_trajectory``) from the same state: frames, state and
+    ``sort_perm`` bitwise (``auto``'s symmetric kernel: one frame within
+    rtol 1e-5 / atol 1e-5 x max); the frame graph bitwise the eager splat
+    of the same state; the replays of spans and frames under
+    ``set_sync_debug_mode("error")``; launches a step, replays counted; a
+    second camera and scale replayed without a new capture and equal to
+    its eager movie; ms/step in turns, capture seconds, idle share and peak
+    memory of each; writes ``out/chip_smoke_frame_graphs.json``. The graph
     runs' launches count toward the kernels' record, the eager reference's
     do not.
 
@@ -1511,15 +1531,17 @@ def sharded_launches_a_step(cfg, n: int, strategy: str, size: int) -> dict:
 
 def multi_gpu_rank(mesh, runs) -> list[dict]:
     """Phase 11 (a) on one rank of the NCCL world: each run of ``runs``
-    through ``ShardedSimulation``, then on rank 0 the single-device
-    ``Simulation`` of the same state on the same card. Returns rank 0's
-    records."""
+    through ``ShardedSimulation``, its replays beside its eager loop
+    (``sharded.eager_run``) from the same state, then on rank 0 the
+    single-device ``Simulation`` of the same state on the same card.
+    Returns rank 0's records; their launches are the prime's and the
+    replays', not the eager loop's."""
     import numpy as np
     import torch
 
     from n_body_problem_tpu_torch import SimConfig, Simulation, models
     from n_body_problem_tpu_torch import diagnostics as diag
-    from n_body_problem_tpu_torch.parallel import ShardedSimulation
+    from n_body_problem_tpu_torch.parallel import ShardedSimulation, eager_run
 
     wrappers = counters()
     dev, out = mesh.device, []
@@ -1530,21 +1552,61 @@ def multi_gpu_rank(mesh, runs) -> list[dict]:
         state = models.plummer(n, seed=0)
         for w in wrappers.values():
             w.launches = 0
+        uncounted = dict.fromkeys(wrappers, 0)
+
+        def eager(k):
+            """The eager loop of ``k`` steps from the shard's state; its
+            launches are not counted."""
+            before = {key: w.launches for key, w in wrappers.items()}
+            got = eager_run(sim, k)
+            torch.cuda.synchronize(dev)
+            for key, w in wrappers.items():
+                uncounted[key] += w.launches - before[key]
+            return got
+
         torch.cuda.synchronize(dev)
         torch.cuda.reset_peak_memory_stats(dev)
         sim = ShardedSimulation(cfg, state, mesh, strategy=strategy)
         first = 1 if exact else steps      # compared, then ``steps`` timed
+        # the eager loop (its result kept on the host), then the replays'
+        # first run (the capture), each with its peak memory
+        fields = ("pos", "vel", "acc", "time", "step")
+        torch.cuda.reset_peak_memory_stats(dev)
+        ref, ref_perm = eager(first)
+        peak_e = torch.cuda.max_memory_allocated(dev)
+        ref = {k: getattr(ref, k).cpu() for k in fields}
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
         sim.run(first)
+        peak_g = torch.cuda.max_memory_allocated(dev)
+        same = all(torch.equal(getattr(sim.state, k).cpu(), ref[k]) for k in fields)
+        same = same and (ref_perm is None or bool((sim.sort_perm == ref_perm).all()))
+        flags = mesh.all_gather(torch.tensor([int(same)], dtype=torch.int32, device=dev))
+        del ref
         after_first = sim.gather_state()
         perm_first = None if exact else np.asarray(sim.sort_perm).copy()
-        start = {k: w.launches for k, w in wrappers.items()}
-        wall0 = sim.wall_seconds
-        sim.run(steps)
-        ms = (sim.wall_seconds - wall0) / steps * 1e3
+        # ms/step in turns, eager, replayed, replayed, eager; the replays counted
+        ms = {"eager": [], "graph": []}
+        timed = dict.fromkeys(wrappers, 0)
+        for kind in ("eager", "graph", "graph", "eager"):
+            before = {k: w.launches for k, w in wrappers.items()}
+            t0 = time.perf_counter()
+            if kind == "eager":
+                eager(steps)
+            else:
+                sim.run(steps)
+                for k, w in wrappers.items():
+                    timed[k] += w.launches - before[k]
+            ms[kind].append((time.perf_counter() - t0) / steps * 1e3)
         rec = {"label": label, "n": n, "strategy": strategy, "devices": mesh.size,
-               "ms_per_step": ms, "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
-               "launched": {k: w.launches for k, w in wrappers.items()},
-               "timed": {k: w.launches - start[k] for k, w in wrappers.items()},
+               "ms_per_step": ms["graph"], "eager_ms_per_step": ms["eager"],
+               "bitwise_vs_eager": bool(flags.all()),
+               "peak_gib": peak_g / 2**30, "peak_gib_eager": peak_e / 2**30,
+               "capture_s": sim.capture_seconds,
+               "lists_gib": sum(a.nbytes for a in sim._static.aux or () if a is not None) / 2**30,
+               "launched": {k: w.launches - uncounted[k] for k, w in wrappers.items()},
+               "timed": {k: v // 2 for k, v in timed.items()},
+               "timed_even": all(v % 2 == 0 for v in timed.values()),
                "want": sharded_launches_a_step(sim.cfg, sim.n, strategy, mesh.size),
                "steps": steps, "cfg": sim.cfg.to_dict()}
         final = sim.gather_state()
@@ -1609,7 +1671,10 @@ def nccl_world(runs=MULTI_RUNS, device_type: str = "cuda", size: int | None = No
         keys = set(rec["want"]) | set(rec["timed"])
         want = {k: rec["want"].get(k, 0) * rec["steps"] for k in keys}
         timed = {k: rec["timed"].get(k, 0) for k in keys}
-        check(timed == want, f"{rec['label']}: timed steps launched {timed}, expected {want}")
+        check(timed == want and rec["timed_even"],
+              f"{rec['label']}: each replayed run launched {timed}, expected {want}")
+        check(rec["bitwise_vs_eager"],
+              f"{rec['label']}: the replayed world is not bitwise its eager loop")
         check(rec["ok"], f"{rec['label']}: sharded vs single-device max |diff| "
                          f"{rec['max_abs_diff']:.3e} outside tolerance")
         check(rec["finite"] and rec["overspeed"] == 0,
@@ -1623,13 +1688,18 @@ def nccl_world(runs=MULTI_RUNS, device_type: str = "cuda", size: int | None = No
                   flush=True)
         for k, v in rec["launched"].items():
             launched[k] = launched.get(k, 0) + v
-        print(f"multi-GPU [{rec['label']}]: D={rec['devices']} {rec['strategy']} "
-              f"{rec['ms_per_step']:.4f} ms/step vs single-device "
-              f"{rec['single_ms_per_step']:.4f}; peak {rec['peak_gib']:.3f} GiB vs "
-              f"{rec['single_peak_gib']:.3f}; max |diff| {rec['max_abs_diff']:.3e} after "
+        ms = lambda v: " ".join(f"{x:.4f}" for x in v)  # noqa: E731
+        print(f"multi-GPU [{rec['label']}]: D={rec['devices']} {rec['strategy']} ms/step "
+              f"eager {ms(rec['eager_ms_per_step'])}, replayed {ms(rec['ms_per_step'])} (in "
+              f"turns) vs single-device {rec['single_ms_per_step']:.4f}; replayed bitwise its "
+              f"eager loop: True; capture {rec['capture_s']:.3f} s; peak GiB eager "
+              f"{rec['peak_gib_eager']:.3f}, replayed {rec['peak_gib']:.3f} (its static lists "
+              f"{rec['lists_gib']:.3f}), single device "
+              f"{rec['single_peak_gib']:.3f}; max |diff| vs single device "
+              f"{rec['max_abs_diff']:.3e} after "
               f"{rec['steps'] if rec['strategy'] in TREE_STRATEGIES else 1} step(s), bitwise "
-              f"{rec['bitwise']}; launches a step {dict((k, v) for k, v in rec['want'].items() if v)}; "
-              f"overspeed 0", flush=True)
+              f"{rec['bitwise']}; launches a step (replays counted) "
+              f"{dict((k, v) for k, v in rec['want'].items() if v)}; overspeed 0", flush=True)
     print(f"multi-GPU: NCCL world in {time.perf_counter() - t0:.1f} s", flush=True)
     return {"launched": launched, "records": records}
 
@@ -2353,6 +2423,178 @@ def drive_graphs(device, runs=None, smi: str = "") -> dict:
     return {k: w.launches - start[k] - eager_launches[k] for k, w in wrappers.items()}
 
 
+def frame_runs():
+    """(label, kind, N, config) of phase 13's frame rows: the hierarchical
+    treecode at 65,536 (each frame its own chunk: a resort, a build and a
+    step) and the exact 65,536 (the all-pairs kernel, and the default
+    solver's symmetric kernel, the bench's render leg), a frame every
+    step."""
+    from n_body_problem_tpu_torch import SimConfig
+
+    return (("movie hier 65,536", "movie", 65536, SimConfig(solver="treecode")),
+            ("trajectory hier 65,536", "trajectory", 65536, SimConfig(solver="treecode")),
+            ("movie pallas 65,536", "movie", 65536, SimConfig(solver="pallas")),
+            ("trajectory pallas 65,536", "trajectory", 65536, SimConfig(solver="pallas")),
+            ("movie auto 65,536", "movie", 65536, SimConfig()))
+
+
+FRAME_STEPS = 19   # a frame every step, as phase 13's runs: two chunks of 8 and 3
+
+
+def drive_frame_graphs(device, runs=None, smi: str = "") -> dict:
+    """Phase 13's frame rows: ``Simulation.movie`` (1024x1024) and
+    ``trajectory``, a frame every step, through the frame graph beside
+    their eager frame loop (``simulation.eager_movie``, ``eager_trajectory``)
+    from the same state. Checks: the frames, the state and ``sort_perm``
+    bitwise the eager loop's (the symmetric kernel, whose atomics make it
+    not bitwise repeatable: one frame within rtol 1e-5 / atol 1e-5 x max,
+    and the last frame of a longer movie bitwise the eager splat of its
+    final state); no host sync in the replays of the spans and the frames;
+    launches a step as ``launches_a_step``, replays counted; a second
+    camera and scale replay the same graphs (no new capture) and match
+    their eager movie. Prints ms/step of both in turns (eager, replayed,
+    replayed, eager), capture seconds, the idle share and the peak memory
+    of each. Returns the replays' launches (the eager loop's are not
+    counted)."""
+    import torch
+
+    from n_body_problem_tpu_torch import Simulation, models
+    from n_body_problem_tpu_torch.ops.registry import tree_path
+    from n_body_problem_tpu_torch.render import OrbitCamera
+    from n_body_problem_tpu_torch.simulation import (eager_movie, eager_trajectory,
+                                                     movie_frame, movie_inputs)
+
+    t_phase = time.perf_counter()
+    wrappers = counters()
+    start = {k: w.launches for k, w in wrappers.items()}
+    uncounted = dict.fromkeys(wrappers, 0)
+    cams = ((OrbitCamera(distance=2.0), (0.0, 0.0, 0.0)),
+            (OrbitCamera(theta_deg=35.0, phi_deg=20.0, distance=2.5), (0.5, 0.5, 0.5)))
+    kw = dict(width=RENDER_W, height=RENDER_H)
+    records = []
+    for label, kind, n, cfg in runs or frame_runs():
+        sim = Simulation(cfg, models.plummer(n, seed=0), device=device)
+        symmetric = sim.solver == "pallas_symmetric"
+        steps = 1 if symmetric else FRAME_STEPS
+
+        def call(k=steps, cam=cams[0]):
+            if kind == "movie":
+                return sim.movie(k, 1, cam[0], cam[1], **kw)
+            return sim.trajectory(k, save_every=1)
+
+        def eager(k=steps, cam=cams[0]):
+            before = {key: w.launches for key, w in wrappers.items()}
+            out = (eager_movie(sim, k, 1, cam[0], cam[1], **kw) if kind == "movie"
+                   else eager_trajectory(sim, k, save_every=1))
+            torch.cuda.synchronize(device)
+            for key, w in wrappers.items():
+                uncounted[key] += w.launches - before[key]
+            return out
+
+        def same_as(got, want, what: str) -> bool:
+            frames, state, perm = want
+            if symmetric:
+                peak = float(frames.abs().max())
+                check(torch.allclose(got, frames, rtol=RENDER_TOL, atol=RENDER_TOL * peak),
+                      f"graphs [{label}] {what}: a step's frame outside rtol 1e-5 of the eager "
+                      f"loop's (max |d| {float((got - frames).abs().max()):.3e})")
+                return torch.equal(got, frames)
+            same = (torch.equal(got, frames)
+                    and all(torch.equal(getattr(sim.state, k), getattr(state, k))
+                            for k in ("pos", "vel", "acc", "time", "step"))
+                    and (perm is None or bool((sim.sort_perm == perm).all())))
+            check(same, f"graphs [{label}] {what}: frames or state not bitwise the eager "
+                        f"frame loop's")
+            return same
+
+        torch.cuda.reset_peak_memory_stats(device)
+        want = eager()
+        peak_e = torch.cuda.max_memory_allocated(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        got = call()
+        peak_g = torch.cuda.max_memory_allocated(device)
+        if kind == "movie":
+            frames_ok(label, got, steps, RENDER_H, RENDER_W)
+        else:
+            check(tuple(got.shape) == (steps, sim.state.n, 3) and bool(torch.isfinite(got).all()),
+                  f"graphs [{label}]: trajectory {tuple(got.shape)}")
+        bitwise = same_as(got, want, "first call")
+        del want, got
+        # the frame program against the eager splat of the same state
+        if kind == "movie":
+            got = call(FRAME_STEPS) if symmetric else call()
+            out = torch.empty_like(got[-1])
+            movie_frame(out, sim.state, None, **movie_inputs(sim.state, *cams[0]), **kw)
+            check(torch.equal(out, got[-1]),
+                  f"graphs [{label}]: the frame graph is not bitwise the eager splat")
+            del got, out
+        # no host sync in the replays; the launches a step, replays counted
+        chunked = sim._chunked()
+        key = f"movie {RENDER_W}x{RENDER_H}" if kind == "movie" else "trajectory"
+        g, programs = sim._prepare(chunked, steps)
+        before = {k: w.launches for k, w in wrappers.items()}
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            frames = sim._replay_frames(programs, g._programs[key], key, steps, 1, "every")
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        moved = {k: w.launches - before[k] for k, w in wrappers.items()}
+        if chunked:
+            sim._unload_tree(steps)
+            a_step = launches_a_step(sim.cfg, sim.state.n)
+        else:
+            sim.state = g.unload()
+            a_step = exact_launches_a_step(sim)
+        torch.cuda.synchronize(device)
+        del frames
+        check(moved == {k: a_step.get(k, 0) * steps for k in wrappers},
+              f"graphs [{label}]: launches {moved}, expected {a_step} a step")
+        # a second camera and scale: the same graphs, no new capture
+        capture_s, programs_n = sim.capture_seconds, len(g._programs)
+        if kind == "movie":
+            want = eager(cam=cams[1])
+            same_as(call(cam=cams[1]), want, "second camera")
+            check(sim.capture_seconds == capture_s and len(g._programs) == programs_n,
+                  f"graphs [{label}]: a second camera captured again")
+            del want
+        # times: eager, replayed, replayed, eager; then the idle share of each
+        ms = {"eager": [], "graph": []}
+        for which in ("eager", "graph", "graph", "eager"):
+            t0 = time.perf_counter()
+            (eager if which == "eager" else call)(FRAME_STEPS)
+            torch.cuda.synchronize(device)
+            ms[which].append((time.perf_counter() - t0) / FRAME_STEPS * 1e3)
+        idle = {"eager": idle_share(lambda: eager(FRAME_STEPS)),
+                "graph": idle_share(lambda: call(FRAME_STEPS))}
+        check(bool(torch.isfinite(sim.state.pos).all()), f"graphs [{label}]: non-finite")
+        rec = {"label": label, "kind": kind, "n": sim.state.n_real,
+               "path": tree_path(sim.cfg) if sim.solver == "treecode" else sim.solver,
+               "steps": FRAME_STEPS, "bitwise": bitwise, "eager_ms": ms["eager"],
+               "graph_ms": ms["graph"], "capture_s": capture_s,
+               "launches_a_step": {k: v for k, v in a_step.items() if v},
+               "idle_eager": idle["eager"], "idle_graph": idle["graph"],
+               "peak_gib_eager": peak_e / 2**30, "peak_gib_graph": peak_g / 2**30}
+        records.append(rec)
+        movie = (f"{RENDER_W}x{RENDER_H}; frame graph bitwise the eager splat; a second "
+                 f"camera replayed without a capture" if kind == "movie" else "positions")
+        print(f"graphs [{label}]: N={rec['n']} path={rec['path']} a frame every step "
+              f"({movie}); bitwise the eager frames {bitwise}"
+              f"{' (1 step; atomics)' if symmetric else ''}; no host sync in replays; ms/step "
+              f"eager {ms['eager'][0]:.4f} {ms['eager'][1]:.4f} replayed {ms['graph'][0]:.4f} "
+              f"{ms['graph'][1]:.4f} ({FRAME_STEPS} steps); capture {capture_s:.3f} s; "
+              f"launches a step {rec['launches_a_step']}; idle eager {idle['eager']:.4f} "
+              f"replayed {idle['graph']:.4f}; peak GiB eager {rec['peak_gib_eager']:.3f} "
+              f"replayed {rec['peak_gib_graph']:.3f}", flush=True)
+        del sim
+        torch.cuda.empty_cache()
+    out = ROOT / "out" / "chip_smoke_frame_graphs.json"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(records, indent=1))
+    print(f"graphs: phase 13's frame rows in {time.perf_counter() - t_phase:.1f} s on {smi} "
+          f"-> {out}", flush=True)
+    return {k: w.launches - start[k] - uncounted[k] for k, w in wrappers.items()}
+
+
 def main() -> int:
     import torch
 
@@ -2422,6 +2664,11 @@ def main() -> int:
     graphed = drive_graphs(device, smi=smi)
     for key in ("allpairs", "symmetric") + TREE_KERNELS:
         check(graphed[key] > 0, f"phase 13 never replayed the {key} kernel")
+    framed = drive_frame_graphs(device, smi=smi)
+    for key in ("allpairs", "symmetric", "near", "far", "vip"):
+        check(framed[key] > 0, f"phase 13's frame rows never replayed the {key} kernel")
+    for key, count in framed.items():
+        graphed[key] += count
     for key, count in graphed.items():
         launches[key] = launches.get(key, 0) + count
 

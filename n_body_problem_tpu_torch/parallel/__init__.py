@@ -12,7 +12,7 @@ from n_body_problem_tpu_torch.parallel.ring import (
     ring_acc,
     shard_state,
 )
-from n_body_problem_tpu_torch.parallel.sharded import ShardedSimulation
+from n_body_problem_tpu_torch.parallel.sharded import ShardedSimulation, eager_run
 from n_body_problem_tpu_torch.parallel.stream import (
     make_staged_flat_force,
     make_staged_force,
@@ -33,6 +33,7 @@ __all__ = [
     "make_sharded_step",
     "shard_state",
     "ShardedSimulation",
+    "eager_run",
     "make_sharded_treecode_force",
     "make_sharded_treecode_run",
     "make_staged_force",

@@ -3,8 +3,8 @@
 :func:`run_cases` is a :func:`~n_body_problem_tpu_torch.parallel.mesh.spawn_ring`
 target: every rank runs the same list of cases, each through the public
 entry points (``shard_state`` with ``make_sharded_step``,
-``sharded_kinetic_energy``, ``make_staged_force``, ``ShardedSimulation``),
-and rank 0 returns
+``sharded_kinetic_energy``, ``make_staged_force``, ``ShardedSimulation``
+and its eager reference ``sharded.eager_run``), and rank 0 returns
 their results as numpy arrays, gathered from every rank. It lives in the
 package so that a spawned rank imports nothing but the port.
 
@@ -22,7 +22,7 @@ from n_body_problem_tpu_torch.parallel.mesh import RingMesh
 from n_body_problem_tpu_torch.parallel.ring import (make_sharded_step, ring_acc_ranks,
                                                     ring_force, shard_state,
                                                     sharded_kinetic_energy)
-from n_body_problem_tpu_torch.parallel.sharded import ShardedSimulation
+from n_body_problem_tpu_torch.parallel.sharded import ShardedSimulation, eager_run
 from n_body_problem_tpu_torch.parallel.stream import make_staged_force
 from n_body_problem_tpu_torch.state import from_numpy
 
@@ -97,8 +97,26 @@ def _sim(mesh: RingMesh, *, cfg: SimConfig, state: dict, steps: int, strategy: s
                 n=sim.n)
 
 
+def _replay(mesh: RingMesh, *, cfg: SimConfig, state: dict, steps: int, strategy: str,
+            calls: int = 2) -> list[dict]:
+    """``ShardedSimulation.run(steps)`` and its eager loop (``eager_run``)
+    from the same state, ``calls`` times in a row: each call's gathered
+    positions, velocities, accelerations, time, step and ``sort_perm`` of
+    both, as ``{"eager": ..., "run": ...}``."""
+    sim = ShardedSimulation(cfg, from_numpy(state), mesh, strategy=strategy)
+    out = []
+    for _ in range(calls):
+        ref, perm = eager_run(sim, steps)
+        sim.run(steps)
+        out.append({name: dict(zip(("pos", "vel", "acc"), _gathered(mesh, s.pos, s.vel, s.acc)),
+                               time=s.time.cpu().numpy(), step=s.step.cpu().numpy(),
+                               sort_perm=p)
+                    for name, s, p in (("eager", ref, perm), ("run", sim.state, sim.sort_perm))})
+    return out
+
+
 CASES = {"step": _step, "kinetic": _kinetic, "shard_error": _shard_error,
-         "ranks": _ranks, "staged": _staged, "sim": _sim}
+         "ranks": _ranks, "staged": _staged, "sim": _sim, "replay": _replay}
 
 
 def run_cases(mesh: RingMesh, cases: list[dict]) -> list:

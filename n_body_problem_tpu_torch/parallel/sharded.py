@@ -16,6 +16,13 @@ the whole state back on every rank.
   replicated source summaries and the near sources streamed round the ring,
   on the flat-list paths on any device.
 
+As ``Simulation`` does, ``run`` steps the static buffers of a
+``graphs.StaticRun``: on ``cuda`` every step (and every treecode resort
+and build) is the replay of a CUDA graph captured on the first call,
+collectives included; on the CPU (gloo) the same functions are called
+directly. :func:`eager_run` is the eager loop of the same run, the
+reference the replays are held to.
+
 >>> sim = ShardedSimulation(cfg, state, mesh, strategy="half_ring")  # on each rank
 >>> sim.run(1000)
 >>> sim.diagnostics()["energy"]                                      # on each rank
@@ -27,15 +34,18 @@ import dataclasses
 import math
 import time as _time
 
+import numpy as np
 import torch
 
 from n_body_problem_tpu_torch.config import SimConfig, resolve_vip_tiles
+from n_body_problem_tpu_torch.graphs import (StaticRun, clone_state, replay_chunks,
+                                             step_program, tree_programs)
 from n_body_problem_tpu_torch.ops import treecode
 from n_body_problem_tpu_torch.parallel.mesh import RingMesh, make_ring_mesh
 from n_body_problem_tpu_torch.parallel.ring import make_sharded_step, ring_force, shard_state
-from n_body_problem_tpu_torch.parallel.stream import make_staged_force, make_staged_run
-from n_body_problem_tpu_torch.parallel.tree import (make_sharded_treecode_force,
-                                                    make_sharded_treecode_run)
+from n_body_problem_tpu_torch.parallel.stream import make_staged_force, staged_parts
+from n_body_problem_tpu_torch.parallel.tree import (chunked_run, make_sharded_treecode_force,
+                                                    rank_ids, replicated_parts)
 from n_body_problem_tpu_torch.simulation import require_card_softening
 from n_body_problem_tpu_torch.state import SimState, pad_state, unpad_state
 from n_body_problem_tpu_torch.utils.morton import apply_permutation, morton_argsort
@@ -127,6 +137,9 @@ class ShardedSimulation:
     (``parallel.ring``: on the card always the all-pairs kernel). With
     ``strategy="treecode"`` or ``"treecode_staged"`` ``sort_perm[i]`` is the
     input index of the body now at global slot i, as in ``Simulation``.
+    On ``cuda`` the first ``run`` captures the CUDA graphs every later step
+    replays (``capture_seconds``); the leapfrog prime stays eager and runs
+    once, at construction.
     """
 
     def __init__(self, cfg: SimConfig, state: SimState, mesh: RingMesh | None = None, *,
@@ -141,7 +154,7 @@ class ShardedSimulation:
         self.cfg = cfg = auto_tile(cfg, strategy, state.n, dev_type)
         self.sort_perm = None
         self.wall_seconds = 0.0
-        self._step = self._tree_run = None
+        self._step = self._tree = self._static = None
         state = state.to(self.mesh.device)
         if strategy in TREE_STRATEGIES:
             self._init_treecode(cfg, state)
@@ -175,24 +188,61 @@ class ShardedSimulation:
                                                                                    self.mesh)
             self.state = dataclasses.replace(
                 self.state, acc=force(self.state.pos, self.state.mass))
-        self._tree_run = (make_staged_run if staged else make_sharded_treecode_run)(cfg,
-                                                                                   self.mesh)
+        self._tree = (staged_parts if staged else replicated_parts)(cfg, self.mesh)
+
+    @property
+    def capture_seconds(self) -> float:
+        """Seconds this rank spent warming up and capturing its CUDA graphs
+        (0 on the CPU), in the first ``run`` call."""
+        return 0.0 if self._static is None else self._static.capture_seconds
 
     def run(self, n_steps: int) -> SimState:
         """Advance ``n_steps``; returns this rank's shard when its device has
-        finished them. A collective: every rank calls it."""
+        finished them. A collective: every rank calls it.
+
+        On ``cuda`` the steps are replays of the CUDA graphs captured on the
+        first call: a treecode chunk is one replay of the global resort, one
+        of the build of the rank's lists and one a step; the exact ring one
+        a step. A capture that fails raises. After a treecode run the
+        ranks' body permutations are gathered (one ``all_gather``) into
+        ``sort_perm`` on the host. The returned state is a copy that no
+        later call rewrites."""
         t0 = _time.perf_counter()
-        if self._tree_run is not None:
-            self.state, ids = self._tree_run(self.state, n_steps)
-            ids = self.mesh.all_gather(ids)[:self.state.n_real].cpu().numpy()
-            self.sort_perm = ids if self.sort_perm is None else self.sort_perm[ids]
-        else:
-            for _ in range(n_steps):
-                self.state = self._step(self.state)
+        if n_steps:
+            g, programs = self._prepare()
+            if self._tree is not None:
+                replay_chunks(g, programs, n_steps, self._tree.rebuild_every)
+                self.state = self._tree.finish(g.unload(), n_steps)
+                self.sort_perm = self._composed(g.ids)
+            else:
+                g.repeat(programs[0], n_steps)
+                self.state = g.unload()
         if self.mesh.device.type == "cuda":
             torch.cuda.synchronize(self.mesh.device)
         self.wall_seconds += _time.perf_counter() - t0
         return self.state
+
+    def _prepare(self):
+        """``(static run, programs)``, captured on first use (every rank in
+        the same order) and loaded with the state: the treecode's ``(resort,
+        build, step)``, or the exact ring's step."""
+        if self._static is None:
+            self._static = StaticRun(self.state)
+        g = self._static
+        programs = (tree_programs(g, self._tree) if self._tree is not None
+                    else (g.program("step", step_program(self._step)),))
+        g.capture(*programs)
+        g.load(self.state)
+        if self._tree is not None:
+            g.ids.copy_(rank_ids(self.state, self.mesh))
+        return g, programs
+
+    def _composed(self, ids: torch.Tensor) -> np.ndarray:
+        """``sort_perm`` after a treecode run whose rows' ids (global input
+        slots) are ``ids``: the ranks' ids gathered (a collective) and
+        composed with it on the host."""
+        ids = self.mesh.all_gather(ids)[:self.state.n_real].cpu().numpy()
+        return ids if self.sort_perm is None else self.sort_perm[ids]
 
     def step(self) -> SimState:
         """One step (``run(1)``)."""
@@ -223,3 +273,18 @@ class ShardedSimulation:
         from n_body_problem_tpu_torch import diagnostics as diag
 
         return diag.summary(self.gather_state(), self.cfg)
+
+
+def eager_run(sim: ShardedSimulation, n_steps: int) -> tuple[SimState, np.ndarray | None]:
+    """The eager loop of ``sim.run(n_steps)`` on a copy of this rank's shard
+    (``tree.chunked_run`` of the strategy's pieces, or the exact ring's
+    ``make_sharded_step`` a step), the reference its replays are held to:
+    ``(state, sort_perm)``; ``sim`` is unchanged. A collective: every rank
+    calls it."""
+    state = clone_state(sim.state)
+    if sim._tree is None:
+        for _ in range(n_steps):
+            state = sim._step(state)
+        return state, sim.sort_perm
+    state, ids = chunked_run(sim._tree, sim.mesh)(state, n_steps)
+    return state, sim._composed(ids)

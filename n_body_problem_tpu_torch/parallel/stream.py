@@ -47,7 +47,8 @@ from n_body_problem_tpu_torch.config import SimConfig
 from n_body_problem_tpu_torch.ops import cuda_treecode
 from n_body_problem_tpu_torch.ops import treecode as tc
 from n_body_problem_tpu_torch.parallel.mesh import RingMesh
-from n_body_problem_tpu_torch.parallel.tree import apply_reaction, chunked_run
+from n_body_problem_tpu_torch.parallel.tree import apply_reaction, chunked_run, sharded_tree_parts
+from n_body_problem_tpu_torch.simulation import TreeParts
 
 _TINY = 1e-30   # floor of the MAC's median scale, as in the JAX module
 _f32 = torch.float32
@@ -112,7 +113,7 @@ def _vip_split(radii_g, n_l: int, rank: int, src: int, vip_src: int):
     k_s_l = n_l // src
     vip_idx = tc._top_k(radii_g[None], vip_src)[1][0]
     is_tile = torch.zeros(radii_g.shape, dtype=torch.bool, device=radii_g.device)
-    is_tile[vip_idx] = True
+    is_tile.index_fill_(0, vip_idx, True)
     return vip_idx, is_tile[rank * k_s_l:(rank + 1) * k_s_l].repeat_interleave(src)
 
 
@@ -380,20 +381,29 @@ def make_staged_flat_force(cfg: SimConfig, mesh: RingMesh) -> Callable:
     return make_staged_force(cfg, mesh)
 
 
-def make_staged_run(cfg: SimConfig, mesh: RingMesh) -> Callable:
-    """``run(state, n_steps) -> (state, ids)`` of this rank's shard, the
-    staged counterpart of ``tree.make_sharded_treecode_run``: every
-    ``tree_rebuild_every`` steps the global resort and this rank's staged
-    lists, then the steps with ring-streamed near sources. Between steps a
+def staged_parts(cfg: SimConfig, mesh: RingMesh) -> TreeParts:
+    """The ``simulation.TreeParts`` of the staged strategy
+    (``"treecode_staged"``): the global resort, this rank's staged lists
+    (:func:`_staged_lists`, after its three gathers), and a step with
+    ring-streamed near sources (:func:`_staged_forces`). Between steps a
     rank keeps its shard's columns, its lists and nothing of another
     rank's bodies."""
     held = _Held(mesh.size, mesh)
 
-    def chunk_force(state, pos_g, mass_g) -> Callable:
-        lists = _staged_lists(cfg, held, [state.pos], [state.mass])
-        return lambda pos_l: _staged_forces(cfg, held, [pos_l], [state.mass], lists)[0]
+    def build(state) -> tuple:
+        return tuple(_staged_lists(cfg, held, [state.pos], [state.mass])[0])
 
-    return chunked_run(cfg, mesh, chunk_force)
+    def force(pos_l, mass_l, aux):
+        return _staged_forces(cfg, held, [pos_l], [mass_l], [aux])[0]
+
+    return sharded_tree_parts(cfg, mesh, build, force)
+
+
+def make_staged_run(cfg: SimConfig, mesh: RingMesh) -> Callable:
+    """``run(state, n_steps) -> (state, ids)`` of this rank's shard, the
+    staged counterpart of ``tree.make_sharded_treecode_run``, as an eager
+    loop (``tree.chunked_run`` of :func:`staged_parts`)."""
+    return chunked_run(staged_parts(cfg, mesh), mesh)
 
 
 def staged_acc_ranks(cfg: SimConfig, pos, mass, size: int):

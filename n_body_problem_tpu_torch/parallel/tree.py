@@ -15,10 +15,15 @@ the gathered columns (the same sort on every rank) and keeps its own slice.
 Each force is one per-rank function of tensors, :func:`rank_acc` (its own
 rows, the gathered columns and its rank in; its acceleration and partial
 VIP reaction out), built on lists from :func:`rank_lists`; the collectives
-sit in the thin layer around them (:func:`make_sharded_treecode_run`,
+sit in the thin layer around them (:func:`sharded_tree_parts`,
 :func:`make_sharded_treecode_force`). :func:`treecode_acc_ranks` runs the
 per-rank functions for every rank in one process, the reactions added over
 the ranks, which is what the collectives deliver.
+
+A run is the three pieces of ``simulation.TreeParts`` (the global resort,
+the build of the rank's lists, one step on them), which
+``ShardedSimulation`` replays as CUDA graphs (``graphs.tree_programs``) and
+:func:`chunked_run` loops over eagerly, as the reference.
 
 The paths (:func:`sharded_path`): hierarchical (near kernel 7 in its local
 form, far kernels 8/9, VIP kernel 6), single-level flat (7, far kernel 3,
@@ -34,6 +39,7 @@ from typing import Callable
 import torch
 
 from n_body_problem_tpu_torch.config import SimConfig
+from n_body_problem_tpu_torch.simulation import TreeParts, chunk_loop
 from n_body_problem_tpu_torch.ops import cuda_treecode
 from n_body_problem_tpu_torch.ops import treecode as tc
 from n_body_problem_tpu_torch.parallel.mesh import RingMesh
@@ -159,13 +165,6 @@ def _reduced(mesh: RingMesh, acc, react, vip_body_g) -> torch.Tensor:
     return apply_reaction(acc, mesh.all_reduce(react), vip_body_g, mesh.rank)
 
 
-def _ranked_force(path: str, cfg: SimConfig, mesh: RingMesh, mass_l, mass_g, aux) -> Callable:
-    """``pos_l -> acc_l`` of a chunk's steps: gather the positions, then the
-    rank's force on the chunk's lists (:func:`rank_acc`, :func:`_reduced`)."""
-    return lambda pos_l: _reduced(mesh, *rank_acc(path, cfg, pos_l, mass_l,
-                                                  mesh.all_gather(pos_l), mass_g, aux))
-
-
 def treecode_acc_ranks(cfg: SimConfig, pos, mass, size: int):
     """The sharded force of every rank of a ring of ``size``, in this
     process, one rank after another: ``(acc (N, 3), lists)``, the ranks'
@@ -216,8 +215,7 @@ def merge_rank_lists(path: str, lists, rows: int, entries: int):
 def _resorted(state: SimState, ids: torch.Tensor, mesh: RingMesh):
     """The global Morton resort, the same on every rank: gather the body
     columns, sort them by the gathered keys, keep this rank's slice.
-    Returns ``(state, ids, pos_g, mass_g)`` with the sorted global
-    positions and masses."""
+    Returns ``(state, ids)``."""
     b = state.n
     cols = mesh.all_gather(torch.cat([state.pos, state.vel, state.acc, state.mass[:, None],
                                       state.eps[:, None]], 1))
@@ -228,67 +226,90 @@ def _resorted(state: SimState, ids: torch.Tensor, mesh: RingMesh):
     state = dataclasses.replace(
         state, pos=loc[:, 0:3].contiguous(), vel=loc[:, 3:6].contiguous(),
         acc=loc[:, 6:9].contiguous(), mass=loc[:, 9].contiguous(), eps=loc[:, 10].contiguous())
-    srt = cols[perm]
-    return state, ids_g[mine], srt[:, 0:3].contiguous(), srt[:, 9].contiguous()
+    return state, ids_g[mine]
+
+
+def rank_ids(state: SimState, mesh: RingMesh) -> torch.Tensor:
+    """The global slots of this rank's rows, the ids a run starts from."""
+    b = state.n
+    return torch.arange(mesh.rank * b, (mesh.rank + 1) * b, dtype=torch.int32,
+                        device=state.device)
+
+
+def sharded_tree_parts(cfg: SimConfig, mesh: RingMesh, build: Callable,
+                       force: Callable) -> TreeParts:
+    """The pieces of a sharded treecode run of this rank's shard: the
+    global resort (:func:`_resorted`), ``build(state) -> aux`` (the rank's
+    lists, after the gathers they need), one step (Euler or KDK leapfrog)
+    with the force ``force(pos_l, mass_l, aux) -> acc_l``, and the time
+    and step advanced once, at the end, as in the JAX package's sharded
+    run. ``cfg`` must carry the resolved tile, VIP count and capacities
+    (``ShardedSimulation`` resolves them)."""
+    dt = cfg.dt
+    leapfrog = cfg.integrator == "leapfrog"
+
+    def step(state: SimState, aux) -> SimState:
+        pos, vel, acc = state.pos, state.vel, state.acc
+        if leapfrog:   # KDK, stored-acceleration form
+            vel = vel + acc * (0.5 * dt)
+            pos = pos + vel * dt
+            acc = force(pos, state.mass, aux)
+            vel = vel + acc * (0.5 * dt)
+        else:
+            acc = force(pos, state.mass, aux)
+            vel = vel + acc * dt
+            pos = pos + vel * dt
+        return dataclasses.replace(state, pos=pos, vel=vel, acc=acc)
+
+    def finish(state: SimState, n_steps: int) -> SimState:
+        return dataclasses.replace(
+            state, time=state.time + torch.full_like(state.time, n_steps * dt),
+            step=state.step + n_steps)
+
+    return TreeParts(cfg.tree_rebuild_every, lambda state, ids: _resorted(state, ids, mesh),
+                     build, step, finish)
+
+
+def replicated_parts(cfg: SimConfig, mesh: RingMesh) -> TreeParts:
+    """The :class:`~n_body_problem_tpu_torch.simulation.TreeParts` of the
+    replicated strategy (``"treecode"``): the build gathers the sorted
+    positions and masses (one ``all_gather``) and makes this rank's lists
+    (:func:`rank_lists`), kept with the gathered masses; a force gathers
+    the positions and evaluates the rank's rows on them (:func:`rank_acc`,
+    :func:`_reduced`)."""
+    path = sharded_path(cfg)
+
+    def build(state: SimState) -> tuple:
+        cols = mesh.all_gather(torch.cat([state.pos, state.mass[:, None]], 1))
+        pos_g, mass_g = cols[:, 0:3].contiguous(), cols[:, 3].contiguous()
+        return (mass_g, *rank_lists(path, cfg, state.pos, pos_g, mass_g, mesh.rank))
+
+    def force(pos_l, mass_l, aux):
+        return _reduced(mesh, *rank_acc(path, cfg, pos_l, mass_l, mesh.all_gather(pos_l),
+                                        aux[0], aux[1:]))
+
+    return sharded_tree_parts(cfg, mesh, build, force)
+
+
+def chunked_run(parts: TreeParts, mesh: RingMesh) -> Callable:
+    """The sharded treecode's eager run loop, ``run(state, n_steps) ->
+    (state, ids)``: every ``parts.rebuild_every`` steps the global resort
+    and the rank's lists, then the chunk's steps on them
+    (``simulation.chunk_loop``); ``ids[i]`` is the input slot (global) of
+    the body now at this rank's row i. The reference of
+    ``ShardedSimulation.run``'s replays."""
+    def run(state: SimState, n_steps: int):
+        state, ids, _ = chunk_loop(parts, state, rank_ids(state, mesh), n_steps)
+        return parts.finish(state, n_steps), ids
+
+    return run
 
 
 def make_sharded_treecode_run(cfg: SimConfig, mesh: RingMesh) -> Callable:
-    """``run(state, n_steps) -> (state, ids)`` of this rank's shard: the
-    multi-GPU counterpart of ``simulation.make_treecode_run``. Every
-    ``cfg.tree_rebuild_every`` steps the global resort and this rank's
-    lists (:func:`rank_lists`), then the steps with both kept; ``ids[i]`` is
-    the input slot (global) of the body now at this rank's row i. The time
-    and step advance once, at the end, as in the JAX package's sharded
-    run. ``cfg`` must carry the resolved tile, VIP count and capacities
-    (``ShardedSimulation`` resolves them)."""
-    path = sharded_path(cfg)
-
-    def chunk_force(state: SimState, pos_g, mass_g) -> Callable:
-        aux = rank_lists(path, cfg, state.pos, pos_g, mass_g, mesh.rank)
-        return _ranked_force(path, cfg, mesh, state.mass, mass_g, aux)
-
-    return chunked_run(cfg, mesh, chunk_force)
-
-
-def chunked_run(cfg: SimConfig, mesh: RingMesh, chunk_force: Callable) -> Callable:
-    """The sharded treecode's run loop, ``run(state, n_steps) -> (state,
-    ids)``: every ``cfg.tree_rebuild_every`` steps the global resort
-    (:func:`_resorted`) and ``chunk_force(state, pos_g, mass_g)``, the
-    chunk's force ``pos_l -> acc_l`` on lists built once, then the chunk's
-    steps with it (Euler or KDK leapfrog)."""
-    every, dt = cfg.tree_rebuild_every, cfg.dt
-    leapfrog = cfg.integrator == "leapfrog"
-
-    def chunk(state: SimState, ids: torch.Tensor, length: int):
-        state, ids, pos_g, mass_g = _resorted(state, ids, mesh)
-        force = chunk_force(state, pos_g, mass_g)
-        del pos_g, mass_g
-        pos, vel, acc = state.pos, state.vel, state.acc
-        for _ in range(length):
-            if leapfrog:   # KDK, stored-acceleration form
-                vel = vel + acc * (0.5 * dt)
-                pos = pos + vel * dt
-                acc = force(pos)
-                vel = vel + acc * (0.5 * dt)
-            else:
-                acc = force(pos)
-                vel = vel + acc * dt
-                pos = pos + vel * dt
-        return dataclasses.replace(state, pos=pos, vel=vel, acc=acc), ids
-
-    def run(state: SimState, n_steps: int):
-        b = state.n
-        ids = torch.arange(mesh.rank * b, (mesh.rank + 1) * b, dtype=torch.int32,
-                           device=state.device)
-        full, rem = divmod(n_steps, every)
-        for length in [every] * full + ([rem] if rem else []):
-            state, ids = chunk(state, ids, length)
-        state = dataclasses.replace(
-            state, time=state.time + torch.full_like(state.time, n_steps * dt),
-            step=state.step + n_steps)
-        return state, ids
-
-    return run
+    """``run(state, n_steps) -> (state, ids)`` of this rank's shard, the
+    multi-GPU counterpart of ``simulation.make_treecode_run``, as an eager
+    loop (:func:`chunked_run` of :func:`replicated_parts`)."""
+    return chunked_run(replicated_parts(cfg, mesh), mesh)
 
 
 def make_sharded_treecode_force(cfg: SimConfig, mesh: RingMesh) -> Callable:

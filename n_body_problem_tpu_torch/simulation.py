@@ -1,18 +1,21 @@
 """Step loop: build a step function and run it on a device.
 
 Counterpart of ``n_body_problem_tpu.simulation``. Where the JAX package
-jits a run into one device program (``lax.scan`` over the steps),
-:class:`Simulation` runs on the static buffers of ``graphs.StaticRun``: on
-``cuda`` each step (and each treecode resort and acceptance build) is the
-replay of a CUDA graph captured on the first call, on the CPU the same
-function called directly. Only the end of :meth:`Simulation.run` waits for
-the device. :func:`run_steps` and :func:`make_treecode_run` are the eager
-loop, a Python loop of the same functions, kept as the reference.
+jits a run into one device program (``lax.scan`` over the steps, the
+movie's and the trajectory's frames inside it), :class:`Simulation` runs
+on the static buffers of ``graphs.StaticRun``: on ``cuda`` each step (and
+each treecode resort and acceptance build, and each frame) is the replay
+of a CUDA graph captured on the first call, on the CPU the same function
+called directly. Only the end of a call waits for the device.
+:func:`run_steps`, :func:`make_treecode_run`, :func:`eager_movie` and
+:func:`eager_trajectory` are the eager loop, a Python loop of the same
+functions, kept as the reference.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time as _time
 from typing import Callable, NamedTuple
 
@@ -21,7 +24,8 @@ import torch
 from torch.profiler import record_function
 
 from n_body_problem_tpu_torch.config import SimConfig, resolve_vip_tiles
-from n_body_problem_tpu_torch.graphs import StaticRun, step_program, tree_programs
+from n_body_problem_tpu_torch.graphs import (StaticRun, chunk_lengths, clone_state, frame_program,
+                                             replay_chunks, step_program, tree_programs)
 from n_body_problem_tpu_torch.ops import cuda_build, treecode
 from n_body_problem_tpu_torch.ops.forces import required_padding
 from n_body_problem_tpu_torch.ops.integrators import make_integrator, prime_leapfrog
@@ -135,13 +139,6 @@ def tree_parts(cfg: SimConfig) -> TreeParts:
     return TreeParts(cfg.tree_rebuild_every, device_resort, build, step, finish)
 
 
-def chunk_lengths(n_steps: int, every: int) -> list[int]:
-    """The chunks of a treecode run of ``n_steps``: whole chunks of
-    ``every`` steps, then the remainder."""
-    full, rem = divmod(n_steps, every)
-    return [every] * full + ([rem] if rem else [])
-
-
 def make_treecode_run(cfg: SimConfig):
     """The treecode run as an eager loop, the reference of the graphs that
     ``Simulation.run`` replays (``graphs.tree_programs``): every
@@ -169,15 +166,7 @@ def make_treecode_run(cfg: SimConfig):
     parts = tree_parts(cfg)
 
     def advance(state: SimState, ids: torch.Tensor, n_steps: int):
-        aux = None
-        for length in chunk_lengths(n_steps, parts.rebuild_every):
-            with record_function("treecode.resort"):
-                state, ids = parts.resort(state, ids)
-            with record_function("treecode.build"):
-                aux = parts.build(state)
-            for _ in range(length):
-                state = parts.step(state, aux)
-        return state, ids, aux
+        return chunk_loop(parts, state, ids, n_steps)
 
     def start(state: SimState):
         return torch.arange(state.n, dtype=torch.int32, device=state.device)
@@ -188,6 +177,96 @@ def make_treecode_run(cfg: SimConfig):
 
     run.start, run.advance, run.finish = start, advance, parts.finish
     return run
+
+
+def chunk_loop(parts: TreeParts, state: SimState, ids: torch.Tensor, n_steps: int):
+    """The eager chunk loop of a treecode run (:class:`TreeParts`, one
+    device's or a sharded strategy's): ``(state, ids, aux)`` after
+    ``n_steps``, ``aux`` the lists of the last chunk (None for no steps)."""
+    aux = None
+    for length in chunk_lengths(n_steps, parts.rebuild_every):
+        with record_function("treecode.resort"):
+            state, ids = parts.resort(state, ids)
+        with record_function("treecode.build"):
+            aux = parts.build(state)
+        for _ in range(length):
+            state = parts.step(state, aux)
+    return state, ids, aux
+
+
+# ------------------------------------------------------------ the frames
+def trajectory_frame(out: torch.Tensor, state: SimState, ids: torch.Tensor | None) -> None:
+    """The trajectory's frame: the positions, scattered into the call-entry
+    order by ``ids`` (the chunks' body permutation) on the chunked treecode
+    paths, as they are elsewhere (``ids`` None)."""
+    if ids is None:
+        out.copy_(state.pos)
+    else:
+        out.index_copy_(0, ids.long(), state.pos)
+
+
+def movie_frame(out: torch.Tensor, state: SimState, ids, *, mask, view_projection,
+                scale_factors, width: int, height: int) -> None:
+    """The movie's frame: the bodies splatted in their current slot order
+    (``render.splat.splat_frame``)."""
+    from n_body_problem_tpu_torch.render.splat import splat_frame
+
+    out.copy_(splat_frame(state.pos, state.mass, mask, view_projection, scale_factors,
+                          width=width, height=height))
+
+
+def movie_inputs(state: SimState, camera, scale_factors) -> dict:
+    """:func:`movie_frame`'s inputs on the state's device: the real mask,
+    the camera's view-projection and the scale factors (float32)."""
+    as_dev = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=state.device)  # noqa: E731
+    return dict(mask=state.real_mask(), view_projection=as_dev(camera.view_projection()),
+                scale_factors=as_dev(scale_factors))
+
+
+def _eager_frames(sim: "Simulation", n_steps: int, every: int, name: str,
+                  frame_shape: tuple[int, ...], record, inputs: dict):
+    """The movie's and the trajectory's eager loop on a copy of ``sim``'s
+    state: each span through :func:`make_treecode_run`'s chunks (the
+    hierarchical and flat paths) or :func:`run_steps` of ``sim.step_fn``,
+    the frame recorded eagerly. Returns ``(frames, state, sort_perm)``;
+    ``sim`` is unchanged."""
+    state = clone_state(sim.state)
+    if not sim._chunked():
+        state, frames = run_frames(state, lambda s, k: run_steps(s, sim.step_fn, k), n_steps,
+                                   every, name, frame_shape,
+                                   lambda f, s: record(f, s, None, **inputs))
+        return frames, state, sim.sort_perm
+    ref = make_treecode_run(sim.cfg)
+    ids = ref.start(state)
+
+    def advance(s: SimState, k: int) -> SimState:
+        nonlocal ids
+        s, ids, _ = ref.advance(s, ids, k)
+        return s
+
+    state, frames = run_frames(state, advance, n_steps, every, name, frame_shape,
+                               lambda f, s: record(f, s, ids, **inputs))
+    return frames, ref.finish(state, n_steps), sim.sort_perm[ids[: state.n_real].cpu().numpy()]
+
+
+def eager_trajectory(sim: "Simulation", n_steps: int, save_every: int = 1):
+    """The eager loop of ``sim.trajectory(n_steps, save_every)``, the
+    reference its replays are held to: ``(frames, state, sort_perm)`` of a
+    copy of ``sim``'s state; ``sim`` is unchanged."""
+    sim._guard_dense_tree_span(n_steps)
+    return _eager_frames(sim, n_steps, save_every, "save_every", (sim.state.n, 3),
+                         trajectory_frame, {})
+
+
+def eager_movie(sim: "Simulation", n_steps: int, render_every: int, camera,
+                scale_factors=(0.0, 0.0, 0.0), *, width: int = 1024, height: int = 768):
+    """The eager loop of ``sim.movie(...)`` with the same arguments, the
+    reference its replays are held to: ``(frames, state, sort_perm)`` of a
+    copy of ``sim``'s state; ``sim`` is unchanged."""
+    sim._guard_dense_tree_span(n_steps)
+    return _eager_frames(sim, n_steps, render_every, "render_every", (height, width, 3),
+                         functools.partial(movie_frame, width=width, height=height),
+                         movie_inputs(sim.state, camera, scale_factors))
 
 
 def resolve_device(device: str | torch.device | None) -> torch.device:
@@ -384,18 +463,21 @@ class Simulation:
         self._finish(t0)
         return self.state
 
-    def _prepare(self, chunked: bool, n_steps: int):
-        """``(static run, programs)`` with the state loaded: the treecode's
-        ``(resort, build, step)`` when ``chunked``, else the one step of
-        ``step_fn``; captured (on first use, before the load) when the call
-        has steps to take."""
+    def _static_run(self) -> StaticRun:
         if self._static is None:
             self._static = StaticRun(self.state)
-        g = self._static
+        return self._static
+
+    def _prepare(self, chunked: bool, n_steps: int, *extra):
+        """``(static run, programs)`` with the state loaded: the treecode's
+        ``(resort, build, step)`` when ``chunked``, else the one step of
+        ``step_fn``; captured (on first use, before the load) with the
+        ``extra`` programs (a frame) when the call has steps to take."""
+        g = self._static_run()
         programs = (tree_programs(g, self._tree) if chunked
                     else (g.program("step", step_program(self._step_fn)),))
         if n_steps:
-            g.capture(*programs)
+            g.capture(*programs, *extra)
         g.load(self.state)
         if chunked:
             g.ids.copy_(torch.arange(g.state.n, dtype=torch.int32, device=self.device))
@@ -404,14 +486,12 @@ class Simulation:
     def _chunks(self, programs, n_steps: int) -> None:
         """``n_steps`` treecode steps on the loaded buffers, in chunks of
         ``tree_rebuild_every``: replays only, no host sync."""
-        resort, build, step = programs
-        g = self._static
-        for length in chunk_lengths(n_steps, self._tree.rebuild_every):
-            with record_function("treecode.resort"):
-                resort(g)
-            with record_function("treecode.build"):
-                build(g)
-            g.repeat(step, length)
+        replay_chunks(self._static, programs, n_steps, self._tree.rebuild_every)
+
+    def _chunked(self) -> bool:
+        """Whether a movie's or a trajectory's spans take the treecode's
+        chunks (the hierarchical and flat paths), not ``step_fn``'s steps."""
+        return self._tree is not None and tree_path(self.cfg) != "dense"
 
     def _unload_tree(self, n_steps: int) -> None:
         """After ``n_steps`` treecode steps: the state copied out and
@@ -463,21 +543,50 @@ class Simulation:
                     f"into chunks of <= {limit} steps, or use the flat or "
                     f"hierarchical treecode path (the GPU default).")
 
-    def _frames(self, n_steps: int, every: int, name: str, frame_shape: tuple[int, ...],
-                record: Callable[[torch.Tensor, SimState, torch.Tensor | None], object]
-                ) -> torch.Tensor:
-        """The movie's and the trajectory's loop (:func:`run_frames`), on
-        the same replays as :meth:`run`; the frames are recorded eagerly
-        between spans. On the treecode's hierarchical and flat paths each
-        span takes the run's chunks, and ``record(frame, state, ids)`` gets
-        the chunks' body permutation (``ids[i]``: the call-entry slot of the
-        body at slot i); elsewhere each span is ``every`` steps of
-        ``step_fn`` and ``ids`` is None."""
+    def _frames(self, n_steps: int, every: int, name: str, key: str,
+                frame_shape: tuple[int, ...], record: Callable, inputs: dict) -> torch.Tensor:
+        """The movie's and the trajectory's loop (:func:`run_frames`) on
+        the same replays as :meth:`run`, each frame the replay of the frame
+        program ``key`` (``graphs.frame_program``: ``record(out, state, ids,
+        **inputs)``) and one copy of its buffer. On the treecode's
+        hierarchical and flat paths each span takes the run's chunks, and
+        ``record`` gets the chunks' body permutation (``ids[i]``: the
+        call-entry slot of the body at slot i); elsewhere each span is
+        ``every`` steps of ``step_fn`` and ``ids`` is None. The ``inputs``
+        are loaded into buffers of their names on every call: a new camera
+        replays the same graph."""
         self._guard_dense_tree_span(n_steps)
         _spans(n_steps, every, name)
         t0 = _time.perf_counter()
-        chunked = self._tree is not None and tree_path(self.cfg) != "dense"
-        g, programs = self._prepare(chunked, n_steps)
+        chunked = self._chunked()
+        frame = self._frame_program(key, frame_shape, record, inputs, chunked)
+        g, programs = self._prepare(chunked, n_steps, frame)
+        frames = self._replay_frames(programs, frame, key, n_steps, every, name)
+        if chunked and n_steps:
+            self._unload_tree(n_steps)
+        else:
+            self.state = g.unload()
+        self._finish(t0)
+        return frames
+
+    def _frame_program(self, key: str, frame_shape: tuple[int, ...], record: Callable,
+                       inputs: dict, chunked: bool):
+        """The frame program ``key``, its output and input buffers
+        allocated and the inputs loaded (before any capture)."""
+        g = self._static_run()
+        g.buffer(key, frame_shape, self.state.pos.dtype)
+        for k, v in inputs.items():
+            g.buffer(k, tuple(v.shape), v.dtype).copy_(v)
+        return frame_program(g, key, record, inputs, chunked)
+
+    def _replay_frames(self, programs, frame, key: str, n_steps: int, every: int,
+                       name: str) -> torch.Tensor:
+        """The frames of ``n_steps`` on the loaded buffers: each span's
+        replays, then the frame's replay and one copy of its buffer into
+        the frames. No host sync."""
+        g = self._static
+        out = g.buffers[key]
+        chunked = self._chunked()
 
         def advance(state: SimState, k: int) -> SimState:
             if chunked:
@@ -486,14 +595,11 @@ class Simulation:
                 g.repeat(programs[0], k)
             return state
 
-        _, frames = run_frames(g.state, advance, n_steps, every, name, frame_shape,
-                               lambda f, s: record(f, s, g.ids if chunked else None))
-        if chunked and n_steps:
-            self._unload_tree(n_steps)
-        else:
-            self.state = g.unload()
-        self._finish(t0)
-        return frames
+        def record(f: torch.Tensor, state: SimState) -> None:
+            frame(g)
+            f.copy_(out)
+
+        return run_frames(g.state, advance, n_steps, every, name, tuple(out.shape), record)[1]
 
     def trajectory(self, n_steps: int, save_every: int = 1) -> torch.Tensor:
         """Advance ``n_steps``; positions every ``save_every`` steps, (F, N,
@@ -501,13 +607,8 @@ class Simulation:
         every frame is in the call-entry body order (scattered by the
         chunks' permutation): the chunks re-sort the bodies, so raw frames
         would each be in another Morton order."""
-        def record(frame, state, ids):
-            if ids is None:
-                frame.copy_(state.pos)
-            else:
-                frame.index_copy_(0, ids.long(), state.pos)
-
-        return self._frames(n_steps, save_every, "save_every", (self.state.n, 3), record)
+        return self._frames(n_steps, save_every, "save_every", "trajectory",
+                            (self.state.n, 3), trajectory_frame, {})
 
     def movie(
         self,
@@ -521,21 +622,14 @@ class Simulation:
     ) -> torch.Tensor:
         """Simulate and render on the device: (F, H, W, 3) float32 frames,
         one every ``render_every`` steps, the bodies drawn in their current
-        slot order."""
-        from n_body_problem_tpu_torch.render.splat import splat_frame
-
-        # on the device once, not a host copy every frame
-        vp = torch.as_tensor(camera.view_projection(), device=self.device)
-        scale_factors = torch.as_tensor(np.asarray(scale_factors, np.float32),
-                                        device=self.device)
-        mask = self.state.real_mask()
-
-        def record(frame, state, ids):
-            frame.copy_(splat_frame(state.pos, state.mass, mask, vp, scale_factors,
-                                    width=width, height=height))
-
-        return self._frames(n_steps, render_every, "render_every", (height, width, 3),
-                            record)
+        slot order. On ``cuda`` a frame is the replay of the frame graph of
+        this (width, height), captured on its first call; the camera and the
+        scale factors are loaded into its buffers on every call (on the
+        device once a call, not a host copy every frame)."""
+        return self._frames(n_steps, render_every, "render_every", f"movie {width}x{height}",
+                            (height, width, 3),
+                            functools.partial(movie_frame, width=width, height=height),
+                            movie_inputs(self.state, camera, scale_factors))
 
     # ------------------------------------------------------------ metrics
     def pairs_per_step(self) -> int:

@@ -947,3 +947,106 @@ def test_graph_memory_is_released_with_its_simulation(cuda):
     gc.collect()
     torch.cuda.synchronize()
     assert torch.cuda.memory_allocated(cuda) == base
+
+
+# ------------------------------------------ the frames and the sharded run
+@pytest.mark.parametrize("overrides", GRAPH_PATHS)
+def test_graph_frames_are_the_eager_frame_loop_bitwise(cuda, overrides):
+    """``movie`` (two cameras and scales, the second replaying the graphs
+    the first captured) and ``trajectory``, two frames of three steps, on
+    the hierarchical, flat and dense paths: the frames, the state and
+    ``sort_perm`` bitwise the eager frame loop's from the same state."""
+    from n_body_problem_tpu_torch.render import OrbitCamera
+    from n_body_problem_tpu_torch.simulation import eager_movie, eager_trajectory
+
+    sim = _graph_sim(cuda, overrides)
+    kw = dict(width=256, height=192)
+    cams = ((OrbitCamera(distance=2.0), (0.0, 0.0, 0.0)),
+            (OrbitCamera(theta_deg=30.0, distance=2.5), (0.5, 0.5, 0.5)))
+    for i, (cam, scale) in enumerate(cams):
+        want, state, perm = eager_movie(sim, 6, 3, cam, scale, **kw)
+        got = sim.movie(6, 3, cam, scale, **kw)
+        if i == 0:
+            captured, programs = sim.capture_seconds, len(sim._static._programs)
+        assert torch.equal(got, want) and float(got.max()) > 0
+        assert torch.equal(sim.state.pos, state.pos) and (sim.sort_perm == perm).all()
+    assert sim.capture_seconds == captured and len(sim._static._programs) == programs
+    want, state, perm = eager_trajectory(sim, 6, save_every=3)
+    got = sim.trajectory(6, save_every=3)
+    assert torch.equal(got, want) and torch.equal(sim.state.vel, state.vel)
+    assert (sim.sort_perm == perm).all()
+
+
+@pytest.mark.parametrize("method", ["movie", "trajectory"])
+def test_graph_frames_never_wait_for_the_host(cuda, method):
+    """The replays of a movie's or a trajectory's spans and frames (four
+    frames of two steps, hierarchical path) under
+    ``set_sync_debug_mode("error")``."""
+    from n_body_problem_tpu_torch.render import OrbitCamera
+
+    sim = _graph_sim(cuda, {})
+    key = "movie 128x96" if method == "movie" else "trajectory"
+    if method == "movie":
+        sim.movie(8, 2, OrbitCamera(distance=2.0), width=128, height=96)   # captures
+    else:
+        sim.trajectory(8, save_every=2)
+    g, programs = sim._prepare(True, 8)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        frames = sim._replay_frames(programs, g._programs[key], key, 8, 2, "every")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    sim._unload_tree(8)
+    torch.cuda.synchronize()
+    assert frames.shape[0] == 4 and torch.isfinite(frames).all() and int(sim.state.step) == 16
+
+
+def test_graph_frame_counters_count_replays(cuda):
+    """A movie counts the kernels of its steps, replays counted, the same on
+    its first (capturing) call as on the next, and as ``run`` of as many
+    steps (the frame launches no kernel of the port)."""
+    from n_body_problem_tpu_torch.graphs import counted
+    from n_body_problem_tpu_torch.render import OrbitCamera
+
+    sim = _graph_sim(cuda, {})
+    wrappers = counted()
+    moves = []
+    for call in ("movie", "movie", "run"):
+        before = [w.launches for w in wrappers]
+        if call == "movie":
+            sim.movie(8, 2, OrbitCamera(distance=2.0), width=128, height=96)
+        else:
+            sim.run(8)
+        moves.append([w.launches - b for w, b in zip(wrappers, before)])
+    assert moves[0] == moves[1] == moves[2] and sum(moves[0]) >= 3 * 8
+
+
+@pytest.mark.parametrize("strategy", ["ring", "half_ring", "treecode", "treecode_staged"])
+def test_nccl_world_of_one_replays_its_eager_loop_bitwise(cuda, tmp_path, strategy):
+    """``ShardedSimulation`` in an NCCL world of one rank, in this process:
+    two calls of ``run`` (replays of graphs captured on the first) bitwise
+    its eager loop (``sharded.eager_run``) from the same state, state and
+    ``sort_perm``. (A world of one rank issues no collective: this holds the
+    programs, not a captured NCCL call.)"""
+    import torch.distributed as dist
+
+    from n_body_problem_tpu_torch.parallel import ShardedSimulation, eager_run, make_ring_mesh
+
+    exact = strategy in ("ring", "half_ring")
+    cfg = tnb.SimConfig(solver="pallas" if exact else "treecode", integrator="leapfrog")
+    n = 4096 if exact else 16384
+    dist.init_process_group("nccl", init_method=(tmp_path / "rendezvous").as_uri(),
+                            world_size=1, rank=0)
+    try:
+        sim = ShardedSimulation(cfg, tnb.models.plummer(n, seed=3),
+                                make_ring_mesh(1, device="cuda"), strategy=strategy)
+        steps = 5 if exact else 2 * sim.cfg.tree_rebuild_every + 3
+        for _ in range(2):
+            want, perm = eager_run(sim, steps)
+            got = sim.run(steps)
+            for f in ("pos", "vel", "acc", "time", "step"):
+                assert torch.equal(getattr(got, f), getattr(want, f)), f
+            assert perm is None if exact else (sim.sort_perm == perm).all()
+        assert sim.capture_seconds > 0
+    finally:
+        dist.destroy_process_group()

@@ -9,16 +9,21 @@ capacities as tests/test_torch_treecode_sim.py does, so that both packages
 take the hierarchical or the flat path off the TPU and the GPU; the JAX
 package's own 4,096-body movie tests are ``slow``, so the parity cases run
 at 2,048 bodies, and the port is held against its own ``run`` at 4,096.
+Each frame is a program of the run (``graphs.frame_program``), held to the
+bit to the eager frame loop (``simulation.eager_movie``,
+``eager_trajectory``) on every path.
 """
 
 import numpy as np
 import pytest
+import torch
 
 import n_body_problem_tpu as jnb
 import n_body_problem_tpu_torch as tnb
 from n_body_problem_tpu.render import OrbitCamera as JaxCamera
 from n_body_problem_tpu_torch.ops.registry import tree_path
 from n_body_problem_tpu_torch.render import OrbitCamera
+from n_body_problem_tpu_torch.simulation import eager_movie, eager_trajectory
 
 FRAME_RTOL, FRAME_ATOL = 1e-5, 1e-6   # atol x the frame's maximum
 POS_TOL = dict(rtol=1e-5, atol=1e-5)
@@ -168,3 +173,41 @@ def test_span_must_be_a_multiple(method):
             sim.movie(5, 2, OrbitCamera())
         else:
             sim.trajectory(5, 2)
+
+
+# two cameras and scales: the second call of a movie loads them into the
+# buffers of the program the first call made
+CAMERAS = ((OrbitCamera(distance=2.0), (0.0, 0.0, 0.0)),
+           (OrbitCamera(theta_deg=40.0, phi_deg=-25.0, distance=3.0), (1.0, 0.5, 0.25)))
+FIELDS = ("pos", "vel", "mass", "eps", "acc", "time", "step")
+
+
+@pytest.mark.parametrize("path", ["hier", "flat", "dense", "direct"])
+def test_frames_are_the_eager_frame_loop_bitwise(path):
+    """Two ``movie`` calls (another camera and scale the second time), then
+    a ``trajectory``, each of two frames a step apart, through the frame
+    programs: the frames, the state and ``sort_perm`` are the eager frame
+    loop's from the same state, to the bit, on the hierarchical and flat
+    paths (each frame its own chunk), the dense path and an exact solver."""
+    if path == "direct":
+        cfg, n = dict(solver="direct"), 256
+    elif path == "dense":
+        cfg, n = dict(solver="treecode", tree_rebuild_every=2), 1024
+    else:
+        cfg, n = _pinned(2048, path, rebuild_every=2), 2048
+    sim = tnb.Simulation(tnb.SimConfig(integrator="leapfrog", **cfg),
+                         tnb.models.plummer(n, seed=3), device="cpu")
+    assert path == "direct" or tree_path(sim.cfg) == path
+    kw = dict(width=24, height=16)
+    calls = [(lambda c=c: eager_movie(sim, 2, 1, *c, **kw), lambda c=c: sim.movie(2, 1, *c, **kw))
+             for c in CAMERAS]
+    calls.append((lambda: eager_trajectory(sim, 2), lambda: sim.trajectory(2)))
+    for eager, replayed in calls:
+        want, state, perm = eager()
+        got = replayed()
+        assert got.shape == want.shape and float(got.abs().max()) > 0
+        assert torch.equal(got, want)
+        for f in FIELDS:
+            assert torch.equal(getattr(sim.state, f), getattr(state, f)), f
+        np.testing.assert_array_equal(sim.sort_perm, perm)
+    assert {"movie 24x16", "trajectory"} <= set(sim._static._programs) & set(sim._static.buffers)

@@ -80,6 +80,8 @@ def _cases8():
                                                  strategy=strategy, local_solver=solver)
         cases[f"ranks {strategy}"] = dict(kind="ranks", cfg=DIRECT, state=_state(250, 0, 8),
                                           strategy=strategy)
+        cases[f"replay {strategy}"] = dict(kind="replay", cfg=LEAPFROG, state=_state(160, 29),
+                                           steps=3, strategy=strategy)
     return cases
 
 
@@ -127,6 +129,19 @@ def _check_step(case, got, n_dev, tol, vel=True):
     if vel:
         np.testing.assert_allclose(got["vel"], want.vel.numpy(), **tol)
         np.testing.assert_allclose(got["vel"], jvel, **tol)
+
+
+@pytest.mark.parametrize("strategy", ["ring", "half_ring"])
+def test_sharded_run_is_its_eager_loop_bitwise(world8, strategy):
+    """``ShardedSimulation.run`` (its programs, called directly on the CPU)
+    against its eager loop (``sharded.eager_run``) from the same state, two
+    calls of 3 leapfrog steps: the gathered state and ``sort_perm``, to the
+    bit."""
+    _, res = world8
+    for call in res[f"replay {strategy}"]:
+        for k, want in call["eager"].items():
+            np.testing.assert_array_equal(call["run"][k], want, err_msg=k)
+    assert int(call["run"]["step"]) == 6
 
 
 def test_ring_force_matches_direct(world8):

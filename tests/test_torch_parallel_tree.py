@@ -208,11 +208,37 @@ RUNS = {"flat": (_flat_cfg(N_FLAT), N_FLAT, 43), "hier": (_hier_cfg(N_HIER), N_H
         "dense": (_dense_cfg(), N_DENSE, 43)}
 
 
+# ShardedSimulation.run against its eager loop: a resort every 2 steps, 3
+# steps a call (a chunk and a remainder); the hierarchical path twice, in
+# leapfrog, the others once
+REPLAYS = {path: dict(kind="replay", cfg=cfg.replace(tree_rebuild_every=2, integrator=integ),
+                      state=jax_to_numpy(jnb.models.plummer(n, seed=seed + 1)), steps=3,
+                      strategy="treecode", calls=calls)
+           for (path, (cfg, n, seed)), integ, calls in zip(
+               RUNS.items(), ("semi_implicit_euler", "leapfrog", "semi_implicit_euler"),
+               (1, 2, 1))}
+
+
 @pytest.fixture(scope="module")
 def world4():
     cases = [dict(kind="sim", cfg=cfg, state=jax_to_numpy(jnb.models.plummer(n, seed=seed)),
                   steps=8, strategy="treecode") for cfg, n, seed in RUNS.values()]
-    return dict(zip(RUNS, spawn_ring(run_cases, D, device_type="cpu", args=(cases,))))
+    keys = list(RUNS) + [f"replay {p}" for p in REPLAYS]
+    return dict(zip(keys, spawn_ring(run_cases, D, device_type="cpu",
+                                     args=(cases + list(REPLAYS.values()),))))
+
+
+@pytest.mark.parametrize("path", list(REPLAYS))
+def test_sharded_treecode_run_is_its_eager_loop_bitwise(world4, path):
+    """``ShardedSimulation.run`` (its resort, build and step programs,
+    called directly on the CPU) against its eager loop (``sharded.eager_run``)
+    from the same state: the gathered state and ``sort_perm``, to the bit."""
+    calls = world4[f"replay {path}"]
+    assert len(calls) == REPLAYS[path]["calls"]
+    for call in calls:
+        for k, want in call["eager"].items():
+            np.testing.assert_array_equal(call["run"][k], want, err_msg=k)
+    assert int(calls[-1]["run"]["step"]) == 3 * len(calls)
 
 
 def _matches_single_device(got, path):

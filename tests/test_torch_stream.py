@@ -267,8 +267,23 @@ def world4():
              steps=8, strategy="treecode_staged"),
         dict(kind="staged", cfg=SimConfig(**CASES["exact"][1]), pos=exact[0], mass=exact[1]),
         dict(kind="staged", cfg=SMALL_CFG, pos=small[0], mass=small[1]),
+        dict(kind="replay", cfg=RUN_CFG.replace(tree_rebuild_every=2),
+             state=jax_to_numpy(jnb.models.plummer(N, seed=44)), steps=3,
+             strategy="treecode_staged", calls=1),
     ]
     return spawn_ring(run_cases, D, device_type="cpu", args=(cases,))
+
+
+def test_staged_run_is_its_eager_loop_bitwise(world4):
+    """``ShardedSimulation(strategy="treecode_staged").run`` (its resort,
+    build and step programs, called directly on the CPU; the lists' absent
+    far entries kept as None) against its eager loop
+    (``sharded.eager_run``) from the same state, a chunk of 2 steps and a
+    remainder: the gathered state and ``sort_perm``, to the bit."""
+    (call,) = world4[3]
+    for k, want in call["eager"].items():
+        np.testing.assert_array_equal(call["run"][k], want, err_msg=k)
+    assert int(call["run"]["step"]) == 3
 
 
 def test_staged_run_matches_single_chip(world4):
