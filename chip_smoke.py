@@ -200,6 +200,18 @@ is non-zero:
     memory of each; writes ``out/chip_smoke_frame_graphs.json``. The graph
     runs' launches count toward the kernels' record, the eager reference's
     do not.
+14. the last gaps against the JAX package (``drive_last_gaps``): (a) the
+    free functions ``simulation.run_trajectory`` and ``run_with_frames``
+    (1024x1024) with the ``pallas`` step function at 65,536, 8 steps and a
+    frame every 2: bitwise their eager loop, the whole call (capture
+    included) under ``set_sync_debug_mode("error")``, the all-pairs kernel
+    once a step, replays counted; at 4,096 the card's frames after 2 steps
+    within rtol 1e-5 / atol 1e-5 x max of the CPU's. (b) ``utils.morton.morton_keys_device``
+    at 524,288 bodies (all real, and 1,000 padding) equal to the CPU's
+    keys. (c) ``treecode_profile --decompose 20480t,65536`` in a subprocess
+    (``tools/decompose_step.py``'s legs on the replays, one JSON line a
+    size, ``out/chip_smoke_decompose.json``). (a)'s and (c)'s launches
+    count toward the kernels' record.
 
 The last three lines of standard output are the kernels' JSON record, the
 card's name and power limit, and ``{"ok": true, "device": {...}}``. The
@@ -423,6 +435,8 @@ def compare_allpairs_splits(device, res: dict, shapes=ALLPAIRS_BLOCKS,
                 clock = sm_clock_mhz()
                 floor = issue_floor_ms(ni * nj, PAIR_SLOTS, clock)
                 res["allpairs"][f"ms_{ni}x{nj}"] = ms
+                res["allpairs"][f"plain_ms_{ni}x{nj}"] = time_ms(
+                    lambda: cf.block_acc_plain(rows, s.pos, s.mass, **PHYS), 3)
                 res["allpairs"][f"issue_floor_ms_{ni}x{nj}"] = floor
                 ops = bound(PAIR_FLOPS * ni * nj, (ni * 6 + nj * 4) * 4)["bound_ms"]
                 line += (f"; {ms:.4f} ms, bound {ops:.4f}, issue floor {floor:.4f} at "
@@ -537,15 +551,17 @@ def tree_kernel_cases():
 
 
 def time_near(kernel, args, kw) -> dict:
-    """The near kernel's time at one shape beside its bound, its issue floor
-    at this run's SM clock, and the largest and mean number of chunks a
-    target row has."""
+    """The near kernel's time at one shape beside its plain twin's, its
+    bound, its issue floor at this run's SM clock, and the largest and mean
+    number of chunks a target row has."""
+    from n_body_problem_tpu_torch.ops.cuda_treecode import near_field_plain
     from n_body_problem_tpu_torch.treecode_profile import time_ms
 
     work = near_work(args, kw)
     work.pop("pairs")
     ms = time_ms(lambda: kernel(*args, **kw), 20)
-    return {"ms": ms, **tree_work("near", args, kw), **work}
+    return {"ms": ms, "plain_ms": time_ms(lambda: near_field_plain(*args, **kw), 3),
+            **tree_work("near", args, kw), **work}
 
 
 def tree_work(key: str, args, kw) -> dict:
@@ -649,8 +665,8 @@ def compare_tree_kernels(device, cases=None, time_at: dict | None = None) -> dic
                     t["by_kernel_ms"] = kernel_ms(lambda: kernel(*args, **kw), 20)
                     t["device_ms"] = sum(t["by_kernel_ms"].values())
                 t.update(tree_work(key, args, kw))
+                t["plain_ms"] = time_ms(lambda: plain(*args, **kw), 3)
                 if label == labels[0]:
-                    t["plain_ms"] = time_ms(lambda: plain(*args, **kw), 3)
                     t["library_ms"] = None
                     if key == "gather":
                         check(torch.equal(gather_library(*args, **kw), got),
@@ -1862,6 +1878,7 @@ def ranks_on_one_card(device, res: dict, n_ring: int = N_LARGE, trees=RANK_TREES
             local_near = {"ms": rank_ms[0], "ranks_ms": rank_ms,
                           "single_device_ms": time_ms(lambda: ct.near_field(*one[0],
                                                                            **one[1]), 20),
+                          "plain_ms": time_ms(lambda: ct.near_field_plain(*args, **kw0), 3),
                           **tree_work("near", args, kw0)}
             print(f"multi-GPU ranks: near local form at {n} / {RANKS}: rank 0 "
                   f"{rank_ms[0]:.4f} ms (ranks {', '.join(f'{m:.4f}' for m in rank_ms)}; "
@@ -1981,7 +1998,10 @@ def staged_on_one_card(device, res: dict, trees=STAGED_TREES) -> dict:
                       "force_error": err,
                       "sum_ms": sum(stage_ms), "replicated_rank_ms": rep_ms,
                       "launches_a_force": RANKS, "resident_bytes": kept,
-                      "others_bytes_a_force": moved, **tree_work("near", *near[0])}
+                      "others_bytes_a_force": moved,
+                      "plain_ms": time_ms(lambda: ct.near_field_plain(*near[0][0],
+                                                                      **near[0][1]), 3),
+                      **tree_work("near", *near[0])}
             print(f"multi-GPU staged ranks: near staged form at {n} / {RANKS} "
                   f"({b:,} x {b:,} a stage): stages "
                   + "; ".join(f"rank {r} " + ", ".join(f"{m:.4f}" for m in
@@ -2462,7 +2482,7 @@ def drive_frame_graphs(device, runs=None, smi: str = "") -> dict:
     from n_body_problem_tpu_torch.ops.registry import tree_path
     from n_body_problem_tpu_torch.render import OrbitCamera
     from n_body_problem_tpu_torch.simulation import (eager_movie, eager_trajectory,
-                                                     movie_frame, movie_inputs)
+                                                     frame_inputs, movie_frame)
 
     t_phase = time.perf_counter()
     wrappers = counters()
@@ -2524,7 +2544,8 @@ def drive_frame_graphs(device, runs=None, smi: str = "") -> dict:
         if kind == "movie":
             got = call(FRAME_STEPS) if symmetric else call()
             out = torch.empty_like(got[-1])
-            movie_frame(out, sim.state, None, **movie_inputs(sim.state, *cams[0]), **kw)
+            movie_frame(out, sim.state, None,
+                        **frame_inputs(sim.state, cams[0][0].view_projection(), cams[0][1]), **kw)
             check(torch.equal(out, got[-1]),
                   f"graphs [{label}]: the frame graph is not bitwise the eager splat")
             del got, out
@@ -2593,6 +2614,158 @@ def drive_frame_graphs(device, runs=None, smi: str = "") -> dict:
     print(f"graphs: phase 13's frame rows in {time.perf_counter() - t_phase:.1f} s on {smi} "
           f"-> {out}", flush=True)
     return {k: w.launches - start[k] - uncounted[k] for k, w in wrappers.items()}
+
+
+# ------------------------------------------------- phase 14: the last gaps
+FREE_N, FREE_CPU_N = 65536, 4096   # the free functions on the card; against the CPU
+FREE_STEPS, FREE_EVERY = 8, 2
+MORTON_N = 524288
+DECOMPOSE_SIZES = "20480t,65536"
+
+
+def drive_free_functions(device) -> dict:
+    """Phase 14 (a): ``simulation.run_trajectory`` and ``run_with_frames``
+    (1024x1024) with ``make_step_fn(SimConfig(solver="pallas"), "cuda", n)``
+    (the all-pairs kernel): at 65,536 bitwise their eager loop
+    (``run_frames`` of ``run_steps``, the frame recorded eagerly) from the
+    same state, frames and state; each whole call under
+    ``set_sync_debug_mode("error")``; the kernel launched once a step,
+    replays counted, and no other kernel; at 4,096 the card's frames after
+    one span of 2 steps within rtol 1e-5 / atol 1e-5 x max of the CPU's
+    (8 steps read 2.2e-5 of a 2.53 maximum: the kernel and its twin sum in
+    other orders, and the bodies drift apart). Returns the calls' launches on
+    the card (the eager loop's are not counted)."""
+    import functools
+
+    import torch
+
+    from n_body_problem_tpu_torch import SimConfig, make_step_fn, models
+    from n_body_problem_tpu_torch.graphs import clone_state
+    from n_body_problem_tpu_torch.render import OrbitCamera
+    from n_body_problem_tpu_torch.simulation import (frame_inputs, movie_frame, run_frames,
+                                                     run_steps, run_trajectory,
+                                                     run_with_frames, trajectory_frame)
+
+    cfg = SimConfig(solver="pallas")
+    cam, scale = OrbitCamera(distance=2.0), (0.5, 0.5, 0.5)
+    wrappers = counters()
+    start = {k: w.launches for k, w in wrappers.items()}
+
+    def free(kind: str, state, step_fn, camera: dict, steps: int = FREE_STEPS):
+        if kind == "trajectory":
+            return run_trajectory(state, step_fn, steps, FREE_EVERY)
+        return run_with_frames(state, step_fn, steps, FREE_EVERY, camera["view_projection"],
+                               camera["scale_factors"], RENDER_W, RENDER_H)
+
+    def eager(kind: str, state, step_fn):
+        before = {k: w.launches for k, w in wrappers.items()}
+        if kind == "trajectory":
+            shape, record, inputs = (state.n, 3), trajectory_frame, {}
+        else:
+            shape = (RENDER_H, RENDER_W, 3)
+            record = functools.partial(movie_frame, width=RENDER_W, height=RENDER_H)
+            inputs = frame_inputs(state, cam.view_projection(), scale)
+        out = run_frames(clone_state(state), lambda s, k: run_steps(s, step_fn, k), FREE_STEPS,
+                         FREE_EVERY, "every", shape, lambda f, s: record(f, s, None, **inputs))
+        torch.cuda.synchronize(device)
+        for k, w in wrappers.items():
+            start[k] += w.launches - before[k]
+        return out
+
+    state = models.plummer(FREE_N, seed=0).to(device)
+    step_fn = make_step_fn(cfg, "cuda", state.n)
+    frames_n = FREE_STEPS // FREE_EVERY
+    camera = frame_inputs(state, cam.view_projection(), scale)   # on the card before the call
+    for kind in ("trajectory", "movie"):
+        want_state, want = eager(kind, state, step_fn)
+        before = {k: w.launches for k, w in wrappers.items()}
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got_state, got = free(kind, state, step_fn, camera)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize(device)
+        call_s = time.perf_counter() - t0
+        moved = {k: w.launches - before[k] for k, w in wrappers.items() if w.launches != before[k]}
+        check(moved == {"allpairs": FREE_STEPS},
+              f"free [{kind}]: launches {moved}, expected the all-pairs kernel {FREE_STEPS} times")
+        frame = (state.n, 3) if kind == "trajectory" else (RENDER_H, RENDER_W, 3)
+        check(tuple(got.shape) == (frames_n, *frame) and bool(torch.isfinite(got).all()),
+              f"free [{kind}]: frames {tuple(got.shape)}, expected {(frames_n, *frame)}, finite")
+        same = torch.equal(got, want) and all(
+            torch.equal(getattr(got_state, k), getattr(want_state, k))
+            for k in ("pos", "vel", "acc", "time", "step"))
+        check(same, f"free [{kind}]: frames or state not bitwise the eager loop's")
+        check(int(got_state.step) == int(state.step) + FREE_STEPS
+              and (kind == "movie" or torch.equal(got[-1], got_state.pos)),
+              f"free [{kind}]: the step count or the last frame is off")
+        print(f"free [{kind}]: run_{'trajectory' if kind == 'trajectory' else 'with_frames'} "
+              f"N={state.n} pallas, {FREE_STEPS} steps, a frame every {FREE_EVERY} "
+              f"{tuple(got.shape)}: bitwise the eager loop, no host sync in the call "
+              f"(capture included), launches {moved}, call {call_s:.3f} s", flush=True)
+        del got, want, got_state, want_state
+    # the card's frames against the CPU's, after one span (the kernel and
+    # its plain twin sum in other orders, so the bodies drift apart)
+    small = models.plummer(FREE_CPU_N, seed=1)
+    for kind in ("trajectory", "movie"):
+        on_card = free(kind, small.to(device), make_step_fn(cfg, "cuda", small.n),
+                       camera, FREE_EVERY)[1].cpu()
+        on_cpu = free(kind, small, make_step_fn(cfg, "cpu", small.n),
+                      frame_inputs(small, cam.view_projection(), scale), FREE_EVERY)[1]
+        peak = float(on_cpu.abs().max())
+        err = float((on_card - on_cpu).abs().max())
+        check(peak > 0 and torch.allclose(on_card, on_cpu, rtol=RENDER_TOL, atol=RENDER_TOL * peak),
+              f"free [{kind}] {FREE_CPU_N}: card vs CPU max |d| {err:.3e} (max {peak:.3e})")
+        print(f"free [{kind}] N={FREE_CPU_N}, {FREE_EVERY} steps: card vs CPU max |d| "
+              f"{err:.3e} of max {peak:.4e} (rtol 1e-5, atol 1e-5 x max)", flush=True)
+    return {k: w.launches - start[k] for k, w in wrappers.items()}
+
+
+def drive_last_gaps(device) -> dict:
+    """Phase 14: (a) the free functions (``drive_free_functions``); (b)
+    ``utils.morton.morton_keys_device`` on 524,288 Plummer bodies (all real,
+    and the last 1,000 as padding) on the card, equal to the CPU's keys;
+    (c) ``treecode_profile --decompose 20480t,65536`` in a subprocess that
+    counts its launches: one JSON line a size with the legs of
+    ``tools/decompose_step.py`` (each finite and positive), the split, and
+    the card's name and power limit; it must launch the near, far and VIP
+    kernels. Returns the launches of (a) and (c)."""
+    import torch
+
+    from n_body_problem_tpu_torch import models
+    from n_body_problem_tpu_torch.utils.morton import morton_keys_device
+
+    t0 = time.perf_counter()
+    launched = drive_free_functions(device)
+    pos = models.plummer(MORTON_N, seed=0).pos
+    for n_real in (MORTON_N, MORTON_N - 1000):
+        card = morton_keys_device(pos.to(device), n_real).cpu()
+        check(card.dtype == torch.int32 and torch.equal(card, morton_keys_device(pos, n_real)),
+              f"morton_keys_device at {MORTON_N} ({n_real} real): card != CPU")
+    print(f"morton_keys_device: N={MORTON_N} (all real, and {MORTON_N - 1000} real) card "
+          f"keys equal the CPU's", flush=True)
+    out = ROOT / "out" / "chip_smoke_decompose.json"
+    TOOLS_DIR.mkdir(parents=True, exist_ok=True)
+    lines, tool = run_tool("decompose", "n_body_problem_tpu_torch.treecode_profile",
+                           "--sizes", "", "--decompose", DECOMPOSE_SIZES, "--json", str(out))
+    needs("decompose", tool, ("near", "far", "vip"))
+    rows = [json.loads(line) for line in lines if line.startswith('{"size"')]
+    check([r["size"] for r in rows] == DECOMPOSE_SIZES.split(","),
+          f"decompose: sizes {[r['size'] for r in rows]}")
+    for r in rows:
+        legs = ("floor", "force", "force_euler", "resort", "build", "full_step")
+        check(all(math.isfinite(r[k]) and r[k] > 0 for k in legs) and r["nvidia_smi"],
+              f"decompose [{r['size']}]: legs {[r[k] for k in legs]}")
+        print(f"decompose [{r['size']}]: " + " ".join(
+            f"{k} {r[k]:.4f}" for k in (*legs, "integrator_ms", "amortized_rebuild_ms",
+                                        "glue_ms")) + " | busy " + " ".join(
+            f"{k} {v:.4f}" for k, v in r["busy_ms"].items()), flush=True)
+    for k, v in tool.items():
+        launched[k] = launched.get(k, 0) + v
+    print(f"last gaps: phase 14 in {time.perf_counter() - t0:.1f} s", flush=True)
+    return launched
 
 
 def main() -> int:
@@ -2670,6 +2843,8 @@ def main() -> int:
     for key, count in framed.items():
         graphed[key] += count
     for key, count in graphed.items():
+        launches[key] = launches.get(key, 0) + count
+    for key, count in drive_last_gaps(device).items():
         launches[key] = launches.get(key, 0) + count
 
     records = (

@@ -49,6 +49,7 @@ from n_body_problem_tpu_torch.simulation import Simulation, make_step_fn, run_st
 from n_body_problem_tpu_torch import diagnostics
 from n_body_problem_tpu_torch import models
 from n_body_problem_tpu_torch import ops
+from n_body_problem_tpu_torch import io
 from n_body_problem_tpu_torch import parallel
 from n_body_problem_tpu_torch import render
 
@@ -68,6 +69,7 @@ __all__ = [
     "diagnostics",
     "models",
     "ops",
+    "io",
     "parallel",
     "render",
 ]

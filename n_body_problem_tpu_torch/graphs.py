@@ -243,14 +243,22 @@ def tree_programs(run: StaticRun, parts) -> tuple[Program, Program, Program]:
             run.program("treecode.step", step))
 
 
-def frame_program(run: StaticRun, name: str, record: Callable, inputs, chunked: bool) -> Program:
+def frame_program(run: StaticRun, name: str, shape: tuple[int, ...], record: Callable,
+                  inputs: dict, chunked: bool) -> Program:
     """The frame of a movie or a trajectory, ``record(out, state, ids,
     **inputs)``: from the state buffers (and the ids, on the chunked
-    treecode paths) and the input buffers named ``inputs`` into the buffer
-    ``name``. The buffers are requested before the capture
-    (``Simulation._frames``)."""
+    treecode paths) and the input buffers named as the keys of ``inputs``
+    into the buffer ``name`` of ``shape``. Call it before the capture, on
+    every call of the run: it allocates the buffers on first use and loads
+    the values of ``inputs`` into theirs, so that a new camera replays the
+    graph an earlier one captured."""
+    run.buffer(name, shape, run.state.pos.dtype)
+    for k, v in inputs.items():
+        run.buffer(k, tuple(v.shape), v.dtype).copy_(v)
+    names = tuple(inputs)
+
     def frame(r: StaticRun) -> None:
         record(r.buffers[name], r.state, r.ids if chunked else None,
-               **{k: r.buffers[k] for k in inputs})
+               **{k: r.buffers[k] for k in names})
 
     return run.program(name, frame)

@@ -26,7 +26,6 @@ from __future__ import annotations
 
 import dataclasses
 import datetime
-import os
 import pathlib
 import pickle
 import tempfile
@@ -127,10 +126,11 @@ def make_ring_mesh(n_devices: int | None = None, *, device: str | None = None) -
 
 
 def _rank_main(rank: int, job: str, size: int, device_type: str, init: str,
-               result: str) -> None:
-    """One rank of :func:`spawn_ring`: join the world, run the job's
+               result: str, threads: int) -> None:
+    """One rank of :func:`spawn_ring`: take its share of the ``threads`` of
+    the process that spawned the ring, join the world, run the job's
     ``fn(mesh, *args)``, and on rank 0 write its result."""
-    torch.set_num_threads(max(1, (os.cpu_count() or 1) // size))
+    torch.set_num_threads(max(1, threads // size))
     if device_type == "cuda":
         torch.cuda.set_device(rank)
     fn, args = pickle.loads(pathlib.Path(job).read_bytes())
@@ -155,8 +155,11 @@ def spawn_ring(fn: Callable, n_devices: int, *, device_type: str = "cuda",
     function). ``fn`` and ``args`` reach the ranks through a file in the
     same directory: through the start method's pipe, whose buffer a large
     argument overflows, the processes would start one after another. The
-    rendezvous takes no TCP port, so rings may run side by side. A rank
-    that raises stops the others; the error is raised here as a
+    rendezvous takes no TCP port, so rings may run side by side. The ranks
+    share this process's CPU threads (``torch.get_num_threads()``), each
+    taking ``threads // n_devices`` and at least one, so that a ring
+    started from a process pinned to its share of the CPU stays inside it.
+    A rank that raises stops the others; the error is raised here as a
     ``RuntimeError`` carrying the rank's traceback."""
     ring_devices(n_devices, device_type)
     with tempfile.TemporaryDirectory(prefix="nbody_ring_") as tmp:
@@ -165,7 +168,8 @@ def spawn_ring(fn: Callable, n_devices: int, *, device_type: str = "cuda",
         try:
             torch.multiprocessing.spawn(
                 _rank_main, args=(str(tmp / "job.pkl"), n_devices, device_type,
-                                  (tmp / "rendezvous").as_uri(), str(tmp / "result.pkl")),
+                                  (tmp / "rendezvous").as_uri(), str(tmp / "result.pkl"),
+                                  torch.get_num_threads()),
                 nprocs=n_devices, join=True, start_method="spawn")
         except torch.multiprocessing.ProcessRaisedException as e:
             raise RuntimeError(f"a rank of the ring failed:\n{e}") from None

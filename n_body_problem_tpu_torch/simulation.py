@@ -7,9 +7,11 @@ on the static buffers of ``graphs.StaticRun``: on ``cuda`` each step (and
 each treecode resort and acceptance build, and each frame) is the replay
 of a CUDA graph captured on the first call, on the CPU the same function
 called directly. Only the end of a call waits for the device.
-:func:`run_steps`, :func:`make_treecode_run`, :func:`eager_movie` and
-:func:`eager_trajectory` are the eager loop, a Python loop of the same
-functions, kept as the reference.
+:func:`run_trajectory` and :func:`run_with_frames`, the JAX package's
+free functions of a step function, replay the same graphs of a run of
+their own. :func:`run_steps`, :func:`make_treecode_run`,
+:func:`eager_movie` and :func:`eager_trajectory` are the eager loop, a
+Python loop of the same functions, kept as the reference.
 """
 
 from __future__ import annotations
@@ -86,6 +88,79 @@ def run_frames(
         state = advance(state, every)
         record(frames[i], state)
     return state, frames
+
+
+def replay_frames(run: StaticRun, advance: Callable[[int], None], frame, key: str,
+                  n_steps: int, every: int, name: str) -> torch.Tensor:
+    """:func:`run_frames` on the loaded buffers of ``run``: each span
+    ``advance(every)`` (replays of the run's step programs), then the replay
+    of the ``frame`` program and one copy of its buffer ``key`` into the
+    frames. No host sync."""
+    out = run.buffers[key]
+
+    def span(state: SimState, k: int) -> SimState:
+        advance(k)
+        return state
+
+    def record(f: torch.Tensor, state: SimState) -> None:
+        frame(run)
+        f.copy_(out)
+
+    return run_frames(run.state, span, n_steps, every, name, tuple(out.shape), record)[1]
+
+
+def _step_frames(state: SimState, step_fn: StepFn, n_steps: int, every: int, name: str,
+                 key: str, frame_shape: tuple[int, ...], record: Callable,
+                 inputs: dict) -> tuple[SimState, torch.Tensor]:
+    """:func:`run_trajectory`'s and :func:`run_with_frames`' run: a
+    ``StaticRun`` of its own with the programs ``step`` (``step_fn``) and
+    the frame ``key``, captured once on ``cuda``, then
+    :func:`replay_frames`. Returns ``(state, frames)``."""
+    _spans(n_steps, every, name)
+    run = StaticRun(state)
+    step = run.program("step", step_program(step_fn))
+    frame = frame_program(run, key, frame_shape, record, inputs, False)
+    if n_steps:
+        run.capture(step, frame)
+    run.load(state)
+    frames = replay_frames(run, lambda k: run.repeat(step, k), frame, key, n_steps, every,
+                           name)
+    return run.unload(), frames
+
+
+def run_trajectory(state: SimState, step_fn: StepFn, n_steps: int,
+                   save_every: int = 1) -> tuple[SimState, torch.Tensor]:
+    """Advance ``n_steps`` of ``step_fn``, stacking positions every
+    ``save_every`` steps.
+
+    Returns ``(final_state, pos_history[n_steps // save_every, N, 3])``, on
+    the state's device. Where the JAX package scans (one device program),
+    on ``cuda`` every step and every frame here is the replay of a CUDA
+    graph captured in this call (``graphs``), with no host sync between
+    frames; on the CPU the same functions are called directly, the eager
+    loop. ``state`` is not changed.
+    """
+    return _step_frames(state, step_fn, n_steps, save_every, "save_every", "trajectory",
+                        (state.n, 3), trajectory_frame, {})
+
+
+def run_with_frames(state: SimState, step_fn: StepFn, n_steps: int, render_every: int,
+                    view_projection, scale_factors, width: int,
+                    height: int) -> tuple[SimState, torch.Tensor]:
+    """Advance ``n_steps`` of ``step_fn``, rendering a frame of every body
+    (``render.splat.splat_frame``) every ``render_every`` steps.
+
+    Returns ``(state, frames[F, H, W, 3])``, on the state's device: the
+    reference's step+draw frame loop, kernel.cu:1191-1282, without its
+    per-frame host round-trips. The camera's ``view_projection`` (4, 4) and
+    the ``scale_factors`` (3,) may be arrays or tensors; they are loaded
+    into the run's buffers once a call. On ``cuda`` the steps and frames
+    are replays of CUDA graphs, as in :func:`run_trajectory`.
+    """
+    return _step_frames(state, step_fn, n_steps, render_every, "render_every",
+                        f"movie {width}x{height}", (height, width, 3),
+                        functools.partial(movie_frame, width=width, height=height),
+                        frame_inputs(state, view_projection, scale_factors))
 
 
 class TreeParts(NamedTuple):
@@ -215,11 +290,11 @@ def movie_frame(out: torch.Tensor, state: SimState, ids, *, mask, view_projectio
                           width=width, height=height))
 
 
-def movie_inputs(state: SimState, camera, scale_factors) -> dict:
+def frame_inputs(state: SimState, view_projection, scale_factors) -> dict:
     """:func:`movie_frame`'s inputs on the state's device: the real mask,
-    the camera's view-projection and the scale factors (float32)."""
-    as_dev = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=state.device)  # noqa: E731
-    return dict(mask=state.real_mask(), view_projection=as_dev(camera.view_projection()),
+    the view-projection and the scale factors (float32)."""
+    as_dev = lambda a: torch.as_tensor(a, dtype=torch.float32, device=state.device)  # noqa: E731
+    return dict(mask=state.real_mask(), view_projection=as_dev(view_projection),
                 scale_factors=as_dev(scale_factors))
 
 
@@ -266,7 +341,7 @@ def eager_movie(sim: "Simulation", n_steps: int, render_every: int, camera,
     sim._guard_dense_tree_span(n_steps)
     return _eager_frames(sim, n_steps, render_every, "render_every", (height, width, 3),
                          functools.partial(movie_frame, width=width, height=height),
-                         movie_inputs(sim.state, camera, scale_factors))
+                         frame_inputs(sim.state, camera.view_projection(), scale_factors))
 
 
 def resolve_device(device: str | torch.device | None) -> torch.device:
@@ -559,7 +634,7 @@ class Simulation:
         _spans(n_steps, every, name)
         t0 = _time.perf_counter()
         chunked = self._chunked()
-        frame = self._frame_program(key, frame_shape, record, inputs, chunked)
+        frame = frame_program(self._static_run(), key, frame_shape, record, inputs, chunked)
         g, programs = self._prepare(chunked, n_steps, frame)
         frames = self._replay_frames(programs, frame, key, n_steps, every, name)
         if chunked and n_steps:
@@ -569,37 +644,17 @@ class Simulation:
         self._finish(t0)
         return frames
 
-    def _frame_program(self, key: str, frame_shape: tuple[int, ...], record: Callable,
-                       inputs: dict, chunked: bool):
-        """The frame program ``key``, its output and input buffers
-        allocated and the inputs loaded (before any capture)."""
-        g = self._static_run()
-        g.buffer(key, frame_shape, self.state.pos.dtype)
-        for k, v in inputs.items():
-            g.buffer(k, tuple(v.shape), v.dtype).copy_(v)
-        return frame_program(g, key, record, inputs, chunked)
-
     def _replay_frames(self, programs, frame, key: str, n_steps: int, every: int,
                        name: str) -> torch.Tensor:
-        """The frames of ``n_steps`` on the loaded buffers: each span's
-        replays, then the frame's replay and one copy of its buffer into
-        the frames. No host sync."""
+        """:func:`replay_frames` of ``n_steps`` on the loaded buffers, each
+        span the treecode's chunks or ``every`` replays of the step. No
+        host sync."""
         g = self._static
-        out = g.buffers[key]
-        chunked = self._chunked()
-
-        def advance(state: SimState, k: int) -> SimState:
-            if chunked:
-                self._chunks(programs, k)
-            else:
-                g.repeat(programs[0], k)
-            return state
-
-        def record(f: torch.Tensor, state: SimState) -> None:
-            frame(g)
-            f.copy_(out)
-
-        return run_frames(g.state, advance, n_steps, every, name, tuple(out.shape), record)[1]
+        if self._chunked():
+            advance = lambda k: self._chunks(programs, k)  # noqa: E731
+        else:
+            advance = lambda k: g.repeat(programs[0], k)  # noqa: E731
+        return replay_frames(g, advance, frame, key, n_steps, every, name)
 
     def trajectory(self, n_steps: int, save_every: int = 1) -> torch.Tensor:
         """Advance ``n_steps``; positions every ``save_every`` steps, (F, N,
@@ -629,7 +684,7 @@ class Simulation:
         return self._frames(n_steps, render_every, "render_every", f"movie {width}x{height}",
                             (height, width, 3),
                             functools.partial(movie_frame, width=width, height=height),
-                            movie_inputs(self.state, camera, scale_factors))
+                            frame_inputs(self.state, camera.view_projection(), scale_factors))
 
     # ------------------------------------------------------------ metrics
     def pairs_per_step(self) -> int:

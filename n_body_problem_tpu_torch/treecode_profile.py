@@ -1,7 +1,8 @@
 """Where the time of a treecode step goes, on one GPU.
 
     python -m n_body_problem_tpu_torch.treecode_profile [--sizes 20480t,65536,524288]
-        [--steps 16] [--staleness 20480t,65536 [--ages 0,8,16,24,31]] [--json PATH]
+        [--steps 16] [--staleness 20480t,65536 [--ages 0,8,16,24,31]]
+        [--decompose 20480t,65536] [--json PATH]
 
 For each size, a Plummer sphere (seed 0) goes through
 ``Simulation(SimConfig(solver="treecode"))`` on the path that N takes, or
@@ -30,10 +31,29 @@ With ``--staleness``, first the force error against the all-pairs kernel
 (p99 and median, all bodies up to 65,536, else 2,048 sampled) on lists
 built once and then stepped with, at each age in ``--ages``.
 
-One line a size, then one JSON object with every number and the card's
-``nvidia-smi`` name and power limit (also written to ``--json``). To
-compare two trees, run this module from each checkout in one call,
-alternating: host-paced steps vary between machines and calls.
+With ``--decompose``, the JAX tool ``tools/decompose_step.py``'s legs on
+the replays of the run's CUDA graphs (``graphs``), each the best of three
+windows of 256 replays (the resort 64, the build 32, as the JAX tool
+takes them), host clock to a synchronize, in ms a replay:
+
+- ``floor``: a trivial program (one multiply of an (N, 3) buffer);
+- ``force``: the force alone, on the lists of the loaded state;
+- ``force_euler``: the run's step (force and update), no rebuild;
+- ``resort``, ``build``: the run's resort and acceptance build;
+- ``full_step``: the run's chunks (a resort, a build and
+  ``tree_rebuild_every`` = r steps) divided by r;
+
+and from them, by the tool's own arithmetic (:func:`decompose_split`),
+``integrator_ms``, ``amortized_rebuild_ms`` and ``glue_ms``. ``busy_ms``
+holds each leg's device busy ms a replay from a ``torch.profiler`` trace of
+another window, ``busy_split`` the same arithmetic on them, and
+``force_kernels_ms`` the treecode kernels' share of the force's.
+
+One line a size (a JSON line a decomposed size), then one JSON object with
+every number and the card's ``nvidia-smi`` name and power limit (also
+written to ``--json``). To compare two trees, run this module from each
+checkout in one call, alternating: host-paced steps vary between machines
+and calls.
 """
 
 from __future__ import annotations
@@ -49,6 +69,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 PRIME = 8
+DECOMPOSE_STEPS = 256   # the JAX tool's default window
 _KERNELS = {"near_field_kernel": "near", "far_field_kernel": "far",
             "vip_both_kernel": "vip", "vip_sum_kernel": "vip_sum",
             "far_single_kernel": "far_single", "gather_panels_kernel": "gather",
@@ -286,6 +307,81 @@ def profile_size(tok: str, steps: int) -> dict:
     return out
 
 
+def decompose_split(legs: dict, rebuild_every: int) -> dict:
+    """``tools/decompose_step.py``'s arithmetic on its legs (ms a step):
+    the integrator's share of a step, the resort and the build less a floor
+    each amortized over the ``rebuild_every`` steps of a chunk, and the
+    chunk's residual glue."""
+    rebuild = (legs["resort"] + legs["build"] - 2 * legs["floor"]) / rebuild_every
+    return {"integrator_ms": legs["force_euler"] - legs["force"],
+            "amortized_rebuild_ms": rebuild,
+            "glue_ms": legs["full_step"] - legs["force_euler"] - rebuild}
+
+
+def best_window_ms(fn, count: int, reps: int = 3) -> float:
+    """Best ms a call of ``fn()`` over ``reps`` windows of ``count`` calls,
+    host clock to a synchronize, after one warm call."""
+    fn()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        for _ in range(count):
+            fn()
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t0)
+    return best / count * 1e3
+
+
+def decompose(tok: str) -> dict:
+    """The legs of ``tools/decompose_step.py`` at the size ``tok``, on the
+    replays of a primed ``Simulation``'s graphs (see the module's
+    docstring). Every window starts from the same loaded state and the
+    lists built on it."""
+    from n_body_problem_tpu_torch.graphs import replay_chunks
+    from n_body_problem_tpu_torch.ops.registry import tree_fns, tree_path
+
+    sim = _sim(tok)
+    cfg, r, steps = sim.cfg, sim.cfg.tree_rebuild_every, DECOMPOSE_STEPS
+    g, programs = sim._prepare(True, r)
+    resort, build, step = programs
+    state0 = g.unload()
+    force_fn = tree_fns(cfg)[1]
+    acc = g.buffer("decompose.acc", tuple(state0.acc.shape), state0.acc.dtype)
+    bump = g.buffer("decompose.floor", tuple(state0.pos.shape), state0.pos.dtype)
+    force = g.program("decompose.force",
+                      lambda run: acc.copy_(force_fn(run.state.pos, run.state.mass, run.aux)))
+    floor = g.program("decompose.floor", lambda run: bump.mul_(1.0000001))
+    g.capture(force, floor)
+    bump.fill_(1.0)
+    # leg: (program, calls a window, steps a call)
+    legs = {"floor": (floor, steps, 1), "force": (force, steps, 1),
+            "force_euler": (step, steps, 1), "resort": (resort, max(steps // 4, 16), 1),
+            "build": (build, max(steps // 8, 8), 1),
+            "full_step": (lambda run: replay_chunks(run, programs, r, r), steps // r, r)}
+    out = {"size": tok, "n": state0.n, "path": tree_path(cfg), "steps": steps,
+           "rebuild_every": r}
+    busy, kernels = {}, 0.0
+    for name, (prog, count, per) in legs.items():
+        g.load(state0)
+        build(g)
+        out[name] = best_window_ms(lambda: prog(g), count) / per  # noqa: B023
+        g.load(state0)
+        build(g)
+        torch.cuda.synchronize()
+        events, _ = _trace(lambda: [prog(g) for _ in range(count)])  # noqa: B023
+        gpu = _device_events(events)
+        busy[name] = _busy_us(gpu) / 1e3 / (count * per)
+        if name == "force":
+            kernels = sum(e["dur"] for e in gpu
+                          if any(k in e["name"] for k in _KERNELS)) / 1e3 / count
+    out.update(decompose_split(out, r))
+    out["busy_ms"] = busy
+    out["busy_split"] = decompose_split(busy, r)
+    out["force_kernels_ms"] = kernels
+    return out
+
+
 def eager_step_ms(sim, steps: int) -> float:
     """ms/step of the eager loop (``make_treecode_run``, the reference of the
     graphs) over ``steps`` steps from a copy of ``sim``'s state, after one
@@ -312,10 +408,17 @@ def main(argv=None) -> int:
                     help="sizes, as --sizes, whose force error to probe on lists "
                          "of each age in --ages")
     ap.add_argument("--ages", default="0,8,16,24,31")
+    ap.add_argument("--decompose", default="",
+                    help="sizes, as --sizes, whose step to split into the legs of "
+                         "tools/decompose_step.py")
     ap.add_argument("--json", type=pathlib.Path, default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("treecode_profile: needs a CUDA GPU")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=False).stdout.strip()
+    card = {"device": torch.cuda.get_device_name(0), "nvidia_smi": smi}
     ages = tuple(int(a) for a in args.ages.split(","))
     stale = []
     for tok in filter(None, args.staleness.split(",")):
@@ -336,11 +439,12 @@ def main(argv=None) -> int:
                   f"{k} {v:.4f}" for k, v in eager.items()), flush=True)
         row["profile_ms"], row["eager_profile_ms"] = prof, eager
         torch.cuda.empty_cache()
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=False).stdout.strip()
-    record = {"device": torch.cuda.get_device_name(0), "nvidia_smi": smi, "sizes": rows,
-              "staleness": stale}
+    split = []
+    for tok in filter(None, args.decompose.split(",")):
+        split.append({**decompose(tok), **card})
+        print(json.dumps(split[-1]), flush=True)
+        torch.cuda.empty_cache()
+    record = {**card, "sizes": rows, "staleness": stale, "decompose": split}
     if args.json:
         args.json.parent.mkdir(parents=True, exist_ok=True)
         args.json.write_text(json.dumps(record, indent=1))

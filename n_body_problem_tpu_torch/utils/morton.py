@@ -8,8 +8,9 @@ treecode's acceptance relies on; the force physics is permutation-invariant.
   :func:`morton_argsort` and :func:`apply_permutation`, behind
   ``SimConfig.morton_sort`` and ``resort_every``.
 - Device side (torch): :func:`morton_keys_cols` (int32 keys, 10 bits a
-  dimension), :func:`resort_cols` and :func:`device_resort`, which the
-  treecode run loop calls every ``tree_rebuild_every`` steps. One stable
+  dimension; :func:`morton_keys_device` on (N, 3) positions),
+  :func:`resort_cols` and :func:`device_resort`, which the treecode run
+  loop calls every ``tree_rebuild_every`` steps. One stable
   ``torch.sort`` of the keys gives the permutation and a gather applies it
   to each column; the TPU's multi-operand sort network is not needed on a
   GPU, where a gather is cheap.
@@ -103,6 +104,13 @@ def morton_keys_cols(x: torch.Tensor, y: torch.Tensor, z: torch.Tensor,
         spread.append(_spread_bits_10(q))
     key = spread[0] | (spread[1] << 1) | (spread[2] << 2)
     return torch.where(mask, key, torch.full_like(key, 0x7FFFFFFF))
+
+
+def morton_keys_device(pos: torch.Tensor, n_real: int) -> torch.Tensor:
+    """(N,) int32 Z-order keys from (N, 3) positions, on their device (see
+    :func:`morton_keys_cols`; 10 bits a dimension, 30-bit codes, where the
+    host path keeps 21 bits)."""
+    return morton_keys_cols(pos[:, 0], pos[:, 1], pos[:, 2], n_real)
 
 
 def morton_order(x: torch.Tensor, y: torch.Tensor, z: torch.Tensor,

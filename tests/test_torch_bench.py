@@ -7,6 +7,8 @@ pinned as ``__graft_entry__.py:164-169`` pins them so that both packages
 take the hierarchical path.
 """
 
+import torch_threads  # noqa: F401  (first: the CPU threads of this worker)
+
 import importlib.util
 import json
 import pathlib

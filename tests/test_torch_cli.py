@@ -1,5 +1,7 @@
 """The port's CLI, and the port's independence from JAX."""
 
+import torch_threads  # noqa: F401  (first: the CPU threads of this worker)
+
 import pathlib
 import subprocess
 import sys
@@ -270,6 +272,17 @@ def test_bench_subcommand_defaults():
 
     args = build_parser().parse_args(["bench"])
     assert (args.n, args.steps, args.solver, args.device) == (65536, 20, "auto", "cuda")
+
+
+def test_top_level_names_cover_jax():
+    """The port's ``__all__`` holds every name of the JAX package's, and its
+    own ``from_numpy`` and ``to_numpy``; ``nb.io`` is there, as in JAX."""
+    import n_body_problem_tpu as jnb
+    import n_body_problem_tpu_torch as tnb
+
+    assert set(tnb.__all__) == set(jnb.__all__) | {"from_numpy", "to_numpy"}
+    assert all(hasattr(tnb, name) for name in tnb.__all__)
+    assert hasattr(tnb, "io") and tnb.io.load_dataset is not None
 
 
 def test_import_leaves_jax_out():

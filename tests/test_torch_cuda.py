@@ -12,6 +12,8 @@ the card, within rtol=1e-4, atol=2e-6 (the JAX package's bounds for these
 kernels against the direct oracle, tests/test_pallas_symmetric.py:27).
 """
 
+import torch_threads  # noqa: F401  (first: the CPU threads of this worker)
+
 import pytest
 import torch
 

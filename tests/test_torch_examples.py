@@ -2,6 +2,8 @@
 ``main`` on the CPU at a small size, against the port's own
 ``Simulation`` where the example's numbers can be checked."""
 
+import torch_threads  # noqa: F401  (first: the CPU threads of this worker)
+
 import re
 
 import numpy as np

@@ -3,6 +3,8 @@
 Inputs are made with numpy from a seed and handed to both packages.
 """
 
+import torch_threads  # noqa: F401  (first: the CPU threads of this worker)
+
 import numpy as np
 import pytest
 import torch

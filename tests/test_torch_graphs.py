@@ -12,6 +12,8 @@ held to the same loop by the ``cuda`` cases of tests/test_torch_cuda.py and
 by ``chip_smoke.py`` phase 13.
 """
 
+import torch_threads  # noqa: F401  (first: the CPU threads of this worker)
+
 import numpy as np
 import pytest
 import torch

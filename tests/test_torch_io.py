@@ -8,6 +8,8 @@ fixture and skip where the reference's data files are not mounted, as the
 JAX ones do.
 """
 
+import torch_threads  # noqa: F401  (first: the CPU threads of this worker)
+
 import dataclasses
 
 import numpy as np

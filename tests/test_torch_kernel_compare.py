@@ -3,6 +3,8 @@ the fast symmetric modes, the block cases' inputs' shapes, and the SASS
 reader that counts the instructions a pair of a kernel's inner loops. The
 timings themselves need the card."""
 
+import torch_threads  # noqa: F401  (first: the CPU threads of this worker)
+
 import pytest
 import torch
 

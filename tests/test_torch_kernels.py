@@ -6,6 +6,8 @@ own tests do. The CUDA kernels themselves are compared with these plain
 versions on the card by ``chip_smoke.py``.
 """
 
+import torch_threads  # noqa: F401  (first: the CPU threads of this worker)
+
 import functools
 
 import numpy as np

@@ -1,6 +1,8 @@
 """The port's Morton sort against the JAX package's: keys and permutations
 must be exactly equal, on the host and on the device path."""
 
+import torch_threads  # noqa: F401  (first: the CPU threads of this worker)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -23,8 +25,10 @@ def _cols(pos):
     return [torch.from_numpy(pos[:, i].copy()) for i in range(3)]
 
 
-@pytest.mark.parametrize("n,n_real,seed", [(4096, 4096, 0), (8192, 8000, 3),
-                                           (6144, 6143, 5)])
+KEY_CASES = [(4096, 4096, 0), (8192, 8000, 3), (6144, 6143, 5)]
+
+
+@pytest.mark.parametrize("n,n_real,seed", KEY_CASES)
 def test_device_keys_equal_jax(n, n_real, seed):
     pos, _ = _bodies(n, seed)
     want = np.asarray(jm.morton_keys_cols(*(jnp.asarray(pos[:, i]) for i in range(3)),
@@ -33,6 +37,16 @@ def test_device_keys_equal_jax(n, n_real, seed):
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), want)
     assert (got[n_real:] == 0x7FFFFFFF).all()
+
+
+@pytest.mark.parametrize("n,n_real,seed", KEY_CASES)
+def test_device_keys_of_positions_equal_jax(n, n_real, seed):
+    """``morton_keys_device`` on (N, 3) positions (utils/morton.py:106)."""
+    pos, _ = _bodies(n, seed)
+    want = np.asarray(jm.morton_keys_device(jnp.asarray(pos), n_real))
+    got = tm.morton_keys_device(torch.from_numpy(pos.copy()), n_real)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 @pytest.mark.parametrize("n,n_real,model", [(4096, 4096, "plummer"),

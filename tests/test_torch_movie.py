@@ -14,6 +14,8 @@ bit to the eager frame loop (``simulation.eager_movie``,
 ``eager_trajectory``) on every path.
 """
 
+import torch_threads  # noqa: F401  (first: the CPU threads of this worker)
+
 import numpy as np
 import pytest
 import torch

@@ -6,6 +6,8 @@ record of the port's sharded equality at 65,536 bodies / 8 ranks is held
 as tests/test_parallel.py holds the JAX package's.
 """
 
+import torch_threads  # noqa: F401  (first: the CPU threads of this worker)
+
 import json
 import pathlib
 

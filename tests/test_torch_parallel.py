@@ -8,6 +8,8 @@ sharded step on its fake CPU devices, within the JAX test's tolerances. The
 JAX tests' D = 16 and 32 meshes stay JAX-only.
 """
 
+import torch_threads  # noqa: F401  (first: the CPU threads of this worker)
+
 import jax
 import numpy as np
 import pytest
@@ -72,6 +74,8 @@ def _cases8():
         "wrapper": dict(kind="sim", cfg=LEAPFROG, state=_state(160, 11), steps=10,
                         strategy="half_ring"),
     }
+    for run in ("repeat 1", "repeat 2"):   # tests/test_determinism.py:39
+        cases[run] = dict(ring, steps=5, state=_state(120, 1, 8), strategy="half_ring")
     for strategy in ("ring", "half_ring"):
         cases[f"prime {strategy}"] = dict(kind="sim", cfg=LEAPFROG, state=_state(144, 23),
                                           steps=4, strategy=strategy)
@@ -142,6 +146,14 @@ def test_sharded_run_is_its_eager_loop_bitwise(world8, strategy):
         for k, want in call["eager"].items():
             np.testing.assert_array_equal(call["run"][k], want, err_msg=k)
     assert int(call["run"]["step"]) == 6
+
+
+def test_sharded_run_deterministic(world8):
+    """The half ring run twice for 5 steps gives the same bits
+    (tests/test_determinism.py:39)."""
+    _, got = world8
+    np.testing.assert_array_equal(got["repeat 1"]["pos"], got["repeat 2"]["pos"])
+    np.testing.assert_array_equal(got["repeat 1"]["vel"], got["repeat 2"]["vel"])
 
 
 def test_ring_force_matches_direct(world8):

@@ -19,6 +19,8 @@ smallest N at which the hierarchical path engages: the JAX tests' 8,192
 (marked slow there) does not fit this suite's time.
 """
 
+import torch_threads  # noqa: F401  (first: the CPU threads of this worker)
+
 import functools
 
 import jax

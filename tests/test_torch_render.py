@@ -8,6 +8,8 @@ camera, the footprints, the tonemap and the PNG and PPM bytes are numpy in
 both and must agree to the bit.
 """
 
+import torch_threads  # noqa: F401  (first: the CPU threads of this worker)
+
 import zlib
 
 import jax.numpy as jnp

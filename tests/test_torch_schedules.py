@@ -14,6 +14,8 @@ and the JAX package's Pallas kernels in interpret mode, within rtol=1e-4,
 atol=2e-6 (the bound the CUDA kernels are held to on the card).
 """
 
+import torch_threads  # noqa: F401  (first: the CPU threads of this worker)
+
 import collections
 
 import jax.numpy as jnp

@@ -2,6 +2,8 @@
 ``n_body_problem_tpu_torch.render.server.LiveViewer``, and a frame submitted
 as a torch tensor reaching ``/stream`` as a JPEG."""
 
+import torch_threads  # noqa: F401  (first: the CPU threads of this worker)
+
 import json
 import socket
 import time

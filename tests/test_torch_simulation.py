@@ -1,5 +1,7 @@
 """The port's Simulation against the JAX package's, on the same bodies."""
 
+import torch_threads  # noqa: F401  (first: the CPU threads of this worker)
+
 import numpy as np
 import pytest
 import torch

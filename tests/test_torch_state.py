@@ -4,6 +4,8 @@ The state is what moves between the two packages (this system has no
 weights), so these comparisons are exact: same bits, same dtypes.
 """
 
+import torch_threads  # noqa: F401  (first: the CPU threads of this worker)
+
 import numpy as np
 import pytest
 import torch

@@ -22,6 +22,8 @@ force against the ranks in this process, and the undersized-shard
 than 32 entries).
 """
 
+import torch_threads  # noqa: F401  (first: the CPU threads of this worker)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -8,6 +8,8 @@ The JAX ``tools/tune_small_n.py``, ``tools/hier_census.py`` and
 are compared with literal copies of them.
 """
 
+import torch_threads  # noqa: F401  (first: the CPU threads of this worker)
+
 import contextlib
 import importlib.util
 import io

@@ -11,6 +11,8 @@ tests/test_treecode.py:59-71 runs them. Integer structures must be equal,
 the gather exactly, forces within rtol=1e-4, atol=2e-6.
 """
 
+import torch_threads  # noqa: F401  (first: the CPU threads of this worker)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

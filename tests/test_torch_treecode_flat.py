@@ -9,6 +9,8 @@ within rtol=1e-4, atol=2e-6 (the bound the CUDA kernels are held to against
 their twins), and meet the JAX tests' error envelopes against the direct sum.
 """
 
+import torch_threads  # noqa: F401  (first: the CPU threads of this worker)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

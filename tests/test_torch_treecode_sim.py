@@ -6,6 +6,8 @@ with the capacities pinned as tests/test_treecode_hier.py:235-237 pins
 them, so both packages take the same path off the TPU/GPU.
 """
 
+import torch_threads  # noqa: F401  (first: the CPU threads of this worker)
+
 import numpy as np
 import pytest
 import torch
@@ -103,6 +105,23 @@ def test_treecode_run_keeps_the_lists_it_stepped_with():
     torch.testing.assert_close(acc, s.acc, rtol=0, atol=0)
     sim.run(0)
     assert sim.tree_lists is lists
+
+
+def test_decompose_split_reproduces_the_jax_record():
+    """``treecode_profile --decompose``'s arithmetic is the JAX tool's
+    (tools/decompose_step.py:168-175): from the legs of the JAX record it
+    gives the record's integrator, amortized rebuild and glue."""
+    import json
+    import pathlib
+
+    from n_body_problem_tpu_torch.treecode_profile import decompose_split
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "validation/decompose20k_20260819.json"
+    rec = json.loads(path.read_text())
+    got = decompose_split(rec, rec["rebuild_every"])
+    assert set(got) == {"integrator_ms", "amortized_rebuild_ms", "glue_ms"}
+    for key, value in got.items():
+        assert abs(value - rec[key]) <= 1e-9, key
 
 
 def test_force_error_probe_measures_relative_error():

@@ -1,6 +1,8 @@
 """The port's physics validation against the JAX package's root
 ``validate.py``, on the CPU with plain solvers."""
 
+import torch_threads  # noqa: F401  (first: the CPU threads of this worker)
+
 import argparse
 import contextlib
 import importlib.util
