@@ -14,10 +14,14 @@ is non-zero:
    bodies) and 65,536, and at K = 1, 3 and 5 (odd, 60 padding bodies) of the
    symmetric kernel's own 512-body tile (N = 512, 1,536, 2,560; 1,024 is
    K = 2), within rtol=1e-4, atol=2e-6; the all-pairs kernel also in block
-   form and for bitwise repeatability; the symmetric kernel for momentum
-   (|sum m a| < 1e-6, < 1e-7 at 65,536), and at N = 448 with tile 64 (its
-   wrapper pads to 512). Times both at N = 65,536, and once each at 262,144,
-   where the two must agree within 1e-4 a body. Then the all-pairs kernel's
+   form; both launched twice at every shape for bitwise repeatability (the
+   symmetric kernels sum their slots in slot order), with the symmetric
+   kernel's slot bytes and the peak device memory of its call printed; the
+   symmetric kernel for momentum (|sum m a| < 1e-6, < 1e-7 at 65,536), and
+   at N = 448 with tile 64 (its wrapper pads to 512). Times both at N =
+   65,536, and once each at 262,144, where the two must agree within 1e-4 a
+   body and the symmetric kernel's two launches bitwise. Then the all-pairs
+   kernel's
    splits: at 384 x 65,536, 2,048 x 65,536 and x 524,288 (the error probe's
    shape), 16,384 x 65,536 (a four-way ring's), 8,192 and 32,768 squared, the
    split its schedule chooses (several column pieces, two launches) and
@@ -29,7 +33,8 @@ is non-zero:
    per-body p99 <= 1.5e-5 ("mixed" with K <= 3 tiles is the f32 mode and
    matches the f32 kernel within rtol=1e-4, atol=2e-6); each mode's error
    against the all-pairs kernel inside the JAX envelopes, mixed no worse
-   than bf16x3. Times both modes at 65,536.
+   than bf16x3; two launches bitwise equal, slot bytes and peak memory
+   printed. Times both modes at 65,536.
 4. treecode kernels: every treecode kernel against its plain version on
    the port's own work lists, at the shapes of every treecode run of phase
    6 and one smaller: the hierarchical path (near, far, VIP) on Plummer
@@ -53,9 +58,14 @@ is non-zero:
 5. exact main path: ``Simulation(SimConfig(), plummer(65536))`` (the
    symmetric kernel), ``solver="pallas"`` (the all-pairs kernel), leapfrog,
    and ``pallas_sym_precision="bf16x3"`` and ``"mixed"`` (the tensor-core
-   kernel); launch counters show that each run launched its kernel every
+   kernel); launch counters show that each run launched its kernels every
    step and no other. Then the pair-matrix foil (plain PyTorch) at 4,096
-   against the all-pairs kernel's force.
+   against the all-pairs kernel's force. Then repeatability
+   (``drive_repeat``): ``auto`` and ``solver="pallas_symmetric"`` in each
+   precision, at 128 bodies x 25 Euler steps (the JAX determinism test's
+   shape) and 65,536 x 200 leapfrog steps, and the foil at 128 x 25 and
+   4,096 x 20 leapfrog steps, each run twice from one state: positions and
+   velocities bitwise equal.
 6. treecode main path: ``Simulation(SimConfig(solver="treecode"))`` at
    N = 65,536 (Euler, then leapfrog; 8 steps primed, 64 timed), at 20,480
    with ``tuned_tree_overrides(20480)`` and at 524,288 (16 timed); then the
@@ -96,7 +106,8 @@ is non-zero:
     CPU, within rtol 1e-5 and atol 1e-5 x the frame's maximum; whether two
     card renders are bitwise equal; the splat's ms a frame. (b) The bench's
     step+render leg, ``bench_render(65536, "pallas_symmetric")``, beside
-    phase 5's exact step, with its 20 symmetric launches, peak memory and a
+    phase 5's exact step, with its 40 symmetric launches (20 calls of the
+    pair kernel and the slots' sum), peak memory and a
     profiler breakdown; its steps and frames are replays of the movie's
     graphs (phase 13 holds them to the eager frame loop). (c) The
     hierarchical treecode movie at 65,536, a frame every
@@ -179,8 +190,7 @@ is non-zero:
     tuned, 524,288 and 1,048,576; the flat path at 20,480 and 65,536; the
     dense path at 1,024 and 20,480; ``auto`` at 4,096 and 65,536 and
     ``pallas`` at 65,536. Positions, velocities, accelerations, time, step
-    and ``sort_perm`` bitwise the eager loop's (the symmetric kernel
-    within rtol 1e-4, atol 2e-6 after one step); the replays under
+    and ``sort_perm`` bitwise the eager loop's; the replays under
     ``set_sync_debug_mode("error")``; launches a step as
     ``launches_a_step`` says, replays counted. Prints ms/step of both in
     turns (eager, graph, graph, eager), capture seconds, the idle share of
@@ -191,8 +201,7 @@ is non-zero:
     65,536 (every frame its own chunk), ``pallas`` 65,536 and (the movie)
     ``auto`` 65,536, against the eager frame loop (``eager_movie``,
     ``eager_trajectory``) from the same state: frames, state and
-    ``sort_perm`` bitwise (``auto``'s symmetric kernel: one frame within
-    rtol 1e-5 / atol 1e-5 x max); the frame graph bitwise the eager splat
+    ``sort_perm`` bitwise; the frame graph bitwise the eager splat
     of the same state; the replays of spans and frames under
     ``set_sync_debug_mode("error")``; launches a step, replays counted; a
     second camera and scale replayed without a new capture and equal to
@@ -234,7 +243,8 @@ import sys
 import time
 
 from n_body_problem_tpu_torch.kernel_compare import (PAIR_BOTH_FLOPS, PAIR_BOTH_SLOTS,
-                                                      PAIR_FLOPS, PAIR_SLOTS, PHYS, TREE_WORK,
+                                                      PAIR_FLOPS, PAIR_SLOTS, PEAK_BYTES, PHYS,
+                                                      TREE_WORK,
                                                       bound, fast_bound, fast_issue_floor_ms,
                                                       issue_floor_ms, kernel_ms, near_work,
                                                       sm_clock_mhz, tree_bound)
@@ -288,6 +298,22 @@ def agree(res: dict, key: str, name: str, got, want) -> float:
     return err
 
 
+def twice_equal(name: str, fn):
+    """``fn()`` launched twice: the two outputs must be bitwise equal.
+    Returns the first and the peak device memory the first call took
+    beyond what was allocated before it (the scratch and the output)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    got = fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    check(torch.equal(got, fn()), f"{name}: two launches differ bitwise")
+    return got, peak
+
+
 def compare_kernels(device, sizes=SIZES, time_at: int | None = N_MAIN) -> dict:
     """Phase 3: each exact kernel against its plain version; returns
     per-kernel ``max_abs_err`` and, at ``time_at`` bodies, ``ms`` and
@@ -314,17 +340,21 @@ def compare_kernels(device, sizes=SIZES, time_at: int | None = N_MAIN) -> dict:
         ab = cuda_force.block_acc(rows, pos, mass, **tiles, **PHYS)
         eb = agree(res, "allpairs", f"allpairs block 384x{n}", ab,
                    cuda_force.block_acc_plain(rows, pos, mass, **PHYS))
-        b = cuda_symmetric.symmetric_acc(pos, mass, tile=tile, **PHYS)
+        b, peak = twice_equal(f"symmetric N={n}", lambda: cuda_symmetric.symmetric_acc(
+            pos, mass, tile=tile, **PHYS))
         es = agree(res, "symmetric", f"symmetric N={n}", b,
                    cuda_symmetric.symmetric_acc_plain(pos, mass, tile=tile, **PHYS))
         net = float((mass[:, None] * b).sum(0).abs().max())
         limit = 1e-7 if n == N_MAIN else 1e-6
         check(net < limit, f"symmetric N={n}: |sum m a| = {net:.3e} >= {limit}")
         torch.cuda.synchronize(device)  # a fault in the run shows here
+        k = -(-n // cuda_symmetric.KERNEL_TILE)
+        slots = cuda_symmetric.slot_bytes(k * cuda_symmetric.KERNEL_TILE,
+                                          cuda_symmetric.KERNEL_TILE)
         print(f"kernels: N={n} (real {n_real}) allpairs err {ea:.3e} "
-              f"block(384x{n}) err {eb:.3e} bitwise-repeatable; symmetric "
-              f"(K={-(-n // cuda_symmetric.KERNEL_TILE)}) err {es:.3e} |sum m a| {net:.3e}",
-              flush=True)
+              f"block(384x{n}) err {eb:.3e} bitwise-repeatable; symmetric (K={k}) err "
+              f"{es:.3e} |sum m a| {net:.3e} bitwise-repeatable, slots {slots} B, peak "
+              f"{peak} B beyond the inputs", flush=True)
 
         if n == time_at:
             res["allpairs"]["ms"] = time_ms(
@@ -342,9 +372,11 @@ def compare_kernels(device, sizes=SIZES, time_at: int | None = N_MAIN) -> dict:
             clock = sm_clock_mhz()
             res["allpairs"].update(library_ms=None, **bound(PAIR_FLOPS * n * n, nbytes),
                                    issue_floor_ms=issue_floor_ms(n * n, PAIR_SLOTS, clock))
+            slots = cuda_symmetric.slot_bytes(n, cuda_symmetric.KERNEL_TILE)
             res["symmetric"].update(
                 library_ms=None, **bound(PAIR_BOTH_FLOPS * n * (n - 1) // 2, nbytes),
-                issue_floor_ms=issue_floor_ms(n * (n - 1) / 2, PAIR_BOTH_SLOTS, clock))
+                issue_floor_ms=issue_floor_ms(n * (n - 1) / 2, PAIR_BOTH_SLOTS, clock),
+                slot_bytes=slots, slot_bytes_ms=2 * slots / PEAK_BYTES * 1e3)
             print("kernels: times at N={} (ms/call) allpairs {:.4f} vs plain {:.4f}, bound "
                   "{:.4f}, issue floor {:.4f}; symmetric {:.4f} vs plain {:.4f}, bound {:.4f}, "
                   "issue floor {:.4f} at {:.0f} MHz".format(
@@ -359,23 +391,29 @@ def compare_kernels(device, sizes=SIZES, time_at: int | None = N_MAIN) -> dict:
         s = cloud(N_LARGE, N_LARGE, seed=N_LARGE, device=device)
         ap = lambda: cuda_force.block_acc(s.pos, s.pos, s.mass, **tiles, **PHYS)  # noqa: E731
         sy = lambda: cuda_symmetric.symmetric_acc(s.pos, s.mass, **PHYS)  # noqa: E731
-        diff = float(rel_err(sy(), ap(), N_LARGE).max())
+        got, peak = twice_equal(f"symmetric N={N_LARGE}", sy)
+        diff = float(rel_err(got, ap(), N_LARGE).max())
+        del got
         check(diff < 1e-4, f"symmetric N={N_LARGE}: {diff:.3e} a body from the all-pairs kernel")
         res["symmetric"]["ms_262144"] = time_ms(sy, 1)
         res["allpairs"]["ms_262144"] = time_ms(ap, 1)
         print(f"kernels: N={N_LARGE} symmetric {res['symmetric']['ms_262144']:.4f} ms, allpairs "
-              f"{res['allpairs']['ms_262144']:.4f} ms, largest difference a body {diff:.3e}",
-              flush=True)
+              f"{res['allpairs']['ms_262144']:.4f} ms, largest difference a body {diff:.3e}; "
+              f"symmetric bitwise-repeatable, slots "
+              f"{cuda_symmetric.slot_bytes(N_LARGE, cuda_symmetric.KERNEL_TILE)} B, peak {peak} "
+              f"B beyond the inputs", flush=True)
         del s
         torch.cuda.empty_cache()
     # N = 448 with tile 64: the JAX package takes it; the f32 kernel's
     # wrapper pads to its 512-body tile with zero-mass bodies.
     s = cloud(448, 448, seed=448, device=device)
-    e = agree(res, "symmetric", "symmetric N=448 tile 64",
-              cuda_symmetric.symmetric_acc(s.pos, s.mass, tile=64, **PHYS),
+    got, _ = twice_equal("symmetric N=448 tile 64", lambda: cuda_symmetric.symmetric_acc(
+        s.pos, s.mass, tile=64, **PHYS))
+    e = agree(res, "symmetric", "symmetric N=448 tile 64", got,
               cuda_symmetric.symmetric_acc_plain(s.pos, s.mass, tile=64, **PHYS))
     torch.cuda.synchronize(device)
-    print(f"kernels: symmetric N=448 tile 64 (padded to 512 inside) err {e:.3e}", flush=True)
+    print(f"kernels: symmetric N=448 tile 64 (padded to 512 inside) err {e:.3e} "
+          f"bitwise-repeatable", flush=True)
     return res
 
 
@@ -477,7 +515,8 @@ def compare_fast(device, sizes=FAST_SIZES, time_at: int | None = N_MAIN) -> dict
         k = n // tile
         p99 = {}
         for prec in ("bf16x3", "mixed"):
-            got = cuda_symmetric.symmetric_acc(pos, mass, precision=prec, **kw)
+            got, peak = twice_equal(f"{prec} N={n}", lambda: cuda_symmetric.symmetric_acc(
+                pos, mass, precision=prec, **kw))
             twin = cuda_symmetric.symmetric_acc_plain(pos, mass, precision=prec, **kw)
             torch.cuda.synchronize(device)
             check(bool(torch.isfinite(got).all()), f"{prec} N={n}: non-finite output")
@@ -513,13 +552,16 @@ def compare_fast(device, sizes=FAST_SIZES, time_at: int | None = N_MAIN) -> dict
             print(f"fast kernels: N={n} (real {n_real}) tile {tile} {prec}: vs twin {what} "
                   f"p99 {d99:.3e} max |d| {float((got - twin).abs().max()):.3e}; vs float64 "
                   f"kernel {noise[0]:.3f} twin {noise[1]:.3f}; vs all-pairs "
-                  f"p99 {p99[prec]:.3e} median {med:.3e}; |sum m a| {net:.3e}", flush=True)
+                  f"p99 {p99[prec]:.3e} median {med:.3e}; |sum m a| {net:.3e}; "
+                  f"bitwise-repeatable, slots {cuda_symmetric.slot_bytes(n, tile)} B, peak "
+                  f"{peak} B beyond the inputs", flush=True)
             if n == time_at:
                 fn = lambda: cuda_symmetric.symmetric_acc(pos, mass, precision=prec, **kw)  # noqa: E731
                 res[prec] = {"ms": time_ms(fn, 20),
                              "plain_ms": time_ms(lambda: cuda_symmetric.symmetric_acc_plain(
                                  pos, mass, precision=prec, **kw), 3),
                              "p99": p99[prec], "median": med, **fast_bound(n, tile, prec),
+                             "slot_bytes": cuda_symmetric.slot_bytes(n, tile),
                              "issue_floor_ms": fast_issue_floor_ms(n, tile, prec,
                                                                    sm_clock_mhz())}
         check(p99["mixed"] <= p99["bf16x3"],
@@ -750,11 +792,14 @@ def drive_main_path(device, n: int = N_MAIN, prime: int = PRIME_STEPS,
     from n_body_problem_tpu_torch import SimConfig, Simulation, models
 
     from n_body_problem_tpu_torch.ops.cuda_force import allpairs_split
+    from n_body_problem_tpu_torch.ops.cuda_symmetric import LAUNCHES_A_CALL
 
     wrappers = counters()
     # Kernel launches a force: the all-pairs kernel is one with one column
-    # piece, two with several; every other exact solver is one kernel.
-    a_force = {"allpairs": 2 if allpairs_split(n, n)[2] > 1 else 1}
+    # piece, two with several; the symmetric kernels two (the pair kernel
+    # and the slots' sum).
+    a_force = {"allpairs": 2 if allpairs_split(n, n)[2] > 1 else 1,
+               "symmetric": LAUNCHES_A_CALL, "symmetric_bf16x3": LAUNCHES_A_CALL}
     runs = (
         ("default", SimConfig(), "pallas_symmetric", "symmetric"),
         ("pallas", SimConfig(solver="pallas"), "pallas", "allpairs"),
@@ -775,7 +820,7 @@ def drive_main_path(device, n: int = N_MAIN, prime: int = PRIME_STEPS,
         sim.run(timed)
         launched = wrappers[key].launches - before
         wall = sim.wall_seconds - wall0
-        want = a_force.get(key, 1) * timed
+        want = a_force[key] * timed
         check(launched == want,
               f"{label}: kernel launched {launched} times in {timed} steps, expected {want}")
         others = {k: w.launches - start[k] for k, w in wrappers.items() if k != key}
@@ -819,6 +864,52 @@ def drive_pair_matrix(device, n: int = 4096, steps: int = 10) -> None:
     print(f"main path [pair_matrix]: N={n} plain PyTorch {wall / steps * 1e3:.4f} ms/step "
           f"{sim.pairs_per_step() * steps / wall:.4e} pairs/s; force vs all-pairs max |d| "
           f"{float((got - want).abs().max()):.3e}", flush=True)
+
+
+def repeat_runs():
+    """(label, config overrides, N, steps) of phase 5's repeatability: the
+    default solver and ``pallas_symmetric`` in each precision at the JAX
+    determinism test's shape (128 bodies, 25 Euler steps) and at 65,536 x
+    200 leapfrog steps; the foil at 128 x 25 and 4,096 x 20 leapfrog."""
+    runs = [(f"{solver} {precision} {n}", dict(solver=solver, pallas_sym_precision=precision,
+                                               integrator=integ), n, steps)
+            for solver in ("auto", "pallas_symmetric")
+            for precision in ("f32", "bf16x3", "mixed")
+            for n, steps, integ in ((128, 25, "semi_implicit_euler"),
+                                    (N_MAIN, 200, "leapfrog"))]
+    return runs + [("pair_matrix 128", dict(solver="pair_matrix"), 128, 25),
+                   ("pair_matrix 4096", dict(solver="pair_matrix", integrator="leapfrog"),
+                    4096, 20)]
+
+
+def drive_repeat(device, runs=None) -> None:
+    """Phase 5, repeatability (tests/test_determinism.py on the card): each
+    run twice from the same state through ``Simulation.run``; positions and
+    velocities must end bitwise equal. The symmetric kernels sum their
+    slots in slot order and the foil sorts before it adds, so no sum on
+    these paths depends on the order in which the card runs its blocks."""
+    import torch
+
+    from n_body_problem_tpu_torch import SimConfig, Simulation, models
+
+    t0 = time.perf_counter()
+    for label, overrides, n, steps in runs or repeat_runs():
+        ends = []
+        for _ in range(2):
+            sim = Simulation(SimConfig(**overrides), models.plummer(n, seed=0), device=device)
+            sim.run(steps)
+            torch.cuda.synchronize(device)
+            ends.append((sim.state.pos.clone(), sim.state.vel.clone()))
+        want = "pair_matrix" if overrides["solver"] == "pair_matrix" else "pallas_symmetric"
+        check(sim.solver == want, f"repeat [{label}]: resolved {sim.solver!r}, expected {want!r}")
+        check(bool(torch.isfinite(ends[0][0]).all()), f"repeat [{label}]: non-finite positions")
+        same = torch.equal(ends[0][0], ends[1][0]) and torch.equal(ends[0][1], ends[1][1])
+        check(same, f"repeat [{label}]: two runs from one state differ (max |d pos| "
+                    f"{float((ends[0][0] - ends[1][0]).abs().max()):.3e})")
+        print(f"repeat [{label}]: {steps} {overrides.get('integrator', 'semi_implicit_euler')} "
+              f"steps twice from one state: positions and velocities bitwise equal", flush=True)
+        del sim, ends
+    print(f"repeat: {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def tree_force_error(sim, sample: int | None = None,
@@ -1283,6 +1374,7 @@ def render_bench_leg(device, exact_ms: float) -> None:
 
     from n_body_problem_tpu_torch import SimConfig, Simulation, models
     from n_body_problem_tpu_torch.bench import bench_render
+    from n_body_problem_tpu_torch.ops.cuda_symmetric import LAUNCHES_A_CALL
     from n_body_problem_tpu_torch.render import OrbitCamera
     from n_body_problem_tpu_torch.treecode_profile import _busy_us, _device_events, _trace
 
@@ -1293,7 +1385,9 @@ def render_bench_leg(device, exact_ms: float) -> None:
     launched = sym.launches - before
     peak = torch.cuda.max_memory_allocated(device) / 2**30
     check(math.isfinite(ms) and ms > 0, f"bench_render: {ms} ms/step")
-    check(launched == 20, f"bench_render: symmetric kernel launched {launched} times, not 10 + 10")
+    check(launched == 20 * LAUNCHES_A_CALL,
+          f"bench_render: symmetric kernel launched {launched} times, not (10 + 10) x "
+          f"{LAUNCHES_A_CALL}")
     sim = Simulation(SimConfig(), models.plummer(RENDER_N, seed=0), device=device)
     cam = OrbitCamera(distance=2.0)
     sim.movie(2, render_every=1, camera=cam, width=RENDER_W, height=RENDER_H)
@@ -1307,8 +1401,9 @@ def render_bench_leg(device, exact_ms: float) -> None:
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     print(f"render [b, bench leg]: bench_render({RENDER_N}, pallas_symmetric) "
           f"{ms:.4f} ms/step with a {RENDER_W}x{RENDER_H} frame a step, against the exact "
-          f"step's {exact_ms:.4f} ms/step (phase 5); symmetric launches {launched} (10 warm + "
-          f"10 timed); peak device memory {peak:.3f} GiB; profiled movie of 10: device busy "
+          f"step's {exact_ms:.4f} ms/step (phase 5); symmetric launches {launched} ((10 warm + "
+          f"10 timed) x {LAUNCHES_A_CALL}); peak device memory {peak:.3f} GiB; profiled movie "
+          f"of 10: device busy "
           f"{busy / 1e3 / 10:.4f} ms a step of {wall_us / 1e3 / 10:.4f}, idle share "
           f"{1 - busy / wall_us:.3f}; device ms a step by kernel: "
           + "; ".join(f"{k} {v:.4f}" for k, v in top), flush=True)
@@ -2315,21 +2410,20 @@ def idle_share(fn) -> float:
 def exact_launches_a_step(sim) -> dict:
     """Kernel launches an exact step makes, by wrapper."""
     from n_body_problem_tpu_torch.ops.cuda_force import allpairs_split
+    from n_body_problem_tpu_torch.ops.cuda_symmetric import LAUNCHES_A_CALL
 
     if sim.solver == "pallas":
         return {"allpairs": 2 if allpairs_split(sim.state.n, sim.state.n)[2] > 1 else 1}
     key = "symmetric" if sim.cfg.pallas_sym_precision == "f32" else "symmetric_bf16x3"
-    return {key: 1}
+    return {key: LAUNCHES_A_CALL}
 
 
 def drive_graphs(device, runs=None, smi: str = "") -> dict:
     """Phase 13: ``Simulation.run`` through its CUDA graphs beside the eager
     loop (``make_treecode_run``, ``run_steps``) on the same state, for two
     whole chunks and a remainder. Checks: positions and ``sort_perm``
-    bitwise the eager loop's (the symmetric kernel, whose atomics make it
-    not bitwise repeatable, within rtol 1e-4 / atol 2e-6 after one step);
-    no host sync in the replays; the launches a step ``launches_a_step``,
-    replays counted. Prints ms/step of both (eager, graph, graph, eager),
+    bitwise the eager loop's; no host sync in the replays; the launches a
+    step ``launches_a_step``, replays counted. Prints ms/step of both (eager, graph, graph, eager),
     capture seconds, idle share of each from ``torch.profiler`` and the peak
     memory of each (the graphs' in their first run, the capture's).
     Returns the launches of the graph runs (the eager reference's are not
@@ -2363,24 +2457,17 @@ def drive_graphs(device, runs=None, smi: str = "") -> dict:
             for key, w in wrappers.items():
                 eager_launches[key] += w.launches - before[key]
             return out
-        symmetric = sim.solver == "pallas_symmetric"
         # the eager reference, then the graphs' first run (the capture)
         torch.cuda.reset_peak_memory_stats(device)
-        state_e, ids_e, _ = eager(clone_state(s0), 1 if symmetric else steps)
+        state_e, ids_e, _ = eager(clone_state(s0))
         peak_e = torch.cuda.max_memory_allocated(device)
         torch.cuda.reset_peak_memory_stats(device)
-        sim.run(1 if symmetric else steps)
+        sim.run(steps)
         peak_g = torch.cuda.max_memory_allocated(device)
         got = sim.state
-        if symmetric:
-            same = torch.equal(got.pos, state_e.pos)
-            check(torch.allclose(got.pos, state_e.pos, **TOL) and
-                  torch.allclose(got.acc, state_e.acc, **TOL),
-                  f"graphs [{label}]: one step outside rtol 1e-4, atol 2e-6 of the eager loop")
-        else:
-            same = all(torch.equal(getattr(got, k), getattr(state_e, k))
-                       for k in ("pos", "vel", "acc", "time", "step"))
-            check(same, f"graphs [{label}]: state not bitwise the eager loop's")
+        same = all(torch.equal(getattr(got, k), getattr(state_e, k))
+                   for k in ("pos", "vel", "acc", "time", "step"))
+        check(same, f"graphs [{label}]: state not bitwise the eager loop's")
         if tree:
             want = ids_e[: sim.state.n_real].cpu().numpy()
             check((sim.sort_perm == (want if perm0 is None else perm0[want])).all(),
@@ -2466,10 +2553,9 @@ def drive_frame_graphs(device, runs=None, smi: str = "") -> dict:
     ``trajectory``, a frame every step, through the frame graph beside
     their eager frame loop (``simulation.eager_movie``, ``eager_trajectory``)
     from the same state. Checks: the frames, the state and ``sort_perm``
-    bitwise the eager loop's (the symmetric kernel, whose atomics make it
-    not bitwise repeatable: one frame within rtol 1e-5 / atol 1e-5 x max,
-    and the last frame of a longer movie bitwise the eager splat of its
-    final state); no host sync in the replays of the spans and the frames;
+    bitwise the eager loop's, and the last frame of the movie bitwise the
+    eager splat of its final state; no host sync in the replays of the spans
+    and the frames;
     launches a step as ``launches_a_step``, replays counted; a second
     camera and scale replay the same graphs (no new capture) and match
     their eager movie. Prints ms/step of both in turns (eager, replayed,
@@ -2494,8 +2580,7 @@ def drive_frame_graphs(device, runs=None, smi: str = "") -> dict:
     records = []
     for label, kind, n, cfg in runs or frame_runs():
         sim = Simulation(cfg, models.plummer(n, seed=0), device=device)
-        symmetric = sim.solver == "pallas_symmetric"
-        steps = 1 if symmetric else FRAME_STEPS
+        steps = FRAME_STEPS
 
         def call(k=steps, cam=cams[0]):
             if kind == "movie":
@@ -2513,12 +2598,6 @@ def drive_frame_graphs(device, runs=None, smi: str = "") -> dict:
 
         def same_as(got, want, what: str) -> bool:
             frames, state, perm = want
-            if symmetric:
-                peak = float(frames.abs().max())
-                check(torch.allclose(got, frames, rtol=RENDER_TOL, atol=RENDER_TOL * peak),
-                      f"graphs [{label}] {what}: a step's frame outside rtol 1e-5 of the eager "
-                      f"loop's (max |d| {float((got - frames).abs().max()):.3e})")
-                return torch.equal(got, frames)
             same = (torch.equal(got, frames)
                     and all(torch.equal(getattr(sim.state, k), getattr(state, k))
                             for k in ("pos", "vel", "acc", "time", "step"))
@@ -2542,7 +2621,7 @@ def drive_frame_graphs(device, runs=None, smi: str = "") -> dict:
         del want, got
         # the frame program against the eager splat of the same state
         if kind == "movie":
-            got = call(FRAME_STEPS) if symmetric else call()
+            got = call()
             out = torch.empty_like(got[-1])
             movie_frame(out, sim.state, None,
                         **frame_inputs(sim.state, cams[0][0].view_projection(), cams[0][1]), **kw)
@@ -2599,8 +2678,7 @@ def drive_frame_graphs(device, runs=None, smi: str = "") -> dict:
         movie = (f"{RENDER_W}x{RENDER_H}; frame graph bitwise the eager splat; a second "
                  f"camera replayed without a capture" if kind == "movie" else "positions")
         print(f"graphs [{label}]: N={rec['n']} path={rec['path']} a frame every step "
-              f"({movie}); bitwise the eager frames {bitwise}"
-              f"{' (1 step; atomics)' if symmetric else ''}; no host sync in replays; ms/step "
+              f"({movie}); bitwise the eager frames {bitwise}; no host sync in replays; ms/step "
               f"eager {ms['eager'][0]:.4f} {ms['eager'][1]:.4f} replayed {ms['graph'][0]:.4f} "
               f"{ms['graph'][1]:.4f} ({FRAME_STEPS} steps); capture {capture_s:.3f} s; "
               f"launches a step {rec['launches_a_step']}; idle eager {idle['eager']:.4f} "
@@ -2812,6 +2890,9 @@ def main() -> int:
     main_ms = drive_main_path(device)
     launches = {k: wrappers[k].launches for k in ("allpairs", "symmetric", "symmetric_bf16x3")}
     drive_pair_matrix(device)
+    drive_repeat(device)
+    for key in ("symmetric", "symmetric_bf16x3"):
+        launches[key] = wrappers[key].launches
     for w in wrappers.values():
         w.launches = 0
     launches.update(drive_treecode(device))
@@ -2849,9 +2930,10 @@ def main() -> int:
 
     records = (
         ("allpairs", "allpairs_acc_kernel", "allpairs.cu", "pallas_force.py:41"),
-        ("symmetric", "symmetric_acc_kernel", "symmetric.cu", "pallas_symmetric.py:87"),
-        ("symmetric_bf16x3", "symmetric_bf16x3_kernel", "symmetric_bf16x3.cu",
+        ("symmetric", "symmetric_acc_kernel+symmetric_sum_kernel", "symmetric.cu",
          "pallas_symmetric.py:87"),
+        ("symmetric_bf16x3", "symmetric_bf16x3_kernel+symmetric_sum_kernel",
+         "symmetric_bf16x3.cu", "pallas_symmetric.py:87"),
         ("far_single", "far_single_kernel", "far_single.cu", "treecode.py:436"),
         ("gather", "gather_panels_kernel", "gather.cu", "treecode.py:617"),
         ("near_panel", "near_panel_kernel", "near_panel.cu", "treecode.py:718"),

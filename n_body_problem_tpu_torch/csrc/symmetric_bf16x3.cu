@@ -34,10 +34,11 @@
 // rate and the split costs what the direct reaction would. So this kernel
 // can reach the f32 kernel's time, not beat it; the fast modes are kept for
 // parity with the JAX SimConfig. On an NVIDIA H100 80GB HBM3 at 700.00 W it
-// takes 2.02 ms ("bf16x3") and 2.04 ms ("mixed") at 65,536 bodies with tile
-// 512 (2.83 and 2.80 for the first kernel, whose loop had 35.8 instructions a
-// pair; this one's has 21.3), 1.66 times the 1.22 ms the card needs to issue
-// 19 instructions a pair at 1,980 MHz; the f32 kernel takes 1.75 ms.
+// takes 1.97 ms ("bf16x3") and 1.98 ms ("mixed") of device time at 65,536
+// bodies with tile 512, 2.09 ms a call with the slots' sum (2.83 and 2.80
+// for the first kernel, whose loop had 35.8 instructions a pair; this one's
+// has 21.2), 1.62 times the 1.22 ms the card needs to issue 19 instructions
+// a pair at 1,980 MHz; the f32 kernel takes 1.75 ms.
 //
 // Design. One block of `warps` warps takes one tile pair (i, j) of the
 // staggered coverage; the column tile sits in shared memory. A warp owns
@@ -70,14 +71,20 @@
 //     0.3) and 4 % slower, so the sums stay in the tensor cores' accumulators.
 // Each warp keeps its column sums in its own shared-memory row of the tile
 // (no atomics a pair); at the end the block sums the warps' rows in a fixed
-// order, assembles the reaction, and adds its row actions and column
-// reactions into the zeroed output with global atomicAdd.
+// order and assembles the reaction.
+//
+// The output in a fixed order, with no atomics, as in symmetric.cu: the
+// block stores its row actions into slot j of tile i and its column
+// reactions into slot i of tile j of the caller's (K, N, 3) scratch (slot u
+// of tile t: the force on tile t from tile u); on s = 0 both land in slot i
+// of tile i, the action first. A row chunk belongs to one warp, so each row's
+// action is stored once a block, after the shuffle sum over its 8 lanes; a
+// column's reaction once, after the warps' sum. symmetric_sum_kernel
+// (symmetric.cu) then adds each body's K slots in slot order, so every
+// launch gives the same bits.
 //
 // No wgmma, TMA or warp specialisation: the tensor cores are not what
 // bounds this kernel, the pair arithmetic is.
-//
-// Global atomics make the order of the final sums change from run to run,
-// so the result is not bitwise reproducible.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -265,9 +272,9 @@ __device__ __forceinline__ void tile_pass(const float4* __restrict__ rows,
       const float sz = warp_sum_xor(az[k], 4, 16);
       if (g == 0) {
         float* o = row_out + 3 * ra[k];
-        atomicAdd(o + 0, sx);
-        atomicAdd(o + 1, sy);
-        atomicAdd(o + 2, sz);
+        o[0] = sx;
+        o[1] = sy;
+        o[2] = sz;
       }
     }
   }
@@ -277,7 +284,7 @@ template <int kStep>
 __global__ void __launch_bounds__(32 * kMaxWarps)
 symmetric_bf16x3_kernel(const float4* __restrict__ body,
                         const float4* __restrict__ centers, int k_tiles,
-                        int tile, int near_s, float* __restrict__ out,
+                        int tile, int near_s, float* __restrict__ slots,
                         float c2, float eps2) {
   extern __shared__ float4 smem[];
   float4* col = smem;          // (tile) column bodies: x y z m'
@@ -301,7 +308,9 @@ symmetric_bf16x3_kernel(const float4* __restrict__ body,
   const float4 ci = centers[i];
   const float4* rows = body + i * tile;
   float4* mine = part + w * tile;
-  float* row_out = out + 3 * (i * tile);
+  // Slot u of tile t is slots[u][t * tile .. (t + 1) * tile][3].
+  const size_t n3 = static_cast<size_t>(3) * k_tiles * tile;
+  float* row_out = slots + j * n3 + 3 * (i * tile);   // tile i, slot j: the action
   // The tile loop's form is the block's, chosen once.
   if (s == 0) {
     if (fast)
@@ -315,7 +324,10 @@ symmetric_bf16x3_kernel(const float4* __restrict__ body,
   }
   __syncthreads();
 
-  // The column tile's reaction: the warps' sums in a fixed order.
+  // The column tile's reaction: the warps' sums in a fixed order. On s = 0
+  // the slot is row_out, which holds this block's actions: the stores
+  // above are visible to every thread of the block after __syncthreads.
+  float* col_out = slots + i * n3 + 3 * (j * tile);   // tile j, slot i: the reaction
   for (int q = threadIdx.x; q < tile; q += threads) {
     float4 S = part[q];
     for (int v = 1; v < warps; ++v) {
@@ -332,16 +344,22 @@ symmetric_bf16x3_kernel(const float4* __restrict__ body,
       ry = S.y - (o.y - ci.y) * S.w;
       rz = S.z - (o.z - ci.z) * S.w;
     }
-    float* o = out + 3 * (j * tile + q);
-    atomicAdd(o + 0, rx);
-    atomicAdd(o + 1, ry);
-    atomicAdd(o + 2, rz);
+    float* o = col_out + 3 * q;
+    if (s == 0) {
+      o[0] += rx;
+      o[1] += ry;
+      o[2] += rz;
+    } else {
+      o[0] = rx;
+      o[1] = ry;
+      o[2] = rz;
+    }
   }
 }
 
 template <int kStep>
 int launch(unsigned blocks, int warps, size_t shmem, cudaStream_t s, const float4* body,
-           const float4* centers, int k, int tile, int near_s, float* out, float c2,
+           const float4* centers, int k, int tile, int near_s, float* slots, float c2,
            float eps2) {
   if (shmem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -350,23 +368,28 @@ int launch(unsigned blocks, int warps, size_t shmem, cudaStream_t s, const float
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   symmetric_bf16x3_kernel<kStep><<<blocks, 32 * warps, shmem, s>>>(
-      body, centers, k, tile, near_s, out, c2, eps2);
+      body, centers, k, tile, near_s, slots, c2, eps2);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
+
+// symmetric.cu: the slots' sum in slot order.
+extern "C" int nbody_symmetric_sum(const float* slots, int k, int n3, float* out,
+                                   void* stream);
 
 // body: (n, 4) float32 rows (x, y, z, G c^3 m); centers: (n / tile, 4)
 // float32, each tile's mean position (w unused); tile a multiple of 64 up to
 // 2048 that divides n; diagonals s <= near_s take the f32 reaction. The
 // block's shape (FAST_SHAPE in ops/cuda_symmetric.py): `warps` warps of
 // 1 to 8 whose column sums fit shared memory, `step` in {1, 2, 4} column
-// strips a step. out: (n, 3) float32, zeroed by the caller. Launches on
-// `stream`; returns cudaGetLastError().
+// strips a step. slots: (n / tile, n, 3) float32 scratch; out: (n, 3)
+// float32, which need not be zeroed. Launches the kernel and the slots' sum
+// on `stream`; returns cudaGetLastError().
 extern "C" int nbody_symmetric_bf16x3(const float* body, int n, int tile,
                                       const float* centers, int near_s, int warps,
-                                      int step, float* out, float c2, float eps2,
-                                      void* stream) {
+                                      int step, float* slots, float* out, float c2,
+                                      float eps2, void* stream) {
   if (n <= 0) return 0;
   if (tile <= 0 || tile % 64 || tile > kMaxTile || n % tile || warps < 1 ||
       warps > kMaxWarps)
@@ -378,10 +401,19 @@ extern "C" int nbody_symmetric_bf16x3(const float* body, int n, int tile,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float4* b4 = reinterpret_cast<const float4*>(body);
   const float4* c4 = reinterpret_cast<const float4*>(centers);
+  int rc;
   switch (step) {
-    case 1: return launch<1>(blocks, warps, shmem, s, b4, c4, k, tile, near_s, out, c2, eps2);
-    case 2: return launch<2>(blocks, warps, shmem, s, b4, c4, k, tile, near_s, out, c2, eps2);
-    case 4: return launch<4>(blocks, warps, shmem, s, b4, c4, k, tile, near_s, out, c2, eps2);
+    case 1:
+      rc = launch<1>(blocks, warps, shmem, s, b4, c4, k, tile, near_s, slots, c2, eps2);
+      break;
+    case 2:
+      rc = launch<2>(blocks, warps, shmem, s, b4, c4, k, tile, near_s, slots, c2, eps2);
+      break;
+    case 4:
+      rc = launch<4>(blocks, warps, shmem, s, b4, c4, k, tile, near_s, slots, c2, eps2);
+      break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (rc != 0) return rc;
+  return nbody_symmetric_sum(slots, k, 3 * n, out, stream);
 }

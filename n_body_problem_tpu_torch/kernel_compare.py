@@ -9,13 +9,17 @@ field and near-panel kernel.
         [--fast-small 512:64,448:64,1024:512]
         [--near 65536,524288,20480f,65536f,20480t] [--vip 65536,524288,20480t]
         [--far 65536,524288,20480t] [--far-single 65536f,20480d,2560f]
-        [--near-panel 20480d,1024d] [--cap 524288,1048576] [--json PATH]
+        [--near-panel 20480d,1024d] [--cap 524288,1048576]
+        [--divergence 65536:200,1000] [--json PATH]
 
 For each size the symmetric f32 kernel is timed beside the all-pairs kernel
 and held against it, the all-pairs kernel is run twice for bitwise equality,
 and the bf16x3/mixed kernel is timed in both modes (tile 512; and at the
 small ``N:tile`` shapes of ``--fast-small``) and held against its twin (up to
-65,536 bodies) and the f32 kernel. Each block case
+65,536 bodies) and the f32 kernel. Both symmetric kernels are run twice for
+bitwise equality (``repeatable``) and carry their slots' bytes
+(``slot_bytes``) and, from a ``torch.profiler`` trace, the device ms of the
+pair kernel and of the slots' sum (``by_kernel_ms``, ``sum_share``). Each block case
 ``NIxNJ`` is the all-pairs kernel's block form: NI rows sampled from a
 Plummer sphere of NJ bodies (the treecode error probe's shape) or, with NI a
 fourth of NJ or more, its first NI bodies (a ring step's shape). For each
@@ -35,7 +39,8 @@ table's bound (``bound_ms``: operations over the peak rates) and the issue
 floor (``issue_floor_ms``: the instruction slots a pair needs over the
 multiprocessors' issue rate at the SM clock ``nvidia-smi`` shows during the
 run). ``--cap`` times the symmetric f32 and the all-pairs kernel once each at
-sizes above ``auto``'s switch, with the peak device memory of each call.
+sizes above ``auto``'s switch, with the peak device memory of each call and
+whether two symmetric launches are bitwise equal.
 
 Before the cases, the registers and spills ``ptxas`` reported for the four
 sources, and the instructions a pair of each kernel's inner loops counted in
@@ -51,8 +56,18 @@ one's two turns, ``device_ms`` and ``previous_device_ms`` the same for the
 device time of the kernels alone (a ``torch.profiler`` trace: where the
 host enqueues a call more slowly than the card runs it, as the VIP sweep
 and the far field below 524,288 bodies, the events time the host), and
-``max_abs_vs_before`` the largest difference of the two outputs. Each checkout builds its own kernels; only the wrappers' public
-signatures have to agree.
+``max_abs_vs_before`` the largest difference of the two outputs, and
+``differ_a_repeat`` / ``previous_differ_a_repeat`` how many output rows
+(elements, for the VIP sweep's pair) two launches in a row of each
+checkout's kernel left different (0 for a repeatable kernel). Each checkout
+builds its own kernels; only the wrappers' public signatures have to agree.
+
+``--divergence N:S1,S2`` runs, in a process of this checkout (and of
+``--before``'s), two ``Simulation(SimConfig(integrator="leapfrog"))`` of a
+Plummer sphere of N bodies (seed 0; ``auto``: the symmetric f32 kernel) from
+the same state and reports, after S1 and S2 steps, the largest |difference|
+of their positions and how many bodies differ: what a kernel whose sums
+change order from launch to launch does to a chaotic run.
 
 ``--sweep`` also times the near kernel over block sizes, stage sizes and
 targets a block, the all-pairs kernel over parts and pieces, the
@@ -146,9 +161,12 @@ fns = {"symmetric": cuda_symmetric.symmetric_acc, "near": cuda_treecode.near_fie
 rows = []
 for case in torch.load(sys.argv[1], map_location="cuda", weights_only=False):
     fn = lambda: fns[case["kernel"]](*case["args"], **case["kw"])
-    out = fn()
+    out, again = fn(), fn()
     if isinstance(out, tuple):   # the VIP sweep: action, reaction
-        out = torch.cat([o.reshape(-1) for o in out])
+        out, again = (torch.cat([o.reshape(-1) for o in x]) for x in (out, again))
+    differ = out != again
+    differ = int((differ.reshape(differ.shape[0], -1).any(1) if differ.dim() > 1
+                  else differ).sum())
     torch.cuda.synchronize()
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     start.record()
@@ -162,8 +180,26 @@ for case in torch.load(sys.argv[1], map_location="cuda", weights_only=False):
         torch.cuda.synchronize()
     device_us = sum(e.device_time_total for e in prof.key_averages())
     rows.append({"ms": start.elapsed_time(end) / case["reps"], "out": out.cpu(),
-                 "device_ms": device_us / 1e3 / case["reps"]})
+                 "device_ms": device_us / 1e3 / case["reps"], "differ": differ})
 torch.save(rows, sys.argv[2])
+"""
+# What a process of either checkout runs for --divergence: argv = N, steps.
+DIVERGE = """
+import json, sys, torch
+import n_body_problem_tpu_torch as nb
+n, marks = int(sys.argv[1]), [int(x) for x in sys.argv[2].split(",")]
+sims = [nb.Simulation(nb.SimConfig(integrator="leapfrog"), nb.models.plummer(n, seed=0),
+                      device="cuda") for _ in range(2)]
+assert sims[0].solver == "pallas_symmetric", sims[0].solver
+out, done = {"n": n, "solver": sims[0].solver}, 0
+for mark in marks:
+    for sim in sims:
+        sim.run(mark - done)
+    done = mark
+    d = (sims[0].state.pos - sims[1].state.pos)[: sims[0].state.n_real]
+    out[str(mark)] = {"max_abs_dpos": float(d.abs().max()),
+                      "bodies_differ": int((d != 0).any(1).sum())}
+print(json.dumps(out))
 """
 
 
@@ -494,13 +530,28 @@ def symmetric_row(case: dict) -> dict:
     want, got = allpairs(), kernel()
     torch.cuda.synchronize()
     pairs = n * (n - 1) / 2
+    repeatable = bool(torch.equal(got, kernel()))
     allpairs_ms, ms = time_ms(allpairs, case["reps"]), time_ms(kernel, case["reps"])
     clock = sm_clock_mhz()   # just after the load
+    n_pad = -(-n // cuda_symmetric.KERNEL_TILE) * cuda_symmetric.KERNEL_TILE
     return {"n": n, "allpairs_ms": allpairs_ms, "ms": ms,
             "max_rel_vs_allpairs": float(_rel(got, want).max()),
             "momentum": float((mass[:, None] * got).sum(0).abs().max()),
+            "repeatable": repeatable, **slot_record(
+                kernel, case["reps"], cuda_symmetric.slot_bytes(n_pad, cuda_symmetric.KERNEL_TILE)),
             "clock_mhz": clock, "bound_ms": PAIR_BOTH_FLOPS * pairs / PEAK_FLOPS * 1e3,
             "issue_floor_ms": issue_floor_ms(pairs, PAIR_BOTH_SLOTS, clock)}
+
+
+def slot_record(kernel, reps: int, slot_bytes: int) -> dict:
+    """A symmetric kernel's slots: their bytes, the least time the card
+    needs to write and read them once, and the device ms of each kernel of
+    a call (the pair kernel, the slots' sum) from the profiler, with the
+    sum's share of the two."""
+    by = kernel_ms(kernel, reps)
+    return {"by_kernel_ms": by,
+            "sum_share": by.get("symmetric_sum_kernel", 0.0) / sum(by.values()),
+            "slot_bytes": slot_bytes, "slot_bytes_ms": 2 * slot_bytes / PEAK_BYTES * 1e3}
 
 
 def allpairs_row(case: dict, sweep: bool) -> dict:
@@ -556,7 +607,8 @@ def fast_row(case: dict, sweep: bool) -> dict:
     got = kernel()
     torch.cuda.synchronize()
     row = {"case": case["label"], "n": n, "tile": tile, "precision": prec,
-           "p99_vs_f32": float(torch.quantile(_rel(got, f32)[:: max(1, n // 65536)], 0.99))}
+           "p99_vs_f32": float(torch.quantile(_rel(got, f32)[:: max(1, n // 65536)], 0.99)),
+           "repeatable": bool(torch.equal(got, kernel()))}
     if n <= 65536:
         twin = cs.symmetric_acc_plain(pos, mass, **kw)
         f32_twin = cs.symmetric_acc_plain(pos, mass, tile=tile, **PHYS)
@@ -567,6 +619,7 @@ def fast_row(case: dict, sweep: bool) -> dict:
     row["ms"] = time_ms(kernel, case["reps"])
     row["f32_ms"] = time_ms(lambda: cs.symmetric_acc(pos, mass, tile=tile, **PHYS),
                             case["reps"])
+    row.update(slot_record(kernel, case["reps"], cs.slot_bytes(n, tile)))
     clock = sm_clock_mhz()
     row.update(clock_mhz=clock, issue_floor_ms=fast_issue_floor_ms(n, tile, prec, clock),
                **fast_bound(n, tile, prec))
@@ -724,7 +777,9 @@ def tree_sweep(key: str) -> tuple[tuple[str, ...], list]:
 
 def cap_row(n: int) -> dict:
     """The symmetric f32 and the all-pairs kernel once each at ``n`` bodies
-    (above ``auto``'s switch), with the peak device memory of each call."""
+    (above ``auto``'s switch), with the peak device memory of each call
+    beyond what was allocated before it, the symmetric kernel's slot bytes,
+    and whether its launches repeat bitwise."""
     from n_body_problem_tpu_torch.ops import cuda_force, cuda_symmetric
     from n_body_problem_tpu_torch.treecode_profile import time_ms
 
@@ -741,8 +796,19 @@ def cap_row(n: int) -> dict:
         row[f"{key}_ms"] = time_ms(fn, 1)
         row[f"{key}_peak_bytes"] = torch.cuda.max_memory_allocated() - base
         outs[key] = fn()
+        if key == "symmetric":
+            row["symmetric_repeatable"] = bool(torch.equal(outs[key], fn()))
+            row["symmetric_slot_bytes"] = cuda_symmetric.slot_bytes(
+                n, cuda_symmetric.KERNEL_TILE)
     row["max_rel_between"] = float(_rel(outs["symmetric"], outs["allpairs"]).max())
     return row
+
+
+def divergence(root: pathlib.Path, n: int, steps: str) -> dict:
+    """``DIVERGE`` in a process of the checkout at ``root``."""
+    out = subprocess.run([sys.executable, "-c", DIVERGE, str(n), steps], cwd=root,
+                         check=True, capture_output=True, text=True).stdout
+    return json.loads(out.strip().splitlines()[-1])
 
 
 def in_turns(cases: list[dict], rows: list[dict], before: pathlib.Path) -> None:
@@ -768,6 +834,8 @@ def in_turns(cases: list[dict], rows: list[dict], before: pathlib.Path) -> None:
         row["turns_device_ms"] = [b1["device_ms"], a1["device_ms"], a2["device_ms"],
                                   b2["device_ms"]]
         row["max_abs_vs_before"] = float((a1["out"] - b1["out"]).abs().max())
+        row["differ_a_repeat"] = [a1["differ"], a2["differ"]]
+        row["previous_differ_a_repeat"] = [b1["differ"], b2["differ"]]
         row["allclose_before"] = bool(torch.allclose(a1["out"], b1["out"], rtol=1e-4, atol=2e-6))
 
 
@@ -785,6 +853,8 @@ def main(argv=None) -> int:
     ap.add_argument("--far-single", default="65536f,20480d,2560f")
     ap.add_argument("--near-panel", default="20480d,1024d")
     ap.add_argument("--cap", default="")
+    ap.add_argument("--divergence", default="",
+                    help="N:S1,S2 - two leapfrog runs of auto from one state, in each checkout")
     ap.add_argument("--json", type=pathlib.Path, default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -838,13 +908,21 @@ def main(argv=None) -> int:
             print(f"{case['kernel']} {case['label']}: ms {row['ms']:.4f} previous_ms "
                   f"{row['previous_ms']:.4f} turns {row['turns_ms']} device_ms "
                   f"{row['device_ms']:.4f} previous_device_ms {row['previous_device_ms']:.4f} "
-                  f"turns {row['turns_device_ms']} max |d| {row['max_abs_vs_before']:.3e}",
-                  flush=True)
+                  f"turns {row['turns_device_ms']} max |d| {row['max_abs_vs_before']:.3e} "
+                  f"differ a repeat {row['differ_a_repeat']} previous "
+                  f"{row['previous_differ_a_repeat']}", flush=True)
     del cases
     torch.cuda.empty_cache()
     record["cap"] = [cap_row(int(n)) for n in filter(None, args.cap.split(","))]
     for row in record["cap"]:
         print("cap " + json.dumps(row), flush=True)
+    if args.divergence:
+        n, steps = args.divergence.split(":")
+        here = pathlib.Path(__file__).resolve().parent.parent
+        record["divergence"] = {"this": divergence(here, int(n), steps)}
+        if args.before:
+            record["divergence"]["before"] = divergence(args.before.resolve(), int(n), steps)
+        print("divergence " + json.dumps(record["divergence"]), flush=True)
     record["sass"] = sass
     record["device"] = torch.cuda.get_device_name(0)
     record["nvidia_smi"] = subprocess.run(

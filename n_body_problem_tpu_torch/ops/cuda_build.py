@@ -47,11 +47,11 @@ _SIGNATURES = {
     # (pos_i, ni, cols4, nj, parts, stages_a_piece, pieces, partial, out, c2,
     #  eps2, stream) -> cudaError_t
     "nbody_allpairs_acc": ((_P, _I, _P, _I, _I, _I, _I, _P, _P, _F, _F, _P), _I),
-    # (body4, n, out, c2, eps2, stream) -> cudaError_t
-    "nbody_symmetric_acc": ((_P, _I, _P, _F, _F, _P), _I),
-    # (body4, n, tile, centers4, near_s, warps, step, out, c2, eps2, stream)
-    #  -> cudaError_t
-    "nbody_symmetric_bf16x3": ((_P, _I, _I, _P, _I, _I, _I, _P, _F, _F, _P), _I),
+    # (body4, n, slots, out, c2, eps2, stream) -> cudaError_t
+    "nbody_symmetric_acc": ((_P, _I, _P, _P, _F, _F, _P), _I),
+    # (body4, n, tile, centers4, near_s, warps, step, slots, out, c2, eps2,
+    #  stream) -> cudaError_t
+    "nbody_symmetric_bf16x3": ((_P, _I, _I, _P, _I, _I, _I, _P, _P, _F, _F, _P), _I),
     # (targets4, n_t, sources4, n_s, tile, sub, src_tile, entries, parts, piece,
     #  flat_src, chunk_tgt, n_chunks, out, c2, eps2, stream) -> cudaError_t
     "nbody_near_field": ((_P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _I, _P, _F, _F,

@@ -29,9 +29,13 @@ caller names (the f32 sum does not depend on the tiling beyond rounding):
 a block takes one row tile on one diagonal, and :func:`symmetric_blocks`
 and :func:`block_tiles` say which, in the kernel's integer arithmetic.
 
-The kernels add their blocks' sums with atomics, so the order of the sums,
-and their last bits, change from run to run: compare them by tolerance,
-never bitwise.
+The output in a fixed order: no kernel adds with atomics. Each block
+stores its sums into slots, (K, N, 3) scratch in which slot ``u`` of tile
+``t`` holds the force on tile ``t``'s bodies from tile ``u``'s
+(:func:`symmetric_slots`), and a second kernel adds each body's K slots in
+slot order. So every launch gives the same bits, and the twins fill the same
+slots and sum them in the same order (:func:`sum_slots`). The scratch is
+:func:`slot_bytes`: 24 K N bytes, written once and read once.
 """
 
 from __future__ import annotations
@@ -55,6 +59,8 @@ FAST_MAX_SHARED = 227 * 1024   # a block's shared memory on an H100
 # other shapes it takes.
 FAST_SHAPE = (4, 2)
 FAST_SHAPES = ((4, 1), (4, 2), (4, 4), (8, 1), (8, 2), (8, 4), (2, 2))
+# Kernels a wrapper launches a call: the pair kernel and the slots' sum.
+LAUNCHES_A_CALL = 2
 
 
 def near_diagonals(k: int, precision: str) -> int:
@@ -79,9 +85,31 @@ def split_bf16(a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return hi, (a - hi).to(torch.bfloat16).to(a.dtype)
 
 
+def _put_slots(slots, i, j, s, action, reaction) -> None:
+    """Block (i, s)'s stores: the action into slot ``j`` of tile ``i``, the
+    reaction into slot ``i`` of tile ``j``; on ``s = 0`` one slot, action +
+    reaction (:func:`symmetric_slots`)."""
+    if s == 0:
+        slots[i, i] = action + reaction
+    else:
+        slots[i, j] = action
+        slots[j, i] = reaction
+
+
+def sum_slots(slots: torch.Tensor) -> torch.Tensor:
+    """(K * T, 3): each body's K slots (``slots`` is (K, K, T, 3), slot ``u``
+    of tile ``t`` at ``[t, u]``) added in slot order, as
+    ``symmetric_sum_kernel`` adds them."""
+    acc = slots[:, 0].clone()
+    for u in range(1, slots.shape[1]):
+        acc += slots[:, u]
+    return acc.reshape(-1, 3)
+
+
 def _panel_acc_plain(pos, mass, *, eps2, compensate, G, tile, precision):
     """The fast modes' arithmetic, one diagonal at a time, batched over row
-    tiles: exact action, panel reaction (bf16x3 on ``s > near_s``)."""
+    tiles: exact action, panel reaction (bf16x3 on ``s > near_s``), into the
+    kernel's slots."""
     n = pos.shape[0]
     k = n // tile
     c2 = compensate * compensate
@@ -92,7 +120,7 @@ def _panel_acc_plain(pos, mass, *, eps2, compensate, G, tile, precision):
     rows1_t = rows1.transpose(1, 2)                        # (K, 4, T)
     rows1_hi, rows1_lo = split_bf16(rows1_t)
     near_s = near_diagonals(k, precision)
-    acc = torch.zeros((k, tile, 3), dtype=pos.dtype, device=pos.device)
+    slots = pos.new_empty((k, k, tile, 3))
     s_max = k // 2
     rid = torch.arange(tile, device=pos.device)
     upper = (rid[None, :] > rid[:, None]).to(pos.dtype)   # (row, col) strict upper
@@ -117,9 +145,8 @@ def _panel_acc_plain(pos, mass, *, eps2, compensate, G, tile, precision):
             s_col = rows1_t[i] @ b_w
         s_col = s_col.transpose(1, 2)                     # (A, col, 4)
         reaction = s_col[..., :3] - (p[j] - centers[i][:, None, :]) * s_col[..., 3:]
-        acc.index_add_(0, i, action)
-        acc.index_add_(0, j, reaction)
-    return acc.reshape(n, 3)
+        _put_slots(slots, i, j, s, action, reaction)
+    return sum_slots(slots)
 
 
 def symmetric_acc_plain(
@@ -133,7 +160,8 @@ def symmetric_acc_plain(
     precision: str = "f32",
 ) -> torch.Tensor:
     """acc (N, 3) from N (N - 1) / 2 pair evaluations in the staggered
-    coverage, one diagonal ``s`` at a time, batched over row tiles.
+    coverage, one diagonal ``s`` at a time, batched over row tiles, stored
+    into the kernels' slots and summed in slot order.
 
     ``"f32"`` sums the reaction directly (``-sum m_i' u d``), as
     ``csrc/symmetric.cu`` does; ``"bf16x3"`` and ``"mixed"`` follow the TPU
@@ -146,7 +174,7 @@ def symmetric_acc_plain(
     c2 = compensate * compensate
     p = pos.reshape(k, tile, 3)
     m = (mass * (G * c2 * compensate)).reshape(k, tile)
-    acc = torch.zeros((k, tile, 3), dtype=pos.dtype, device=pos.device)
+    slots = pos.new_empty((k, k, tile, 3))
     even_k = k % 2 == 0
     s_max = k // 2
     rid = torch.arange(tile, device=pos.device)
@@ -163,9 +191,8 @@ def symmetric_acc_plain(
             u = u * upper
         action = torch.sum((m[j][:, None, :] * u)[..., None] * d, dim=2)
         reaction = -torch.sum((m[i][:, :, None] * u)[..., None] * d, dim=1)
-        acc.index_add_(0, i, action)
-        acc.index_add_(0, j, reaction)
-    return acc.reshape(n, 3)
+        _put_slots(slots, i, j, s, action, reaction)
+    return sum_slots(slots)
 
 
 def symmetric_blocks(k: int) -> int:
@@ -186,6 +213,27 @@ def block_tiles(k: int, b: int) -> tuple[int, int, int] | None:
     if k % 2 == 0 and s == k // 2 and i >= s:
         return None
     return i, s, (i + s) % k
+
+
+def symmetric_slots(k: int, b: int) -> tuple[tuple[int, int], tuple[int, int]] | None:
+    """``((i, j), (j, i))``: the (tile, slot) block ``b`` stores its action
+    into and the (tile, slot) it stores its reaction into, when N is ``k``
+    tiles; the kernels' integer arithmetic. Slot ``u`` of tile ``t`` holds
+    the force on tile ``t``'s bodies from tile ``u``'s, so each of the K^2
+    slots has exactly one writer; on ``s = 0`` (``i == j``) the block stores
+    action + reaction into the one slot. ``None`` for a block that does
+    nothing (:func:`block_tiles`): it leaves no slot empty."""
+    tiles = block_tiles(k, b)
+    if tiles is None:
+        return None
+    i, _, j = tiles
+    return (i, j), (j, i)
+
+
+def slot_bytes(n: int, tile: int) -> int:
+    """Bytes of a call's slots: (N / tile, N, 3) float32 (N as the kernel
+    sees it, padded to its tile)."""
+    return (n // tile) * n * 12
 
 
 def _bodies(pos, mass, *, compensate, G) -> torch.Tensor:
@@ -215,13 +263,14 @@ def _launch(pos, mass, *, eps2, compensate, G) -> torch.Tensor:
     n_pad = body.shape[0]
     if n_pad > cuda_build.MAX_BODIES:
         raise ValueError(f"symmetric_acc: at most {cuda_build.MAX_BODIES} bodies")
-    out = torch.zeros((n_pad, 3), dtype=torch.float32, device=dev)
+    slots = torch.empty((n_pad // KERNEL_TILE, n_pad, 3), dtype=torch.float32, device=dev)
+    out = torch.empty((n_pad, 3), dtype=torch.float32, device=dev)
     lib = cuda_build.load_library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.nbody_symmetric_acc(body.data_ptr(), n_pad, out.data_ptr(),
+        rc = lib.nbody_symmetric_acc(body.data_ptr(), n_pad, slots.data_ptr(), out.data_ptr(),
                                      compensate * compensate, eps2, stream)
-        symmetric_acc.launches += 1
+        symmetric_acc.launches += LAUNCHES_A_CALL
     cuda_build.check(rc, "symmetric_acc_kernel")
     return out[:n]
 
@@ -242,15 +291,16 @@ def _launch_bf16x3(pos, mass, *, eps2, compensate, G, tile, precision) -> torch.
     warps, step = FAST_SHAPE
     body = _bodies(pos, mass, compensate=compensate, G=G)
     centers = torch.cat([tile_centers(pos, tile), pos.new_zeros((k, 1))], dim=1)
-    out = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+    slots = torch.empty((k, n, 3), dtype=torch.float32, device=dev)
+    out = torch.empty((n, 3), dtype=torch.float32, device=dev)
     lib = cuda_build.load_library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.nbody_symmetric_bf16x3(body.data_ptr(), n, tile, centers.data_ptr(),
                                         near_diagonals(k, precision), warps, step,
-                                        out.data_ptr(), compensate * compensate, eps2,
-                                        stream)
-        symmetric_acc_bf16x3.launches += 1
+                                        slots.data_ptr(), out.data_ptr(),
+                                        compensate * compensate, eps2, stream)
+        symmetric_acc_bf16x3.launches += LAUNCHES_A_CALL
     cuda_build.check(rc, "symmetric_bf16x3_kernel")
     return out
 
@@ -277,7 +327,8 @@ def symmetric_acc_bf16x3(
     (``tile`` a multiple of 64 up to 2,048, ``eps2`` a normal float32); on a
     CPU tensor the plain twin.
 
-    ``symmetric_acc_bf16x3.launches`` counts the kernel's launches.
+    ``symmetric_acc_bf16x3.launches`` counts the kernel's launches and the
+    slots' sum's (:data:`LAUNCHES_A_CALL` a call).
     """
     _check_args("symmetric_acc_bf16x3", pos.shape[0], tile, precision, PRECISIONS[1:])
     kw = dict(eps2=eps2, compensate=compensate, G=G, tile=tile, precision=precision)
@@ -308,7 +359,8 @@ def symmetric_acc(
     :data:`KERNEL_TILE` and pads to it; the fast modes go to
     :func:`symmetric_acc_bf16x3`.
 
-    ``symmetric_acc.launches`` counts the f32 kernel's launches.
+    ``symmetric_acc.launches`` counts the f32 kernel's launches and the
+    slots' sum's (:data:`LAUNCHES_A_CALL` a call).
     """
     _check_args("symmetric_acc", pos.shape[0], tile, precision, PRECISIONS)
     kw = dict(eps2=eps2, compensate=compensate, G=G)

@@ -5,8 +5,11 @@ reference's first working solver, ``project_develop_code.cu:657-861``):
 every pair force of the strict upper triangle is written to a length
 N(N-1)/2 array, then each body's row and column are reduced and divided by
 its mass. The JAX version is plain ``jnp`` with no Pallas kernel, and so is
-this one: ``torch.triu_indices`` for the pair enumeration and ``index_add_``
-for ``segment_sum``. It runs on either device.
+this one: ``torch.triu_indices`` for the pair enumeration and
+``index_put_(accumulate=True)`` for ``segment_sum``. It runs on either
+device, and on both it gives the same bits every run: ``index_put_`` sorts
+its indices before it adds, where ``index_add_`` on the card adds with
+atomics in whatever order the threads run.
 
 It exists as the perf-history foil, not a production path: it moves
 N(N-1)/2 pair forces through device memory where the kernels touch O(N).
@@ -53,8 +56,10 @@ def pair_matrix_acc(
     f = (gc3 * mass[iu] * mass[ju] * inv * inv * inv)[:, None] * d
 
     # Force on i is the sum over its row, on j the reaction.
-    acc_i = torch.zeros((n, 3), dtype=pos.dtype, device=pos.device).index_add_(0, iu, f)
-    acc_j = torch.zeros((n, 3), dtype=pos.dtype, device=pos.device).index_add_(0, ju, f)
+    acc_i = torch.zeros((n, 3), dtype=pos.dtype, device=pos.device).index_put_(
+        (iu,), f, accumulate=True)
+    acc_j = torch.zeros((n, 3), dtype=pos.dtype, device=pos.device).index_put_(
+        (ju,), f, accumulate=True)
     force = acc_i - acc_j
     safe = torch.where(mass > 0, mass, torch.ones_like(mass))
     return torch.where(mass[:, None] > 0, force / safe[:, None], torch.zeros_like(force))

@@ -101,6 +101,8 @@ def test_symmetric_kernel_matches_plain(cuda, n, n_real):
     want = cuda_symmetric.symmetric_acc_plain(pos, mass, tile=128, **PHYS)
     torch.testing.assert_close(got, want, **TOL)
     assert float((mass[:, None] * got).sum(0).abs().max()) < 1e-6
+    again = cuda_symmetric.symmetric_acc(pos, mass, tile=128, **PHYS)
+    assert torch.equal(got, again)   # slots summed in slot order, no atomics
 
 
 # (N, real N) at the kernel's own 512-body tile: K = 1 (the triangle alone),
@@ -118,6 +120,7 @@ def test_symmetric_kernel_matches_plain_at_its_tile(cuda, n, n_real):
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, **TOL)
     assert float((mass[:, None] * got).sum(0).abs().max()) < 1e-6
+    assert torch.equal(got, cuda_symmetric.symmetric_acc(pos, mass, tile=512, **PHYS))
 
 
 # The bare rsqrt instruction of every pair and term kernel (all-pairs, the
@@ -202,7 +205,9 @@ def test_wrappers_count_launches(cuda):
     cuda_symmetric.symmetric_acc(pos, mass, tile=128, precision="mixed", **PHYS)
     cuda_symmetric.symmetric_acc(pos, mass, tile=128, precision="bf16x3", **PHYS)
     torch.cuda.synchronize()
-    assert [f.launches - b for f, b in zip(fns, before)] == [1, 1, 2]
+    # the symmetric kernels' calls: the pair kernel and the slots' sum each
+    sym = cuda_symmetric.LAUNCHES_A_CALL
+    assert [f.launches - b for f, b in zip(fns, before)] == [1, sym, 2 * sym]
 
 
 def test_kernel_wrappers_reject_what_the_kernels_do_not_take(cuda):
@@ -250,12 +255,12 @@ def test_bf16x3_kernel_matches_plain(cuda, n, n_real, tile, precision):
         torch.testing.assert_close(got, f32, **TOL)
     else:
         assert float((got - want).norm() / (want - f32).norm()) <= 0.3
+    assert torch.equal(got, cuda_symmetric.symmetric_acc(pos, mass, precision=precision, **kw))
 
 
 def test_simulation_on_card_matches_cpu(cuda):
-    # Same bodies and steps; the card's sums run in another order (and with
-    # atomics for the symmetric kernels), so positions agree to float32
-    # rounding grown over 5 steps.
+    # Same bodies and steps; the card's sums run in another order, so
+    # positions agree to float32 rounding grown over 5 steps.
     for solver, precision in (("pallas", "f32"), ("pallas_symmetric", "f32"),
                               ("pallas_symmetric", "bf16x3"), ("pallas_symmetric", "mixed"),
                               ("pair_matrix", "f32")):
@@ -908,13 +913,13 @@ def test_graph_counters_count_replays(cuda, overrides):
 
 
 def test_exact_graph_run_matches_the_eager_loop(cuda):
-    """Kernel 1 bitwise after 12 steps; kernel 2 (atomics) within
-    rtol=1e-4, atol=2e-6 after one step; one launch a step each."""
+    """Kernels 1 and 2 bitwise after 12 steps, the launches a step each
+    call makes."""
     from n_body_problem_tpu_torch.graphs import clone_state
     from n_body_problem_tpu_torch.simulation import make_step_fn, run_steps
 
     for solver, steps, wrapper in (("pallas", 12, cuda_force.block_acc),
-                                   ("pallas_symmetric", 1, cuda_symmetric.symmetric_acc)):
+                                   ("pallas_symmetric", 12, cuda_symmetric.symmetric_acc)):
         sim = tnb.Simulation(tnb.SimConfig(solver=solver), tnb.models.plummer(4096, seed=2),
                              device=cuda)
         want = run_steps(clone_state(sim.state), make_step_fn(sim.cfg, "cuda", sim.state.n),
@@ -922,13 +927,39 @@ def test_exact_graph_run_matches_the_eager_loop(cuda):
         before = wrapper.launches
         got = sim.run(steps)
         a_step = (2 if cuda_force.allpairs_split(sim.state.n, sim.state.n)[2] > 1 else 1
-                  ) if solver == "pallas" else 1
+                  ) if solver == "pallas" else cuda_symmetric.LAUNCHES_A_CALL
         assert wrapper.launches - before == steps * a_step
-        if solver == "pallas":
-            assert torch.equal(got.pos, want.pos) and torch.equal(got.acc, want.acc)
-        else:
-            torch.testing.assert_close(got.acc, want.acc, **TOL)
-            torch.testing.assert_close(got.pos, want.pos, **TOL)
+        assert torch.equal(got.pos, want.pos) and torch.equal(got.acc, want.acc)
+        assert torch.equal(got.vel, want.vel)
+
+
+# (label, config, N, steps): the default solver at the JAX determinism
+# test's shape and a leapfrog run at 65,536, in each precision; the foil.
+REPEAT_RUNS = [(f"{solver} {precision} {n}", dict(solver=solver, pallas_sym_precision=precision,
+                                                  integrator=integ), n, steps)
+               for solver in ("auto", "pallas_symmetric")
+               for precision in ("f32", "bf16x3", "mixed")
+               for n, steps, integ in ((128, 25, "semi_implicit_euler"),
+                                       (65536, 200, "leapfrog"))] + [
+    ("pair_matrix 128", dict(solver="pair_matrix"), 128, 25),
+    ("pair_matrix 4096", dict(solver="pair_matrix", integrator="leapfrog"), 4096, 20)]
+
+
+@pytest.mark.parametrize("label,overrides,n,steps", REPEAT_RUNS, ids=[r[0] for r in REPEAT_RUNS])
+def test_runs_repeat_bitwise(cuda, label, overrides, n, steps):
+    """tests/test_determinism.py on the card: two runs from one state end
+    bitwise equal (the symmetric kernels sum their slots in slot order, the
+    foil sorts before it adds)."""
+    ends = []
+    for _ in range(2):
+        sim = tnb.Simulation(tnb.SimConfig(**overrides), tnb.models.plummer(n, seed=0),
+                             device=cuda)
+        sim.run(steps)
+        torch.cuda.synchronize()
+        ends.append((sim.state.pos.clone(), sim.state.vel.clone(), sim.solver))
+    assert ends[0][2] == ("pair_matrix" if "pair_matrix" in label else "pallas_symmetric")
+    assert torch.isfinite(ends[0][0]).all()
+    assert torch.equal(ends[0][0], ends[1][0]) and torch.equal(ends[0][1], ends[1][1])
 
 
 def test_graph_memory_is_released_with_its_simulation(cuda):

@@ -59,6 +59,9 @@ def test_block_acc_plain_matches_pallas(rows):
         (200, 32),   # odd K = 7
         (60, 64),    # K = 1 (pure diagonal triangle)
         (90, 32),    # even K with padding bodies in the last tile
+        (64, 32),    # K = 2: one slot a tile from the last diagonal
+        (150, 32),   # odd K = 5 with padding bodies
+        (192, 32),   # even K = 6
     ],
 )
 def test_symmetric_plain_matches_pallas(n_real, tile):
@@ -92,6 +95,42 @@ def test_symmetric_momentum():
     acc = cuda_symmetric.symmetric_acc(state.pos, state.mass, eps2=EPS2, compensate=C, tile=32)
     net = torch.sum(state.mass[:, None] * acc, dim=0)
     np.testing.assert_allclose(net.numpy(), np.zeros(3), atol=1e-6)
+
+
+def test_slots_are_summed_in_slot_order():
+    """``sum_slots`` adds slot 0, then 1, then 2, as ``symmetric_sum_kernel``
+    does: (1e8 + 1) - 1e8 is 0 in float32, every other order gives 1."""
+    slots = torch.tensor([1e8, 1.0, -1e8]).reshape(1, 3, 1, 1).expand(1, 3, 1, 3)
+    assert torch.equal(cuda_symmetric.sum_slots(slots.contiguous()), torch.zeros(1, 3))
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16x3", "mixed"])
+def test_twins_fill_every_slot_from_one_block(precision, monkeypatch):
+    """Both twins store a block's sums with ``_put_slots`` into the slots
+    ``symmetric_slots`` names, each of the K^2 once, at an odd and an even
+    K; what they return is those slots added in slot order."""
+    state = tnb.pad_state(tnb.models.plummer(300, seed=4), multiple=64)
+    for tile in (64, 32):                                  # K = 5, 10
+        k = state.n // tile
+        stores = []
+        put = cuda_symmetric._put_slots
+        caught = {}
+
+        def record(slots, i, j, s, action, reaction):
+            stores.extend((int(t), int(u)) for t, u in zip(i, j))
+            if s:
+                stores.extend((int(u), int(t)) for t, u in zip(i, j))
+            caught["slots"] = slots
+            put(slots, i, j, s, action, reaction)
+
+        monkeypatch.setattr(cuda_symmetric, "_put_slots", record)
+        got = cuda_symmetric.symmetric_acc_plain(state.pos, state.mass, eps2=EPS2,
+                                                 compensate=C, tile=tile, precision=precision)
+        monkeypatch.undo()
+        assert sorted(stores) == [(t, u) for t in range(k) for u in range(k)]
+        want = [cuda_symmetric.symmetric_slots(k, b) for b in range(k * (k + 1) // 2)]
+        assert {w[0] for w in want} | {w[1] for w in want} == set(stores)
+        assert torch.equal(got, cuda_symmetric.sum_slots(caught["slots"]))
 
 
 def test_cpu_tensors_launch_no_kernel():
@@ -149,6 +188,8 @@ FAST_SHAPES = [
     (450, 512, 64),    # padding bodies in the last tile
     (64, 64, 64),      # K = 1: "mixed" is the f32 mode
     (4096, 512, 512),  # the production tile and its centring
+    (320, 64, 64),     # odd K = 5: near and fast diagonals in "mixed"
+    (384, 64, 64),     # even K = 6
 ]
 
 

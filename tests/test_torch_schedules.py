@@ -5,7 +5,7 @@ near-panel kernel are launched with, on the CPU.
 The CUDA kernels run only on the card; what a block does there is decided
 by integers that Python computes (``cuda_force.allpairs_split``,
 ``allpairs_columns``; ``cuda_symmetric.symmetric_blocks``, ``block_tiles``,
-``FAST_SHAPE``; ``cuda_treecode.near_split``, ``near_parts``, ``vip_split``,
+``symmetric_slots``, ``FAST_SHAPE``; ``cuda_treecode.near_split``, ``near_parts``, ``vip_split``,
 ``far_split``, ``far_parts``, ``single_split``, ``single_parts``,
 ``panel_split``). These tests
 check those integers, and walk each schedule
@@ -205,28 +205,81 @@ def test_symmetric_schedule_rejects_nonsense():
             cs.symmetric_blocks(k)
 
 
-def _walk_symmetric(body):
-    """The f32 kernel's sums, block by block: each block adds its row tile's
-    action and its column tile's reaction once."""
+@pytest.mark.parametrize("grid", ["f32", "fast"])
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 5, 6, 7, 8, 9, 128])
+def test_symmetric_slots_have_one_writer_each(k, grid):
+    """The kernels' output layout: slot u of tile t holds the force on tile
+    t from tile u. Every unordered tile pair puts its action into exactly
+    one (tile, slot) and its reaction into exactly one; every one of the K^2
+    slots has exactly one writer, so none is left empty; the blocks that
+    write nothing are those of the even-K rule. The f32 kernel's grid is
+    ``symmetric_blocks(k)``, the bf16x3/mixed kernel's its first
+    K (K + 1) / 2 blocks (it launches no idle block)."""
+    blocks = cs.symmetric_blocks(k) if grid == "f32" else k * (k + 1) // 2
+    writers = collections.Counter()
+    actions, reactions = collections.Counter(), collections.Counter()
+    idle = []
+    for b in range(blocks):
+        slots = cs.symmetric_slots(k, b)
+        if slots is None:
+            idle.append(b)
+            continue
+        (ti, ui), (tj, uj) = slots
+        i, s, j = cs.block_tiles(k, b)
+        assert (ti, ui, tj, uj) == (i, j, j, i)
+        actions[frozenset((i, j))] += 1
+        reactions[frozenset((i, j))] += 1
+        # On s = 0 the action and the reaction are one store.
+        for slot in {(ti, ui), (tj, uj)}:
+            writers[slot] += 1
+    assert set(actions.values()) == set(reactions.values()) == {1}
+    assert len(actions) == k * (k + 1) // 2
+    assert set(writers) == {(t, u) for t in range(k) for u in range(k)}
+    assert set(writers.values()) == {1}
+    rule = [b for b in range(blocks) if cs.block_tiles(k, b) is None]
+    assert idle == rule
+    assert len(idle) == (k // 2 if k % 2 == 0 and grid == "f32" else 0)
+
+
+@pytest.mark.parametrize("n,k", [(2048, 4), (10 * 1024, 20), (65536, 128), (262144, 512)])
+def test_slot_bytes_are_twelve_a_body_a_tile(n, k):
+    """(K, N, 3) float32: 24 K N bytes moved a call, written once and read
+    once (100.7 MB at 65,536 bodies, 1.61 GB at 262,144)."""
+    assert cs.slot_bytes(n, T) == k * n * 12
+
+
+def _walk_symmetric(body, slots_only=False):
+    """The f32 kernel's sums, block by block: each block stores its row
+    tile's action and its column tile's reaction into the slots
+    ``symmetric_slots`` names (one slot, action + reaction, on s = 0); then
+    each body's slots are added in slot order. ``slots_only``: the (K, K,
+    T, 3) slots, ``[t, u]`` the force on tile t from tile u."""
     k = body.shape[0] // T
     p, m = body[:, :3].reshape(k, T, 3), body[:, 3].reshape(k, T)
-    out = torch.zeros((k, T, 3))
+    slots = torch.full((k, k, T, 3), float("nan"))
     rid = torch.arange(T)
     upper = (rid[None, :] > rid[:, None]).float()          # (row, col): col > row
     for b in range(cs.symmetric_blocks(k)):
-        tiles = cs.block_tiles(k, b)
-        if tiles is None:
+        where = cs.symmetric_slots(k, b)
+        if where is None:
             continue
-        i, s, j = tiles
+        i, s, j = cs.block_tiles(k, b)
         d = p[j][None, :, :] - p[i][:, None, :]            # (row, col, 3)
         r2 = d[..., 2] * d[..., 2] + (d[..., 1] * d[..., 1] + d[..., 0] * d[..., 0])
         inv = torch.rsqrt(r2 * C2 + EPS2)
         u = inv * inv * inv
         if s == 0:
             u = u * upper
-        out[i] += ((m[j][None, :] * u)[..., None] * d).sum(1)
-        out[j] -= ((m[i][:, None] * u)[..., None] * d).sum(0)
-    return out.reshape(-1, 3)
+        action = ((m[j][None, :] * u)[..., None] * d).sum(1)
+        reaction = -((m[i][:, None] * u)[..., None] * d).sum(0)
+        (ti, ui), (tj, uj) = where
+        if s == 0:
+            slots[ti, ui] = action + reaction
+        else:
+            slots[ti, ui] = action
+            slots[tj, uj] = reaction
+    assert not slots.isnan().any()                          # every slot written
+    return slots if slots_only else cs.sum_slots(slots)
 
 
 def _plummer(n_real, multiple, seed):
@@ -249,6 +302,27 @@ def test_symmetric_walk_matches_plain_and_jax(n):
     np.testing.assert_allclose(got.numpy(), want, **TOL)
     net = (tmass[:, None] * got).sum(0)
     np.testing.assert_allclose(net.numpy(), np.zeros(3), atol=1e-6)
+
+
+@pytest.mark.parametrize("n", [1536, 2560])
+def test_symmetric_slot_is_one_tile_on_another(n):
+    """K = 3 and K = 5: slot u of tile t is the force of tile u's bodies on
+    tile t's (the all-pairs twin on those two tiles; slot t of tile t the
+    tile on itself), and the slots added in slot order are the f32 twin's
+    force, which fills and adds the same slots, bit for bit up to the
+    walk's and the twin's own rounding (rtol=1e-4, atol=2e-6)."""
+    _, (tpos, tmass) = _plummer(n, T, seed=23)
+    body = cs.kernel_bodies(tpos, tmass, compensate=COMP, G=1.0)
+    slots = _walk_symmetric(body, slots_only=True)
+    k = n // T
+    for t in range(k):
+        for u in range(k):
+            rows, cols = slice(t * T, (t + 1) * T), slice(u * T, (u + 1) * T)
+            want = cf.block_acc_plain(tpos[rows], tpos[cols], tmass[cols], eps2=EPS2,
+                                      compensate=COMP)
+            torch.testing.assert_close(slots[t, u], want, **TOL)
+    plain = cs.symmetric_acc_plain(tpos, tmass, eps2=EPS2, compensate=COMP, tile=T)
+    torch.testing.assert_close(cs.sum_slots(slots), plain, **TOL)
 
 
 @pytest.mark.parametrize("n_real,n,tile", [(448, 448, 64), (934, 934, None), (934, 1024, 512)])
