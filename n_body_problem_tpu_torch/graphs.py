@@ -47,6 +47,11 @@ the reference.
   what each counter gained while it was captured and puts back what the
   warm-up and the capture added; every replay then adds the recorded gain.
   The counts are those of the run's steps, as they were in the eager loop.
+- **Spans** (``utils.profiling``). While a ``torch.profiler`` records, each
+  replay is a host span of its program's name and the capture one of
+  ``graphs.capture``. The treecode's phase stamps are kernels of the graph,
+  captured whether or not a profiler records; the capture counts them, and
+  every replay hands their ring slots to its span.
 """
 
 from __future__ import annotations
@@ -59,6 +64,7 @@ import torch
 from torch.profiler import record_function
 
 from n_body_problem_tpu_torch.state import _ARRAYS, SimState
+from n_body_problem_tpu_torch.utils import profiling
 
 
 def counted() -> tuple:
@@ -85,20 +91,27 @@ def clone_state(state: SimState) -> SimState:
 class Program:
     """``fn(run)``, a region of the run that reads and writes only the
     buffers of the :class:`StaticRun` it is called with: called directly on
-    the CPU, replayed from its CUDA graph on ``cuda``."""
+    the CPU, replayed from its CUDA graph on ``cuda``. Each call is a host
+    span of the program's ``name`` while tracing (``utils.profiling``);
+    ``stamps`` counts the phase stamps its graph holds, which every replay
+    puts on ``ring``."""
 
-    def __init__(self, fn: Callable[["StaticRun"], None]):
-        self.fn = fn
+    def __init__(self, fn: Callable[["StaticRun"], None], name: str):
+        self.fn, self.name = fn, name
         self.graph = None
         self.added: tuple = ()   # (wrapper, launches a replay)
+        self.ring, self.stamps = None, 0
 
     def __call__(self, run: "StaticRun") -> None:
-        if run.device.type != "cuda":
-            self.fn(run)
-            return
-        if self.graph is None:
-            raise RuntimeError("Program replayed before StaticRun.capture")
-        self.graph.replay()
+        with profiling.span(self.name):
+            if run.device.type != "cuda":
+                self.fn(run)
+                return
+            if self.graph is None:
+                raise RuntimeError("Program replayed before StaticRun.capture")
+            self.graph.replay()
+            if self.stamps:
+                profiling.TRACER.issue(self.ring, self.stamps)
         for wrapper, count in self.added:
             wrapper.launches += count
 
@@ -134,7 +147,7 @@ class StaticRun:
     def program(self, name: str, fn: Callable[["StaticRun"], None]) -> Program:
         """The run's program ``name``, made from ``fn`` on first request."""
         if name not in self._programs:
-            self._programs[name] = Program(fn)
+            self._programs[name] = Program(fn, name)
         return self._programs[name]
 
     def capture(self, *programs: Program) -> None:
@@ -148,24 +161,29 @@ class StaticRun:
         wrappers = counted()
         start = [w.launches for w in wrappers]
         main = torch.cuda.current_stream(self.device)
+        ring = profiling.TRACER.rings.get(self.device)
         try:
-            for p in todo:
-                self._stream.wait_stream(main)
-                with torch.cuda.stream(self._stream):
-                    p.fn(self)
-                main.wait_stream(self._stream)
-                before = [w.launches for w in wrappers]
-                graph = torch.cuda.CUDAGraph()
-                with torch.cuda.graph(graph, pool=self._pool, stream=self._stream,
-                                      capture_error_mode="thread_local"):
-                    p.fn(self)
-                p.added = tuple((w, w.launches - b) for w, b in zip(wrappers, before)
-                                if w.launches != b)
-                p.graph = graph
+            with profiling.span("graphs.capture", programs=[p.name for p in todo]):
+                for p in todo:
+                    self._stream.wait_stream(main)
+                    with torch.cuda.stream(self._stream):
+                        p.fn(self)
+                    main.wait_stream(self._stream)
+                    before = [w.launches for w in wrappers]
+                    stamped = 0 if ring is None else ring.captured
+                    graph = torch.cuda.CUDAGraph()
+                    with torch.cuda.graph(graph, pool=self._pool, stream=self._stream,
+                                          capture_error_mode="thread_local"):
+                        p.fn(self)
+                    p.added = tuple((w, w.launches - b) for w, b in zip(wrappers, before)
+                                    if w.launches != b)
+                    if ring is not None:
+                        p.ring, p.stamps = ring, ring.captured - stamped
+                    p.graph = graph
+                torch.cuda.synchronize(self.device)
         finally:
             for w, s in zip(wrappers, start):
                 w.launches = s
-        torch.cuda.synchronize(self.device)
         self.capture_seconds += _time.perf_counter() - t0
 
     def load(self, state: SimState) -> None:
@@ -239,6 +257,8 @@ def tree_programs(run: StaticRun, parts) -> tuple[Program, Program, Program]:
     def step(r: StaticRun) -> None:
         store(r.state, parts.step(r.state, r.aux))
 
+    if run.device.type == "cuda":
+        profiling.TRACER.ring(run.device)   # the phases' stamps land there
     return (run.program("treecode.resort", resort), run.program("treecode.build", build),
             run.program("treecode.step", step))
 

@@ -70,6 +70,8 @@ _SIGNATURES = {
     # (rows4, n, panel4, w, pieces, piece, react_part, act_part, action,
     #  react, c2, eps2, stream) -> cudaError_t
     "nbody_vip_both": ((_P, _I, _P, _I, _I, _I, _P, _P, _P, _P, _F, _F, _P), _I),
+    # (ring, cursor, capacity, code, counters, n_counters, stream) -> cudaError_t
+    "nbody_span_stamp": ((_P, _P, _I, _I, _P, _I, _P), _I),
     # (cudaError_t) -> message
     "nbody_error_string": ((_I,), ctypes.c_char_p),
 }

@@ -33,6 +33,13 @@ planners return identical integers.
 
 The acceptance build is plain PyTorch and never synchronises with the
 host: capacities are static, and a capacity overflow is a ``torch.where``.
+
+The hierarchical and flat paths stamp their phases (``utils.profiling``):
+the build's ``build.levels``, ``build.open`` (``build.min_dist`` around each
+:func:`_min_tile_dist`) and ``build.lists``, whose end carries the lists'
+counters (:func:`_list_counters`), and the force's ``force.operands``,
+``force.near``, ``force.far`` and ``force.vip``. The dense path, the
+planners and the sharded helpers stamp nothing.
 """
 
 from __future__ import annotations
@@ -43,6 +50,8 @@ import numpy as np
 import torch
 
 from n_body_problem_tpu_torch.ops import cuda_treecode
+from n_body_problem_tpu_torch.utils import profiling
+from n_body_problem_tpu_torch.utils.profiling import NO_STAMPS
 
 DEFAULT_TILE = 32
 DEFAULT_THETA = 0.55
@@ -359,7 +368,7 @@ def _flat_mac(min_d, m, radius, a_med, tau: float):
 def _opening_scores(xc, yc, zc, cx, cy, cz, m_tot, radius, tile: int, *,
                     theta: float, mac_tau: float, row_offset: int = 0,
                     src_tile: int | None = None, eps2: float = 1e-6,
-                    c2: float = 0.01):
+                    c2: float = 0.01, stamp=NO_STAMPS):
     """(scores (K_t, K_s), threshold) of the single-level opening test, self
     tiles +inf: the mass-aware MAC when ``mac_tau > 0``, else the geometric
     radius / min-body-distance against ``theta``. The MAC's median scale
@@ -367,7 +376,9 @@ def _opening_scores(xc, yc, zc, cx, cy, cz, m_tot, radius, tile: int, *,
     path, as in the JAX package)."""
     src_tile = src_tile or tile
     k_t = xc.shape[0] // tile
+    stamp.begin("build.min_dist")
     min_d = torch.clamp(_min_tile_dist(xc, yc, zc, cx, cy, cz, tile), min=_TINY)
+    stamp.end("build.min_dist")
     if mac_tau > 0:
         a_med = torch.clamp(_median_monopole_acc(
             xc, yc, zc, cx, cy, cz, m_tot, eps2=eps2, c2=c2), min=_TINY)
@@ -393,7 +404,8 @@ def _row_bounds(xc, yc, zc, tile: int):
 def _hier_open_masks(xc, yc, zc, levels, tile: int, src_tile: int, *,
                      mac_tau: float, theta: float, eps2: float, c2: float,
                      row_offset: int = 0, a_med=None,
-                     mac_tau0: float | None = None, union_coarse: bool = True):
+                     mac_tau0: float | None = None, union_coarse: bool = True,
+                     stamp=NO_STAMPS):
     """Per-level (opens, min_d) and the level-0 score matrix for near
     ranking (self-overlapping nodes forced to +inf).
 
@@ -420,7 +432,9 @@ def _hier_open_masks(xc, yc, zc, levels, tile: int, src_tile: int, *,
         tcx, tcy, tcz, trad = _row_bounds(xc, yc, zc, tile)
     for lvl, (cx, cy, cz, m, radius, rms2, _) in enumerate(levels):
         if lvl == 0 or union_coarse:
+            stamp.begin("build.min_dist")
             min_d = _min_tile_dist(xc, yc, zc, cx, cy, cz, tile)
+            stamp.end("build.min_dist")
         else:
             dcx = cx[None, :] - tcx[:, None]
             dcy = cy[None, :] - tcy[:, None]
@@ -489,7 +503,7 @@ def _acceptance(xc, yc, zc, level0, tile: int, theta: float, max_near: int,
     return near_idx.to(_i32), near_mask
 
 
-def _compact_open_lists(ratio, theta, slack, flat_cap, entries, max_near):
+def _compact_open_lists(ratio, theta, slack, flat_cap, entries, max_near, tally=None):
     """Compact per-row opening scores into flat work lists:
     (flat_src (flat_cap,), chunk_tgt (flat_cap/E,), near_mask (K_t, K_s)).
 
@@ -500,6 +514,10 @@ def _compact_open_lists(ratio, theta, slack, flat_cap, entries, max_near):
     a negative score point at the sentinel source ``K_s``; unused chunks
     carry the sentinel target ``K_t``. Both scatters write into a buffer one
     slot longer than the list, whose last slot takes the dropped entries.
+
+    With a list ``tally``, appends (kept, shed) int64 scalars: the entries
+    listed, and the opened entries (score above ``theta``) that the row
+    capacity ``max_near`` or the list capacity ``flat_cap`` left out.
     """
     k_t, k_s = ratio.shape
     dev = ratio.device
@@ -537,6 +555,10 @@ def _compact_open_lists(ratio, theta, slack, flat_cap, entries, max_near):
     chunk_tgt = torch.full((n_chunks + 1,), k_t, dtype=_i32, device=dev)
     chunk_tgt[cdest.reshape(-1).long()] = rows.reshape(-1)
     chunk_tgt = chunk_tgt[:n_chunks]
+    if tally is not None:
+        # A row's opened entries rank first: min(cnt, v) of them landed.
+        tally.append(((flat_src != k_s).sum(dtype=torch.int64),
+                      torch.clamp(cnt - v, min=0).sum(dtype=torch.int64)))
 
     # The far field complements the entries that landed.
     slot_rows = chunk_tgt.repeat_interleave(entries)
@@ -547,10 +569,11 @@ def _compact_open_lists(ratio, theta, slack, flat_cap, entries, max_near):
 
 
 def _hier_lists(xc, yc, zc, mass, *, tile, src_tile, theta, vip_src, plan,
-                branch, mac_tau, mac_tau0, eps2, c2, union_coarse):
+                branch, mac_tau, mac_tau0, eps2, c2, union_coarse, stamp=NO_STAMPS):
     """What the capacity planner and the acceptance build share: (is_vip_body,
     levels, opens, minds, score0, thresh0, evals, reach0)."""
     n = xc.shape[0]
+    stamp.begin("build.levels")
     if vip_src:
         mass_tree, _, is_vip_body = _vip_split(xc, yc, zc, mass, src_tile,
                                                vip_src)
@@ -558,9 +581,10 @@ def _hier_lists(xc, yc, zc, mass, *, tile, src_tile, theta, vip_src, plan,
         is_vip_body = torch.zeros((n,), dtype=torch.bool, device=xc.device)
         mass_tree = mass
     levels = _level_summaries(xc, yc, zc, mass_tree, src_tile, plan, branch)
+    stamp.begin("build.open")
     opens, minds, score0, thresh0 = _hier_open_masks(
         xc, yc, zc, levels, tile, src_tile, mac_tau=mac_tau, theta=theta,
-        eps2=eps2, c2=c2, mac_tau0=mac_tau0, union_coarse=union_coarse)
+        eps2=eps2, c2=c2, mac_tau0=mac_tau0, union_coarse=union_coarse, stamp=stamp)
     evals, reach0 = _chain_evals(opens, branch)
     return is_vip_body, levels, opens, minds, score0, thresh0, evals, reach0
 
@@ -599,32 +623,53 @@ def build_tree_hier_cols(
      far_max) = _hier_static(n, tile, src_tile, theta, max_near, vip_tiles,
                              far_max, branch)
     xc, yc, zc, mass = (a.to(_f32) for a in (xc, yc, zc, mass))
+    st = profiling.stamper(xc.device)
     (is_vip_body, levels, _, minds, score0, thresh0, evals,
      reach0) = _hier_lists(xc, yc, zc, mass, tile=tile, src_tile=src_tile,
                            theta=theta, vip_src=vip_src, plan=plan,
                            branch=branch, mac_tau=mac_tau, mac_tau0=mac_tau0,
                            eps2=eps2, c2=compensate * compensate,
-                           union_coarse=union_coarse)
-    return (*_hier_compact(levels, minds, score0, thresh0, evals, reach0, slack=slack,
-                           flat_cap=flat_cap, entries=entries, max_near=max_near,
-                           far_cap=far_cap, far_max=far_max), is_vip_body)
+                           union_coarse=union_coarse, stamp=st)
+    st.begin("build.lists")
+    tally = [] if st.live else None
+    lists = _hier_compact(levels, minds, score0, thresh0, evals, reach0, slack=slack,
+                          flat_cap=flat_cap, entries=entries, max_near=max_near,
+                          far_cap=far_cap, far_max=far_max, tally=tally)
+    st.end("build.lists", None if tally is None else
+           _list_counters(tally, is_vip_body, tile=tile, src_tile=src_tile))
+    return (*lists, is_vip_body)
+
+
+def _list_counters(tally, is_vip_body, *, tile: int, src_tile: int) -> torch.Tensor:
+    """The build's counters (``utils.profiling.COUNTERS``), an int64 (8,)
+    tensor on the device, from the near and far compactions' (kept, shed)
+    entries: those, the VIP bodies, and what a step on the lists computes:
+    near body pairs (a kept near entry is a source tile against a target
+    row), far body-node terms (a kept far entry is a node against a row)
+    and VIP body pairs (every body against every VIP body)."""
+    (near_kept, near_shed), (far_kept, far_shed) = tally
+    vip = is_vip_body.sum(dtype=torch.int64)
+    return torch.stack([near_kept, near_shed, far_kept, far_shed, vip,
+                        near_kept * (src_tile * tile), far_kept * tile,
+                        vip * is_vip_body.shape[0]])
 
 
 def _hier_compact(levels, minds, score0, thresh0, evals, reach0, *, slack, flat_cap,
-                  entries, max_near, far_cap, far_max):
+                  entries, max_near, far_cap, far_max, tally=None):
     """The hierarchical build's work lists from its open masks:
-    ``(flat_src, chunk_tgt, far_src, far_tgt)``."""
+    ``(flat_src, chunk_tgt, far_src, far_tgt)``; ``tally`` as
+    :func:`_compact_open_lists`'s, near then far."""
     # Near: only leaves the chain reaches (a leaf under an accepted
     # ancestor is already covered: score -1 ranks it out as a sentinel).
     score0 = torch.where(reach0, score0, -1.0)
     flat_src, chunk_tgt, near_mask = _compact_open_lists(
-        score0, thresh0, slack, flat_cap, entries, max_near)
+        score0, thresh0, slack, flat_cap, entries, max_near, tally)
     return (flat_src, chunk_tgt,
             *_far_lists(levels, minds, evals, reach0, near_mask, far_cap=far_cap,
-                        far_max=far_max))
+                        far_max=far_max, tally=tally))
 
 
-def _far_lists(levels, minds, evals, reach0, near_mask, *, far_cap, far_max):
+def _far_lists(levels, minds, evals, reach0, near_mask, *, far_cap, far_max, tally=None):
     """``(far_src, far_tgt)``: the level-0 complements of the near entries
     that landed (``near_mask``), plus the chain evals at coarser levels,
     ranked by monopole strength m / d^2 so an overflow sheds the weakest
@@ -633,7 +678,7 @@ def _far_lists(levels, minds, evals, reach0, near_mask, *, far_cap, far_max):
     key = torch.cat([torch.where(ev, lv[3][None, :] / (md * md), -1.0)
                      for ev, lv, md in zip(evals, levels, minds)], 1)
     far_src, far_tgt, _ = _compact_open_lists(
-        key, 0.0, 0, far_cap, FAR_ENTRIES, far_max)
+        key, 0.0, 0, far_cap, FAR_ENTRIES, far_max, tally)
     return far_src, far_tgt
 
 
@@ -679,15 +724,28 @@ def build_tree_flat_cols(xc, yc, zc, mass, *, tile: int = DEFAULT_TILE,
     _, _, entries, max_near, vip_src = _flat_static(n, tile, src_tile, theta,
                                                     max_near, vip_tiles)
     xc, yc, zc, mass = (a.to(_f32) for a in (xc, yc, zc, mass))
+    st = profiling.stamper(xc.device)
+    st.begin("build.levels")
     mass_tree, is_vip_body = _tree_mass(xc, yc, zc, mass, src_tile, vip_src)
     cx, cy, cz, m_tot, radius = _level0(xc, yc, zc, mass_tree, src_tile)[:5]
+    st.begin("build.open")
     score, thresh = _opening_scores(
         xc, yc, zc, cx, cy, cz, m_tot, radius, tile, theta=theta, mac_tau=mac_tau,
-        src_tile=src_tile, eps2=eps2, c2=compensate * compensate)
+        src_tile=src_tile, eps2=eps2, c2=compensate * compensate, stamp=st)
+    st.begin("build.lists")
+    tally = [] if st.live else None
     flat_src, chunk_tgt, near_mask = _compact_open_lists(
-        score, thresh, slack, flat_cap, entries, max_near)
+        score, thresh, slack, flat_cap, entries, max_near, tally)
     # The far kernel reads the mask as contiguous (K_t, K_s) bytes.
-    return flat_src, chunk_tgt, near_mask.contiguous(), is_vip_body
+    near_mask = near_mask.contiguous()
+    if tally is not None:
+        # The far field sweeps every level-0 node the mask leaves: no list,
+        # nothing shed.
+        far = near_mask.numel() - near_mask.sum(dtype=torch.int64)
+        tally.append((far, torch.zeros_like(far)))
+    st.end("build.lists", None if tally is None else
+           _list_counters(tally, is_vip_body, tile=tile, src_tile=src_tile))
+    return flat_src, chunk_tgt, near_mask, is_vip_body
 
 
 def build_tree_flat(pos, mass, **kw):
@@ -786,19 +844,27 @@ def treecode_acc_hier(
         n, tile, src_tile, theta, max_near, vip_tiles, far_max, branch)
     c2 = compensate * compensate
     flat_src, chunk_tgt, far_src, far_tgt, is_vip_body = aux_hier
+    st = profiling.stamper(pos.device)
+    st.begin("force.operands")
     ops = kernel_operands(pos.to(_f32), mass.to(_f32), is_vip_body,
                           compensate=compensate, G=G, src_tile=src_tile,
                           vip_src=vip_src, plan=plan, branch=branch)
+    st.begin("force.near")
     acc = cuda_treecode.near_field(ops["bodies"], ops["bodies"], flat_src, chunk_tgt,
                                    n=n, n_s=n, tile=tile, src_tile=src_tile,
                                    entries=CHUNK_LANES // src_tile,
                                    eps2=eps2, c2=c2)
     # One far kernel whatever the panel's size (the TPU kept small panels
     # in VMEM and fetched large ones entry by entry).
+    st.begin("force.far")
     acc = acc + cuda_treecode.far_field_hier(ops["bodies"], ops["summ"],
                                              far_src, far_tgt, n=n, tile=tile,
                                              eps2=eps2, c2=c2, G=G)
-    return _add_vips(acc, ops, src_tile, eps2=eps2, c2=c2) if vip_src else acc
+    if vip_src:
+        st.begin("force.vip")
+        acc = _add_vips(acc, ops, src_tile, eps2=eps2, c2=c2)
+    st.end()
+    return acc
 
 
 def treecode_acc_hier_cols(xc, yc, zc, mass, aux_hier, **kw):
@@ -830,15 +896,23 @@ def treecode_acc_flat(
                                                max_near, vip_tiles)
     c2 = compensate * compensate
     flat_src, chunk_tgt, near_mask, is_vip_body = aux_flat
+    st = profiling.stamper(pos.device)
+    st.begin("force.operands")
     ops = kernel_operands(pos.to(_f32), mass.to(_f32), is_vip_body,
                           compensate=compensate, G=G, src_tile=src_tile,
                           vip_src=vip_src, plan=(k_s,))
+    st.begin("force.near")
     acc = cuda_treecode.near_field(ops["bodies"], ops["bodies"], flat_src, chunk_tgt,
                                    n=n, n_s=n, tile=tile, src_tile=src_tile,
                                    entries=entries, eps2=eps2, c2=c2)
+    st.begin("force.far")
     acc = acc + cuda_treecode.far_field_single(ops["bodies"], ops["summ"], near_mask,
                                                n=n, tile=tile, eps2=eps2, c2=c2, G=G)
-    return _add_vips(acc, ops, src_tile, eps2=eps2, c2=c2) if vip_src else acc
+    if vip_src:
+        st.begin("force.vip")
+        acc = _add_vips(acc, ops, src_tile, eps2=eps2, c2=c2)
+    st.end()
+    return acc
 
 
 def treecode_acc_flat_cols(xc, yc, zc, mass, aux_flat, **kw):

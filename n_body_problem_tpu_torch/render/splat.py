@@ -42,6 +42,7 @@ from n_body_problem_tpu_torch.render.sprites import (
     stacked_footprints,
 )
 from n_body_problem_tpu_torch.state import SimState
+from n_body_problem_tpu_torch.utils import profiling
 
 
 def project_to_screen(
@@ -156,12 +157,18 @@ def splat_frame(
     height: int = 768,
 ) -> torch.Tensor:
     """(H, W, 3) float32 additive frame (unclamped luminance * color), on
-    ``pos``'s device."""
-    px, py, visible = project_to_screen(pos, view_projection, scale_factors, width, height)
-    planes = _bilinear_scatter(px, py, visible & real_mask, mass > MASS_THRESHOLD,
-                               height, width)
-    lum = _conv_sprites(planes)
-    return lum[:, :, None] * _sprite_constants(pos.device)[1]
+    ``pos``'s device. Its three steps are the host spans ``render.project``,
+    ``render.scatter`` and ``render.sprites`` while tracing
+    (``utils.profiling``)."""
+    with profiling.span("render.project"):
+        px, py, visible = project_to_screen(pos, view_projection, scale_factors, width,
+                                            height)
+    with profiling.span("render.scatter"):
+        planes = _bilinear_scatter(px, py, visible & real_mask, mass > MASS_THRESHOLD,
+                                   height, width)
+    with profiling.span("render.sprites"):
+        lum = _conv_sprites(planes)
+        return lum[:, :, None] * _sprite_constants(pos.device)[1]
 
 
 def render_state(
@@ -172,13 +179,15 @@ def render_state(
     width: int = 1024,
     height: int = 768,
 ) -> torch.Tensor:
-    """Convenience wrapper: render a SimState with an OrbitCamera."""
-    return splat_frame(
-        state.pos,
-        state.mass,
-        state.real_mask(),
-        camera.view_projection(),
-        scale_factors,
-        width=width,
-        height=height,
-    )
+    """Convenience wrapper: render a SimState with an OrbitCamera; the
+    host span ``render`` while tracing."""
+    with profiling.span("render"):
+        return splat_frame(
+            state.pos,
+            state.mass,
+            state.real_mask(),
+            camera.view_projection(),
+            scale_factors,
+            width=width,
+            height=height,
+        )

@@ -38,6 +38,7 @@ from n_body_problem_tpu_torch.ops.registry import (
     tree_path,
 )
 from n_body_problem_tpu_torch.state import SimState, pad_state_to, unpad_state
+from n_body_problem_tpu_torch.utils import profiling
 from n_body_problem_tpu_torch.utils.morton import (
     apply_permutation,
     device_resort,
@@ -192,16 +193,22 @@ def tree_parts(cfg: SimConfig) -> TreeParts:
         if dense:
             return make_integrator(cfg.integrator,
                                    lambda pos, mass: force(pos, mass, aux), dt)(state)
+        st = profiling.stamper(state.device)   # the force stamps its own phases
         pos, vel, acc = state.pos, state.vel, state.acc
         if leapfrog:  # KDK, stored-acceleration form
+            st.begin("update")
             vel = vel + acc * (0.5 * dt)
             pos = pos + vel * dt
+            st.end()
             acc = force(pos, state.mass, aux)
+            st.begin("update")
             vel = vel + acc * (0.5 * dt)
         else:
             acc = force(pos, state.mass, aux)
+            st.begin("update")
             vel = vel + acc * dt
             pos = pos + vel * dt
+        st.end()
         return dataclasses.replace(state, pos=pos, vel=vel, acc=acc)
 
     def finish(state: SimState, n_steps: int) -> SimState:
@@ -513,29 +520,31 @@ class Simulation:
         solver replays one step, and with ``cfg.resort_every = r`` runs in
         chunks of r steps with a host Morton sort between them. The returned
         state, ``tree_lists`` and ``sort_perm`` are copies that no later call
-        rewrites."""
+        rewrites. While a ``torch.profiler`` records, the call is the host
+        span ``sim.run`` and the label of that name (``utils.profiling``)."""
         t0 = _time.perf_counter()
-        if n_steps == 0:
-            if self._tree is not None:
-                self.state = self._tree.finish(self.state, 0)
-        elif self._tree is not None:
-            g, programs = self._prepare(True, n_steps)
-            self._chunks(programs, n_steps)
-            self._unload_tree(n_steps)
-        else:
-            g, (step,) = self._prepare(False, n_steps)
-            r = self.cfg.resort_every or n_steps
-            done = 0
-            while done < n_steps:
-                todo = min(r, n_steps - done)
-                g.repeat(step, todo)
-                done += todo
-                if done < n_steps:  # no sort after the last chunk
-                    self.state = g.state
-                    self._resort()
-                    g.load(self.state)
-            self.state = g.unload()
-        self._finish(t0)
+        with profiling.span("sim.run", label=True, steps=n_steps, solver=self.solver):
+            if n_steps == 0:
+                if self._tree is not None:
+                    self.state = self._tree.finish(self.state, 0)
+            elif self._tree is not None:
+                g, programs = self._prepare(True, n_steps)
+                self._chunks(programs, n_steps)
+                self._unload_tree(n_steps)
+            else:
+                g, (step,) = self._prepare(False, n_steps)
+                r = self.cfg.resort_every or n_steps
+                done = 0
+                while done < n_steps:
+                    todo = min(r, n_steps - done)
+                    g.repeat(step, todo)
+                    done += todo
+                    if done < n_steps:  # no sort after the last chunk
+                        self.state = g.state
+                        self._resort()
+                        g.load(self.state)
+                self.state = g.unload()
+            self._finish(t0)
         return self.state
 
     def _static_run(self) -> StaticRun:

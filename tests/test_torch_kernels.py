@@ -23,7 +23,7 @@ from n_body_problem_tpu_torch.ops import cuda_build, cuda_force, cuda_symmetric
 EPS2 = 1e-6
 C = 0.1
 SOURCES = ["allpairs.cu", "far_hier.cu", "far_single.cu", "gather.cu", "near.cu",
-           "near_panel.cu", "symmetric.cu", "symmetric_bf16x3.cu", "vip.cu"]
+           "near_panel.cu", "stamp.cu", "symmetric.cu", "symmetric_bf16x3.cu", "vip.cu"]
 
 
 def _pair(jstate):
