@@ -54,7 +54,12 @@ is non-zero:
    the far field also at 524,288, the single-level far field also at 20,480
    dense and the near-panel kernel also at 1,024; these four each with its
    kernels' device time from a ``torch.profiler`` trace (the sweep is a
-   pair and a summing kernel).
+   pair and a summing kernel). Last, the acceptance build's
+   minimum-distance kernel bitwise its plain twin and itself at the
+   1,048,576 and 65,536 hierarchical plans' level 0 (8,192 x 16,384 and
+   512 x 1,024, 128-body rows), timed beside the twin, its bound and its
+   issue floor (``compare_min_dist``); phase 6 counts its launches a
+   rebuild.
 5. exact main path: ``Simulation(SimConfig(), plummer(65536))`` (the
    symmetric kernel), ``solver="pallas"`` (the all-pairs kernel), leapfrog,
    and ``pallas_sym_precision="bf16x3"`` and ``"mixed"`` (the tensor-core
@@ -242,7 +247,8 @@ import subprocess
 import sys
 import time
 
-from n_body_problem_tpu_torch.kernel_compare import (PAIR_BOTH_FLOPS, PAIR_BOTH_SLOTS,
+from n_body_problem_tpu_torch.kernel_compare import (MIN_DIST_FLOPS, MIN_DIST_SLOTS,
+                                                      PAIR_BOTH_FLOPS, PAIR_BOTH_SLOTS,
                                                       PAIR_FLOPS, PAIR_SLOTS, PEAK_BYTES, PHYS,
                                                       TREE_WORK,
                                                       bound, fast_bound, fast_issue_floor_ms,
@@ -747,6 +753,69 @@ def compare_tree_kernels(device, cases=None, time_at: dict | None = None) -> dic
     return res
 
 
+# The acceptance build's minimum distances (csrc/min_dist.cu) are timed at
+# the 1,048,576 hierarchical plan's level 0 (8,192 rows of 128 against 16,384
+# tiles of 64) and at 65,536's (512 x 1,024): (label, N, tile, source tile).
+MIN_DIST_SHAPES = (("1,048,576 level 0", 1048576, 128, 64), ("65,536 level 0", 65536, 128, 64))
+
+
+def min_dist_work(n: int, k_l: int, tile: int) -> dict:
+    """``bound`` and the issue floor of one minimum-distance call: n x k_l
+    distances, the columns read and the (n / tile, k_l) output written once."""
+    nbytes = (3 * n + 3 * k_l + n // tile * k_l) * 4
+    return {**bound(MIN_DIST_FLOPS * n * k_l, nbytes),
+            "issue_floor_ms": issue_floor_ms(n * k_l, MIN_DIST_SLOTS, sm_clock_mhz())}
+
+
+def compare_min_dist(device, shapes=MIN_DIST_SHAPES) -> dict:
+    """Phase 4's last part: the minimum-distance kernel bitwise its plain
+    twin (and itself) at each shape, then its time beside the twin's, its
+    bound and its issue floor; the first shape is the record's, the others
+    ``at_<N>``."""
+    import torch
+
+    from n_body_problem_tpu_torch import models
+    from n_body_problem_tpu_torch.ops import cuda_treecode as ct
+    from n_body_problem_tpu_torch.ops import treecode
+    from n_body_problem_tpu_torch.treecode_profile import time_ms
+
+    res = {"max_abs_err": 0.0, "library_ms": None}
+    for i, (label, n, tile, src_tile) in enumerate(shapes):
+        st = models.plummer(n, seed=4).to(device)
+        cols = tuple(st.pos[:, a].contiguous() for a in range(3))
+        cen = tuple(c.contiguous() for c in treecode._level0(*cols, st.mass, src_tile)[:3])
+        got, again = ct.min_tile_dist(*cols, *cen, tile), ct.min_tile_dist(*cols, *cen, tile)
+        want = ct.min_tile_dist_plain(*cols, *cen, tile)
+        check(torch.equal(got, want), f"min_dist N={label}: kernel != plain twin bitwise")
+        check(torch.equal(got, again), f"min_dist N={label}: two launches differ bitwise")
+        t = {"ms": time_ms(lambda: ct.min_tile_dist(*cols, *cen, tile), 20),
+             "plain_ms": time_ms(lambda: ct.min_tile_dist_plain(*cols, *cen, tile), 3),
+             "shape": f"{n // tile} x {cen[0].shape[0]}, tile {tile}",
+             **min_dist_work(n, cen[0].shape[0], tile)}
+        print(f"min_dist [{label}]: {t['shape']}: bitwise the twin; {t['ms']:.4f} ms vs plain "
+              f"{t['plain_ms']:.4f}, bound {t['bound_ms']:.4f} ({t['bound_by']}), issue floor "
+              f"{t['issue_floor_ms']:.4f}", flush=True)
+        if i == 0:
+            res.update(t)
+        else:
+            res[at_key(f"{n:,}")] = t
+        del st, cols, cen, got, again, want
+        torch.cuda.empty_cache()
+    return res
+
+
+def min_dist_a_rebuild(cfg, n: int) -> int:
+    """Minimum-distance launches a rebuild of ``cfg``'s path: one a level of
+    the hierarchy while ``tree_hier_union`` (level 0 alone without it), one
+    on the flat and dense paths."""
+    from n_body_problem_tpu_torch.ops import treecode
+    from n_body_problem_tpu_torch.ops.registry import tree_path
+
+    if tree_path(cfg) != "hier" or not cfg.tree_hier_union:
+        return 1
+    return len(treecode._level_plan(n // cfg.tree_src_tile, treecode.HIER_BRANCH))
+
+
 def counters() -> dict:
     from n_body_problem_tpu_torch.ops import cuda_force, cuda_symmetric, cuda_treecode
 
@@ -974,11 +1043,13 @@ def drive_treecode(device, runs=None, profiled=PROFILED) -> dict:
     import torch
 
     from n_body_problem_tpu_torch import Simulation, models
+    from n_body_problem_tpu_torch.ops.cuda_treecode import min_tile_dist
     from n_body_problem_tpu_torch.ops.registry import tree_path
+    from n_body_problem_tpu_torch.simulation import chunk_lengths
     from n_body_problem_tpu_torch.treecode_profile import profile_tree_step
 
     wrappers = counters()
-    launched = {k: 0 for k in TREE_KERNELS}
+    launched = {k: 0 for k in TREE_KERNELS + ("min_dist",)}
     for label, n, cfg, timed, sample in runs or tree_runs():
         t0 = time.perf_counter()
         sim = Simulation(cfg, models.plummer(n, seed=0), device=device)
@@ -987,6 +1058,7 @@ def drive_treecode(device, runs=None, profiled=PROFILED) -> dict:
         init_s = time.perf_counter() - t0
         e0 = sim.diagnostics()["energy"]
         before = {k: wrappers[k].launches for k in TREE_KERNELS}
+        dist_before = min_tile_dist.launches
         sim.run(TREE_PRIME)
         wall0 = sim.wall_seconds
         sim.run(timed)
@@ -998,6 +1070,14 @@ def drive_treecode(device, runs=None, profiled=PROFILED) -> dict:
             check(moved[k] == want,
                   f"treecode [{label}]: {k} launches {moved[k]}, expected {want}")
             launched[k] += moved[k]
+        # The build's kernel a rebuild: every call restarts the cadence.
+        rebuilds = sum(len(chunk_lengths(k, sim.cfg.tree_rebuild_every))
+                       for k in (TREE_PRIME, timed))
+        moved["min_dist"] = min_tile_dist.launches - dist_before
+        want = min_dist_a_rebuild(sim.cfg, sim.state.n) * rebuilds if device.type == "cuda" else 0
+        check(moved["min_dist"] == want,
+              f"treecode [{label}]: min_dist launches {moved['min_dist']}, expected {want}")
+        launched["min_dist"] += moved["min_dist"]
         check(bool(torch.isfinite(sim.state.pos).all()), f"treecode [{label}]: non-finite positions")
         d = sim.diagnostics()
         check(d["overspeed"] == 0, f"treecode [{label}]: overspeed {d['overspeed']}")
@@ -2883,6 +2963,7 @@ def main() -> int:
         **{f"{k}_mixed": fast["mixed"][k] for k in ("ms", "plain_ms", "bound_ms",
                                                     "issue_floor_ms")}}
     res.update(compare_tree_kernels(device))
+    res["min_dist"] = compare_min_dist(device)
 
     wrappers = counters()
     for w in wrappers.values():
@@ -2940,11 +3021,13 @@ def main() -> int:
         ("vip", "vip_both_kernel+vip_sum_kernel", "vip.cu", "treecode.py:805"),
         ("near", "near_field_kernel", "near.cu", "treecode.py:1286"),
         ("far", "far_field_kernel", "far_hier.cu", "treecode.py:2164"),
+        ("min_dist", "min_tile_dist_kernel", "min_dist.cu", None),
     )
     kernels = [
         {"name": name, "route": "cuda",
          "source": f"n_body_problem_tpu_torch/csrc/{src}",
-         "replaces": f"n_body_problem_tpu/ops/{tpu}",
+         "replaces": (f"n_body_problem_tpu/ops/{tpu}" if tpu else
+                      "none: XLA fused the JAX package's plain _min_tile_dist (treecode.py:163)"),
          "launches": launches[key], **res[key]}
         for key, name, src, tpu in records]
     print(json.dumps({"kernels": kernels}))

@@ -125,6 +125,10 @@ FAR_SINGLE_TERM_SLOTS = FAR_TERM_SLOTS
 # FP32 operations of a body-node term (monopole + quadrupole) as those 33
 # instructions do it, an FMA two.
 NODE_FLOPS = 52
+# A body-node distance of the acceptance build (csrc/min_dist.cu): three
+# subtractions, three multiplies and two adds, no FMA; the minimum is a
+# ninth issue slot (the shared load of a body serves four nodes, left out).
+MIN_DIST_FLOPS, MIN_DIST_SLOTS = 8, 9.0
 LANES_A_CLOCK = 128   # FP32 lanes a multiprocessor issues a clock
 FAST_TILE = 512
 # (threads a block, bodies a stage, most targets a block)

@@ -1,9 +1,11 @@
-"""Treecode kernels: near fields, far fields, panel gather, VIP sweep.
+"""Treecode kernels: near fields, far fields, panel gather, VIP sweep, and
+the acceptance build's minimum distances.
 
 Each function here has two forms. On a CUDA tensor the wrapper launches a
 hand-written kernel (``csrc/near.cu``, ``csrc/far_hier.cu``,
 ``csrc/far_single.cu``, ``csrc/gather.cu``, ``csrc/near_panel.cu``,
-``csrc/vip.cu``); on a CPU tensor it runs the ``*_plain`` function beside
+``csrc/vip.cu``, ``csrc/min_dist.cu``); on a CPU tensor it runs the
+``*_plain`` function beside
 it, the same computation in plain PyTorch, which is also what the kernel is
 checked against on the card. A failed build or launch raises. Each wrapper
 counts its launches in ``.launches``.
@@ -31,6 +33,9 @@ Layouts (the GPU's, not the TPU's lane-padded ones):
   path's near lists and the body rows they gather, tile by tile.
 - ``rows`` (N, 4) and ``panel`` (W, 4) float32 [x y z G c^3 m] for the VIP
   sweep.
+- The minimum distances take the target bodies and the node centres as
+  separate (n,) and (K_l,) float32 columns: a rank of the sharded treecode
+  passes its own rows against every node.
 """
 
 from __future__ import annotations
@@ -101,6 +106,9 @@ PANEL_THREADS = 512
 PANEL_STAGE = 1024
 # Largest pair block a plain version materialises at once.
 _PLAIN_PAIRS = 1 << 22
+# Largest (rows x columns) block of the plain minimum distances materialised
+# at once, as in the JAX package's chunking (8,192 bodies).
+DIST_BODIES = 8192
 
 
 def _live_chunks(tgt: torch.Tensor, k_t: int) -> int:
@@ -612,6 +620,62 @@ def vip_both(rows, panel, *, eps2: float,
 
 vip_both.launches = 0
 
+# -------------------------------------------------- acceptance distances
+def min_tile_dist_plain(xc, yc, zc, cx, cy, cz, tile: int) -> torch.Tensor:
+    """(K_t, K_s): min over the bodies of target tile i of |y - com_j|,
+    computed a block of target tiles at a time."""
+    n = xc.shape[0]
+    k_t = n // tile
+    rows = max(DIST_BODIES // tile, 1)
+    out = []
+    for r in range(0, k_t, rows):
+        sl = slice(r * tile, min(r + rows, k_t) * tile)
+        dx = cx[None, :] - xc[sl, None]
+        dy = cy[None, :] - yc[sl, None]
+        dz = cz[None, :] - zc[sl, None]
+        d2 = dx * dx + dy * dy + dz * dz
+        out.append(d2.reshape(-1, tile, cx.shape[0]).amin(1))
+    return torch.sqrt(torch.cat(out))
+
+
+def min_tile_dist(xc, yc, zc, cx, cy, cz, tile: int) -> torch.Tensor:
+    """(K_t, K_l) float32: for each target tile of the ``n`` bodies in
+    ``xc, yc, zc`` and each of the K_l centres ``cx, cy, cz``, the distance
+    from the centre to the tile's nearest body; bitwise
+    :func:`min_tile_dist_plain` (the kernel forms d^2 in its order, with no
+    FMA), NaN where a coordinate of the tile or the centre is.
+
+    ``min_tile_dist.launches`` counts the kernel's launches.
+    """
+    if xc.device.type == "cpu":
+        return min_tile_dist_plain(xc, yc, zc, cx, cy, cz, tile)
+    if xc.device.type != "cuda":
+        raise ValueError(f"min_tile_dist: no kernel for device {xc.device}")
+    dev = xc.device
+    n, k_l = xc.shape[0], cx.shape[0]
+    for name, t, size in (("xc", xc, n), ("yc", yc, n), ("zc", zc, n),
+                          ("cx", cx, k_l), ("cy", cy, k_l), ("cz", cz, k_l)):
+        cuda_build.require_f32(name, t, (size,), dev)
+    if tile <= 0 or n % tile:
+        raise ValueError(f"min_tile_dist: N={n} must be a multiple of tile={tile}")
+    if max(n, k_l) > cuda_build.MAX_BODIES:
+        raise ValueError(f"min_tile_dist: {n} bodies x {k_l} nodes is too many")
+    out = torch.empty((n // tile, k_l), dtype=torch.float32, device=dev)
+    if out.numel() == 0:
+        return out
+    lib = cuda_build.load_library()
+    with torch.cuda.device(dev):
+        rc = lib.nbody_min_tile_dist(xc.data_ptr(), yc.data_ptr(), zc.data_ptr(), n, tile,
+                                     cx.data_ptr(), cy.data_ptr(), cz.data_ptr(), k_l,
+                                     out.data_ptr(), _stream(dev))
+        min_tile_dist.launches += 1
+    cuda_build.check(rc, "min_tile_dist_kernel")
+    return out
+
+
+min_tile_dist.launches = 0
+
 # The wrappers whose ``.launches`` a captured CUDA graph adds to on every
 # replay (``graphs.Program``).
-COUNTED = (near_field, far_field_hier, far_field_single, gather_panels, near_panel, vip_both)
+COUNTED = (near_field, far_field_hier, far_field_single, gather_panels, near_panel, vip_both,
+           min_tile_dist)

@@ -31,8 +31,10 @@ summaries are recomputed from the current positions on every call. Names
 follow the JAX package so each counterpart can be found; the static
 planners return identical integers.
 
-The acceptance build is plain PyTorch and never synchronises with the
-host: capacities are static, and a capacity overflow is a ``torch.where``.
+The acceptance build is plain PyTorch but for its minimum distances
+(:func:`_min_tile_dist`, a kernel on the card: ``cuda_treecode.
+min_tile_dist``), and never synchronises with the host: capacities are
+static, and a capacity overflow is a ``torch.where``.
 
 The hierarchical and flat paths stamp their phases (``utils.profiling``):
 the build's ``build.levels``, ``build.open`` (``build.min_dist`` around each
@@ -70,9 +72,6 @@ HIER_MIN_NODES = 16        # the coarsest level keeps at least this many nodes
 DEFAULT_HIER_TILE = 128    # target-row granularity of the hierarchical path
 
 _TINY = 1e-12
-# Largest (rows x columns) block of the acceptance build's distance matrix
-# materialised at once, as in the JAX package's chunking (8,192 bodies).
-_DIST_BODIES = 8192
 # Bodies sampled for the MAC's median acceleration scale.
 _MEDIAN_SAMPLE = 2048
 
@@ -296,20 +295,12 @@ def _summary_panel(levels) -> torch.Tensor:
 
 # -------------------------------------------------------------- acceptance
 def _min_tile_dist(xc, yc, zc, cx, cy, cz, tile: int) -> torch.Tensor:
-    """(K_t, K_s): min over the bodies of target tile i of |y - com_j|,
-    computed a block of target tiles at a time."""
-    n = xc.shape[0]
-    k_t = n // tile
-    rows = max(_DIST_BODIES // tile, 1)
-    out = []
-    for r in range(0, k_t, rows):
-        sl = slice(r * tile, min(r + rows, k_t) * tile)
-        dx = cx[None, :] - xc[sl, None]
-        dy = cy[None, :] - yc[sl, None]
-        dz = cz[None, :] - zc[sl, None]
-        d2 = dx * dx + dy * dy + dz * dz
-        out.append(d2.reshape(-1, tile, cx.shape[0]).amin(1))
-    return torch.sqrt(torch.cat(out))
+    """(K_t, K_s): min over the bodies of target tile i of |y - com_j|
+    (``cuda_treecode.min_tile_dist``: the kernel on the card, its plain twin
+    on the CPU). The kernel takes contiguous columns; ``pos.unbind(1)``'s
+    are strided."""
+    return cuda_treecode.min_tile_dist(
+        *(a.contiguous() for a in (xc, yc, zc, cx, cy, cz)), tile)
 
 
 def _monopole_acc_mags(xs, ys, zs, cx, cy, cz, m_tot, *, eps2, c2):

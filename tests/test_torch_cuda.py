@@ -421,6 +421,144 @@ def test_treecode_run_never_waits_for_the_host(cuda):
     assert torch.isfinite(state.pos).all() and int(state.step) == 12
 
 
+# ----------------------------------- the acceptance build's minimum distances
+def _min_dist_columns(device, n, seed=2):
+    """(x, y, z, mass) contiguous float32 columns of a Plummer sphere."""
+    st = tnb.models.plummer(n, seed=seed).to(device)
+    return (*(st.pos[:, i].contiguous() for i in range(3)), st.mass)
+
+
+def _min_dist_cases():
+    """(label, rows, centres level or count, tile): every level of the
+    65,536 hierarchical plan (K_l 1,024 ... 16, 128-body rows), the flat
+    path's 32-body rows against the 1,024 level-0 tiles, K_l that no block
+    of nodes divides, and a sharded rank's rows (a quarter of the bodies)
+    against every level-0 centre."""
+    from n_body_problem_tpu_torch.ops import treecode
+
+    plan = treecode._level_plan(65536 // 64, treecode.HIER_BRANCH)
+    return ([(f"level {lvl} ({k})", "all", lvl, 128) for lvl, k in enumerate(plan)]
+            + [("flat tile 32", "all", 0, 32), ("ragged 1,000", "all", 1000, 128),
+               ("ragged 777 tile 32", "all", 777, 32), ("rank 1 of 4", "quarter", 0, 128)])
+
+
+@pytest.fixture(scope="module")
+def min_dist_inputs(cuda):
+    from n_body_problem_tpu_torch.ops import treecode
+
+    x, y, z, m = _min_dist_columns(cuda, 65536)
+    plan = treecode._level_plan(65536 // 64, treecode.HIER_BRANCH)
+    levels = treecode._level_summaries(x, y, z, m, 64, plan, treecode.HIER_BRANCH)
+    return (x, y, z), [tuple(c.contiguous() for c in lv[:3]) for lv in levels]
+
+
+@pytest.mark.parametrize("label,rows,centres,tile", _min_dist_cases(),
+                         ids=[c[0] for c in _min_dist_cases()])
+def test_min_dist_kernel_is_its_plain_twin_bitwise(cuda, min_dist_inputs, label, rows, centres,
+                                                   tile):
+    from n_body_problem_tpu_torch.ops import cuda_treecode as ct
+
+    cols, levels = min_dist_inputs
+    if rows == "quarter":   # rank 1's rows of 4, as parallel/stream.py passes them
+        q = cols[0].shape[0] // 4
+        cols = tuple(c[q:2 * q].contiguous() for c in cols)
+    if centres < len(levels):
+        cen = levels[centres]
+    else:   # the first `centres` bodies as centres
+        cen = tuple(c[:centres].contiguous() for c in min_dist_inputs[0])
+    before = ct.min_tile_dist.launches
+    got, again = ct.min_tile_dist(*cols, *cen, tile), ct.min_tile_dist(*cols, *cen, tile)
+    want = ct.min_tile_dist_plain(*cols, *cen, tile)
+    torch.cuda.synchronize()
+    assert ct.min_tile_dist.launches - before == 2
+    assert got.shape == want.shape == (cols[0].shape[0] // tile, cen[0].shape[0])
+    assert torch.equal(got, want) and torch.equal(got, again)
+
+
+def test_min_dist_kernel_carries_nans_as_its_twin(cuda, min_dist_inputs):
+    """A NaN body makes its tile's row NaN, a NaN centre its column, an
+    infinite one inf or NaN as the twin's arithmetic says; the rest stays
+    bitwise the twin's."""
+    from n_body_problem_tpu_torch.ops import cuda_treecode as ct
+
+    cols = [c.clone() for c in min_dist_inputs[0]]
+    cen = [c.clone() for c in min_dist_inputs[1][0]]
+    cols[1][7 * 128 + 5] = float("nan")
+    cols[0][9 * 128] = float("inf")
+    cen[2][33] = float("nan")
+    cen[0][40] = float("-inf")
+    cen[0][41] = float("inf")
+    got = ct.min_tile_dist(*cols, *cen, 128)
+    want = ct.min_tile_dist_plain(*cols, *cen, 128)
+    torch.cuda.synchronize()
+    assert torch.isnan(got[7]).all() and torch.isnan(got[:, 33]).all()
+    assert torch.isnan(got[9, 41]) and torch.isinf(got[9, 40])
+    torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+
+
+def test_min_dist_kernel_builds_the_twins_lists(cuda, monkeypatch):
+    """The hierarchical build at 262,144 bodies on the card: the same lists,
+    element for element, with the kernel and with the plain twin; one
+    launch a level (``union_coarse``)."""
+    from n_body_problem_tpu_torch.ops import cuda_treecode as ct
+    from n_body_problem_tpu_torch.ops import treecode
+    from n_body_problem_tpu_torch.ops.registry import tree_kwargs
+
+    sim = tnb.Simulation(tnb.SimConfig(solver="treecode"), tnb.models.plummer(262144, seed=5),
+                         device=cuda)
+    build_kw, _ = tree_kwargs(sim.cfg)
+    cols = (*sim.state.pos.unbind(1), sim.state.mass)
+    before = ct.min_tile_dist.launches
+    got = treecode.build_tree_hier_cols(*cols, **build_kw)
+    launched = ct.min_tile_dist.launches - before
+    monkeypatch.setattr(ct, "min_tile_dist", lambda *a: ct.min_tile_dist_plain(*a))
+    want = treecode.build_tree_hier_cols(*cols, **build_kw)
+    torch.cuda.synchronize()
+    assert len(got) == len(want) == 5
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    plan = treecode._level_plan(262144 // sim.cfg.tree_src_tile, treecode.HIER_BRANCH)
+    assert launched == len(plan)
+
+
+@pytest.mark.parametrize("overrides,per_build", [({}, None), (dict(tree_hier=False), 1),
+                                                 (dict(tree_flat_cap=-1), 1)])
+def test_min_dist_wrapper_counts_a_rebuilds_launches(cuda, overrides, per_build):
+    """An eager rebuild of each path launches the kernel once a level of the
+    hierarchy (every level while ``union_coarse``), once on the flat and
+    dense paths."""
+    from n_body_problem_tpu_torch.ops import cuda_treecode as ct
+    from n_body_problem_tpu_torch.ops import treecode
+    from n_body_problem_tpu_torch.ops.registry import tree_fns
+
+    sim = tnb.Simulation(tnb.SimConfig(solver="treecode", **overrides),
+                         tnb.models.plummer(8192, seed=3), device=cuda)
+    before = ct.min_tile_dist.launches
+    tree_fns(sim.cfg)[0](sim.state.pos, sim.state.mass)
+    torch.cuda.synchronize()
+    if per_build is None:
+        per_build = len(treecode._level_plan(8192 // sim.cfg.tree_src_tile, treecode.HIER_BRANCH))
+    assert ct.min_tile_dist.launches - before == per_build
+
+
+def test_min_dist_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    from n_body_problem_tpu_torch.ops import cuda_treecode as ct
+
+    x, y, z, _ = _min_dist_columns(cuda, 1024)
+    cen = (x[:64], y[:64], z[:64])
+    with pytest.raises(TypeError, match="float32"):
+        ct.min_tile_dist(x.double(), y, z, *cen, 128)
+    with pytest.raises(TypeError, match="float32"):
+        ct.min_tile_dist(x, y, z, cen[0].double(), *cen[1:], 128)
+    strided = torch.stack([x, y, z], 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        ct.min_tile_dist(*strided.unbind(1), *cen, 128)
+    with pytest.raises(ValueError, match="multiple of tile"):
+        ct.min_tile_dist(x[:1000], y[:1000], z[:1000], *cen, 128)
+    with pytest.raises(ValueError, match="is on"):
+        ct.min_tile_dist(x, y, z, cen[0].cpu(), *cen[1:], 128)
+
+
 # ------------------------------------- single-level flat and dense paths
 # (label, N, overrides, path): the flat path by tree_hier=False and by N
 # alone (below the hierarchy's 4,096 bodies), the dense path with a far
@@ -902,14 +1040,20 @@ def test_graph_counters_count_replays(cuda, overrides):
     the capture add none: the first run counts as the later ones do."""
     from n_body_problem_tpu_torch.graphs import counted
 
+    from n_body_problem_tpu_torch.ops import cuda_treecode as ct
+
     sim = _graph_sim(cuda, overrides)
     wrappers = counted()
     moves = []
     for steps in (5, 5, 7):
         before = [w.launches for w in wrappers]
         sim.run(steps)
-        moves.append([(w.launches - b) / steps for w, b in zip(wrappers, before)])
+        # The step's kernels a step; the build's a call (one rebuild: each
+        # call restarts the cadence of 8).
+        moves.append([(w.launches - b) / (1 if w is ct.min_tile_dist else steps)
+                      for w, b in zip(wrappers, before)])
     assert moves[0] == moves[1] == moves[2] and sum(moves[0]) >= 3
+    assert moves[0][wrappers.index(ct.min_tile_dist)] >= 1
 
 
 def test_exact_graph_run_matches_the_eager_loop(cuda):
@@ -1039,6 +1183,7 @@ def test_graph_frame_counters_count_replays(cuda):
     its first (capturing) call as on the next, and as ``run`` of as many
     steps (the frame launches no kernel of the port)."""
     from n_body_problem_tpu_torch.graphs import counted
+    from n_body_problem_tpu_torch.ops import cuda_treecode as ct
     from n_body_problem_tpu_torch.render import OrbitCamera
 
     sim = _graph_sim(cuda, {})
@@ -1051,7 +1196,11 @@ def test_graph_frame_counters_count_replays(cuda):
         else:
             sim.run(8)
         moves.append([w.launches - b for w, b in zip(wrappers, before)])
+    # The build's kernel counts rebuilds: each of the movie's four 2-step
+    # frame spans starts a chunk, and run(8) is one chunk.
+    build = [m.pop(wrappers.index(ct.min_tile_dist)) for m in moves]
     assert moves[0] == moves[1] == moves[2] and sum(moves[0]) >= 3 * 8
+    assert build[0] == build[1] == 4 * build[2] > 0
 
 
 @pytest.mark.parametrize("strategy", ["ring", "half_ring", "treecode", "treecode_staged"])

@@ -105,10 +105,11 @@ def test_near_work_counts_live_entries():
 def test_counted_covers_every_pair_and_treecode_kernel():
     """The SASS report counts the inner loops of the four pair kernels and
     of the treecode's near, VIP, far, single-level far and near-panel
-    kernels: every source with a pair or term loop, all but the gather and
-    the span stamp (one thread, no loop over bodies)."""
+    kernels: every source with a pair or term loop, all but the gather, the
+    span stamp (one thread, no loop over bodies) and the minimum distances
+    (no rsqrt: the report finds a loop by its rsqrts)."""
     assert set(kc.COUNTED) == ({p.name for p in cuda_build.sources()}
-                               - {"gather.cu", "stamp.cu"})
+                               - {"gather.cu", "stamp.cu", "min_dist.cu"})
 
 
 def test_vip_work_counts_both_ways_once():

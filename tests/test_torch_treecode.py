@@ -301,3 +301,49 @@ def test_wrappers_refuse_devices_without_a_kernel():
                       src_tile=64, entries=32, eps2=EPS2, c2=C2)
     with pytest.raises(ValueError, match="no kernel"):
         ct.vip_both(meta, meta, eps2=EPS2, c2=C2)
+
+
+# ------------------------------------------------------- minimum distances
+def _centres(case, level):
+    """The node centres (cx, cy, cz) of one level of the case's plan."""
+    mass_tree = torch.from_numpy(np.where(case["jaux"][4], 0.0, case["mass"]).astype(np.float32))
+    lv = ttc._level_summaries(*case["tpos"].unbind(1), mass_tree, 64, case["plan"], 2)
+    return lv[level][:3]
+
+
+@pytest.mark.parametrize("tile,level", [(128, 0), (128, 3), (32, 0), (64, 1)])
+def test_min_tile_dist_on_the_cpu_is_its_plain_twin(case, tile, level):
+    """``_min_tile_dist`` takes the plain twin on a CPU tensor: the same bits
+    from the strided columns of ``pos.unbind(1)``, and the JAX package's
+    distances within float32 rounding (XLA rounds the chain otherwise)."""
+    cols, cen = case["tpos"].unbind(1), _centres(case, level)
+    got = ttc._min_tile_dist(*cols, *cen, tile)
+    want = ct.min_tile_dist_plain(*(c.contiguous() for c in cols), *cen, tile)
+    assert got.shape == (N // tile, cen[0].shape[0]) and got.dtype == torch.float32
+    assert torch.equal(got, want)
+    jcom = jnp.asarray(torch.stack(cen, 1).numpy())
+    np.testing.assert_allclose(got.numpy(), np.asarray(jtc._min_tile_dist(*_jcols(case), jcom, tile)),
+                               rtol=2e-6, atol=0)
+    brute = torch.cdist(case["tpos"].double().reshape(-1, 3), torch.stack(cen, 1).double())
+    np.testing.assert_allclose(got.numpy(), brute.reshape(N // tile, tile, -1).amin(1).numpy(),
+                               rtol=1e-5, atol=1e-6)
+
+
+def test_min_tile_dist_carries_a_nan_through_its_tile(case):
+    """A NaN coordinate makes its target tile's row NaN and leaves every
+    other row as it was (torch.amin propagates it; the kernel does too)."""
+    cols = [c.contiguous() for c in case["tpos"].unbind(1)]
+    cen = _centres(case, 0)
+    clean = ttc._min_tile_dist(*cols, *cen, 128)
+    cols[1] = cols[1].clone()
+    cols[1][5 * 128 + 17] = float("nan")
+    got = ttc._min_tile_dist(*cols, *cen, 128)
+    assert torch.isnan(got[5]).all()
+    keep = torch.arange(N // 128) != 5
+    assert torch.equal(got[keep], clean[keep])
+
+
+def test_min_tile_dist_refuses_a_device_without_a_kernel():
+    meta = torch.empty(8192, device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        ct.min_tile_dist(meta, meta, meta, meta[:128], meta[:128], meta[:128], 128)
