@@ -19,7 +19,11 @@ The steps, in order:
    the traffic file names ``judged_within_steps``, the sample and the last
    call are of the window's first that many steps, so that the states judged
    are as old in a fast run as in a slow one.
-4. **Per-layer readings** (``--trace 1``), with the program still alive.
+4. **Per-layer readings** (``--trace 1``), with the program still alive. A
+   reader whose work needs the card's memory returns a function of no
+   arguments instead, with what it took from the program: the harness
+   calls it once the program, its CUDA graphs and their memory pools are
+   freed.
 5. **Comparison** (``judge``), after the program is freed.
 6. **Result**: one JSON line on standard output, the numbers compared and
    their limits last on standard error.
@@ -218,6 +222,13 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
     gc.collect()
     if device != "cpu":
         torch.cuda.empty_cache()
+    for name, m in list(metrics.items()):
+        if callable(m["value"]):            # a reader's work once the program is freed
+            v = m["value"]()
+            if v is None:
+                del metrics[name]
+            else:
+                m["value"] = v
 
     t = time.perf_counter()
     numbers = []

@@ -1,23 +1,42 @@
 """The comparison that decides ``correct``: a call's result against the plain
 reference (``nbody_bench.reference``), body by body on a sample.
 
-A call of ``n`` semi-implicit Euler steps turns the state ``prev`` (the one
-the previous call returned) into ``cur``, whose ``acc`` is the force of its
-last step, taken at ``x_last = x - v dt`` (``prev``'s positions when
-``n = 1``). The reference works out, in float64 from the benchmark's own
-masses and the positions it judges:
+A call of ``n`` steps turns the state ``prev`` (the one the previous call
+returned) into ``cur``. Both hold the configuration's ``N`` real bodies
+alone: a snapshot whose ``input_ids()`` is not a permutation of
+``range(N)``, or whose arrays do not hold ``N`` rows, is not judged and
+reads ``force_p99`` NaN, a failed call (a program that hands back its
+padding, or moves it into the real slots, is caught so). The reference
+works out, in float64 from the benchmark's own masses and the positions it
+judges, with the force ``a_ref``, the exact sum over every body:
 
 - ``force_p99``: the 99th percentile over the sampled bodies of
-  ``|acc - a_ref(x_last)| / |a_ref(x_last)|``, ``a_ref`` the exact sum over
-  every body: the force the call's solver gave (kernel 2, or the treecode on
-  its acceptance lists);
+  ``|acc - a_ref(x_last)| / |a_ref(x_last)|``, ``acc`` the state's force of
+  its last step: the force the call's solver gave (kernel 2, or the
+  treecode on its acceptance lists). ``x_last`` follows the configuration's
+  ``physics.integrator`` (``reference.gravity.INTEGRATORS``): under
+  ``semi_implicit_euler`` the positions the last step started from,
+  ``x - v dt`` (``prev``'s positions when ``n = 1``), so the returned
+  velocity is held too; under ``leapfrog`` (KDK, stored-acceleration form)
+  the state's own ``x``;
 - ``dx_p90``: the 90th percentile of ``|dx - dx_ref| / |dx_ref|``, ``dx``
-  a body's move over the call and ``dx_ref = n dt v_0 + dt^2 n (n + 1)
-  (a_first / 3 + a_last / 6)``, the Euler sum of ``n`` steps with the force
-  taken linear from ``a_ref(x_0)`` to ``a_ref(x_last)``: the integrator's
-  update and the steps the call took (exact for ``n = 1``);
+  a body's move over the call and ``dx_ref`` the sum of ``n`` steps of the
+  integrator with the force taken linear between ``a_first = a_ref(x_0)``
+  and ``a_last = a_ref(x_last)``: the integrator's update and the steps
+  the call took (exact for ``n = 1``);
+- under ``leapfrog`` alone, whose force does not hold the velocity:
+  ``dv_p90``, the 90th percentile of ``|dv - dv_ref| / |dv_ref|``, ``dv``
+  a body's velocity change over the call and ``dv_ref`` the trapezoid sum
+  of the call's forces from ``a_first``, ``a_last`` and their time
+  derivatives ``j`` at the two ends (the reference's ``jerk`` at the
+  states' positions and velocities; exact for a force cubic in time); and
+  ``dv_lag``, ``|median((dv - dv_ref) . a_last / (dt |a_last|^2))|``, the
+  velocity's shift along the force in kicks of a step: a closing half-kick
+  left out, or taken twice, reads 0.5 on every body, where the error of
+  the sum above scatters in direction and its median is near 0;
 - ``frame_rel`` (where the loop renders): ``|F - F_ref| / |F_ref|`` over
-  every pixel, ``F_ref`` the plain splat of ``cur``'s positions;
+  every pixel, ``F`` the program's whole frame and ``F_ref`` the plain
+  splat of ``cur``'s positions;
 - ``steps_gap``: ``|(cur.step - prev.step) - n|``, the steps the system's
   own counter says the call took against the ``n`` the loop asked for, held
   to 0 (the harness holds the window's whole count to it too, with the
@@ -36,7 +55,7 @@ import numpy as np
 import torch
 
 from nbody_bench.reference import splat
-from nbody_bench.reference.gravity import Physics, accel
+from nbody_bench.reference.gravity import INTEGRATORS, Physics, accel, jerk
 from nbody_bench.snapshot import Snapshot
 
 _TINY = 1e-30
@@ -56,11 +75,27 @@ def _pct(x: torch.Tensor, q: float) -> float:
     return float(np.percentile(x.double().cpu().numpy(), q))
 
 
+def is_real(snap: Snapshot, n: int) -> bool:
+    """Whether ``snap`` holds ``n`` bodies, each input index once (O(n) on
+    the host)."""
+    ids = snap.input_ids()
+    if any(a.shape[0] != n for a in (snap.pos, snap.vel, snap.acc)) or ids.shape != (n,):
+        return False
+    if not np.issubdtype(ids.dtype, np.integer) or ids.min() < 0 or ids.max() >= n:
+        return False
+    seen = np.zeros(n, dtype=bool)
+    seen[ids] = True
+    return bool(seen.all())
+
+
 def judge_call(prev: Snapshot, cur: Snapshot, n_steps: int, mass: np.ndarray, phys: Physics,
                slots: np.ndarray, frame: torch.Tensor | None = None,
                view: dict | None = None) -> dict[str, float]:
     """The numbers of one call (``prev`` -> ``cur``) on the sampled ``slots``
     of ``cur``; ``mass`` the input masses in input order."""
+    steps_gap = float(abs(int(cur.step) - int(prev.step) - n_steps))
+    if not (is_real(prev, len(mass)) and is_real(cur, len(mass))):
+        return {"force_p99": float("nan"), "steps_gap": steps_gap}
     dev = cur.pos.device
     f64 = torch.float64
     ids_cur = cur.input_ids()
@@ -73,26 +108,35 @@ def judge_call(prev: Snapshot, cur: Snapshot, n_steps: int, mass: np.ndarray, ph
     x0 = prev.pos.to(f64)
     m0 = m_in[torch.as_tensor(prev.input_ids(), device=dev)]
     a_first = accel(x0[s_prev], x0, m0, phys)
-    if n_steps == 1:
+    rule = INTEGRATORS[phys.integrator]
+    m1 = m_in[torch.as_tensor(ids_cur, device=dev)]
+    if n_steps == 1 and rule.acc_lags:
         a_last = a_first
     else:
-        x_last = cur.pos.to(f64) - cur.vel.to(f64) * phys.dt
-        m1 = m_in[torch.as_tensor(ids_cur, device=dev)]
+        x_last = cur.pos.to(f64)
+        if rule.acc_lags:
+            x_last = x_last - cur.vel.to(f64) * phys.dt
         a_last = accel(x_last[s_cur], x_last, m1, phys)
     out = {"force_p99": _pct(_rel(cur.acc[s_cur].to(f64), a_last), 99),
-           "steps_gap": float(abs(int(cur.step) - int(prev.step) - n_steps))}
+           "steps_gap": steps_gap}
 
-    dt, n = phys.dt, n_steps
+    dt, v0 = phys.dt, prev.vel.to(f64)
     dx = cur.pos[s_cur].to(f64) - x0[s_prev]
-    dx_ref = (n * dt * prev.vel[s_prev].to(f64)
-              + dt * dt * n * (n + 1) * (a_first / 3.0 + a_last / 6.0))
-    out["dx_p90"] = _pct(_rel(dx, dx_ref), 90)
+    out["dx_p90"] = _pct(_rel(dx, rule.dx_ref(n_steps, dt, v0[s_prev], a_first, a_last)), 90)
+    if rule.dv_ref is not None:
+        x1, v1 = cur.pos.to(f64), cur.vel.to(f64)
+        j_first = jerk(x0[s_prev], v0[s_prev], x0, v0, m0, phys)
+        j_last = jerk(x1[s_cur], v1[s_cur], x1, v1, m1, phys)
+        want = rule.dv_ref(n_steps, dt, a_first, a_last, j_first, j_last)
+        err = v1[s_cur] - v0[s_prev] - want
+        out["dv_p90"] = _pct(err.norm(dim=1) / want.norm(dim=1).clamp_min(_TINY), 90)
+        lag = (err * a_last).sum(1) / (dt * (a_last * a_last).sum(1)).clamp_min(_TINY)
+        out["dv_lag"] = abs(float(lag.median()))
 
     if frame is not None:
         vp = splat.view_projection(view["theta_deg"], view["phi_deg"], view["distance"],
                                    view["width"] / view["height"])
-        m_cur = m_in[torch.as_tensor(ids_cur, device=dev)]
-        ref = splat.frame(cur.pos, m_cur, vp, view["scale"], width=view["width"],
+        ref = splat.frame(cur.pos, m1, vp, view["scale"], width=view["width"],
                           height=view["height"])
         got = frame.to(dev, f64)
         out["frame_rel"] = float((got - ref).norm() / ref.norm().clamp_min(_TINY))

@@ -28,8 +28,12 @@ class Port:
         self.camera = None
 
     def run(self, n_steps: int) -> Snapshot:
+        """The state after ``n_steps`` steps, its real bodies only: the
+        program pads with zero-mass bodies to its solver's multiple and keeps
+        the padding last, and ``sort_perm`` names the real slots alone."""
         s = self.sim.run(n_steps)
-        return Snapshot(s.pos, s.vel, s.acc, self.sim.sort_perm, s.step)
+        k = s.n_real
+        return Snapshot(s.pos[:k], s.vel[:k], s.acc[:k], self.sim.sort_perm, s.step)
 
     def frame(self, view: dict) -> torch.Tensor:
         """The frame of the current state, (H, W, 3) on the device."""

@@ -11,7 +11,8 @@ import torch
 @dataclasses.dataclass
 class Snapshot:
     """The state a call returned: positions, velocities and the force of
-    its last step, (N, 3) each on the device, in the system's slot order;
+    its last step, (N, 3) each on the device, N the configuration's real
+    bodies (no padding), in the system's slot order;
     ``ids[i]`` is the input index of the body at slot i (None: slot i holds
     body i); ``step`` the system's own count of the steps it has taken (a
     0-d tensor or an int, read only once the window has closed)."""

@@ -6,7 +6,15 @@ found by the name that ``BENCHMARK.json`` gives:
 
 - ``configs/<config>.json``: the deployment (body count, generator,
   physics, the bodies the comparison samples); the workload entry's
-  ``config``;
+  ``config``. Its ``physics.integrator`` is ``semi_implicit_euler`` or
+  ``leapfrog`` (KDK, stored-acceleration form), the two the program runs
+  and the reference follows (``reference.gravity.INTEGRATORS``); any other
+  name is refused here. A leapfrog cell's limits also name ``dv_p90`` and
+  ``dv_lag``, which the comparison reads under the leapfrog alone. Its ``n`` is
+  any count: the comparison takes the program's real bodies, not its
+  padding;
+- ``inputs/<generator>.py``: ``generate(n, seed, **generator_params)``,
+  the bodies' ``(pos, vel, mass)`` as float32 arrays from the seed;
 - ``traffic/<traffic>.json``: the solver and its settings, the loop by name,
   the steps a call, the frame, the calls judged and traced a window, and
   optionally ``judged_within_steps``, the window's first steps that the
@@ -17,7 +25,10 @@ found by the name that ``BENCHMARK.json`` gives:
   reads in that cell;
 - ``e2e/<metric>.py`` and ``metrics/<metric>.py``: ``read(...)``, an
   end-to-end metric of the run and a per-layer metric of its trace, with
-  the dots of a metric's name as underscores in the file's name.
+  the dots of a metric's name as underscores in the file's name. A
+  per-layer reader returns its number, None where it finds nothing to read,
+  or a function of no arguments that the harness calls once the program is
+  freed (for work that needs the card's memory).
 
 A metric named ``<base>.<twin>`` with no file of its own is read by
 ``<base>``'s reader. Such twins exist for one reason: an end-to-end metric
@@ -38,6 +49,8 @@ import dataclasses
 import importlib.util
 import json
 import pathlib
+
+from nbody_bench.reference.gravity import INTEGRATORS
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PACKAGE = "nbody_bench"
@@ -93,11 +106,15 @@ def load(workload: str, root: pathlib.Path = ROOT) -> Cell:
     if entry is None:
         raise KeyError(f"no workload {workload!r} in {root / 'BENCHMARK.json'}")
     conf = next(c for c in bench["configs"] if c["name"] == entry["config"])
+    config = _load_json(root / conf["file"])
+    if config["physics"]["integrator"] not in INTEGRATORS:
+        raise ValueError(f"{conf['file']}: integrator {config['physics']['integrator']!r} "
+                         f"is none of {sorted(INTEGRATORS)}")
     base = root / PACKAGE
     traffic = _load_json(base / "traffic" / f"{entry['traffic']}.json")
     return Cell(
         name=workload,
-        config=_load_json(root / conf["file"]),
+        config=config,
         traffic=traffic,
         limits=_load_json(base / "limits" / f"{workload}.json"),
         chips=entry["chips"],

@@ -7,12 +7,12 @@ import ast
 import json
 import pathlib
 import re
-import shutil
 import time
 
 import pytest
 
 from nbody_bench import harness, spec
+from nbody_bench.tests import new_cells
 
 ROOT = spec.ROOT
 BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
@@ -122,39 +122,55 @@ def test_foreign_modules_compare_whole_names(monkeypatch):
     assert harness.foreign_modules() == ["n_body_problem_tpu.ops"]
 
 
-def test_a_cell_a_mix_and_a_metric_are_added_by_files_alone(tmp_path):
-    """A dummy configuration, traffic mix, cell, limits and per-layer metric,
-    added as files and entries in a copy, run through the unchanged harness."""
-    shutil.copytree(ROOT / "nbody_bench", tmp_path / "nbody_bench",
-                    ignore=shutil.ignore_patterns("__pycache__", "tests"))
-    bench = json.loads(json.dumps(BENCH))
-    (tmp_path / "nbody_bench/configs/tiny.json").write_text(json.dumps(
-        dict(json.loads((ROOT / "nbody_bench/configs/plummer_65k.json").read_text()),
-             n=512, probe_bodies=512)))
-    (tmp_path / "nbody_bench/traffic/short.json").write_text(json.dumps(
-        {"solver": "auto", "settings": {}, "loop": "batch", "steps_per_call": 2,
-         "judged_calls": 2, "traced_calls": 100}))
-    (tmp_path / "nbody_bench/limits/tiny.short.json").write_text(
-        json.dumps({"force_p99": 1e-4, "dx_p90": 1e-2, "steps_gap": 0}))
+@pytest.mark.parametrize("cell", ["tiny.short", *new_cells.CELLS])
+def test_a_cell_a_mix_and_a_metric_are_added_by_files_alone(tmp_path, cell):
+    """A configuration, traffic mix, cell, limits and per-layer metric, added
+    as files and entries in a copy, run through the unchanged harness: a
+    dummy cell, and those of ``new_cells`` (counts the program pads, two
+    masses, the leapfrog; the batch and the live loop)."""
+    new_cells.copy(tmp_path)
+    if cell == "tiny.short":
+        bench = json.loads(json.dumps(BENCH))
+        (tmp_path / "nbody_bench/configs/tiny.json").write_text(json.dumps(
+            dict(json.loads((ROOT / "nbody_bench/configs/plummer_65k.json").read_text()),
+                 n=512, probe_bodies=512)))
+        (tmp_path / "nbody_bench/traffic/short.json").write_text(json.dumps(
+            {"solver": "auto", "settings": {}, "loop": "batch", "steps_per_call": 2,
+             "judged_calls": 2, "traced_calls": 100}))
+        (tmp_path / "nbody_bench/limits/tiny.short.json").write_text(
+            json.dumps({"force_p99": 1e-4, "dx_p90": 1e-2, "steps_gap": 0}))
+        bench["configs"].append({"name": "tiny", "source": "a test", "reduced": [],
+                                 "file": "nbody_bench/configs/tiny.json", "why": "a test"})
+        bench["workloads"].append({"name": "tiny.short", "config": "tiny", "traffic": "short",
+                                   "chips": 1, "why": "a test"})
+        next(m for m in bench["end_to_end"] if m["name"] == "ms_per_step")["workloads"].append(
+            "tiny.short")
+    else:
+        new_cells.add(tmp_path, cell, steps_per_call=2)
+        bench = json.loads((tmp_path / "BENCHMARK.json").read_text())
     (tmp_path / "nbody_bench/metrics/calls_per_s.py").write_text(
         "def read(trace, run):\n    return run.calls / run.window_s\n")
-    bench["configs"].append({"name": "tiny", "source": "a test", "reduced": [],
-                             "file": "nbody_bench/configs/tiny.json", "why": "a test"})
-    bench["workloads"].append({"name": "tiny.short", "config": "tiny", "traffic": "short",
-                               "chips": 1, "why": "a test"})
-    next(m for m in bench["end_to_end"] if m["name"] == "ms_per_step")["workloads"].append(
-        "tiny.short")
     bench["per_layer"].append({"name": "calls_per_s", "unit": "1/s", "better": "higher",
                                "source": "host_clock", "layer": "entry and graphs",
-                               "moves": "ms_per_step", "workloads": ["tiny.short"]})
+                               "moves": "ms_per_step", "workloads": [cell]})
     (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
     for trace in (False, True):
-        out = harness.run_cell("tiny.short", 7, 0.2, trace, root=tmp_path, device="cpu")
-        assert out["correct"] and out["attempted"] >= 1 and out["failed"] == 0
+        out = harness.run_cell(cell, 7, 0.2, trace, root=tmp_path, device="cpu")
+        assert out["correct"] and out["attempted"] >= 1 and out["failed"] == 0, out["checks"]
         assert list(out)[-1] == "checks"
         assert out["device"]["count"] == 1
         want = {"calls_per_s"} if trace else {"ms_per_step", "setup_s"}
         assert set(out["metrics"]) == want
+
+
+def test_an_integrator_the_reference_does_not_follow_is_refused(tmp_path):
+    new_cells.copy(tmp_path)
+    path = tmp_path / "nbody_bench/configs/plummer_65k.json"
+    config = json.loads(path.read_text())
+    config["physics"]["integrator"] = "rk4"
+    path.write_text(json.dumps(config))
+    with pytest.raises(ValueError, match="rk4"):
+        spec.load("plummer_65k.exact", tmp_path)
 
 
 class _Counting:
