@@ -26,19 +26,28 @@ def kinetic_energy(state: SimState) -> torch.Tensor:
     return 0.5 * torch.sum(m * torch.sum(state.vel * state.vel, dim=-1))
 
 
+# Pairs of one block of ``potential_energy``: its (rows, n, 3) float32
+# separations are 384 MiB.
+_BLOCK_ELEMS = 1 << 25
+
+
 def potential_energy(state: SimState, cfg: SimConfig, block_size: int = 256) -> torch.Tensor:
     """Softened pairwise potential, consistent with the force law.
 
     The compensated force is the exact gradient of
     ``phi_ij = -G m_i m_j * c * (c^2 r^2 + eps2)^(-1/2)``, so energy computed
     here is conserved (up to integrator error) under any of the solvers.
-    O(N^2), evaluated in row blocks to bound memory.
+    O(N^2), evaluated in row blocks to bound memory: ``block_size`` rows,
+    fewer where a block would pass ``_BLOCK_ELEMS`` pairs (beyond 131,072
+    bodies), so that a block's temporaries fit beside a run's graphs
+    (2,125,000 bodies: 15 rows).
     """
     c = cfg.compensate
     c2 = c * c
     pos = state.pos
     m = _mask(state) * state.mass
     n = pos.shape[0]
+    block_size = max(1, min(block_size, _BLOCK_ELEMS // n))
     total = torch.zeros((), dtype=pos.dtype, device=pos.device)
     for r in range(0, n, block_size):
         pos_i, m_i = pos[r:r + block_size], m[r:r + block_size]

@@ -4,6 +4,7 @@ from __future__ import annotations
 
 from typing import Callable
 
+from n_body_problem_tpu_torch.models.agora import agora_disk
 from n_body_problem_tpu_torch.models.galaxy import disk_galaxy, galaxy_collision
 from n_body_problem_tpu_torch.models.plummer import plummer
 from n_body_problem_tpu_torch.models.solar_system import solar_system
@@ -17,6 +18,7 @@ MODELS: dict[str, Callable[..., SimState]] = {
     "cold_sphere": cold_sphere,
     "disk_galaxy": disk_galaxy,
     "galaxy_collision": galaxy_collision,
+    "agora_disk": agora_disk,
 }
 
 

@@ -25,10 +25,12 @@ program keeps in memory:
   ``build.levels``, ``build.open`` (``build.min_dist`` around each
   ``_min_tile_dist`` in it) and ``build.lists``; the step's
   ``force.operands``, ``force.near``, ``force.far``, ``force.vip`` and
-  ``update``. On the card a phase boundary is a one-thread kernel
-  (``csrc/stamp.cu``, :data:`STAMP_KERNEL`) captured into the graph, which
-  writes the phase and ``%globaltimer`` into a ring on the card at a cursor
-  on the card, so that every replay leaves its own records and the host
+  ``update``; the resort's ``resort.order`` (its keys and their sort,
+  ``utils.morton.morton_order``, in every treecode path's resort). On the
+  card a phase boundary is a one-thread kernel (``csrc/stamp.cu``,
+  :data:`STAMP_KERNEL`) captured into the graph, which writes the phase and
+  ``%globaltimer`` into a ring on the card at a cursor on the card, so that
+  every replay leaves its own records and the host
   never waits; the host keeps the same count (each graph holds a known
   number of stamps). A graph is captured the same way whether tracing is on
   or off. Outside a graph, on the card, a boundary is launched only while
@@ -37,7 +39,7 @@ program keeps in memory:
 - *counters*: the build's last record carries the lists' work
   (:data:`COUNTERS`): near and far entries kept and shed by the capacities,
   the VIP bodies, and a step's near body pairs, far terms and VIP pairs on
-  those lists.
+  those lists; the resort's, ``tied_bodies`` (:data:`PHASE_COUNTERS`).
 
 :func:`spans` resolves them, and :func:`work` sums the counters over the
 steps that ran on each build's lists. The treecode's ``treecode.resort`` and
@@ -70,7 +72,7 @@ PHASES = {
     "build.levels": None, "build.open": None, "build.min_dist": "build.open",
     "build.lists": None,
     "force.operands": None, "force.near": None, "force.far": None, "force.vip": None,
-    "update": None,
+    "update": None, "resort.order": None,
 }
 _NAMES = tuple(PHASES)
 _CODE = {name: i for i, name in enumerate(_NAMES)}
@@ -78,6 +80,10 @@ _END_ALL = -1
 # The build's counters, in the order of its record (``build.lists``' end).
 COUNTERS = ("near_kept", "near_shed", "far_kept", "far_shed", "vip_bodies",
             "near_pairs", "far_terms", "vip_pairs")
+# The counters of each phase whose end record carries some: the build's, and
+# the resort's real bodies that share their 30-bit Morton key with the body
+# before them (``utils.morton.tied_bodies``).
+PHASE_COUNTERS = {"build.lists": COUNTERS, "resort.order": ("tied_bodies",)}
 
 
 @dataclasses.dataclass
@@ -280,7 +286,8 @@ def _phases(recs: list, host: Span, next_id: int) -> list[Span]:
             s = stack.pop()
             s.device_end = t
             if s.name == name:
-                s.counters = dict(zip(COUNTERS, counters)) if any(counters) else {}
+                s.counters = (dict(zip(PHASE_COUNTERS.get(name, COUNTERS), counters))
+                              if any(counters) else {})
                 break
     return out
 

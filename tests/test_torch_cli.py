@@ -181,6 +181,26 @@ def test_run_treecode_tree_tuned(tmp_path, capsys):
             saved.tree_mac_tau) == (32, 32, 4, 5e-4)
 
 
+def test_run_agora_disk_with_its_physics(tmp_path, capsys):
+    """``--model agora_disk`` with the deployment's physics (GADGET's G,
+    80 pc softening, 0.1 Myr KDK steps) on the treecode, its capacities
+    pinned for the CPU's hierarchical path."""
+    cfg = tmp_path / "caps.json"
+    cfg.write_text('{"tree_flat_cap": 16384, "tree_far_cap": 16384}')
+    rc = main(["run", "--model", "agora_disk", "--n", "4096", "--steps", "4",
+               "--steps-per-block", "2", "--config", str(cfg), "--solver", "treecode",
+               "--integrator", "leapfrog", "--g", "43007.1", "--dt", "1.0227e-4",
+               "--eps2", "0.0064", "--compensate", "1", "--device", "cpu",
+               "--out", str(tmp_path / "o")])
+    assert rc == 0
+    assert "solver=treecode" in capsys.readouterr().err
+    state, saved = jax_load(tmp_path / "o" / "final.npz")
+    assert int(state.step) == 4 and np.isfinite(np.asarray(state.pos)).all()
+    assert (saved.G, saved.integrator) == (43007.1, "leapfrog")
+    mass = np.asarray(state.mass)
+    assert mass.max() / mass.min() == pytest.approx(36.5, abs=0.1)
+
+
 def test_info(capsys):
     assert main(["info"]) == 0
     out = capsys.readouterr().out

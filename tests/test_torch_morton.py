@@ -4,6 +4,7 @@ must be exactly equal, on the host and on the device path."""
 import torch_threads  # noqa: F401  (first: the CPU threads of this worker)
 
 import jax.numpy as jnp
+import morton_ties
 import numpy as np
 import pytest
 import torch
@@ -52,16 +53,96 @@ def test_device_keys_of_positions_equal_jax(n, n_real, seed):
 @pytest.mark.parametrize("n,n_real,model", [(4096, 4096, "plummer"),
                                             (8192, 7990, "galaxy_collision")])
 def test_resort_cols_permutation_equals_jax(n, n_real, model):
+    """The JAX package's permutation where the 30-bit keys differ; inside a
+    tie, the order of the port's fine key (``morton_keys_wide``)."""
     pos, mass = _bodies(n, 1, model)
     n = pos.shape[0]   # a galaxy collision adds its two central masses
     ids = np.arange(n, dtype=np.int32)
     jcols = jm.resort_cols(tuple(jnp.asarray(a) for a in (*pos.T, mass, ids)), n_real)
     tcols = tm.resort_cols((*_cols(pos), torch.from_numpy(mass.copy()),
                             torch.from_numpy(ids.copy())), n_real)
-    np.testing.assert_array_equal(tcols[4].numpy(), np.asarray(jcols[4]))
-    for got, want in zip(tcols[:4], jcols[:4]):
-        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
-    assert (tcols[4][n_real:].numpy() == np.arange(n_real, n)).all()   # padding last
+    order = tcols[4].numpy()
+    morton_ties.assert_jax_order_but_ties(order[:n_real], np.asarray(jcols[4])[:n_real],
+                                          morton_ties.keys(pos, n_real))
+    wide = tm.morton_keys_wide(*_cols(pos), n_real).numpy()
+    assert (np.diff(wide[order]) >= 0).all()         # the wide keys' order
+    for got, want in zip(tcols[:4], (*pos.T, mass)):
+        np.testing.assert_array_equal(got.numpy(), want[order])
+    assert (order[n_real:] == np.arange(n_real, n)).all()   # padding last
+
+
+def test_order_across_distinct_keys_equals_jax():
+    """A galaxy's centre crowds thousands of bodies into one 30-bit cell:
+    across cells the order is still the JAX package's."""
+    from n_body_problem_tpu_torch.models.agora import agora_arrays
+
+    pos, _, _ = agora_arrays(8192, seed=4)
+    n_real = 8000
+    keys = morton_ties.keys(pos, n_real)
+    assert np.unique(keys).size < n_real - 1000       # many ties
+    ids = np.arange(8192, dtype=np.int32)
+    jperm = np.asarray(jm.resort_cols(tuple(jnp.asarray(a) for a in (*pos.T, ids)),
+                                      n_real)[3])
+    perm = tm.morton_order(*_cols(pos), n_real).numpy()
+    morton_ties.assert_jax_order_but_ties(perm[:n_real], jperm[:n_real], keys)
+    assert (perm[n_real:] == np.arange(n_real, 8192)).all()
+
+
+def _one_cell(seed, count=3000):
+    """Two corner bodies fix the box at 1,023 key cells a side; ``count``
+    bodies are uniform inside the cell (517, 517, 517)."""
+    rng = np.random.default_rng(seed)
+    inner = 517.0 + rng.uniform(0.001, 0.999, (count, 3))
+    return np.concatenate([[[0.0, 0.0, 0.0], [1023.0, 1023.0, 1023.0]],
+                           inner]).astype(np.float32)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_a_crowded_cell_is_ordered_by_the_fine_key(seed):
+    """3,000 bodies in one 30-bit cell come out in the order of their place
+    inside it (11 bits a dimension). A 128-body tile inside one octant of
+    the cell spans under half its width on every axis, and the tiles'
+    boxes hold under a quarter of the volume they do in the 30-bit order
+    alone, where a stable sort keeps the bodies' order and every tile spans
+    the whole cell."""
+    pos = _one_cell(seed)
+    n = pos.shape[0]
+    keys = tm.morton_keys_cols(*_cols(pos), n)
+    assert torch.unique(keys).numel() == 3
+    perm = tm.morton_order(*_cols(pos), n).numpy()
+    inner = perm[perm >= 2]
+    t = pos[inner] - 517.0
+    fine = np.zeros(len(t), np.int64)
+    q = np.clip((t * 2048).astype(np.int64), 0, 2047)
+    for b in range(11):
+        for axis in range(3):
+            fine |= ((q[:, axis] >> b) & 1) << (3 * b + axis)
+    assert (np.diff(fine) > 0).all()
+    octant = fine >> 30
+    wide_volume = coarse_volume = 0.0
+    for a in range(0, len(t) - 127, 128):
+        tile = t[a:a + 128]
+        extent = tile.max(0) - tile.min(0)
+        if octant[a] == octant[a + 127]:
+            assert (extent < 0.5).all(), extent
+        wide_volume += extent.prod()
+        coarse = pos[2 + a:2 + a + 128]            # the input order, kept by the 30-bit sort
+        coarse_extent = coarse.max(0) - coarse.min(0)
+        assert (coarse_extent > 0.9).all(), coarse_extent
+        coarse_volume += coarse_extent.prod()
+    assert wide_volume < 0.25 * coarse_volume, (wide_volume, coarse_volume)
+
+
+def test_wide_keys_hold_the_30_bit_keys_on_top():
+    """The top 30 bits are ``morton_keys_cols``' key, and padding sorts last
+    with every bit set."""
+    pos, _ = _bodies(6144, 5)
+    n_real = 6000
+    wide = tm.morton_keys_wide(*_cols(pos), n_real)
+    assert wide.dtype == torch.int64
+    np.testing.assert_array_equal((wide[:n_real] >> 33).numpy(),
+                                  tm.morton_keys_cols(*_cols(pos), n_real)[:n_real].numpy())
+    assert (wide[n_real:] == 2**63 - 1).all() and (wide[:n_real] < 2**63 - 1).all()
 
 
 @pytest.mark.parametrize("seed", [0, 7])

@@ -223,3 +223,15 @@ def test_card_softening_is_checked_once_at_construction(solver, eps2):
         cfg = tnb.SimConfig(solver=solver, eps2=eps2, pallas_tile_i=64, pallas_tile_j=64,
                             pallas_sym_tile=64)
         assert tnb.Simulation(cfg, tnb.models.plummer(64, seed=2), device="cpu").solver == solver
+
+
+def test_potential_energy_blocks_are_bounded_by_pairs(monkeypatch):
+    """Beyond 131,072 bodies a block of the O(N^2) energy takes fewer rows,
+    so that its temporaries fit beside a run's graphs (at 2,125,000 bodies
+    256 rows were 6 GiB); the energy is the same sum within float32's
+    rounding of another block order."""
+    state = tnb.models.plummer(1000, seed=1)
+    cfg = tnb.SimConfig()
+    want = tdiag.potential_energy(state, cfg)
+    monkeypatch.setattr(tdiag, "_BLOCK_ELEMS", 7 * 1000)   # 7-row blocks
+    torch.testing.assert_close(tdiag.potential_energy(state, cfg), want, rtol=1e-5, atol=0)

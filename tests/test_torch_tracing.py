@@ -126,8 +126,34 @@ def test_a_traced_run_yields_the_span_tree(path):
             assert b.host_start <= s.device_start <= s.device_end <= b.host_end
     for st in steps:
         assert [s.name for s in _children(found, st)] == FORCE
+    for r in (s for s in _children(found, run) if s.name == "treecode.resort"):
+        kids = _children(found, r)
+        assert [s.name for s in kids] == ["resort.order"]
+        assert set(kids[0].counters) <= {"tied_bodies"}
+        assert r.host_start <= kids[0].device_start <= kids[0].device_end <= r.host_end
     assert not any(_children(found, s) for s in found
-                   if s.name in ("treecode.resort", "build.levels", "build.lists", *FORCE))
+                   if s.name in ("resort.order", "build.levels", "build.lists", *FORCE))
+
+
+@pytest.mark.parametrize("path", PATHS)
+def test_the_resort_counts_its_tied_bodies(path):
+    """``tied_bodies``: the real bodies that share their 30-bit key with the
+    body before them, which a galaxy's crowded centre makes many of."""
+    from n_body_problem_tpu_torch.models.agora import agora_disk
+    from n_body_problem_tpu_torch.utils.morton import morton_keys_cols
+
+    sim = tnb.Simulation(_cfg(path), agora_disk(N, seed=1), device="cpu")
+    s = sim.state
+    keys = morton_keys_cols(*s.pos.unbind(1), s.n_real)[:s.n_real]
+    tied = s.n_real - torch.unique(keys).numel()
+    found = _traced(sim, R)    # one resort, on these positions
+    order = [x for x in found if x.name == "resort.order"]
+    assert len(order) == 1 and tied > 100
+    assert order[0].counters == {"tied_bodies": tied}
+    host = profiling.Span(0, "treecode.resort", None, 0)
+    code = 2 * list(profiling.PHASES).index("resort.order")
+    out = profiling._phases([(code, 1.0, []), (code + 1, 2.0, [7] + [0] * 9)], host, 1)
+    assert [(x.name, x.counters) for x in out] == [("resort.order", {"tied_bodies": 7})]
 
 
 @pytest.mark.parametrize("path", PATHS)
@@ -294,8 +320,9 @@ def test_stamps_agree_with_the_device_trace(cuda):
                      if profiling.STAMP_KERNEL in o[2])
     stamps = sorted({t for s in found if s.parent is not None and s.host_start is None
                      for t in (s.device_start, s.device_end)})
-    # The build: 4 and two a level; a step: 7 (tree_parts.step and the force).
-    assert len(kernels) == 4 + 2 * len(treecode._level_plan(262144 // 64)) + 8 * 7
+    # The resort: 2; the build: 4 and two a level; a step: 7 (tree_parts.step
+    # and the force).
+    assert len(kernels) == 2 + 4 + 2 * len(treecode._level_plan(262144 // 64)) + 8 * 7
     for t in stamps:
         assert min(max(a - t, t - b, 0.0) for a, b in kernels) <= 2.0, t
     counters = next(s.counters for s in found if s.name == "build.lists")
