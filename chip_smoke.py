@@ -59,7 +59,12 @@ is non-zero:
    1,048,576 and 65,536 hierarchical plans' level 0 (8,192 x 16,384 and
    512 x 1,024, 128-body rows), timed beside the twin, its bound and its
    issue floor (``compare_min_dist``); phase 6 counts its launches a
-   rebuild.
+   rebuild. Then the work lists' row selection (``compare_top_k``) bitwise
+   its plain twin and itself on every selection of a rebuild (the VIP pick,
+   the near and the far lists') at 65,536 and 1,048,576 Plummer bodies and
+   on the AGORA disk (2,125,000), timed beside the twin, one ``torch.topk``
+   call and the bound of its bytes; phase 6 counts its launches a rebuild
+   (``top_k_a_rebuild``).
 5. exact main path: ``Simulation(SimConfig(), plummer(65536))`` (the
    symmetric kernel), ``solver="pallas"`` (the all-pairs kernel), leapfrog,
    and ``pallas_sym_precision="bf16x3"`` and ``"mixed"`` (the tensor-core
@@ -804,6 +809,107 @@ def compare_min_dist(device, shapes=MIN_DIST_SHAPES) -> dict:
     return res
 
 
+def recorded_selections(sim) -> list:
+    """(x, k) of every row selection (``treecode._top_k``) of one eager
+    rebuild of ``sim``'s lists: the VIP pick, then each list's."""
+    from n_body_problem_tpu_torch.ops import treecode
+    from n_body_problem_tpu_torch.ops.registry import tree_fns
+
+    got, real = [], treecode._top_k
+
+    def record(x, k):
+        got.append((x.clone(), k))
+        return real(x, k)
+
+    treecode._top_k = record
+    try:
+        tree_fns(sim.cfg)[0](sim.state.pos, sim.state.mass)
+    finally:
+        treecode._top_k = real
+    return got
+
+
+def top_k_work(rows: int, cols: int, k: int) -> dict:
+    """``bound`` of one selection: the (rows, cols) float32 input read once
+    and the (rows, k) float32 values and int64 indices written once."""
+    return bound(0, rows * cols * 4 + rows * k * 12)
+
+
+def compare_top_k(device) -> dict:
+    """Phase 4's row selection: the kernel bitwise its plain twin (and
+    itself) on every selection of one rebuild (the VIP pick where the path
+    keeps VIP tiles, then the near and the far lists', with the planner's k)
+    of the 65,536- and the 1,048,576-body Plummer spheres (seed 4, treecode
+    defaults) and of the AGORA disk (2,125,000 bodies, seed 1; the
+    benchmark's physics), then its time beside the twin's, one
+    ``torch.topk`` call (the library's selection, ``library_ms``) and the
+    bound of its bytes. The 1,048,576-body near lists' shape is the
+    record's, the others ``at_<N>_<list>``; rows under 8,192 columns (all of
+    the 65,536-body rebuild's) take the 8-bit digits, the rest 11."""
+    import torch
+
+    from n_body_problem_tpu_torch import SimConfig, Simulation, models
+    from n_body_problem_tpu_torch.ops import cuda_treecode as ct
+    from n_body_problem_tpu_torch.treecode_profile import time_ms
+
+    agora = SimConfig(solver="treecode", dt=1.0227e-4, G=43007.1, eps2=0.0064, compensate=1.0,
+                      integrator="leapfrog")
+    res = {"max_abs_err": 0.0}
+    for n, cfg, state in ((65536, SimConfig(solver="treecode"),
+                           lambda: models.plummer(65536, seed=4)),
+                          (1048576, SimConfig(solver="treecode"),
+                           lambda: models.plummer(1048576, seed=4)),
+                          (2125000, agora, lambda: models.agora_disk(2125000, seed=1))):
+        sim = Simulation(cfg, state(), device=device)
+        found = recorded_selections(sim)
+        del sim
+        names = ("vip",) * (len(found) - 2) + ("near", "far")
+        check(len(names) == len(found), f"top_k {n:,}: {len(found)} selections a rebuild")
+        for name, (x, k) in zip(names, found):
+            rows, cols = x.shape
+            got, again = ct.top_k(x, k), ct.top_k(x, k)
+            want = ct.top_k_plain(x, k)
+            for a, b, what in ((got, want, "plain twin"), (got, again, "itself")):
+                check(torch.equal(a[0].view(torch.int32), b[0].contiguous().view(torch.int32))
+                      and torch.equal(a[1], b[1]), f"top_k {n:,} {name}: kernel != {what} bitwise")
+            t = {"ms": time_ms(lambda: ct.top_k(x, k), 20),
+                 "plain_ms": time_ms(lambda: ct.top_k_plain(x, k), 3),
+                 "library_ms": time_ms(lambda: torch.topk(x, k, dim=1), 5),
+                 "shape": f"{rows} x {cols}, k {k}", "sentinel_share": float((x < 0).float().mean()),
+                 **top_k_work(rows, cols, k)}
+            print(f"top_k [{n:,} {name}]: {t['shape']}: bitwise the twin; {t['ms']:.4f} ms vs "
+                  f"plain {t['plain_ms']:.4f}, torch.topk {t['library_ms']:.4f}, bound "
+                  f"{t['bound_ms']:.4f} ({t['bound_by']}); sentinels {t['sentinel_share']:.3f}",
+                  flush=True)
+            if (n, name) == (1048576, "near"):
+                res.update(t)
+            else:
+                res[at_key(f"{n}_{name}")] = t
+            del got, again, want
+        del found, x
+        torch.cuda.empty_cache()
+    return res
+
+
+def top_k_a_rebuild(cfg, n: int) -> int:
+    """Row selections a rebuild of ``cfg``'s path makes: the VIP pick where
+    the path keeps VIP tiles, and one a list (near and far on the
+    hierarchical path, the near lists or tiles on the flat and dense
+    paths)."""
+    from n_body_problem_tpu_torch.ops import treecode
+    from n_body_problem_tpu_torch.ops.registry import tree_kwargs, tree_path
+
+    kw, _ = tree_kwargs(cfg)
+    path = tree_path(cfg)
+    if path == "dense":
+        vip = treecode._static_args(n, kw["tile"], kw["theta"], kw["max_near"],
+                                    kw["vip_tiles"])[2]
+    else:
+        vip = treecode._flat_static(n, kw["tile"], kw["src_tile"], kw["theta"], kw["max_near"],
+                                    kw["vip_tiles"])[4]
+    return (1 if vip else 0) + (2 if path == "hier" else 1)
+
+
 def min_dist_a_rebuild(cfg, n: int) -> int:
     """Minimum-distance launches a rebuild of ``cfg``'s path: one a level of
     the hierarchy while ``tree_hier_union`` (level 0 alone without it), one
@@ -1043,13 +1149,13 @@ def drive_treecode(device, runs=None, profiled=PROFILED) -> dict:
     import torch
 
     from n_body_problem_tpu_torch import Simulation, models
-    from n_body_problem_tpu_torch.ops.cuda_treecode import min_tile_dist
+    from n_body_problem_tpu_torch.ops.cuda_treecode import min_tile_dist, top_k
     from n_body_problem_tpu_torch.ops.registry import tree_path
     from n_body_problem_tpu_torch.simulation import chunk_lengths
     from n_body_problem_tpu_torch.treecode_profile import profile_tree_step
 
     wrappers = counters()
-    launched = {k: 0 for k in TREE_KERNELS + ("min_dist",)}
+    launched = {k: 0 for k in TREE_KERNELS + ("min_dist", "top_k")}
     for label, n, cfg, timed, sample in runs or tree_runs():
         t0 = time.perf_counter()
         sim = Simulation(cfg, models.plummer(n, seed=0), device=device)
@@ -1058,7 +1164,7 @@ def drive_treecode(device, runs=None, profiled=PROFILED) -> dict:
         init_s = time.perf_counter() - t0
         e0 = sim.diagnostics()["energy"]
         before = {k: wrappers[k].launches for k in TREE_KERNELS}
-        dist_before = min_tile_dist.launches
+        dist_before, select_before = min_tile_dist.launches, top_k.launches
         sim.run(TREE_PRIME)
         wall0 = sim.wall_seconds
         sim.run(timed)
@@ -1078,6 +1184,11 @@ def drive_treecode(device, runs=None, profiled=PROFILED) -> dict:
         check(moved["min_dist"] == want,
               f"treecode [{label}]: min_dist launches {moved['min_dist']}, expected {want}")
         launched["min_dist"] += moved["min_dist"]
+        moved["top_k"] = top_k.launches - select_before
+        want = top_k_a_rebuild(sim.cfg, sim.state.n) * rebuilds if device.type == "cuda" else 0
+        check(moved["top_k"] == want,
+              f"treecode [{label}]: top_k launches {moved['top_k']}, expected {want}")
+        launched["top_k"] += moved["top_k"]
         check(bool(torch.isfinite(sim.state.pos).all()), f"treecode [{label}]: non-finite positions")
         d = sim.diagnostics()
         check(d["overspeed"] == 0, f"treecode [{label}]: overspeed {d['overspeed']}")
@@ -2964,6 +3075,7 @@ def main() -> int:
                                                     "issue_floor_ms")}}
     res.update(compare_tree_kernels(device))
     res["min_dist"] = compare_min_dist(device)
+    res["top_k"] = compare_top_k(device)
 
     wrappers = counters()
     for w in wrappers.values():
@@ -3021,13 +3133,15 @@ def main() -> int:
         ("vip", "vip_both_kernel+vip_sum_kernel", "vip.cu", "treecode.py:805"),
         ("near", "near_field_kernel", "near.cu", "treecode.py:1286"),
         ("far", "far_field_kernel", "far_hier.cu", "treecode.py:2164"),
-        ("min_dist", "min_tile_dist_kernel", "min_dist.cu", None),
+        ("min_dist", "min_tile_dist_kernel", "min_dist.cu",
+         "none: XLA fused the JAX package's plain _min_tile_dist (treecode.py:163)"),
+        ("top_k", "top_k_kernel", "top_k.cu",
+         "none: the JAX package leaves its lax.top_k (treecode.py:341, :1157) to XLA"),
     )
     kernels = [
         {"name": name, "route": "cuda",
          "source": f"n_body_problem_tpu_torch/csrc/{src}",
-         "replaces": (f"n_body_problem_tpu/ops/{tpu}" if tpu else
-                      "none: XLA fused the JAX package's plain _min_tile_dist (treecode.py:163)"),
+         "replaces": tpu if tpu.startswith("none") else f"n_body_problem_tpu/ops/{tpu}",
          "launches": launches[key], **res[key]}
         for key, name, src, tpu in records]
     print(json.dumps({"kernels": kernels}))

@@ -42,10 +42,11 @@ run). ``--cap`` times the symmetric f32 and the all-pairs kernel once each at
 sizes above ``auto``'s switch, with the peak device memory of each call and
 whether two symmetric launches are bitwise equal.
 
-Before the cases, the registers and spills ``ptxas`` reported for the four
-sources, and the instructions a pair of each kernel's inner loops counted in
-the built library's SASS (``cuobjdump -sass``; the listing is kept beside
-``--json``).
+Before the cases, the registers and spills ``ptxas`` reported for the
+sources of ``COUNTED`` (the pair and term kernels and the work lists' row
+selection), and the instructions a pair of each pair or term kernel's inner
+loops counted in the built library's SASS (``cuobjdump -sass``; the listing
+is kept beside ``--json``).
 
 ``--before ROOT`` names the root of another checkout of this repository
 (``mkdir before; git archive <commit> | tar -x -C before``). The inputs of
@@ -148,10 +149,13 @@ SINGLE_SPLITS = ((256, 2), (256, 1), (128, 2), (128, 1), (512, 2), (512, 1), (64
 PANEL_SPLITS = ((256, 1024), (128, 1024), (512, 1024), (256, 512), (256, 2048),
                 (128, 2048), (512, 512))
 # The kernels whose registers and SASS are printed: source -> kernel name.
+# The row selection (top_k.cu) has no pair loop: its registers and spills
+# are printed, and its SASS kept beside --json.
 COUNTED = {"allpairs.cu": "allpairs_acc_kernel", "symmetric.cu": "symmetric_acc_kernel",
            "symmetric_bf16x3.cu": "symmetric_bf16x3_kernel", "near.cu": "near_field_kernel",
            "vip.cu": "vip_both_kernel", "far_hier.cu": "far_field_kernel",
-           "far_single.cu": "far_single_kernel", "near_panel.cu": "near_panel_kernel"}
+           "far_single.cu": "far_single_kernel", "near_panel.cu": "near_panel_kernel",
+           "top_k.cu": "top_k_kernel"}
 # What a process of either checkout runs: argv = cases file, results file.
 WORKER = """
 import pathlib, sys, torch

@@ -1,10 +1,10 @@
 """Treecode kernels: near fields, far fields, panel gather, VIP sweep, and
-the acceptance build's minimum distances.
+the acceptance build's minimum distances and row selection.
 
 Each function here has two forms. On a CUDA tensor the wrapper launches a
 hand-written kernel (``csrc/near.cu``, ``csrc/far_hier.cu``,
 ``csrc/far_single.cu``, ``csrc/gather.cu``, ``csrc/near_panel.cu``,
-``csrc/vip.cu``, ``csrc/min_dist.cu``); on a CPU tensor it runs the
+``csrc/vip.cu``, ``csrc/min_dist.cu``, ``csrc/top_k.cu``); on a CPU tensor it runs the
 ``*_plain`` function beside
 it, the same computation in plain PyTorch, which is also what the kernel is
 checked against on the card. A failed build or launch raises. Each wrapper
@@ -36,6 +36,8 @@ Layouts (the GPU's, not the TPU's lane-padded ones):
 - The minimum distances take the target bodies and the node centres as
   separate (n,) and (K_l,) float32 columns: a rank of the sharded treecode
   passes its own rows against every node.
+- The row selection takes a (rows, cols) float32 matrix (scores or keys)
+  and gives each row's k largest values and their int64 columns.
 """
 
 from __future__ import annotations
@@ -675,7 +677,64 @@ def min_tile_dist(xc, yc, zc, cx, cy, cz, tile: int) -> torch.Tensor:
 
 min_tile_dist.launches = 0
 
+
+# ------------------------------------------------------------ row selection
+def top_k_plain(x: torch.Tensor, k: int):
+    """(values, indices) of the k largest entries of each row, largest
+    first, ties to the lower index (as ``lax.top_k`` orders them): every
+    whole row sorted, the first k columns kept."""
+    s = torch.sort(x, dim=1, descending=True, stable=True)
+    return s.values[:, :k], s.indices[:, :k]
+
+
+def top_k(x: torch.Tensor, k: int):
+    """((rows, k) float32, (rows, k) int64): each row's k largest values of
+    the (rows, cols) float32 ``x`` and their columns, largest first, ties to
+    the lower column; bitwise :func:`top_k_plain` on the same device (the
+    kernel keeps torch.sort's order of -0.0, +0.0, infinities and NaNs on
+    the card). On the card each row's columns must be contiguous; the rows
+    may lie apart (a column slice, as a rank of the staged treecode takes).
+
+    ``top_k.launches`` counts the kernel's launches.
+    """
+    if not isinstance(x, torch.Tensor) or x.dim() != 2:
+        raise ValueError("top_k: x must be a 2-D tensor")
+    if x.dtype != torch.float32:
+        raise TypeError(f"top_k: x must be float32, got {x.dtype}")
+    rows, cols = x.shape
+    if not 1 <= k <= cols:
+        raise ValueError(f"top_k: k={k} must lie in [1, {cols}], the row length")
+    if x.device.type == "cpu":
+        return top_k_plain(x, k)
+    if x.device.type != "cuda":
+        raise ValueError(f"top_k: no kernel for device {x.device}")
+    ld = x.stride(0) if rows > 1 else cols
+    if (cols > 1 and x.stride(1) != 1) or ld < cols:
+        raise ValueError("top_k: the rows of x must be contiguous")
+    if max(rows, cols) >= 1 << 31:
+        raise ValueError(f"top_k: {rows} x {cols} is too many")
+    dev = x.device
+    values = torch.empty((rows, k), dtype=torch.float32, device=dev)
+    indices = torch.empty((rows, k), dtype=torch.int64, device=dev)
+    if rows == 0:
+        return values, indices
+    lib = cuda_build.load_library()
+    # A k past the kernel's shared memory takes its entries in device memory.
+    scratch_bytes = lib.nbody_top_k_scratch_bytes(rows, k)
+    scratch = (torch.empty(scratch_bytes // 8, dtype=torch.int64, device=dev)
+               if scratch_bytes else None)
+    with torch.cuda.device(dev):
+        rc = lib.nbody_top_k(x.data_ptr(), rows, cols, ld, k,
+                             None if scratch is None else scratch.data_ptr(),
+                             values.data_ptr(), indices.data_ptr(), _stream(dev))
+        top_k.launches += 1
+    cuda_build.check(rc, "top_k_kernel")
+    return values, indices
+
+
+top_k.launches = 0
+
 # The wrappers whose ``.launches`` a captured CUDA graph adds to on every
 # replay (``graphs.Program``).
 COUNTED = (near_field, far_field_hier, far_field_single, gather_panels, near_panel, vip_both,
-           min_tile_dist)
+           min_tile_dist, top_k)

@@ -33,12 +33,14 @@ planners return identical integers.
 
 The acceptance build is plain PyTorch but for its minimum distances
 (:func:`_min_tile_dist`, a kernel on the card: ``cuda_treecode.
-min_tile_dist``), and never synchronises with the host: capacities are
-static, and a capacity overflow is a ``torch.where``.
+min_tile_dist``) and its row selection (:func:`_top_k`: ``cuda_treecode.
+top_k``), and never synchronises with the host: capacities are static, and
+a capacity overflow is a ``torch.where``.
 
 The hierarchical and flat paths stamp their phases (``utils.profiling``):
 the build's ``build.levels``, ``build.open`` (``build.min_dist`` around each
-:func:`_min_tile_dist`) and ``build.lists``, whose end carries the lists'
+:func:`_min_tile_dist`) and ``build.lists`` (``build.select`` around each
+:func:`_top_k` of the compaction), whose end carries the lists'
 counters (:func:`_list_counters`), and the force's ``force.operands``,
 ``force.near``, ``force.far`` and ``force.vip``. The dense path, the
 planners and the sharded helpers stamp nothing.
@@ -471,9 +473,9 @@ def _chain_evals(opens, branch: int):
 
 def _top_k(x: torch.Tensor, k: int):
     """(values, indices) of the k largest entries of each row, largest
-    first, ties to the lower index (as ``lax.top_k`` orders them)."""
-    s = torch.sort(x, dim=1, descending=True, stable=True)
-    return s.values[:, :k], s.indices[:, :k]
+    first, ties to the lower index (as ``lax.top_k`` orders them):
+    ``cuda_treecode.top_k``, the selection kernel on the card."""
+    return cuda_treecode.top_k(x, k)
 
 
 def _acceptance(xc, yc, zc, level0, tile: int, theta: float, max_near: int,
@@ -494,7 +496,8 @@ def _acceptance(xc, yc, zc, level0, tile: int, theta: float, max_near: int,
     return near_idx.to(_i32), near_mask
 
 
-def _compact_open_lists(ratio, theta, slack, flat_cap, entries, max_near, tally=None):
+def _compact_open_lists(ratio, theta, slack, flat_cap, entries, max_near, tally=None,
+                        stamp=NO_STAMPS):
     """Compact per-row opening scores into flat work lists:
     (flat_src (flat_cap,), chunk_tgt (flat_cap/E,), near_mask (K_t, K_s)).
 
@@ -509,6 +512,7 @@ def _compact_open_lists(ratio, theta, slack, flat_cap, entries, max_near, tally=
     With a list ``tally``, appends (kept, shed) int64 scalars: the entries
     listed, and the opened entries (score above ``theta``) that the row
     capacity ``max_near`` or the list capacity ``flat_cap`` left out.
+    ``stamp`` marks the row selection as the ``build.select`` phase.
     """
     k_t, k_s = ratio.shape
     dev = ratio.device
@@ -516,7 +520,9 @@ def _compact_open_lists(ratio, theta, slack, flat_cap, entries, max_near, tally=
         raise ValueError(
             f"flat_cap={flat_cap} < one chunk per target row "
             f"({k_t} * {entries}); use suggest_hier")
+    stamp.begin("build.select")
     vals, near_idx = _top_k(ratio, max_near)
+    stamp.end("build.select")
     near_idx = torch.where(vals < 0, k_s, near_idx).to(_i32)
     cnt = (ratio > theta).sum(1, dtype=_i32)
     v = torch.clamp(((cnt + slack + entries - 1) // entries) * entries,
@@ -625,7 +631,7 @@ def build_tree_hier_cols(
     tally = [] if st.live else None
     lists = _hier_compact(levels, minds, score0, thresh0, evals, reach0, slack=slack,
                           flat_cap=flat_cap, entries=entries, max_near=max_near,
-                          far_cap=far_cap, far_max=far_max, tally=tally)
+                          far_cap=far_cap, far_max=far_max, tally=tally, stamp=st)
     st.end("build.lists", None if tally is None else
            _list_counters(tally, is_vip_body, tile=tile, src_tile=src_tile))
     return (*lists, is_vip_body)
@@ -646,21 +652,22 @@ def _list_counters(tally, is_vip_body, *, tile: int, src_tile: int) -> torch.Ten
 
 
 def _hier_compact(levels, minds, score0, thresh0, evals, reach0, *, slack, flat_cap,
-                  entries, max_near, far_cap, far_max, tally=None):
+                  entries, max_near, far_cap, far_max, tally=None, stamp=NO_STAMPS):
     """The hierarchical build's work lists from its open masks:
-    ``(flat_src, chunk_tgt, far_src, far_tgt)``; ``tally`` as
+    ``(flat_src, chunk_tgt, far_src, far_tgt)``; ``tally`` and ``stamp`` as
     :func:`_compact_open_lists`'s, near then far."""
     # Near: only leaves the chain reaches (a leaf under an accepted
     # ancestor is already covered: score -1 ranks it out as a sentinel).
     score0 = torch.where(reach0, score0, -1.0)
     flat_src, chunk_tgt, near_mask = _compact_open_lists(
-        score0, thresh0, slack, flat_cap, entries, max_near, tally)
+        score0, thresh0, slack, flat_cap, entries, max_near, tally, stamp)
     return (flat_src, chunk_tgt,
             *_far_lists(levels, minds, evals, reach0, near_mask, far_cap=far_cap,
-                        far_max=far_max, tally=tally))
+                        far_max=far_max, tally=tally, stamp=stamp))
 
 
-def _far_lists(levels, minds, evals, reach0, near_mask, *, far_cap, far_max, tally=None):
+def _far_lists(levels, minds, evals, reach0, near_mask, *, far_cap, far_max, tally=None,
+               stamp=NO_STAMPS):
     """``(far_src, far_tgt)``: the level-0 complements of the near entries
     that landed (``near_mask``), plus the chain evals at coarser levels,
     ranked by monopole strength m / d^2 so an overflow sheds the weakest
@@ -669,7 +676,7 @@ def _far_lists(levels, minds, evals, reach0, near_mask, *, far_cap, far_max, tal
     key = torch.cat([torch.where(ev, lv[3][None, :] / (md * md), -1.0)
                      for ev, lv, md in zip(evals, levels, minds)], 1)
     far_src, far_tgt, _ = _compact_open_lists(
-        key, 0.0, 0, far_cap, FAR_ENTRIES, far_max, tally)
+        key, 0.0, 0, far_cap, FAR_ENTRIES, far_max, tally, stamp)
     return far_src, far_tgt
 
 
@@ -726,7 +733,7 @@ def build_tree_flat_cols(xc, yc, zc, mass, *, tile: int = DEFAULT_TILE,
     st.begin("build.lists")
     tally = [] if st.live else None
     flat_src, chunk_tgt, near_mask = _compact_open_lists(
-        score, thresh, slack, flat_cap, entries, max_near, tally)
+        score, thresh, slack, flat_cap, entries, max_near, tally, st)
     # The far kernel reads the mask as contiguous (K_t, K_s) bytes.
     near_mask = near_mask.contiguous()
     if tally is not None:

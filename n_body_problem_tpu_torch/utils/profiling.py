@@ -23,7 +23,8 @@ program keeps in memory:
 - *device phases* (:class:`Stamper`, names and parents in :data:`PHASES`)
   inside the hierarchical and flat treecode's programs: the build's
   ``build.levels``, ``build.open`` (``build.min_dist`` around each
-  ``_min_tile_dist`` in it) and ``build.lists``; the step's
+  ``_min_tile_dist`` in it) and ``build.lists`` (``build.select`` around
+  each ``_top_k`` in it, the row selection); the step's
   ``force.operands``, ``force.near``, ``force.far``, ``force.vip`` and
   ``update``; the resort's ``resort.order`` (its keys and their sort,
   ``utils.morton.morton_order``, in every treecode path's resort). On the
@@ -70,7 +71,7 @@ RING_RECORDS = 1 << 16     # records of one device's ring: 6 MiB
 # phases down to its parent: siblings need no end stamp between them.
 PHASES = {
     "build.levels": None, "build.open": None, "build.min_dist": "build.open",
-    "build.lists": None,
+    "build.lists": None, "build.select": "build.lists",
     "force.operands": None, "force.near": None, "force.far": None, "force.vip": None,
     "update": None, "resort.order": None,
 }

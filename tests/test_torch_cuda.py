@@ -559,6 +559,140 @@ def test_min_dist_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         ct.min_tile_dist(x, y, z, cen[0].cpu(), *cen[1:], 128)
 
 
+# ---------------------------------------- the work lists' row selection
+# (label, rows, cols, k): the 1,048,576 plan's near and far selections with
+# the planner's k (seed 1), AGORA's at full width with its k (fewer rows),
+# the VIP pick (one row), the dense path's square (k the whole row), one
+# column, k = 1, and a k past the kernel's shared memory (its scratch).
+TOP_K_SHAPES = [("1M near", 8192, 16384, 1024), ("1M far", 8192, 32752, 4736),
+                ("AGORA near", 256, 33204, 2496), ("AGORA far", 256, 58107, 11456),
+                ("VIP", 1, 16384, 64), ("dense", 64, 64, 64), ("one column", 5, 1, 1),
+                ("k = 1", 100, 4097, 1), ("scratch", 3, 58107, 20000),
+                ("whole row", 2, 58107, 58107)]
+
+
+def _score_rows(device, rows, cols, live=0.05, seed=0):
+    """Rows as the build's scores are: sentinels (-1.0), a +inf self-overlap
+    every 97 columns, a share of live positive scores, some of them equal."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.full((rows, cols), -1.0, device=device)
+    pick = torch.rand((rows, cols), generator=g, device=device) < live
+    score = torch.rand((rows, cols), generator=g, device=device) * 10
+    score = torch.where(torch.rand((rows, cols), generator=g, device=device) < 0.1,
+                        torch.round(score), score)
+    x = torch.where(pick, score, x)
+    x[:, ::97] = float("inf")
+    return x
+
+
+def _same_bits(got, want) -> bool:
+    return (torch.equal(got[0].view(torch.int32), want[0].contiguous().view(torch.int32))
+            and torch.equal(got[1], want[1]))
+
+
+@pytest.mark.parametrize("label,rows,cols,k", TOP_K_SHAPES, ids=[s[0] for s in TOP_K_SHAPES])
+def test_top_k_kernel_is_its_plain_twin_bitwise(cuda, label, rows, cols, k):
+    """Values and indices every bit the twin's (torch.sort on the card), at
+    sentinel-heavy and live rows, and the same bits from two launches."""
+    from n_body_problem_tpu_torch.ops import cuda_treecode as ct
+
+    for live in (0.02, 0.5):
+        x = _score_rows(cuda, rows, cols, live=live)
+        before = ct.top_k.launches
+        got, again = ct.top_k(x, k), ct.top_k(x, k)
+        want = ct.top_k_plain(x, k)
+        torch.cuda.synchronize()
+        assert ct.top_k.launches - before == 2
+        assert got[0].shape == got[1].shape == (rows, k) and got[1].dtype == torch.int64
+        assert _same_bits(got, want) and _same_bits(got, again), (label, live)
+
+
+@pytest.mark.parametrize("cols", [16, 129, 4097, 40000])
+def test_top_k_kernel_orders_special_values_as_its_twin(cuda, cols):
+    """+-0.0 (tied, by column), +-inf, denormals and NaNs of either sign and
+    several payloads (by their bits: a positive one first, a negative one
+    last), scattered among sentinels: every k the same bits as the twin."""
+    import numpy as np
+
+    from n_body_problem_tpu_torch.ops import cuda_treecode as ct
+
+    special = np.array([0x00000000, 0x80000000, 0x7fc00000, 0xffc00000, 0x7f800001,
+                        0x7fffffff, 0x7f800000, 0xff800000, 0x00000001, 0x80000001,
+                        0x007fffff, 0x3f800000, 0x00000000, 0x80000000, 0x7fc00001],
+                       dtype=np.uint32)
+    rng = np.random.default_rng(cols)
+    bits = np.full((6, cols), 0xbf800000, np.uint32)
+    for r in range(6):
+        at = rng.choice(cols, size=min(cols, len(special)), replace=False)
+        bits[r, at] = special[:len(at)]
+    x = torch.from_numpy(bits.view(np.float32).copy()).to(cuda)
+    for k in sorted({1, 5, min(cols, 15), cols}):
+        got, want = ct.top_k(x, k), ct.top_k_plain(x, k)
+        torch.cuda.synchronize()
+        assert _same_bits(got, want), k
+
+
+@pytest.mark.parametrize("n", [65536, 1048576])
+def test_top_k_kernel_builds_the_twins_lists(cuda, monkeypatch, n):
+    """The hierarchical build on the card: the same four lists and VIP mask,
+    element for element, with the kernel and with the plain twin; three
+    selections a rebuild (the VIP pick, the near and the far lists)."""
+    from n_body_problem_tpu_torch.ops import cuda_treecode as ct
+    from n_body_problem_tpu_torch.ops import treecode
+    from n_body_problem_tpu_torch.ops.registry import tree_kwargs
+
+    sim = tnb.Simulation(tnb.SimConfig(solver="treecode"), tnb.models.plummer(n, seed=5),
+                         device=cuda)
+    build_kw, _ = tree_kwargs(sim.cfg)
+    cols = (*sim.state.pos.unbind(1), sim.state.mass)
+    before = ct.top_k.launches
+    got = treecode.build_tree_hier_cols(*cols, **build_kw)
+    launched = ct.top_k.launches - before
+    monkeypatch.setattr(ct, "top_k", lambda x, k: ct.top_k_plain(x, k))
+    want = treecode.build_tree_hier_cols(*cols, **build_kw)
+    torch.cuda.synchronize()
+    assert len(got) == len(want) == 5
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert launched == (3 if sim.cfg.tree_vip_tiles else 2)
+
+
+@pytest.mark.parametrize("overrides,lists", [({}, 2), (dict(tree_hier=False), 1),
+                                             (dict(tree_flat_cap=-1), 1)])
+def test_top_k_wrapper_counts_a_rebuilds_launches(cuda, overrides, lists):
+    """An eager rebuild selects once for the VIP pick and once a list: near
+    and far on the hierarchical path, the near lists on the flat path, the
+    dense path's near tiles."""
+    from n_body_problem_tpu_torch.ops import cuda_treecode as ct
+    from n_body_problem_tpu_torch.ops.registry import tree_fns
+
+    sim = tnb.Simulation(tnb.SimConfig(solver="treecode", **overrides),
+                         tnb.models.plummer(8192, seed=3), device=cuda)
+    before = ct.top_k.launches
+    tree_fns(sim.cfg)[0](sim.state.pos, sim.state.mass)
+    torch.cuda.synchronize()
+    assert ct.top_k.launches - before == lists + (1 if sim.cfg.tree_vip_tiles else 0)
+
+
+def test_top_k_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    from n_body_problem_tpu_torch.ops import cuda_treecode as ct
+
+    x = _score_rows(cuda, 64, 1000)
+    with pytest.raises(TypeError, match="float32"):
+        ct.top_k(x.double(), 10)
+    with pytest.raises(ValueError, match="row length"):
+        ct.top_k(x, 0)
+    with pytest.raises(ValueError, match="row length"):
+        ct.top_k(x, 1001)
+    with pytest.raises(ValueError, match="rows of x must be contiguous"):
+        ct.top_k(x.t(), 10)
+    with pytest.raises(ValueError, match="2-D"):
+        ct.top_k(x[0], 10)
+    # A column slice (rows apart, columns contiguous) is taken as it is.
+    got = ct.top_k(x[:, 3:903], 10)
+    assert _same_bits(got, ct.top_k_plain(x[:, 3:903], 10))
+
+
 # ------------------------------------- single-level flat and dense paths
 # (label, N, overrides, path): the flat path by tree_hier=False and by N
 # alone (below the hierarchy's 4,096 bodies), the dense path with a far
@@ -1050,10 +1184,11 @@ def test_graph_counters_count_replays(cuda, overrides):
         sim.run(steps)
         # The step's kernels a step; the build's a call (one rebuild: each
         # call restarts the cadence of 8).
-        moves.append([(w.launches - b) / (1 if w is ct.min_tile_dist else steps)
+        moves.append([(w.launches - b) / (1 if w in (ct.min_tile_dist, ct.top_k) else steps)
                       for w, b in zip(wrappers, before)])
     assert moves[0] == moves[1] == moves[2] and sum(moves[0]) >= 3
     assert moves[0][wrappers.index(ct.min_tile_dist)] >= 1
+    assert moves[0][wrappers.index(ct.top_k)] >= 1
 
 
 def test_exact_graph_run_matches_the_eager_loop(cuda):
@@ -1196,11 +1331,15 @@ def test_graph_frame_counters_count_replays(cuda):
         else:
             sim.run(8)
         moves.append([w.launches - b for w, b in zip(wrappers, before)])
-    # The build's kernel counts rebuilds: each of the movie's four 2-step
+    # The build's kernels count rebuilds: each of the movie's four 2-step
     # frame spans starts a chunk, and run(8) is one chunk.
-    build = [m.pop(wrappers.index(ct.min_tile_dist)) for m in moves]
+    for w in (ct.min_tile_dist, ct.top_k):
+        at = wrappers.index(w)
+        build = [m[at] for m in moves]
+        assert build[0] == build[1] == 4 * build[2] > 0
+    moves = [[v for i, v in enumerate(m)
+              if wrappers[i] not in (ct.min_tile_dist, ct.top_k)] for m in moves]
     assert moves[0] == moves[1] == moves[2] and sum(moves[0]) >= 3 * 8
-    assert build[0] == build[1] == 4 * build[2] > 0
 
 
 @pytest.mark.parametrize("strategy", ["ring", "half_ring", "treecode", "treecode_staged"])

@@ -107,7 +107,8 @@ def test_counted_covers_every_pair_and_treecode_kernel():
     of the treecode's near, VIP, far, single-level far and near-panel
     kernels: every source with a pair or term loop, all but the gather, the
     span stamp (one thread, no loop over bodies) and the minimum distances
-    (no rsqrt: the report finds a loop by its rsqrts)."""
+    (no rsqrt: the report finds a loop by its rsqrts); and it prints the
+    registers of the row selection, which has no pair loop to count."""
     assert set(kc.COUNTED) == ({p.name for p in cuda_build.sources()}
                                - {"gather.cu", "stamp.cu", "min_dist.cu"})
 

@@ -122,7 +122,11 @@ def test_a_traced_run_yields_the_span_tree(path):
         dists = _children(found, kids[1])
         assert [s.name for s in dists] == ["build.min_dist"] * levels
         assert set(kids[2].counters) == set(profiling.COUNTERS)
-        for s in kids + dists:   # a host record's clock on the CPU
+        # The row selections of the compaction: the near lists' and, on the
+        # hierarchical path, the far lists'.
+        selects = _children(found, kids[2])
+        assert [s.name for s in selects] == ["build.select"] * (2 if path == "hier" else 1)
+        for s in kids + dists + selects:   # a host record's clock on the CPU
             assert b.host_start <= s.device_start <= s.device_end <= b.host_end
     for st in steps:
         assert [s.name for s in _children(found, st)] == FORCE
@@ -132,7 +136,7 @@ def test_a_traced_run_yields_the_span_tree(path):
         assert set(kids[0].counters) <= {"tied_bodies"}
         assert r.host_start <= kids[0].device_start <= kids[0].device_end <= r.host_end
     assert not any(_children(found, s) for s in found
-                   if s.name in ("resort.order", "build.levels", "build.lists", *FORCE))
+                   if s.name in ("resort.order", "build.levels", "build.select", *FORCE))
 
 
 @pytest.mark.parametrize("path", PATHS)
@@ -259,13 +263,14 @@ def test_phases_nest_close_and_carry_counters():
             (code["build.min_dist"], 3.0, []), (code["build.min_dist"] + 1, 4.0, []),
             (code["build.min_dist"], 5.0, []), (code["build.min_dist"] + 1, 6.0, []),
             (code["build.lists"], 7.0, []),
+            (code["build.select"], 7.5, []), (code["build.select"] + 1, 8.0, []),
             (code["build.lists"] + 1, 9.0, list(range(1, 9)) + [0, 0])]
     out = profiling._phases(recs, host, 10)
     assert [(s.id, s.name, s.parent, s.device_start, s.device_end) for s in out] == [
         (10, "build.levels", 0, 1.0, 2.0), (11, "build.open", 0, 2.0, 7.0),
         (12, "build.min_dist", 11, 3.0, 4.0), (13, "build.min_dist", 11, 5.0, 6.0),
-        (14, "build.lists", 0, 7.0, 9.0)]
-    assert out[-1].counters == dict(zip(profiling.COUNTERS, range(1, 9)))
+        (14, "build.lists", 0, 7.0, 9.0), (15, "build.select", 14, 7.5, 8.0)]
+    assert out[4].counters == dict(zip(profiling.COUNTERS, range(1, 9)))
     ends = profiling._phases([(code["force.near"], 1.0, []), (code["force.far"], 2.0, []),
                               (-1, 3.0, [])], host, 0)
     assert [(s.name, s.device_start, s.device_end) for s in ends] == [
@@ -320,9 +325,9 @@ def test_stamps_agree_with_the_device_trace(cuda):
                      if profiling.STAMP_KERNEL in o[2])
     stamps = sorted({t for s in found if s.parent is not None and s.host_start is None
                      for t in (s.device_start, s.device_end)})
-    # The resort: 2; the build: 4 and two a level; a step: 7 (tree_parts.step
-    # and the force).
-    assert len(kernels) == 2 + 4 + 2 * len(treecode._level_plan(262144 // 64)) + 8 * 7
+    # The resort: 2; the build: 4, two a level and two a row selection (near
+    # and far); a step: 7 (tree_parts.step and the force).
+    assert len(kernels) == 2 + 4 + 2 * len(treecode._level_plan(262144 // 64)) + 2 * 2 + 8 * 7
     for t in stamps:
         assert min(max(a - t, t - b, 0.0) for a, b in kernels) <= 2.0, t
     counters = next(s.counters for s in found if s.name == "build.lists")

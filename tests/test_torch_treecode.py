@@ -11,6 +11,8 @@ twins), and meet the JAX tests' error envelopes against the direct sum.
 
 import torch_threads  # noqa: F401  (first: the CPU threads of this worker)
 
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -347,3 +349,80 @@ def test_min_tile_dist_refuses_a_device_without_a_kernel():
     meta = torch.empty(8192, device="meta")
     with pytest.raises(ValueError, match="no kernel"):
         ct.min_tile_dist(meta, meta, meta, meta[:128], meta[:128], meta[:128], 128)
+
+
+# ------------------------------------------------------------ row selection
+def _rows(kind: str, cols: int, seed: int = 0) -> np.ndarray:
+    """(4, cols) float32 rows whose ties the selection has to order: the
+    build's sentinels (-1.0) with and without self-overlaps (+inf) and real
+    scores among them, one signed zero throughout, a few repeated values."""
+    rng = np.random.default_rng(seed)
+    x = np.full((4, cols), -1.0, np.float32)
+    if kind in ("inf", "scores"):
+        x[:, ::7] = np.inf
+    if kind == "scores":
+        live = rng.random((4, cols)) < 0.3
+        x[live] = rng.random(int(live.sum())).astype(np.float32)
+    if kind == "zeros":
+        x[:] = 0.0
+    if kind == "negative zeros":
+        x[:] = -0.0
+    if kind == "repeated":
+        x = rng.integers(0, 5, (4, cols)).astype(np.float32) / 4
+    return x
+
+
+TIE_KINDS = ["sentinels", "inf", "scores", "zeros", "negative zeros", "repeated"]
+
+
+@pytest.mark.parametrize("kind", TIE_KINDS)
+@pytest.mark.parametrize("cols,k", [(64, 1), (64, 20), (300, 64), (300, 300)])
+def test_top_k_orders_ties_as_lax_top_k(kind, cols, k):
+    """``_top_k`` on the CPU: the k largest of each row, largest first, ties
+    to the lower index, the same values and indices (every bit) as
+    ``lax.top_k``."""
+    from jax import lax
+
+    x = _rows(kind, cols)
+    vals, idx = ttc._top_k(torch.from_numpy(x), k)
+    want_v, want_i = lax.top_k(jnp.asarray(x), k)
+    assert vals.dtype == torch.float32 and idx.dtype == torch.int64
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(want_i))
+    np.testing.assert_array_equal(vals.numpy().view(np.uint32), np.asarray(want_v).view(np.uint32))
+
+
+@pytest.mark.parametrize("kind", TIE_KINDS)
+def test_top_k_on_the_cpu_is_its_plain_twin(kind):
+    """The wrapper takes the plain twin on a CPU tensor: the same bits, from
+    a whole matrix and from a column slice of one (a staged rank's rows)."""
+    x = torch.from_numpy(_rows(kind, 1000, seed=3))
+    for a in (x, x[:, 100:700]):
+        got, want = ct.top_k(a, 77), ct.top_k_plain(a, 77)
+        assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+        assert torch.equal(got[1], want[1])
+
+
+def test_top_k_ties_signed_zeros_by_column():
+    """-0.0 and +0.0 tie (torch.sort's order, which the kernel keeps on the
+    card), so a row of both keeps their columns' order; ``lax.top_k`` puts
+    +0.0 first. Neither occurs in the build's scores."""
+    x = torch.tensor([[-0.0, 0.0, -1.0, -0.0, 0.0, 2.0]])
+    vals, idx = ct.top_k(x, 6)
+    assert idx.tolist() == [[5, 0, 1, 3, 4, 2]]
+    assert [math.copysign(1.0, v) for v in vals[0].tolist()] == [1, -1, 1, -1, 1, -1]
+
+
+def test_top_k_refuses_what_it_does_not_take():
+    x = torch.zeros((4, 16))
+    for k in (0, 17):
+        with pytest.raises(ValueError, match="row length"):
+            ct.top_k(x, k)
+    with pytest.raises(TypeError, match="float32"):
+        ct.top_k(x.double(), 4)
+    with pytest.raises(ValueError, match="2-D"):
+        ct.top_k(x[0], 4)
+
+
+def test_top_k_refuses_a_device_without_a_kernel():
+    with pytest.raises(ValueError, match="no kernel"):
+        ct.top_k(torch.empty((8, 64), device="meta"), 8)
