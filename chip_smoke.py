@@ -1821,7 +1821,8 @@ def sharded_launches_a_step(cfg, n: int, strategy: str, size: int) -> dict:
         return want
     path = ptree.sharded_path(cfg)
     if path == "dense":
-        vip = ptree._dense_static(cfg, n)[0]
+        vip = treecode._dense_src_static(n, cfg.tree_tile, cfg.tree_max_near,
+                                         cfg.tree_vip_tiles)[0]
         want.update(gather=1, near_panel=1, far_single=1)
     else:
         vip = treecode._flat_src_static(n, cfg.tree_tile, cfg.tree_src_tile,

@@ -2,8 +2,8 @@
 
 Counterpart of the JAX package's ``tools/hier_census.py``, with its argv
 form and record keys. Counts the UNCAPPED near and far evaluations per
-target row of the production acceptance chain (``_hier_open_masks`` +
-``_chain_evals`` of ``ops/treecode.py``) on a Morton-sorted Plummer sphere
+target row of the production acceptance chain (``_hier_lists`` of
+``ops/treecode.py``) on a Morton-sorted Plummer sphere
 (seed 0, 128-body target rows): the cost model behind capacity planning.
 One JSON line per (N, ``union_coarse``): near and far means and maxima a
 row, the near pairs a row, the single-level far mean it replaces
@@ -46,19 +46,15 @@ def row_counts(n: int, src_tile: int = 0, tau0: float = 0.0, hier_tau: float = 0
     k_s = st.n // src
     xc, yc, zc = (st.pos[:, i].contiguous() for i in range(3))
     vipn = tc._clamp_vip(tc._vip_src_tiles(cfg.tree_vip_tiles, tile, src), k_s)
-    mass_tree = st.mass
-    if vipn:
-        mass_tree, _, _ = tc._vip_split(xc, yc, zc, st.mass, src, vipn)
     plan = tc._level_plan(k_s)
-    levels = tc._level_summaries(xc, yc, zc, mass_tree, src, plan, tc.HIER_BRANCH)
 
     rows = {}
     for union in (False, True):
-        opens, _, _, _ = tc._hier_open_masks(
-            xc, yc, zc, levels, tile, src, mac_tau=cfg.tree_hier_tau,
-            theta=cfg.tree_theta, eps2=cfg.eps2, c2=cfg.compensate ** 2,
-            mac_tau0=cfg.tree_mac_tau, union_coarse=union)
-        evals, reach0 = tc._chain_evals(opens, tc.HIER_BRANCH)
+        _, _, opens, _, _, _, evals, reach0 = tc._hier_lists(
+            xc, yc, zc, xc, yc, zc, st.mass, tile=tile, src_tile=src, theta=cfg.tree_theta,
+            vip_src=vipn, plan=plan, branch=tc.HIER_BRANCH, mac_tau=cfg.tree_hier_tau,
+            mac_tau0=cfg.tree_mac_tau, eps2=cfg.eps2, c2=cfg.compensate ** 2,
+            union_coarse=union)
         far = [(reach0 & ~opens[0]).sum(1)] + [e.sum(1) for e in evals[1:]]
         rows[union] = ((reach0 & opens[0]).sum(1).cpu().numpy(),
                        [f.cpu().numpy() for f in far])

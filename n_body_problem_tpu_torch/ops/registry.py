@@ -83,6 +83,64 @@ def tree_path(cfg: SimConfig) -> str:
     return "dense"
 
 
+def tree_tile(cfg: SimConfig, n: int, plan_lists: bool) -> SimConfig:
+    """``cfg`` with the auto target row (``tree_tile`` 0) resolved, as the
+    JAX package resolves it on the unpadded count ``n`` (the tile decides
+    the padding): 128 where the hierarchical path will run, 32 otherwise.
+    ``plan_lists``: :func:`plan_tree` will plan the list capacities left at
+    0, as on the card (where the JAX package plans them on the TPU)."""
+    if cfg.tree_tile:
+        return cfg
+    hier = (cfg.tree_hier
+            and n >= max(treecode.CHUNK_LANES, treecode.FAR_ENTRIES * cfg.tree_src_tile)
+            and ((cfg.tree_flat_cap == 0 and plan_lists)
+                 or (cfg.tree_flat_cap > 0 and cfg.tree_far_cap > 0)))
+    return cfg.replace(tree_tile=treecode.DEFAULT_HIER_TILE if hier else 32)
+
+
+def plan_tree(cfg: SimConfig, pos, mass, plan_lists: bool, n_dev: int = 1, *,
+              margin: float = 1.3, far_margin: float = 1.25,
+              flat_margin: float = 1.25) -> SimConfig:
+    """``cfg`` with the VIP count resolved and the static capacities planned
+    on the sorted, padded bodies ``pos``, ``mass``, as the JAX package plans
+    them: with ``plan_lists`` and ``tree_flat_cap`` at 0, the flat lists
+    from 2,048 bodies and the hierarchy from ``FAR_ENTRIES`` source tiles;
+    otherwise the capacities given, or the dense path. The lists are one
+    rank's of ``n_dev``, each holding whole target rows
+    (``treecode.suggest_hier``, ``suggest_flat_cap``). The margins absorb
+    drift between re-sorts."""
+    n, src = pos.shape[0], cfg.tree_src_tile
+    if cfg.tree_vip_tiles == -1:
+        cfg = cfg.replace(tree_vip_tiles=resolve_vip_tiles(-1, n))
+    whole_rows = (n // cfg.tree_tile) % n_dev == 0
+    use_flat = (cfg.tree_flat_cap == 0 and plan_lists and n >= treecode.CHUNK_LANES
+                and n % src == 0 and whole_rows)
+    use_hier = (cfg.tree_hier and n >= treecode.FAR_ENTRIES * src and whole_rows
+                and (use_flat or (cfg.tree_flat_cap > 0 and cfg.tree_far_cap > 0)))
+    sel = dict(tile=cfg.tree_tile, theta=cfg.tree_theta, vip_tiles=cfg.tree_vip_tiles,
+               eps2=cfg.eps2, compensate=cfg.compensate)
+    if use_hier:
+        caps = treecode.suggest_hier(
+            pos, mass, n_dev=n_dev, src_tile=src, slack=cfg.tree_near_slack,
+            mac_tau=cfg.tree_hier_tau, mac_tau0=cfg.tree_mac_tau,
+            union_coarse=cfg.tree_hier_union, margin=margin, far_margin=far_margin, **sel)
+        return cfg.replace(**{field: caps[key] for field, key in (
+            ("tree_max_near", "max_near"), ("tree_flat_cap", "flat_cap"),
+            ("tree_far_max", "far_max"), ("tree_far_cap", "far_cap"))
+            if getattr(cfg, field) == 0})
+    # The flat path counts the near capacity in source tiles, the dense
+    # path in target tiles.
+    if cfg.tree_max_near == 0:
+        cfg = cfg.replace(tree_max_near=treecode.suggest_max_near(
+            pos, mass, src_tile=src if use_flat or cfg.tree_flat_cap > 0 else None,
+            mac_tau=cfg.tree_mac_tau, **sel))
+    if use_flat:
+        cfg = cfg.replace(tree_flat_cap=treecode.suggest_flat_cap(
+            pos, mass, n_dev=n_dev, src_tile=src, slack=cfg.tree_near_slack,
+            mac_tau=cfg.tree_mac_tau, margin=flat_margin, **sel))
+    return cfg
+
+
 def tree_kwargs(cfg: SimConfig) -> tuple[dict, dict]:
     """Keyword arguments of the acceptance build and of the force of the
     config's path (``treecode.build_tree_hier_cols`` and

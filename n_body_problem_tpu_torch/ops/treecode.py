@@ -31,6 +31,14 @@ summaries are recomputed from the current positions on every call. Names
 follow the JAX package so each counterpart can be found; the static
 planners return identical integers.
 
+Each path's acceptance build (:func:`_build_hier`, :func:`_build_flat`,
+:func:`_build_dense`) and its force (:func:`_tree_acc`) are written once,
+for a block of target rows against every source. The one-card functions
+call them at rank 0 of 1 (the bodies are the targets and the sources, row
+offset 0); the sharded helpers (``build_*_local``, ``*_local_acc``) with a
+rank's rows. The capacity planners take the number of ranks too (1 on one
+card).
+
 The acceptance build is plain PyTorch but for its minimum distances
 (:func:`_min_tile_dist`, a kernel on the card: ``cuda_treecode.
 min_tile_dist``) and its row selection (:func:`_top_k`: ``cuda_treecode.
@@ -42,8 +50,9 @@ the build's ``build.levels``, ``build.open`` (``build.min_dist`` around each
 :func:`_min_tile_dist`) and ``build.lists`` (``build.select`` around each
 :func:`_top_k` of the compaction), whose end carries the lists'
 counters (:func:`_list_counters`), and the force's ``force.operands``,
-``force.near``, ``force.far`` and ``force.vip``. The dense path, the
-planners and the sharded helpers stamp nothing.
+``force.near``, ``force.far`` and ``force.vip``: their one-card functions
+pass the bodies a stamper. The dense path, the planners and the sharded
+helpers stamp nothing.
 """
 
 from __future__ import annotations
@@ -395,8 +404,7 @@ def _row_bounds(xc, yc, zc, tile: int):
 
 
 def _hier_open_masks(xc, yc, zc, levels, tile: int, src_tile: int, *,
-                     mac_tau: float, theta: float, eps2: float, c2: float,
-                     row_offset: int = 0, a_med=None,
+                     mac_tau: float, theta: float, a_med, row_offset: int = 0,
                      mac_tau0: float | None = None, union_coarse: bool = True,
                      stamp=NO_STAMPS):
     """Per-level (opens, min_d) and the level-0 score matrix for near
@@ -410,14 +418,11 @@ def _hier_open_masks(xc, yc, zc, levels, tile: int, src_tile: int, *,
     m r^3 / d^5 > mac_tau0 * sqrt(MAC_REF_KSRC / K_s) * a_med instead.
     ``mac_tau == 0``: the geometric radius / theta test.
 
-    ``a_med`` defaults to the median over the rows in ``xc``; the sharded
-    path passes the whole population's, so that every rank applies the same
-    threshold, and its rows' ``row_offset``.
+    ``a_med`` is the median scale of the whole source population
+    (:func:`_hier_lists`), so that every rank of the sharded treecode
+    applies the same threshold to its rows (``row_offset`` onwards); None
+    when ``mac_tau`` is 0.
     """
-    cx0, cy0, cz0, m0 = levels[0][:4]
-    if mac_tau > 0 and a_med is None:
-        a_med = torch.clamp(_median_monopole_acc(
-            xc, yc, zc, cx0, cy0, cz0, m0, eps2=eps2, c2=c2), min=_TINY)
     opens, minds = [], []
     k_t = xc.shape[0] // tile
     score0 = thresh0 = None
@@ -476,24 +481,6 @@ def _top_k(x: torch.Tensor, k: int):
     first, ties to the lower index (as ``lax.top_k`` orders them):
     ``cuda_treecode.top_k``, the selection kernel on the card."""
     return cuda_treecode.top_k(x, k)
-
-
-def _acceptance(xc, yc, zc, level0, tile: int, theta: float, max_near: int,
-                mac_tau: float = 0.0, eps2: float = 1e-6, c2: float = 0.01,
-                row_offset: int = 0):
-    """Dense near lists of the target rows in ``xc`` against the tiles of
-    ``level0``: (near_idx (K_t, M) int32, the ``max_near`` highest scores of
-    each row, self first; near_mask (K_t, K) bool). The mask is scattered
-    from the lists, never compared through a (K_t, M, K) tensor. A rank of
-    the sharded treecode passes its own rows and their ``row_offset``."""
-    cx, cy, cz, m_tot, radius = level0[:5]
-    score, _ = _opening_scores(xc, yc, zc, cx, cy, cz, m_tot, radius, tile,
-                               theta=theta, mac_tau=mac_tau, row_offset=row_offset,
-                               eps2=eps2, c2=c2)
-    near_idx = _top_k(score, max_near)[1]
-    near_mask = torch.zeros(score.shape, dtype=torch.bool, device=score.device)
-    near_mask.scatter_(1, near_idx, True)
-    return near_idx.to(_i32), near_mask
 
 
 def _compact_open_lists(ratio, theta, slack, flat_cap, entries, max_near, tally=None,
@@ -565,48 +552,84 @@ def _compact_open_lists(ratio, theta, slack, flat_cap, entries, max_near, tally=
     return flat_src, chunk_tgt, mask[:k_t, :k_s]
 
 
-def _hier_lists(xc, yc, zc, mass, *, tile, src_tile, theta, vip_src, plan,
-                branch, mac_tau, mac_tau0, eps2, c2, union_coarse, stamp=NO_STAMPS):
-    """What the capacity planner and the acceptance build share: (is_vip_body,
-    levels, opens, minds, score0, thresh0, evals, reach0)."""
-    n = xc.shape[0]
+def _single_level_scores(xl, yl, zl, xg, yg, zg, mass_g, *, tile, src_tile, theta,
+                         vip_src, mac_tau, eps2, c2, row_offset=0, stamp=NO_STAMPS):
+    """The single-level opening test of target rows (``xl``, ``yl``, ``zl``)
+    against the level-0 tiles of every source (``xg``, ``yg``, ``zg``,
+    ``mass_g``) after the VIP split: ``(score (K_t, K_s), threshold,
+    is_vip_body (N,))`` (:func:`_opening_scores`; the MAC's median scale is
+    the target rows', as in the JAX package). What the flat and dense
+    builds and their planner share."""
     stamp.begin("build.levels")
-    if vip_src:
-        mass_tree, _, is_vip_body = _vip_split(xc, yc, zc, mass, src_tile,
-                                               vip_src)
-    else:
-        is_vip_body = torch.zeros((n,), dtype=torch.bool, device=xc.device)
-        mass_tree = mass
-    levels = _level_summaries(xc, yc, zc, mass_tree, src_tile, plan, branch)
+    mass_tree, is_vip_body = _tree_mass(xg, yg, zg, mass_g, src_tile, vip_src)
+    cx, cy, cz, m_tot, radius = _level0(xg, yg, zg, mass_tree, src_tile)[:5]
     stamp.begin("build.open")
+    score, thresh = _opening_scores(
+        xl, yl, zl, cx, cy, cz, m_tot, radius, tile, theta=theta, mac_tau=mac_tau,
+        row_offset=row_offset, src_tile=src_tile, eps2=eps2, c2=c2, stamp=stamp)
+    return score, thresh, is_vip_body
+
+
+def _hier_lists(xl, yl, zl, xg, yg, zg, mass_g, *, tile, src_tile, theta, vip_src, plan,
+                branch, mac_tau, mac_tau0, eps2, c2, union_coarse, row_offset=0,
+                stamp=NO_STAMPS):
+    """The hierarchical chain of target rows against every source, what the
+    capacity planner and the acceptance build share: (is_vip_body (N,),
+    levels, opens, minds, score0, thresh0, evals, reach0). The MAC's median
+    scale is the sources' (on one card, the targets')."""
+    stamp.begin("build.levels")
+    mass_tree, is_vip_body = _tree_mass(xg, yg, zg, mass_g, src_tile, vip_src)
+    levels = _level_summaries(xg, yg, zg, mass_tree, src_tile, plan, branch)
+    stamp.begin("build.open")
+    a_med = None
+    if mac_tau > 0:
+        a_med = torch.clamp(_median_monopole_acc(xg, yg, zg, *levels[0][:4], eps2=eps2,
+                                                 c2=c2), min=_TINY)
     opens, minds, score0, thresh0 = _hier_open_masks(
-        xc, yc, zc, levels, tile, src_tile, mac_tau=mac_tau, theta=theta,
-        eps2=eps2, c2=c2, mac_tau0=mac_tau0, union_coarse=union_coarse, stamp=stamp)
+        xl, yl, zl, levels, tile, src_tile, mac_tau=mac_tau, theta=theta, a_med=a_med,
+        row_offset=row_offset, mac_tau0=mac_tau0, union_coarse=union_coarse, stamp=stamp)
     evals, reach0 = _chain_evals(opens, branch)
     return is_vip_body, levels, opens, minds, score0, thresh0, evals, reach0
 
 
-def build_tree_hier_cols(
-    xc, yc, zc, mass,
-    *,
-    tile: int = DEFAULT_HIER_TILE,
-    src_tile: int = DEFAULT_SRC_TILE,
-    theta: float = DEFAULT_THETA,
-    max_near: int = DEFAULT_MAX_NEAR,
-    vip_tiles: int = DEFAULT_VIP_TILES,
-    slack: int = DEFAULT_NEAR_SLACK,
-    flat_cap: int,
-    far_max: int,
-    far_cap: int,
-    branch: int = HIER_BRANCH,
-    mac_tau: float = DEFAULT_HIER_TAU,
-    mac_tau0: float | None = None,
-    eps2: float = 1e-6,
-    compensate: float = 0.1,
-    union_coarse: bool = True,
-):
-    """Hierarchical acceptance structures:
-    ``(flat_src, chunk_tgt, far_src, far_tgt, is_vip_body)``.
+def _build_hier(xl, yl, zl, xg, yg, zg, mass_g, *, row_offset, flat_cap, far_max, far_cap,
+                tile=DEFAULT_HIER_TILE, src_tile=DEFAULT_SRC_TILE, theta=DEFAULT_THETA,
+                max_near=DEFAULT_MAX_NEAR, vip_tiles=DEFAULT_VIP_TILES,
+                slack=DEFAULT_NEAR_SLACK, branch=HIER_BRANCH, mac_tau=DEFAULT_HIER_TAU,
+                mac_tau0=None, eps2=1e-6, compensate=0.1, union_coarse=True,
+                stamp=NO_STAMPS):
+    """The hierarchical acceptance of target rows (``xl``, ``yl``, ``zl``,
+    rows ``row_offset`` onwards) against every source (``xg``, ``yg``,
+    ``zg``, ``mass_g``): ``(flat_src, chunk_tgt, far_src, far_tgt,
+    is_vip_body (N,))``, row ids local, source ids global. The body of
+    :func:`build_tree_hier_cols` and :func:`build_hier_local`; the phases on
+    ``stamp``, the lists' counters too where it is live."""
+    (_, _, entries, max_near, vip_src, plan, _,
+     far_max) = _hier_static(xg.shape[0], tile, src_tile, theta, max_near, vip_tiles,
+                             far_max, branch)
+    xl, yl, zl, xg, yg, zg, mass_g = (a.to(_f32) for a in (xl, yl, zl, xg, yg, zg, mass_g))
+    (is_vip_body, levels, _, minds, score0, thresh0, evals,
+     reach0) = _hier_lists(xl, yl, zl, xg, yg, zg, mass_g, tile=tile, src_tile=src_tile,
+                           theta=theta, vip_src=vip_src, plan=plan, branch=branch,
+                           mac_tau=mac_tau, mac_tau0=mac_tau0, eps2=eps2,
+                           c2=compensate * compensate, union_coarse=union_coarse,
+                           row_offset=row_offset, stamp=stamp)
+    stamp.begin("build.lists")
+    tally = [] if stamp.live else None
+    lists = _hier_compact(levels, minds, score0, thresh0, evals, reach0, slack=slack,
+                          flat_cap=flat_cap, entries=entries, max_near=max_near,
+                          far_cap=far_cap, far_max=far_max, tally=tally, stamp=stamp)
+    stamp.end("build.lists", None if tally is None else
+              _list_counters(tally, is_vip_body, tile=tile, src_tile=src_tile))
+    return (*lists, is_vip_body)
+
+
+def build_tree_hier_cols(xc, yc, zc, mass, **kw):
+    """Hierarchical acceptance structures of every row:
+    ``(flat_src, chunk_tgt, far_src, far_tgt, is_vip_body)``, the keywords
+    and their defaults :func:`_build_hier`'s (``flat_cap``, ``far_max`` and
+    ``far_cap`` required). Rank 0 of 1: the columns are the targets and the
+    sources, and the phases are stamped.
 
     The near lists as described in :func:`_compact_open_lists`, plus
     compacted multi-level far lists (``far_cap`` node ids in chunks of
@@ -615,26 +638,8 @@ def build_tree_hier_cols(
     everything else at its topmost accepted ancestor. Size the capacities
     with :func:`suggest_hier`.
     """
-    n = xc.shape[0]
-    (_, _, entries, max_near, vip_src, plan, _,
-     far_max) = _hier_static(n, tile, src_tile, theta, max_near, vip_tiles,
-                             far_max, branch)
-    xc, yc, zc, mass = (a.to(_f32) for a in (xc, yc, zc, mass))
-    st = profiling.stamper(xc.device)
-    (is_vip_body, levels, _, minds, score0, thresh0, evals,
-     reach0) = _hier_lists(xc, yc, zc, mass, tile=tile, src_tile=src_tile,
-                           theta=theta, vip_src=vip_src, plan=plan,
-                           branch=branch, mac_tau=mac_tau, mac_tau0=mac_tau0,
-                           eps2=eps2, c2=compensate * compensate,
-                           union_coarse=union_coarse, stamp=st)
-    st.begin("build.lists")
-    tally = [] if st.live else None
-    lists = _hier_compact(levels, minds, score0, thresh0, evals, reach0, slack=slack,
-                          flat_cap=flat_cap, entries=entries, max_near=max_near,
-                          far_cap=far_cap, far_max=far_max, tally=tally, stamp=st)
-    st.end("build.lists", None if tally is None else
-           _list_counters(tally, is_vip_body, tile=tile, src_tile=src_tile))
-    return (*lists, is_vip_body)
+    return _build_hier(xc, yc, zc, xc, yc, zc, mass, row_offset=0,
+                       stamp=profiling.stamper(xc.device), **kw)
 
 
 def _list_counters(tally, is_vip_body, *, tile: int, src_tile: int) -> torch.Tensor:
@@ -688,52 +693,58 @@ def _tree_mass(xc, yc, zc, mass, tile: int, vip_tiles: int):
     return mass, torch.zeros(mass.shape, dtype=torch.bool, device=mass.device)
 
 
+def _build_dense(xl, yl, zl, xg, yg, zg, mass_g, *, tile, max_near, vip_tiles,
+                 theta=DEFAULT_THETA, row_offset=0, mac_tau=0.0, eps2=1e-6,
+                 compensate=0.1):
+    """The dense acceptance of target rows against every source, the body
+    of :func:`build_tree` and :func:`build_dense_local`: ``(near_idx (K_t,
+    M) int32, the ``max_near`` highest scores of each row, self first;
+    near_mask (K_t, K) bool; is_vip_body (N,))``, ``max_near`` and
+    ``vip_tiles`` as the caller resolved them. The mask is scattered from
+    the lists, never compared through a (K_t, M, K) tensor."""
+    xl, yl, zl, xg, yg, zg, mass_g = (a.to(_f32) for a in (xl, yl, zl, xg, yg, zg, mass_g))
+    score, _, is_vip_body = _single_level_scores(
+        xl, yl, zl, xg, yg, zg, mass_g, tile=tile, src_tile=tile, theta=theta,
+        vip_src=vip_tiles, mac_tau=mac_tau, eps2=eps2, c2=compensate * compensate,
+        row_offset=row_offset)
+    near_idx = _top_k(score, max_near)[1]
+    near_mask = torch.zeros(score.shape, dtype=torch.bool, device=score.device)
+    near_mask.scatter_(1, near_idx, True)
+    return near_idx.to(_i32), near_mask, is_vip_body
+
+
 def build_tree(pos, mass, *, tile: int = DEFAULT_TILE,
                theta: float = DEFAULT_THETA, max_near: int = DEFAULT_MAX_NEAR,
-               vip_tiles: int = DEFAULT_VIP_TILES, mac_tau: float = 0.0,
-               eps2: float = 1e-6, compensate: float = 0.1):
+               vip_tiles: int = DEFAULT_VIP_TILES, **kw):
     """Dense acceptance structures ``(near_idx (K, M) int32, near_mask
-    (K, K) bool, is_vip_body (N,) bool)``: each target tile's ``max_near``
-    worst source tiles (self first) after the VIP split."""
-    n = pos.shape[0]
-    _, max_near, vip_tiles = _static_args(n, tile, theta, max_near, vip_tiles)
-    xc, yc, zc = pos.to(_f32).unbind(1)
-    mass_tree, is_vip_body = _tree_mass(xc, yc, zc, mass.to(_f32), tile, vip_tiles)
-    near_idx, near_mask = _acceptance(
-        xc, yc, zc, _level0(xc, yc, zc, mass_tree, tile), tile, theta, max_near,
-        mac_tau=mac_tau, eps2=eps2, c2=compensate * compensate)
-    return near_idx, near_mask, is_vip_body
+    (K, K) bool, is_vip_body (N,) bool)`` of every row (:func:`_build_dense`
+    at rank 0 of 1; ``kw``: ``mac_tau``, ``eps2``, ``compensate``): each
+    target tile's ``max_near`` worst source tiles (self first) after the
+    VIP split, ``max_near`` rounded up to a multiple of 4."""
+    _, max_near, vip_tiles = _static_args(pos.shape[0], tile, theta, max_near, vip_tiles)
+    cols = pos.unbind(1)
+    return _build_dense(*cols, *cols, mass, tile=tile, max_near=max_near,
+                        vip_tiles=vip_tiles, theta=theta, **kw)
 
 
-def build_tree_flat_cols(xc, yc, zc, mass, *, tile: int = DEFAULT_TILE,
-                         src_tile: int = DEFAULT_SRC_TILE,
-                         theta: float = DEFAULT_THETA,
-                         max_near: int = DEFAULT_MAX_NEAR,
-                         vip_tiles: int = DEFAULT_VIP_TILES,
-                         slack: int = DEFAULT_NEAR_SLACK, flat_cap: int,
-                         mac_tau: float = 0.0, eps2: float = 1e-6,
-                         compensate: float = 0.1):
-    """Single-level flat acceptance structures ``(flat_src, chunk_tgt,
-    near_mask (K_t, K_s) bool, is_vip_body)``: the near work lists as
-    described in :func:`_compact_open_lists`, and the mask of the entries
-    that landed, which the far field leaves out. Size ``flat_cap`` with
-    :func:`suggest_flat_cap`."""
-    n = xc.shape[0]
-    _, _, entries, max_near, vip_src = _flat_static(n, tile, src_tile, theta,
-                                                    max_near, vip_tiles)
-    xc, yc, zc, mass = (a.to(_f32) for a in (xc, yc, zc, mass))
-    st = profiling.stamper(xc.device)
-    st.begin("build.levels")
-    mass_tree, is_vip_body = _tree_mass(xc, yc, zc, mass, src_tile, vip_src)
-    cx, cy, cz, m_tot, radius = _level0(xc, yc, zc, mass_tree, src_tile)[:5]
-    st.begin("build.open")
-    score, thresh = _opening_scores(
-        xc, yc, zc, cx, cy, cz, m_tot, radius, tile, theta=theta, mac_tau=mac_tau,
-        src_tile=src_tile, eps2=eps2, c2=compensate * compensate, stamp=st)
-    st.begin("build.lists")
-    tally = [] if st.live else None
+def _build_flat(xl, yl, zl, xg, yg, zg, mass_g, static, *, row_offset, tile, src_tile,
+                theta, flat_cap, slack=DEFAULT_NEAR_SLACK, mac_tau=0.0, eps2=1e-6,
+                compensate=0.1, stamp=NO_STAMPS):
+    """The single-level flat acceptance of target rows against every source,
+    the body of :func:`build_tree_flat_cols` and :func:`build_flat_local`:
+    ``(flat_src, chunk_tgt, near_mask (K_t, K_s) bool, is_vip_body (N,))``,
+    ``static`` the ``(entries, max_near, vip_src)`` its caller resolved; the
+    phases on ``stamp``, the lists' counters too where it is live."""
+    entries, max_near, vip_src = static
+    xl, yl, zl, xg, yg, zg, mass_g = (a.to(_f32) for a in (xl, yl, zl, xg, yg, zg, mass_g))
+    score, thresh, is_vip_body = _single_level_scores(
+        xl, yl, zl, xg, yg, zg, mass_g, tile=tile, src_tile=src_tile, theta=theta,
+        vip_src=vip_src, mac_tau=mac_tau, eps2=eps2, c2=compensate * compensate,
+        row_offset=row_offset, stamp=stamp)
+    stamp.begin("build.lists")
+    tally = [] if stamp.live else None
     flat_src, chunk_tgt, near_mask = _compact_open_lists(
-        score, thresh, slack, flat_cap, entries, max_near, tally, st)
+        score, thresh, slack, flat_cap, entries, max_near, tally, stamp)
     # The far kernel reads the mask as contiguous (K_t, K_s) bytes.
     near_mask = near_mask.contiguous()
     if tally is not None:
@@ -741,9 +752,27 @@ def build_tree_flat_cols(xc, yc, zc, mass, *, tile: int = DEFAULT_TILE,
         # nothing shed.
         far = near_mask.numel() - near_mask.sum(dtype=torch.int64)
         tally.append((far, torch.zeros_like(far)))
-    st.end("build.lists", None if tally is None else
-           _list_counters(tally, is_vip_body, tile=tile, src_tile=src_tile))
+    stamp.end("build.lists", None if tally is None else
+              _list_counters(tally, is_vip_body, tile=tile, src_tile=src_tile))
     return flat_src, chunk_tgt, near_mask, is_vip_body
+
+
+def build_tree_flat_cols(xc, yc, zc, mass, *, tile: int = DEFAULT_TILE,
+                         src_tile: int = DEFAULT_SRC_TILE,
+                         theta: float = DEFAULT_THETA,
+                         max_near: int = DEFAULT_MAX_NEAR,
+                         vip_tiles: int = DEFAULT_VIP_TILES, **kw):
+    """Single-level flat acceptance structures ``(flat_src, chunk_tgt,
+    near_mask (K_t, K_s) bool, is_vip_body)`` of every row (:func:`_build_flat`
+    at rank 0 of 1, its phases stamped; ``kw``: ``flat_cap``, ``slack``,
+    ``mac_tau``, ``eps2``, ``compensate``): the near work lists as described
+    in :func:`_compact_open_lists`, and the mask of the entries that landed,
+    which the far field leaves out. Size ``flat_cap`` with
+    :func:`suggest_flat_cap`."""
+    static = _flat_static(xc.shape[0], tile, src_tile, theta, max_near, vip_tiles)[2:]
+    return _build_flat(xc, yc, zc, xc, yc, zc, mass, static, row_offset=0, tile=tile,
+                       src_tile=src_tile, theta=theta, stamp=profiling.stamper(xc.device),
+                       **kw)
 
 
 def build_tree_flat(pos, mass, **kw):
@@ -805,15 +834,67 @@ def kernel_operands(pos, mass, is_vip_body, *, compensate: float = 0.1,
     return ops
 
 
-def _add_vips(acc, ops, tile: int, *, eps2: float, c2: float) -> torch.Tensor:
-    """``acc`` plus the VIP panel's exact pull, with the VIP bodies' rows
-    overwritten by their exact accelerations (the sweep's reaction). VIP
-    bodies are whole tiles, so the overwrite is a row slice of the
-    (K, tile, 3) view."""
-    action, react = cuda_treecode.vip_both(ops["rows"], ops["panel"], eps2=eps2, c2=c2)
-    acc = (acc + action).reshape(-1, tile, 3)
-    acc[ops["vip_tile_idx"]] = react.reshape(-1, tile, 3)
-    return acc.reshape(-1, 3)
+def _tree_acc(path: str, pos, mass, lists, *, tile: int, src_tile: int, vip_src: int, plan,
+              eps2: float, compensate: float, G: float, branch: int = HIER_BRANCH,
+              targets=None, stamp=NO_STAMPS):
+    """One treecode force on ``path``'s ``lists`` (``is_vip_body`` last) of
+    target rows against every source (``pos`` (N, 3), ``mass``): ``(acc
+    (N_t, 3) with the VIP panel's pull added, react (W, 3) | None, the
+    panel's pull from the targets, vip_tile_idx (V,) | None)``.
+
+    The targets are the sources themselves (``targets`` None: the kernels'
+    body rows for the near and far fields, the full-mass rows for the VIP
+    sweep) or a rank's own columns ``(x, y, z, m)``, one ``[x y z G c^3 m]``
+    row each for all three. ``plan`` None (the dense path with every tile
+    near) skips the far field. The phases go on ``stamp``, the last left
+    open for the caller to close once it has written the reaction."""
+    n = pos.shape[0]
+    c2 = compensate * compensate
+    stamp.begin("force.operands")
+    ops = kernel_operands(pos.to(_f32), mass.to(_f32), lists[-1], compensate=compensate,
+                          G=G, src_tile=src_tile, vip_src=vip_src, plan=plan, branch=branch)
+    if targets is None:
+        tgt, rows, n_t = ops["bodies"], ops["rows"], n
+    else:
+        xl, yl, zl, ml = targets
+        tgt = rows = torch.stack([xl, yl, zl, ml * (G * c2 * compensate)], 1).to(_f32)
+        n_t = xl.shape[0]
+    field = dict(n=n_t, tile=tile, eps2=eps2, c2=c2)
+    stamp.begin("force.near")
+    if path == "dense":
+        panels = cuda_treecode.gather_panels(ops["bodies"], lists[0], tile=tile)
+        acc = cuda_treecode.near_panel(tgt, panels, tile=tile, eps2=eps2, c2=c2)
+    else:
+        acc = cuda_treecode.near_field(tgt, ops["bodies"], lists[0], lists[1], n_s=n,
+                                       src_tile=src_tile, entries=CHUNK_LANES // src_tile,
+                                       **field)
+    # One far kernel whatever the panel's size (the TPU kept small panels
+    # in VMEM and fetched large ones entry by entry).
+    if path == "hier":
+        stamp.begin("force.far")
+        acc = acc + cuda_treecode.far_field_hier(tgt, ops["summ"], lists[2], lists[3], G=G,
+                                                 **field)
+    elif plan is not None:
+        stamp.begin("force.far")
+        acc = acc + cuda_treecode.far_field_single(tgt, ops["summ"], lists[-2], G=G, **field)
+    if not vip_src:
+        return acc, None, None
+    stamp.begin("force.vip")
+    action, react = cuda_treecode.vip_both(rows, ops["panel"], eps2=eps2, c2=c2)
+    return acc + action, react, ops["vip_tile_idx"]
+
+
+def _one_card(out, src_tile: int, stamp=NO_STAMPS) -> torch.Tensor:
+    """One card's force from :func:`_tree_acc`'s ``out``: the VIP bodies'
+    rows overwritten by their reaction (VIP bodies are whole source tiles,
+    so a row slice of the (K_s, S, 3) view), then the last phase closed."""
+    acc, react, vip_tile_idx = out
+    if react is not None:
+        acc = acc.reshape(-1, src_tile, 3)
+        acc[vip_tile_idx] = react.reshape(-1, src_tile, 3)
+        acc = acc.reshape(-1, 3)
+    stamp.end()
+    return acc
 
 
 def treecode_acc_hier(
@@ -835,34 +916,15 @@ def treecode_acc_hier(
     ``aux_hier`` comes from :func:`build_tree_hier_cols` with the same
     static knobs. Exact near field + monopole/quadrupole far field at the
     topmost accepted ancestor + the exact two-way VIP sweep, whose
-    reaction overwrites the VIP bodies' rows.
+    reaction overwrites the VIP bodies' rows (:func:`_tree_acc` at rank 0
+    of 1, its phases stamped).
     """
-    n = pos.shape[0]
-    (_, k_s, _, _, vip_src, plan, _, _) = _hier_static(
-        n, tile, src_tile, theta, max_near, vip_tiles, far_max, branch)
-    c2 = compensate * compensate
-    flat_src, chunk_tgt, far_src, far_tgt, is_vip_body = aux_hier
+    (_, _, _, _, vip_src, plan, _, _) = _hier_static(
+        pos.shape[0], tile, src_tile, theta, max_near, vip_tiles, far_max, branch)
     st = profiling.stamper(pos.device)
-    st.begin("force.operands")
-    ops = kernel_operands(pos.to(_f32), mass.to(_f32), is_vip_body,
-                          compensate=compensate, G=G, src_tile=src_tile,
-                          vip_src=vip_src, plan=plan, branch=branch)
-    st.begin("force.near")
-    acc = cuda_treecode.near_field(ops["bodies"], ops["bodies"], flat_src, chunk_tgt,
-                                   n=n, n_s=n, tile=tile, src_tile=src_tile,
-                                   entries=CHUNK_LANES // src_tile,
-                                   eps2=eps2, c2=c2)
-    # One far kernel whatever the panel's size (the TPU kept small panels
-    # in VMEM and fetched large ones entry by entry).
-    st.begin("force.far")
-    acc = acc + cuda_treecode.far_field_hier(ops["bodies"], ops["summ"],
-                                             far_src, far_tgt, n=n, tile=tile,
-                                             eps2=eps2, c2=c2, G=G)
-    if vip_src:
-        st.begin("force.vip")
-        acc = _add_vips(acc, ops, src_tile, eps2=eps2, c2=c2)
-    st.end()
-    return acc
+    return _one_card(_tree_acc("hier", pos, mass, aux_hier, tile=tile, src_tile=src_tile,
+                               vip_src=vip_src, plan=plan, branch=branch, eps2=eps2,
+                               compensate=compensate, G=G, stamp=st), src_tile, st)
 
 
 def treecode_acc_hier_cols(xc, yc, zc, mass, aux_hier, **kw):
@@ -888,29 +950,13 @@ def treecode_acc_flat(
     bodies, ``aux_flat`` from :func:`build_tree_flat_cols` with the same
     static knobs: exact near field over the compacted lists + monopole /
     quadrupole far field of every other level-0 source tile + the exact
-    two-way VIP sweep."""
-    n = pos.shape[0]
-    _, k_s, entries, _, vip_src = _flat_static(n, tile, src_tile, theta,
-                                               max_near, vip_tiles)
-    c2 = compensate * compensate
-    flat_src, chunk_tgt, near_mask, is_vip_body = aux_flat
+    two-way VIP sweep (:func:`_tree_acc` at rank 0 of 1, stamped)."""
+    _, k_s, _, _, vip_src = _flat_static(pos.shape[0], tile, src_tile, theta, max_near,
+                                         vip_tiles)
     st = profiling.stamper(pos.device)
-    st.begin("force.operands")
-    ops = kernel_operands(pos.to(_f32), mass.to(_f32), is_vip_body,
-                          compensate=compensate, G=G, src_tile=src_tile,
-                          vip_src=vip_src, plan=(k_s,))
-    st.begin("force.near")
-    acc = cuda_treecode.near_field(ops["bodies"], ops["bodies"], flat_src, chunk_tgt,
-                                   n=n, n_s=n, tile=tile, src_tile=src_tile,
-                                   entries=entries, eps2=eps2, c2=c2)
-    st.begin("force.far")
-    acc = acc + cuda_treecode.far_field_single(ops["bodies"], ops["summ"], near_mask,
-                                               n=n, tile=tile, eps2=eps2, c2=c2, G=G)
-    if vip_src:
-        st.begin("force.vip")
-        acc = _add_vips(acc, ops, src_tile, eps2=eps2, c2=c2)
-    st.end()
-    return acc
+    return _one_card(_tree_acc("flat", pos, mass, aux_flat, tile=tile, src_tile=src_tile,
+                               vip_src=vip_src, plan=(k_s,), eps2=eps2,
+                               compensate=compensate, G=G, stamp=st), src_tile, st)
 
 
 def treecode_acc_flat_cols(xc, yc, zc, mass, aux_flat, **kw):
@@ -934,29 +980,20 @@ def treecode_acc(
     """Dense treecode acceleration (N, 3) of Morton-sorted bodies: each
     target tile's near tiles gathered into one panel and swept exactly, the
     single-level far field over the rest when ``max_near < K`` (else the
-    near field is the direct sum), and the exact two-way VIP sweep.
+    near field is the direct sum), and the exact two-way VIP sweep
+    (:func:`_tree_acc` at rank 0 of 1).
 
     ``aux`` comes from :func:`build_tree` with the same static knobs; None
     builds it for this call.
     """
-    n = pos.shape[0]
-    k, max_near, vip_tiles = _static_args(n, tile, theta, max_near, vip_tiles)
-    c2 = compensate * compensate
-    pos, mass = pos.to(_f32), mass.to(_f32)
+    k, max_near, vip_tiles = _static_args(pos.shape[0], tile, theta, max_near, vip_tiles)
     if aux is None:
         aux = build_tree(pos, mass, tile=tile, theta=theta, max_near=max_near,
                          vip_tiles=vip_tiles, mac_tau=mac_tau, eps2=eps2,
                          compensate=compensate)
-    near_idx, near_mask, is_vip_body = aux
-    ops = kernel_operands(pos, mass, is_vip_body, compensate=compensate, G=G,
-                          src_tile=tile, vip_src=vip_tiles,
-                          plan=(k,) if max_near < k else None)
-    panels = cuda_treecode.gather_panels(ops["bodies"], near_idx, tile=tile)
-    acc = cuda_treecode.near_panel(ops["bodies"], panels, tile=tile, eps2=eps2, c2=c2)
-    if max_near < k:
-        acc = acc + cuda_treecode.far_field_single(ops["bodies"], ops["summ"], near_mask,
-                                                   n=n, tile=tile, eps2=eps2, c2=c2, G=G)
-    return _add_vips(acc, ops, tile, eps2=eps2, c2=c2) if vip_tiles else acc
+    return _one_card(_tree_acc("dense", pos, mass, aux, tile=tile, src_tile=tile,
+                               vip_src=vip_tiles, plan=(k,) if max_near < k else None,
+                               eps2=eps2, compensate=compensate, G=G), tile)
 
 
 # ---------------------------------------------------------- sharded helpers
@@ -965,7 +1002,8 @@ def treecode_acc(
 # suffix ``g``; its own, suffix ``l``). Each rank computes the same global VIP
 # split and source summaries from the gathered columns, then builds and
 # evaluates work lists for its own rows only: row ids are local, source ids
-# global. Named as in the JAX package.
+# global. Each path's build and force are the one card's bodies with the
+# rank's rows as targets. Named as in the JAX package.
 def _flat_src_static(n_g: int, tile: int, src_tile: int, max_near: int,
                      vip_tiles: int):
     """(k_s, entries, max_near, vip_src) of a global source population of
@@ -983,106 +1021,65 @@ def _flat_src_static(n_g: int, tile: int, src_tile: int, max_near: int,
     return k_s, entries, max_near, vip_src
 
 
-def build_flat_local(xl, yl, zl, xg, yg, zg, mass_g, *, tile: int, src_tile: int,
-                     theta: float, max_near: int, vip_tiles: int, slack: int,
-                     flat_cap: int, row_offset: int, mac_tau: float = 0.0,
-                     eps2: float = 1e-6, compensate: float = 0.1):
-    """Flat acceptance of a rank's target rows against every source:
-    ``(flat_src, chunk_tgt, near_mask (K_t local, K_s), is_vip_g (N,))``;
-    ``flat_cap`` is the rank's capacity (:func:`suggest_flat_cap_sharded`),
-    ``row_offset`` the global id of its first row. The MAC's median scale
-    is that of the rank's own rows, as in the JAX package."""
-    n_g = xg.shape[0]
-    k_s, entries, max_near, vip_src = _flat_src_static(n_g, tile, src_tile, max_near,
-                                                       vip_tiles)
-    xl, yl, zl, xg, yg, zg, mass_g = (a.to(_f32) for a in (xl, yl, zl, xg, yg, zg, mass_g))
-    mass_tree_g, is_vip_g = _tree_mass(xg, yg, zg, mass_g, src_tile, vip_src)
-    cx, cy, cz, m_tot, radius = _level0(xg, yg, zg, mass_tree_g, src_tile)[:5]
-    score, thresh = _opening_scores(
-        xl, yl, zl, cx, cy, cz, m_tot, radius, tile, theta=theta, mac_tau=mac_tau,
-        row_offset=row_offset, src_tile=src_tile, eps2=eps2, c2=compensate * compensate)
-    flat_src, chunk_tgt, near_mask = _compact_open_lists(
-        score, thresh, slack, flat_cap, entries, max_near)
-    return flat_src, chunk_tgt, near_mask.contiguous(), is_vip_g
+def _dense_src_static(n_g: int, tile: int, max_near: int, vip_tiles: int):
+    """(vip_tiles, max_near) of the sharded dense path at ``n_g`` bodies:
+    the VIP count clamped, the near capacity at least 4 and at most K (not
+    rounded to a multiple of 4, as :func:`_static_args` rounds it)."""
+    k = n_g // tile
+    return _clamp_vip(vip_tiles, k), min(max(max_near, 4), k)
 
 
-def _local_rows(xl, yl, zl, ml, gc3: float) -> torch.Tensor:
-    """A rank's rows (N local, 4) [x y z G c^3 m]: the targets of its near
-    and far fields and the rows of its VIP sweep."""
-    return torch.stack([xl, yl, zl, ml * gc3], 1).to(_f32)
-
-
-def _local_vips(acc, rows, ops, src_tile: int, vip_src: int, *, eps2: float, c2: float):
-    """``(acc, react (W, 3) | None, vip_body_idx (W,) | None)``: the rank's
-    acceleration with the VIP panel's pull added, its partial pull on the
-    panel (the caller sums it over the ranks and writes it into the VIP rows
-    it holds) and the panel's global body ids."""
-    if not vip_src:
+def _rank(out, src_tile: int):
+    """A rank's force from :func:`_tree_acc`'s ``out``: ``(acc, react,
+    vip_body_idx)``, the VIP tiles' ids made the panel's global body ids.
+    The caller sums the reactions over the ranks and writes them into the
+    VIP rows it holds (``parallel.tree.apply_reaction``)."""
+    acc, react, idx = out
+    if react is None:
         return acc, None, None
-    action, react = cuda_treecode.vip_both(rows, ops["panel"], eps2=eps2, c2=c2)
-    idx = ops["vip_tile_idx"]
-    vip_body_idx = (idx[:, None] * src_tile
-                    + torch.arange(src_tile, device=idx.device)[None, :]).reshape(-1)
-    return acc + action, react, vip_body_idx
+    return acc, react, (idx[:, None] * src_tile
+                        + torch.arange(src_tile, device=idx.device)[None, :]).reshape(-1)
+
+
+def build_flat_local(xl, yl, zl, xg, yg, zg, mass_g, *, tile: int, src_tile: int,
+                     max_near: int, vip_tiles: int, row_offset: int, **kw):
+    """Flat acceptance of a rank's target rows against every source:
+    ``(flat_src, chunk_tgt, near_mask (K_t local, K_s), is_vip_g (N,))``
+    (:func:`_build_flat`; ``kw``: ``theta``, ``flat_cap``, ``slack``,
+    ``mac_tau``, ``eps2``, ``compensate``). ``flat_cap`` is the rank's
+    capacity (:func:`suggest_flat_cap_sharded`), ``row_offset`` the global
+    id of its first row. The MAC's median scale is that of the rank's own
+    rows, as in the JAX package."""
+    static = _flat_src_static(xg.shape[0], tile, src_tile, max_near, vip_tiles)[1:]
+    return _build_flat(xl, yl, zl, xg, yg, zg, mass_g, static, row_offset=row_offset,
+                       tile=tile, src_tile=src_tile, **kw)
 
 
 def flat_local_acc(xl, yl, zl, ml, xg, yg, zg, mass_g, aux, *, eps2: float,
                    compensate: float, G: float, tile: int, src_tile: int,
                    max_near: int, vip_tiles: int):
     """Flat treecode acceleration of a rank's rows from every source,
-    ``aux`` from :func:`build_flat_local`: ``(ax, ay, az, react, vip_body_idx)``
-    (:func:`_local_vips`; columns, as the JAX package returns them). The near kernel takes the rank's rows as its
-    targets and the gathered bodies as its sources; the far fields read the
-    rank's rows only."""
-    flat_src, chunk_tgt, near_mask, is_vip_g = aux
-    n_g, n_l = xg.shape[0], xl.shape[0]
-    k_s, entries, _, vip_src = _flat_src_static(n_g, tile, src_tile, max_near, vip_tiles)
-    c2 = compensate * compensate
-    ops = kernel_operands(torch.stack([xg, yg, zg], 1).to(_f32), mass_g.to(_f32), is_vip_g,
-                          compensate=compensate, G=G, src_tile=src_tile, vip_src=vip_src,
-                          plan=(k_s,))
-    rows = _local_rows(xl, yl, zl, ml, G * c2 * compensate)
-    acc = cuda_treecode.near_field(rows, ops["bodies"], flat_src, chunk_tgt, n=n_l, n_s=n_g,
-                                   tile=tile, src_tile=src_tile, entries=entries,
-                                   eps2=eps2, c2=c2)
-    acc = acc + cuda_treecode.far_field_single(rows, ops["summ"], near_mask, n=n_l,
-                                               tile=tile, eps2=eps2, c2=c2, G=G)
-    acc, react, idx = _local_vips(acc, rows, ops, src_tile, vip_src, eps2=eps2, c2=c2)
+    ``aux`` from :func:`build_flat_local`: ``(ax, ay, az, react,
+    vip_body_idx)`` (:func:`_rank`; columns, as the JAX package returns
+    them). The near kernel takes the rank's rows as its targets and the
+    gathered bodies as its sources; the far fields read the rank's rows
+    only."""
+    k_s, _, _, vip_src = _flat_src_static(xg.shape[0], tile, src_tile, max_near, vip_tiles)
+    acc, react, idx = _rank(_tree_acc(
+        "flat", torch.stack([xg, yg, zg], 1), mass_g, aux, tile=tile, src_tile=src_tile,
+        vip_src=vip_src, plan=(k_s,), eps2=eps2, compensate=compensate, G=G,
+        targets=(xl, yl, zl, ml)), src_tile)
     return acc[:, 0], acc[:, 1], acc[:, 2], react, idx
 
 
-def build_hier_local(xl, yl, zl, xg, yg, zg, mass_g, *, tile: int, src_tile: int,
-                     theta: float, max_near: int, vip_tiles: int, slack: int,
-                     flat_cap: int, far_max: int, far_cap: int, row_offset: int,
-                     branch: int = HIER_BRANCH, mac_tau: float = DEFAULT_HIER_TAU,
-                     mac_tau0: float | None = None, eps2: float = 1e-6,
-                     compensate: float = 0.1, union_coarse: bool = True):
+def build_hier_local(xl, yl, zl, xg, yg, zg, mass_g, *, row_offset: int, **kw):
     """Hierarchical acceptance of a rank's target rows against every source:
-    ``(flat_src, chunk_tgt, far_src, far_tgt, is_vip_g)``, the multi-level
-    form of :func:`build_flat_local`. ``flat_cap`` and ``far_cap`` are the
-    rank's capacities (:func:`suggest_hier_sharded`). The MAC's median
-    scale is the whole population's, so every rank applies one threshold."""
-    n_g = xg.shape[0]
-    (_, _, entries, max_near, vip_src, plan, _,
-     far_max) = _hier_static(n_g, tile, src_tile, theta, max_near, vip_tiles, far_max,
-                             branch)
-    xl, yl, zl, xg, yg, zg, mass_g = (a.to(_f32) for a in (xl, yl, zl, xg, yg, zg, mass_g))
-    c2 = compensate * compensate
-    mass_tree_g, is_vip_g = _tree_mass(xg, yg, zg, mass_g, src_tile, vip_src)
-    levels = _level_summaries(xg, yg, zg, mass_tree_g, src_tile, plan, branch)
-    a_med = None
-    if mac_tau > 0:
-        cx0, cy0, cz0, m0 = levels[0][:4]
-        a_med = torch.clamp(_median_monopole_acc(xg, yg, zg, cx0, cy0, cz0, m0,
-                                                 eps2=eps2, c2=c2), min=_TINY)
-    opens, minds, score0, thresh0 = _hier_open_masks(
-        xl, yl, zl, levels, tile, src_tile, mac_tau=mac_tau, theta=theta, eps2=eps2,
-        c2=c2, row_offset=row_offset, a_med=a_med, mac_tau0=mac_tau0,
-        union_coarse=union_coarse)
-    evals, reach0 = _chain_evals(opens, branch)
-    return (*_hier_compact(levels, minds, score0, thresh0, evals, reach0, slack=slack,
-                           flat_cap=flat_cap, entries=entries, max_near=max_near,
-                           far_cap=far_cap, far_max=far_max), is_vip_g)
+    ``(flat_src, chunk_tgt, far_src, far_tgt, is_vip_g)`` (:func:`_build_hier`,
+    its keywords), the multi-level form of :func:`build_flat_local`.
+    ``flat_cap`` and ``far_cap`` are the rank's capacities
+    (:func:`suggest_hier_sharded`). The MAC's median scale is the whole
+    population's, so every rank applies one threshold."""
+    return _build_hier(xl, yl, zl, xg, yg, zg, mass_g, row_offset=row_offset, **kw)
 
 
 def hier_local_acc(xl, yl, zl, ml, xg, yg, zg, mass_g, aux, *, eps2: float,
@@ -1092,30 +1089,39 @@ def hier_local_acc(xl, yl, zl, ml, xg, yg, zg, mass_g, aux, *, eps2: float,
     """Hierarchical treecode acceleration of a rank's rows from every source,
     ``aux`` from :func:`build_hier_local`: ``(ax, ay, az, react,
     vip_body_idx)``, the multi-level form of :func:`flat_local_acc`."""
-    flat_src, chunk_tgt, far_src, far_tgt, is_vip_g = aux
-    n_g, n_l = xg.shape[0], xl.shape[0]
-    (_, _, entries, _, vip_src, plan, _, _) = _hier_static(
-        n_g, tile, src_tile, theta, max_near, vip_tiles, far_max, branch)
-    c2 = compensate * compensate
-    ops = kernel_operands(torch.stack([xg, yg, zg], 1).to(_f32), mass_g.to(_f32), is_vip_g,
-                          compensate=compensate, G=G, src_tile=src_tile, vip_src=vip_src,
-                          plan=plan, branch=branch)
-    rows = _local_rows(xl, yl, zl, ml, G * c2 * compensate)
-    acc = cuda_treecode.near_field(rows, ops["bodies"], flat_src, chunk_tgt, n=n_l, n_s=n_g,
-                                   tile=tile, src_tile=src_tile, entries=entries,
-                                   eps2=eps2, c2=c2)
-    acc = acc + cuda_treecode.far_field_hier(rows, ops["summ"], far_src, far_tgt, n=n_l,
-                                             tile=tile, eps2=eps2, c2=c2, G=G)
-    acc, react, idx = _local_vips(acc, rows, ops, src_tile, vip_src, eps2=eps2, c2=c2)
+    (_, _, _, _, vip_src, plan, _, _) = _hier_static(
+        xg.shape[0], tile, src_tile, theta, max_near, vip_tiles, far_max, branch)
+    acc, react, idx = _rank(_tree_acc(
+        "hier", torch.stack([xg, yg, zg], 1), mass_g, aux, tile=tile, src_tile=src_tile,
+        vip_src=vip_src, plan=plan, branch=branch, eps2=eps2, compensate=compensate, G=G,
+        targets=(xl, yl, zl, ml)), src_tile)
     return acc[:, 0], acc[:, 1], acc[:, 2], react, idx
 
 
-def _near_field_xla(rows, panels, *, eps2: float, c2: float, tile: int) -> torch.Tensor:
-    """The dense path's near field (K T, 3) of target rows ``rows`` against
-    their gathered ``panels`` (K, M T, 4): the near-panel kernel on the
-    card, its plain twin on the CPU (the JAX package's CPU form of the
-    same step has this name)."""
-    return cuda_treecode.near_panel(rows, panels, tile=tile, eps2=eps2, c2=c2)
+def build_dense_local(pos_l, pos_g, mass_g, *, tile: int, max_near: int, vip_tiles: int,
+                      row_offset: int, **kw):
+    """The dense acceptance of a rank's rows ``pos_l`` against every body:
+    ``(near_idx (K_t local, M) int32, near_mask (K_t local, K) bool,
+    is_vip_g (N,) bool)`` (:func:`_build_dense`; ``kw``: ``theta``,
+    ``mac_tau``, ``eps2``, ``compensate``), the capacities by
+    :func:`_dense_src_static`."""
+    vip_tiles, max_near = _dense_src_static(pos_g.shape[0], tile, max_near, vip_tiles)
+    return _build_dense(*pos_l.unbind(1), *pos_g.unbind(1), mass_g, tile=tile,
+                        max_near=max_near, vip_tiles=vip_tiles, row_offset=row_offset, **kw)
+
+
+def dense_local_acc(pos_l, mass_l, pos_g, mass_g, aux, *, eps2: float, compensate: float,
+                    G: float, tile: int, vip_tiles: int):
+    """The dense path's acceleration of a rank's rows from every body,
+    ``aux`` from :func:`build_dense_local`: ``(acc, react, vip_body_g)``
+    (:func:`_rank`). The near tiles are gathered from the global bodies into
+    one panel a local target tile and swept exactly; the single-level far
+    field covers the rest."""
+    k = pos_g.shape[0] // tile
+    return _rank(_tree_acc("dense", pos_g, mass_g, aux, tile=tile, src_tile=tile,
+                           vip_src=_clamp_vip(vip_tiles, k), plan=(k,), eps2=eps2,
+                           compensate=compensate, G=G,
+                           targets=(*pos_l.unbind(1), mass_l)), tile)
 
 
 # ----------------------------------------------------------------- planners
@@ -1131,22 +1137,32 @@ def hier_counts(pos, mass, *, tile: int = DEFAULT_HIER_TILE,
                 union_coarse: bool = True):
     """(near_count (K_t,), far_count (K_t,)) of the hierarchical chain on
     this distribution, uncapped: the capacity planner's input."""
-    n = pos.shape[0]
-    k_s = n // src_tile
-    plan = _level_plan(k_s, branch)
-    vip_src = _clamp_vip(_vip_src_tiles(vip_tiles, tile, src_tile), k_s)
-    pos = pos.to(_f32)
+    k_s = pos.shape[0] // src_tile
+    cols = pos.to(_f32).unbind(1)
     (_, _, opens, _, _, _, evals, reach0) = _hier_lists(
-        pos[:, 0], pos[:, 1], pos[:, 2], mass.to(_f32), tile=tile,
-        src_tile=src_tile, theta=theta, vip_src=vip_src, plan=plan,
-        branch=branch, mac_tau=mac_tau, mac_tau0=mac_tau0, eps2=eps2,
-        c2=compensate * compensate, union_coarse=union_coarse)
+        *cols, *cols, mass.to(_f32), tile=tile, src_tile=src_tile, theta=theta,
+        vip_src=_clamp_vip(_vip_src_tiles(vip_tiles, tile, src_tile), k_s),
+        plan=_level_plan(k_s, branch), branch=branch, mac_tau=mac_tau, mac_tau0=mac_tau0,
+        eps2=eps2, c2=compensate * compensate, union_coarse=union_coarse)
     near = (reach0 & opens[0]).sum(1)
     far = sum(ev.sum(1) for ev in evals)
     return near, far
 
 
-def suggest_hier(pos, mass, *, tile: int = DEFAULT_HIER_TILE,
+def _round_up(v, e: int):
+    return ((v + e - 1) // e) * e
+
+
+def _per_rank(v: np.ndarray, n_dev: int) -> np.ndarray:
+    """Sums of ``v`` (K_t,) over each rank's contiguous row block (one
+    block, the whole, at ``n_dev`` 1)."""
+    k_t = len(v)
+    if k_t % n_dev:
+        raise ValueError(f"K_t={k_t} not divisible by n_dev={n_dev}")
+    return v.reshape(n_dev, k_t // n_dev).sum(1)
+
+
+def suggest_hier(pos, mass, *, n_dev: int = 1, tile: int = DEFAULT_HIER_TILE,
                  src_tile: int = DEFAULT_SRC_TILE,
                  theta: float = DEFAULT_THETA,
                  vip_tiles: int = DEFAULT_VIP_TILES,
@@ -1160,7 +1176,10 @@ def suggest_hier(pos, mass, *, tile: int = DEFAULT_HIER_TILE,
                  margin: float = 1.3,
                  far_margin: float = 1.25) -> dict:
     """Host-side capacity planner for the hierarchical path:
-    ``{"max_near", "flat_cap", "far_max", "far_cap"}``."""
+    ``{"max_near", "flat_cap", "far_max", "far_cap"}``. ``max_near`` and
+    ``far_max`` are bounds a row; ``flat_cap`` and ``far_cap`` the demand of
+    the worst of ``n_dev`` ranks, each holding a contiguous block of the
+    target rows (the whole demand on one card)."""
     near, far = hier_counts(
         pos, mass, tile=tile, src_tile=src_tile, theta=theta,
         vip_tiles=vip_tiles, branch=branch, mac_tau=mac_tau,
@@ -1169,19 +1188,15 @@ def suggest_hier(pos, mass, *, tile: int = DEFAULT_HIER_TILE,
     near = near.cpu().numpy()
     far = far.cpu().numpy()
     entries = CHUNK_LANES // src_tile
-    k_t = len(near)
-
-    def rnd(v, e):
-        return ((v + e - 1) // e) * e
-
-    max_near = int(rnd(int(math.ceil(near.max() * margin)), entries))
-    v = np.maximum(rnd(near + slack, entries), entries)
-    flat_cap = int(rnd(max(int(math.ceil(v.sum() * margin)),
-                           k_t * entries), entries))
-    far_max = int(rnd(int(math.ceil(far.max() * far_margin)), FAR_ENTRIES))
-    w = np.maximum(rnd(far, FAR_ENTRIES), FAR_ENTRIES)
-    far_cap = int(rnd(max(int(math.ceil(w.sum() * far_margin)),
-                          k_t * FAR_ENTRIES), FAR_ENTRIES))
+    k_l = len(near) // n_dev
+    max_near = int(_round_up(int(math.ceil(near.max() * margin)), entries))
+    v = np.maximum(_round_up(near + slack, entries), entries)
+    flat_cap = int(_round_up(max(int(math.ceil(_per_rank(v, n_dev).max() * margin)),
+                                 k_l * entries), entries))
+    far_max = int(_round_up(int(math.ceil(far.max() * far_margin)), FAR_ENTRIES))
+    w = np.maximum(_round_up(far, FAR_ENTRIES), FAR_ENTRIES)
+    far_cap = int(_round_up(max(int(math.ceil(_per_rank(w, n_dev).max() * far_margin)),
+                                k_l * FAR_ENTRIES), FAR_ENTRIES))
     return {"max_near": max_near, "flat_cap": flat_cap,
             "far_max": far_max, "far_cap": far_cap}
 
@@ -1196,13 +1211,11 @@ def open_counts(pos, mass, *, tile: int = DEFAULT_TILE,
     path)."""
     src_tile = src_tile or tile
     k_s = pos.shape[0] // src_tile
-    vip_src = _clamp_vip(_vip_src_tiles(vip_tiles, tile, src_tile), k_s)
-    xc, yc, zc = pos.to(_f32).unbind(1)
-    mass_tree, _ = _tree_mass(xc, yc, zc, mass.to(_f32), src_tile, vip_src)
-    cx, cy, cz, m_tot, radius = _level0(xc, yc, zc, mass_tree, src_tile)[:5]
-    score, thresh = _opening_scores(
-        xc, yc, zc, cx, cy, cz, m_tot, radius, tile, theta=theta, mac_tau=mac_tau,
-        src_tile=src_tile, eps2=eps2, c2=compensate * compensate)
+    cols = pos.to(_f32).unbind(1)
+    score, thresh, _ = _single_level_scores(
+        *cols, *cols, mass.to(_f32), tile=tile, src_tile=src_tile, theta=theta,
+        vip_src=_clamp_vip(_vip_src_tiles(vip_tiles, tile, src_tile), k_s),
+        mac_tau=mac_tau, eps2=eps2, c2=compensate * compensate)
     return (score > thresh).sum(1)
 
 
@@ -1223,92 +1236,38 @@ def suggest_max_near(pos, mass, *, tile: int = DEFAULT_TILE,
     return int(min(max(need, 1), k))
 
 
-def suggest_flat_cap(pos, mass, *, tile: int = DEFAULT_TILE,
+def suggest_flat_cap(pos, mass, *, n_dev: int = 1, tile: int = DEFAULT_TILE,
                      src_tile: int = DEFAULT_SRC_TILE,
                      theta: float = DEFAULT_THETA,
                      vip_tiles: int = DEFAULT_VIP_TILES,
                      slack: int = DEFAULT_NEAR_SLACK, margin: float = 1.25,
                      mac_tau: float = 0.0, eps2: float = 1e-6,
                      compensate: float = 0.1) -> int:
-    """Host-side flat-list capacity: every row's chunks with ``margin``, at
-    least one chunk a row."""
+    """Host-side flat-list capacity: the chunks of the worst of ``n_dev``
+    ranks' row blocks (every row's on one card) with ``margin``, at least
+    one chunk a row."""
     counts = open_counts(pos, mass, tile=tile, theta=theta, vip_tiles=vip_tiles,
                          src_tile=src_tile, mac_tau=mac_tau, eps2=eps2,
                          compensate=compensate).cpu().numpy()
     entries = CHUNK_LANES // src_tile
-    v = np.maximum(((counts + slack + entries - 1) // entries) * entries, entries)
-    need = int(math.ceil(float(v.sum()) * margin))
-    need = max(need, max(pos.shape[0] // tile, 1) * entries)
-    return ((need + entries - 1) // entries) * entries
+    v = np.maximum(_round_up(counts + slack, entries), entries)
+    need = int(math.ceil(float(_per_rank(v, n_dev).max()) * margin))
+    return _round_up(max(need, (len(v) // n_dev) * entries), entries)
 
 
-def _per_rank(v: np.ndarray, n_dev: int) -> np.ndarray:
-    """Sums of ``v`` (K_t,) over each rank's contiguous row block."""
-    k_t = len(v)
-    if k_t % n_dev:
-        raise ValueError(f"K_t={k_t} not divisible by n_dev={n_dev}")
-    return v.reshape(n_dev, k_t // n_dev).sum(1)
+# A rank's capacity margins, above one card's for drift: the core's rows
+# open more tiles than the halo's.
+SHARDED_MARGIN = 1.4
+SHARDED_FAR_MARGIN = 1.6
 
 
-def suggest_flat_cap_sharded(pos, mass, n_dev: int, *, tile: int = DEFAULT_TILE,
-                             src_tile: int = DEFAULT_SRC_TILE,
-                             theta: float = DEFAULT_THETA,
-                             vip_tiles: int = DEFAULT_VIP_TILES,
-                             slack: int = DEFAULT_NEAR_SLACK, margin: float = 1.4,
-                             mac_tau: float = 0.0, eps2: float = 1e-6,
-                             compensate: float = 0.1) -> int:
-    """Host-side flat-list capacity of one rank when the target rows are
-    split over ``n_dev`` ranks: the worst rank's demand (the core's rows
-    open more tiles than the halo's) with a margin above
-    :func:`suggest_flat_cap`'s for drift."""
-    counts = open_counts(pos, mass, tile=tile, theta=theta, vip_tiles=vip_tiles,
-                         src_tile=src_tile, mac_tau=mac_tau, eps2=eps2,
-                         compensate=compensate).cpu().numpy()
-    entries = CHUNK_LANES // src_tile
-    v = np.maximum(((counts + slack + entries - 1) // entries) * entries, entries)
-    per_rank = _per_rank(v, n_dev)
-    need = int(math.ceil(float(per_rank.max()) * margin))
-    need = max(need, (len(v) // n_dev) * entries)
-    return ((need + entries - 1) // entries) * entries
+def suggest_flat_cap_sharded(pos, mass, n_dev: int, *, margin: float = SHARDED_MARGIN,
+                             **kw) -> int:
+    """:func:`suggest_flat_cap` of one rank of ``n_dev``, a rank's margin."""
+    return suggest_flat_cap(pos, mass, n_dev=n_dev, margin=margin, **kw)
 
 
-def suggest_hier_sharded(pos, mass, n_dev: int, *, tile: int = DEFAULT_HIER_TILE,
-                         src_tile: int = DEFAULT_SRC_TILE,
-                         theta: float = DEFAULT_THETA,
-                         vip_tiles: int = DEFAULT_VIP_TILES,
-                         slack: int = DEFAULT_NEAR_SLACK,
-                         branch: int = HIER_BRANCH,
-                         mac_tau: float = DEFAULT_HIER_TAU,
-                         mac_tau0: float | None = None,
-                         eps2: float = 1e-6,
-                         compensate: float = 0.1,
-                         union_coarse: bool = True,
-                         margin: float = 1.4,
-                         far_margin: float = 1.6) -> dict:
-    """Capacity planner of one rank on the sharded hierarchical path:
-    ``max_near`` and ``far_max`` stay global bounds a row; ``flat_cap`` and
-    ``far_cap`` are the worst rank's demand, with margins above
-    :func:`suggest_hier`'s for drift."""
-    near, far = hier_counts(
-        pos, mass, tile=tile, src_tile=src_tile, theta=theta,
-        vip_tiles=vip_tiles, branch=branch, mac_tau=mac_tau,
-        mac_tau0=mac_tau0, eps2=eps2, compensate=compensate,
-        union_coarse=union_coarse)
-    near = near.cpu().numpy()
-    far = far.cpu().numpy()
-    entries = CHUNK_LANES // src_tile
-    k_l = len(near) // n_dev
-
-    def rnd(v, e):
-        return ((v + e - 1) // e) * e
-
-    max_near = int(rnd(int(math.ceil(near.max() * margin)), entries))
-    v = np.maximum(rnd(near + slack, entries), entries)
-    flat_cap = int(rnd(max(int(math.ceil(_per_rank(v, n_dev).max() * margin)),
-                           k_l * entries), entries))
-    far_max = int(rnd(int(math.ceil(far.max() * far_margin)), FAR_ENTRIES))
-    w = np.maximum(rnd(far, FAR_ENTRIES), FAR_ENTRIES)
-    far_cap = int(rnd(max(int(math.ceil(_per_rank(w, n_dev).max() * far_margin)),
-                          k_l * FAR_ENTRIES), FAR_ENTRIES))
-    return {"max_near": max_near, "flat_cap": flat_cap,
-            "far_max": far_max, "far_cap": far_cap}
+def suggest_hier_sharded(pos, mass, n_dev: int, *, margin: float = SHARDED_MARGIN,
+                         far_margin: float = SHARDED_FAR_MARGIN, **kw) -> dict:
+    """:func:`suggest_hier` of one rank of ``n_dev``, a rank's margins."""
+    return suggest_hier(pos, mass, n_dev=n_dev, margin=margin, far_margin=far_margin, **kw)

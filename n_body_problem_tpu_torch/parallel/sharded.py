@@ -37,10 +37,10 @@ import time as _time
 import numpy as np
 import torch
 
-from n_body_problem_tpu_torch.config import SimConfig, resolve_vip_tiles
+from n_body_problem_tpu_torch.config import SimConfig
 from n_body_problem_tpu_torch.graphs import (StaticRun, clone_state, replay_chunks,
                                              step_program, tree_programs)
-from n_body_problem_tpu_torch.ops import treecode
+from n_body_problem_tpu_torch.ops import registry, treecode
 from n_body_problem_tpu_torch.parallel.mesh import RingMesh, make_ring_mesh
 from n_body_problem_tpu_torch.parallel.ring import make_sharded_step, ring_force, shard_state
 from n_body_problem_tpu_torch.parallel.stream import make_staged_force, staged_parts
@@ -54,21 +54,19 @@ STRATEGIES = ("ring", "half_ring", "treecode", "treecode_staged")
 TREE_STRATEGIES = ("treecode", "treecode_staged")
 
 
+def _plans_lists(strategy: str, device_type: str) -> bool:
+    """Whether the run plans its list capacities as on the card: on the
+    card, and the staged strategy, built on the flat lists, on any device."""
+    return device_type == "cuda" or strategy == "treecode_staged"
+
+
 def auto_tile(cfg: SimConfig, strategy: str, n: int, device_type: str) -> SimConfig:
-    """``cfg`` with the auto target row (``tree_tile`` 0) resolved by
-    ``ShardedSimulation``'s own copy of the rule, not ``Simulation``'s: 128
-    where the hierarchical far field will engage on each rank, 32 on the
-    single-level paths (and for the exact ring, which has no rows). The
-    staged strategy plans its lists on any device, so it takes the
-    hierarchical tile off the card too."""
-    if cfg.tree_tile:
-        return cfg
-    hier = (strategy in TREE_STRATEGIES and cfg.tree_hier
-            and n >= max(treecode.CHUNK_LANES, treecode.FAR_ENTRIES * cfg.tree_src_tile)
-            and ((cfg.tree_flat_cap == 0
-                  and (device_type == "cuda" or strategy == "treecode_staged"))
-                 or (cfg.tree_flat_cap > 0 and cfg.tree_far_cap > 0)))
-    return cfg.replace(tree_tile=treecode.DEFAULT_HIER_TILE if hier else 32)
+    """``cfg`` with the auto target row (``tree_tile`` 0) resolved: by
+    ``Simulation``'s rule (``registry.tree_tile``) for the treecode
+    strategies, 32 for the exact ring, which has no rows."""
+    if strategy not in TREE_STRATEGIES:
+        return cfg if cfg.tree_tile else cfg.replace(tree_tile=32)
+    return registry.tree_tile(cfg, n, _plans_lists(strategy, device_type))
 
 
 def plan_treecode(cfg: SimConfig, state: SimState, n_dev: int, device_type: str,
@@ -76,54 +74,26 @@ def plan_treecode(cfg: SimConfig, state: SimState, n_dev: int, device_type: str,
     """The distributed Barnes-Hut's set-up on the whole state:
     ``(cfg, state, init_perm)``. Bodies Morton-sorted on the host (``init_perm``
     the input index of each sorted real body), padded to ``lcm(D tile,
-    src_tile, 256)`` so that every rank holds whole target rows, the VIP
-    count resolved and the capacities planned for one rank's row block
-    (``suggest_hier_sharded``, ``suggest_flat_cap_sharded``), on the paths
-    the JAX package takes: on the card with ``tree_flat_cap`` at 0, flat from
-    2,048 bodies and hierarchical from ``FAR_ENTRIES`` source tiles;
-    otherwise the capacities given, or the dense path. The staged strategy
-    is built on the flat lists, so it plans them on any device and raises
-    ``ValueError`` where it cannot."""
-    staged = strategy == "treecode_staged"
+    src_tile, 256)`` so that every rank holds whole target rows, then the
+    VIP count and one rank's capacities planned as ``Simulation`` plans
+    them (``registry.plan_tree``), with a rank's margins. The staged
+    strategy is built on the flat lists, so it raises ``ValueError`` where
+    it has none."""
     cfg = auto_tile(cfg, strategy, state.n, device_type)
     real = unpad_state(state) if state.n != state.n_real else state
     init_perm = morton_argsort(real.pos)
     state = apply_permutation(real, init_perm)
     state = pad_state(state, multiple=math.lcm(n_dev * cfg.tree_tile, cfg.tree_src_tile, 256))
-    n, src = state.n, cfg.tree_src_tile
-    if cfg.tree_vip_tiles == -1:
-        cfg = cfg.replace(tree_vip_tiles=resolve_vip_tiles(-1, n))
-    whole_rows = (n // cfg.tree_tile) % n_dev == 0
-    use_flat = (cfg.tree_flat_cap == 0 and (device_type == "cuda" or staged)
-                and n >= treecode.CHUNK_LANES and n % src == 0 and whole_rows)
-    if staged and not use_flat and cfg.tree_flat_cap <= 0:
+    cfg = registry.plan_tree(cfg, state.pos, state.mass, _plans_lists(strategy, device_type),
+                             n_dev, margin=treecode.SHARDED_MARGIN,
+                             far_margin=treecode.SHARDED_FAR_MARGIN,
+                             flat_margin=treecode.SHARDED_MARGIN)
+    if strategy == "treecode_staged" and cfg.tree_flat_cap <= 0:
         raise ValueError(
             "treecode_staged needs the flat-list machinery: N must "
             f"be >= {treecode.CHUNK_LANES}, a multiple of src_tile="
-            f"{src}, with K_t divisible by "
+            f"{cfg.tree_src_tile}, with K_t divisible by "
             f"n_dev={n_dev} (or pass an explicit tree_flat_cap)")
-    use_hier = (cfg.tree_hier and n >= treecode.FAR_ENTRIES * src and whole_rows
-                and (use_flat or (cfg.tree_flat_cap > 0 and cfg.tree_far_cap > 0)))
-    mac = dict(mac_tau=cfg.tree_mac_tau, eps2=cfg.eps2, compensate=cfg.compensate)
-    sel = dict(tile=cfg.tree_tile, theta=cfg.tree_theta, vip_tiles=cfg.tree_vip_tiles)
-    if use_hier:
-        caps = treecode.suggest_hier_sharded(
-            state.pos, state.mass, n_dev, src_tile=src, slack=cfg.tree_near_slack,
-            **dict(mac, mac_tau=cfg.tree_hier_tau, mac_tau0=cfg.tree_mac_tau,
-                   union_coarse=cfg.tree_hier_union), **sel)
-        for field, key in (("tree_max_near", "max_near"), ("tree_flat_cap", "flat_cap"),
-                           ("tree_far_max", "far_max"), ("tree_far_cap", "far_cap")):
-            if getattr(cfg, field) == 0:
-                cfg = cfg.replace(**{field: caps[key]})
-    else:
-        if cfg.tree_max_near == 0:
-            cfg = cfg.replace(tree_max_near=treecode.suggest_max_near(
-                state.pos, state.mass,
-                src_tile=src if use_flat or cfg.tree_flat_cap > 0 else None, **mac, **sel))
-        if use_flat:
-            cfg = cfg.replace(tree_flat_cap=treecode.suggest_flat_cap_sharded(
-                state.pos, state.mass, n_dev, src_tile=src, slack=cfg.tree_near_slack,
-                **mac, **sel))
     return cfg, state, init_perm
 
 

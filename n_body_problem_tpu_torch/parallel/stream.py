@@ -105,6 +105,12 @@ def _gc3(cfg: SimConfig) -> float:
     return cfg.G * (cfg.compensate * cfg.compensate) * cfg.compensate
 
 
+def _rows(cfg: SimConfig, pos_l, mass_l) -> torch.Tensor:
+    """The rank's rows (n_l, 4) [x y z G c^3 m]: the targets of its near and
+    far fields and the rows of its VIP sweep."""
+    return torch.stack([*_cols(pos_l), mass_l * _gc3(cfg)], 1).to(_f32)
+
+
 def _vip_split(radii_g, n_l: int, rank: int, src: int, vip_src: int):
     """``(vip_idx (V,), is_vip_body_l (n_l,))``: the ``vip_src``
     largest-radius tiles of the gathered raw radii (largest first, ties to
@@ -180,8 +186,8 @@ def rank_staged_build(cfg: SimConfig, pos_l, rank: int, gathered: dict):
         a_med = torch.clamp(tc._median(gathered["samples"]), min=_TINY)
         opens, minds, score0, thresh0 = tc._hier_open_masks(
             xl, yl, zl, levels, tile, src, mac_tau=cfg.tree_hier_tau, theta=cfg.tree_theta,
-            eps2=cfg.eps2, c2=c2, row_offset=rank * k_t_l, a_med=a_med,
-            mac_tau0=cfg.tree_mac_tau, union_coarse=cfg.tree_hier_union)
+            a_med=a_med, row_offset=rank * k_t_l, mac_tau0=cfg.tree_mac_tau,
+            union_coarse=cfg.tree_hier_union)
         evals, reach0 = tc._chain_evals(opens, tc.HIER_BRANCH)
         score0 = torch.where(reach0, score0, -1.0)
     else:
@@ -219,7 +225,7 @@ def _panel_pick(cfg: SimConfig, pos_l, mass_l, rank: int, vip_idx) -> torch.Tens
     for the tiles of other ranks, never past the shard."""
     src = cfg.tree_src_tile
     k_s_l = pos_l.shape[0] // src
-    rows = tc._local_rows(*_cols(pos_l), mass_l, _gc3(cfg))
+    rows = _rows(cfg, pos_l, mass_l)
     rel = vip_idx - rank * k_s_l
     own = (rel >= 0) & (rel < k_s_l)
     pick = rows.reshape(k_s_l, src, 4)[torch.where(own, rel, 0)]
@@ -245,7 +251,7 @@ def rank_staged_acc(cfg: SimConfig, pos_l, mass_l, rank: int, lists, sources,
     n_dev = flat_src_all.shape[0]
     (tile, src, entries, *_, vip_src, hier) = staged_shapes(cfg, n_l, n_dev)
     phys = dict(eps2=cfg.eps2, c2=cfg.compensate * cfg.compensate)
-    rows = tc._local_rows(*_cols(pos_l), mass_l, _gc3(cfg))
+    rows = _rows(cfg, pos_l, mass_l)
     acc = None
     for s, bodies in enumerate(sources):
         sid = (rank - s) % n_dev

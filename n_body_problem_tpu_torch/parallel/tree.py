@@ -40,7 +40,6 @@ import torch
 
 from n_body_problem_tpu_torch.config import SimConfig
 from n_body_problem_tpu_torch.simulation import TreeParts, chunk_loop
-from n_body_problem_tpu_torch.ops import cuda_treecode
 from n_body_problem_tpu_torch.ops import treecode as tc
 from n_body_problem_tpu_torch.parallel.mesh import RingMesh
 from n_body_problem_tpu_torch.state import SimState
@@ -57,64 +56,18 @@ def sharded_path(cfg: SimConfig) -> str:
     return "dense"
 
 
-def _dense_static(cfg: SimConfig, n_g: int) -> tuple[int, int]:
-    """(vip_tiles, max_near) of the sharded dense path at ``n_g`` bodies:
-    the VIP count clamped, the near capacity at least 4 and at most K."""
-    k = n_g // cfg.tree_tile
-    return tc._clamp_vip(cfg.tree_vip_tiles, k), min(max(cfg.tree_max_near, 4), k)
-
-
-def _dense_lists(pos_l, pos_g, mass_g, cfg: SimConfig, row_offset: int):
-    """The dense path's acceptance of a rank's rows: ``(near_idx (K_t local,
-    M) int32, near_mask (K_t local, K) bool, is_vip_g (N,) bool)``."""
-    tile = cfg.tree_tile
-    vip_tiles, max_near = _dense_static(cfg, pos_g.shape[0])
-    xg, yg, zg = pos_g.unbind(1)
-    mass_tree_g, is_vip_g = tc._tree_mass(xg, yg, zg, mass_g, tile, vip_tiles)
-    near_idx, near_mask = tc._acceptance(
-        *pos_l.unbind(1), tc._level0(xg, yg, zg, mass_tree_g, tile), tile, cfg.tree_theta,
-        max_near, mac_tau=cfg.tree_mac_tau, eps2=cfg.eps2, c2=cfg.compensate ** 2,
-        row_offset=row_offset)
-    return near_idx, near_mask.contiguous(), is_vip_g
-
-
-def _local_treecode_acc(pos_l, mass_l, pos_g, mass_g, aux, *, eps2: float,
-                        compensate: float, G: float, tile: int, vip_tiles: int):
-    """The dense path's acceleration of a rank's rows from every body,
-    ``aux = (near_idx_l, near_mask_l, is_vip_g)``: ``(acc, react, vip_body_g)``
-    as :func:`rank_acc` returns them. The near tiles are gathered from the
-    global bodies into one panel a local target tile and swept exactly; the
-    single-level far field covers the rest."""
-    near_idx_l, near_mask_l, is_vip_g = aux
-    n_l, k = pos_l.shape[0], pos_g.shape[0] // tile
-    c2 = compensate * compensate
-    ops = tc.kernel_operands(pos_g, mass_g, is_vip_g, compensate=compensate, G=G,
-                             src_tile=tile, vip_src=vip_tiles, plan=(k,))
-    rows = tc._local_rows(*pos_l.unbind(1), mass_l, G * c2 * compensate)
-    panels = cuda_treecode.gather_panels(ops["bodies"], near_idx_l, tile=tile)
-    acc = tc._near_field_xla(rows, panels, eps2=eps2, c2=c2, tile=tile)
-    acc = acc + cuda_treecode.far_field_single(rows, ops["summ"], near_mask_l, n=n_l,
-                                               tile=tile, eps2=eps2, c2=c2, G=G)
-    return tc._local_vips(acc, rows, ops, tile, vip_tiles, eps2=eps2, c2=c2)
-
-
-def _tiles(cfg: SimConfig) -> dict:
-    """The static keywords the local builds and forces share."""
-    return dict(tile=cfg.tree_tile, src_tile=cfg.tree_src_tile, max_near=cfg.tree_max_near,
-                vip_tiles=cfg.tree_vip_tiles)
-
-
 def rank_lists(path: str, cfg: SimConfig, pos_l, pos_g, mass_g, rank: int):
     """The work lists of rank ``rank``'s rows ``pos_l`` (B, 3) against every
     body (``pos_g``, ``mass_g``), on ``path``: those of
-    ``treecode.build_hier_local``, ``build_flat_local`` or the dense
-    acceptance. Every rank computes the same global VIP split."""
-    row_offset = rank * (pos_l.shape[0] // cfg.tree_tile)
+    ``treecode.build_hier_local``, ``build_flat_local`` or
+    ``build_dense_local``. Every rank computes the same global VIP split."""
+    common = dict(row_offset=rank * (pos_l.shape[0] // cfg.tree_tile), tile=cfg.tree_tile,
+                  theta=cfg.tree_theta, max_near=cfg.tree_max_near,
+                  vip_tiles=cfg.tree_vip_tiles, eps2=cfg.eps2, compensate=cfg.compensate)
     if path == "dense":
-        return _dense_lists(pos_l, pos_g, mass_g, cfg, row_offset)
-    common = dict(slack=cfg.tree_near_slack, flat_cap=cfg.tree_flat_cap, row_offset=row_offset,
-                  theta=cfg.tree_theta, eps2=cfg.eps2, compensate=cfg.compensate,
-                  **_tiles(cfg))
+        return tc.build_dense_local(pos_l, pos_g, mass_g, mac_tau=cfg.tree_mac_tau, **common)
+    common.update(src_tile=cfg.tree_src_tile, slack=cfg.tree_near_slack,
+                  flat_cap=cfg.tree_flat_cap)
     cols = (*pos_l.unbind(1), *pos_g.unbind(1), mass_g)
     if path == "hier":
         return tc.build_hier_local(*cols, far_max=cfg.tree_far_max, far_cap=cfg.tree_far_cap,
@@ -129,16 +82,17 @@ def rank_acc(path: str, cfg: SimConfig, pos_l, mass_l, pos_g, mass_g, aux):
     pull added, its partial pull on the panel and the panel's global body
     ids. The reactions, summed over the ranks, are the VIP bodies' whole
     accelerations (:func:`apply_reaction`)."""
-    phys = dict(eps2=cfg.eps2, compensate=cfg.compensate, G=cfg.G)
+    kw = dict(eps2=cfg.eps2, compensate=cfg.compensate, G=cfg.G, tile=cfg.tree_tile,
+              vip_tiles=cfg.tree_vip_tiles)
     if path == "dense":
-        return _local_treecode_acc(pos_l, mass_l, pos_g, mass_g, aux, tile=cfg.tree_tile,
-                                   vip_tiles=_dense_static(cfg, pos_g.shape[0])[0], **phys)
+        return tc.dense_local_acc(pos_l, mass_l, pos_g, mass_g, aux, **kw)
+    kw.update(src_tile=cfg.tree_src_tile, max_near=cfg.tree_max_near)
     cols = (*pos_l.unbind(1), mass_l, *pos_g.unbind(1), mass_g, aux)
     if path == "hier":
         ax, ay, az, react, idx = tc.hier_local_acc(*cols, far_max=cfg.tree_far_max,
-                                                   theta=cfg.tree_theta, **_tiles(cfg), **phys)
+                                                   theta=cfg.tree_theta, **kw)
     else:
-        ax, ay, az, react, idx = tc.flat_local_acc(*cols, **_tiles(cfg), **phys)
+        ax, ay, az, react, idx = tc.flat_local_acc(*cols, **kw)
     return torch.stack([ax, ay, az], 1), react, idx
 
 

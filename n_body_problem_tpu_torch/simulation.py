@@ -25,17 +25,19 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from n_body_problem_tpu_torch.config import SimConfig, resolve_vip_tiles
+from n_body_problem_tpu_torch.config import SimConfig
 from n_body_problem_tpu_torch.graphs import (StaticRun, chunk_lengths, clone_state, frame_program,
                                              replay_chunks, step_program, tree_programs)
-from n_body_problem_tpu_torch.ops import cuda_build, treecode
+from n_body_problem_tpu_torch.ops import cuda_build
 from n_body_problem_tpu_torch.ops.forces import required_padding
 from n_body_problem_tpu_torch.ops.integrators import make_integrator, prime_leapfrog
 from n_body_problem_tpu_torch.ops.registry import (
     make_force_fn,
+    plan_tree,
     resolve_solver,
     tree_fns,
     tree_path,
+    tree_tile,
 )
 from n_body_problem_tpu_torch.state import SimState, pad_state_to, unpad_state
 from n_body_problem_tpu_torch.utils import profiling
@@ -411,7 +413,11 @@ class Simulation:
         solver = resolve_solver(cfg.solver, dev_type, state.n)
         require_card_softening(solver, cfg.eps2, dev_type)
         if solver == "treecode":
-            cfg = self._treecode_config(cfg, state.n)
+            # The auto tile on the unpadded count, and the Morton sort the
+            # acceptance needs; the card plays the TPU's part in the rule.
+            cfg = tree_tile(cfg, state.n, dev_type == "cuda")
+            if not (cfg.morton_sort or cfg.resort_every):
+                cfg = cfg.replace(morton_sort=True)
         elif cfg.tree_tile == 0:
             cfg = cfg.replace(tree_tile=32)
         self.cfg = cfg
@@ -432,7 +438,7 @@ class Simulation:
             state = pad_state_to(state, need)
         self._tree = self.tree_lists = self._static = None
         if solver == "treecode":
-            cfg = self._plan_treecode(cfg, state)
+            cfg = plan_tree(cfg, state.pos, state.mass, dev_type == "cuda")
             self._tree = tree_parts(cfg)
         self.cfg = cfg
         if cfg.integrator == "leapfrog":
@@ -440,65 +446,6 @@ class Simulation:
         self.state = state
         self._step_fn = make_step_fn(cfg, dev_type, state.n)
         self.wall_seconds = 0.0
-
-    def _treecode_config(self, cfg: SimConfig, n: int) -> SimConfig:
-        """The JAX package's treecode defaults: the auto target-row tile,
-        resolved before padding (128 where the hierarchical path will run,
-        32 otherwise), and the Morton sort the acceptance needs. The GPU
-        plays the TPU's part in the rule."""
-        if cfg.tree_tile == 0:
-            hier = (cfg.tree_hier
-                    and n >= max(treecode.CHUNK_LANES,
-                                 treecode.FAR_ENTRIES * cfg.tree_src_tile)
-                    and ((cfg.tree_flat_cap == 0 and self.device.type == "cuda")
-                         or (cfg.tree_flat_cap > 0 and cfg.tree_far_cap > 0)))
-            cfg = cfg.replace(tree_tile=treecode.DEFAULT_HIER_TILE if hier else 32)
-        if not (cfg.morton_sort or cfg.resort_every):
-            cfg = cfg.replace(morton_sort=True)
-        return cfg
-
-    @staticmethod
-    def _plan_treecode(cfg: SimConfig, state: SimState) -> SimConfig:
-        """Resolve the VIP count and plan the static capacities on the
-        (sorted, padded) initial bodies, as the JAX package does: on the
-        GPU with ``tree_flat_cap`` at 0, the flat lists from 2,048 bodies
-        and the hierarchy from ``FAR_ENTRIES`` source tiles; otherwise the
-        capacities given, or the dense path. Margins absorb drift between
-        re-sorts."""
-        n, src = state.n, cfg.tree_src_tile
-        if cfg.tree_vip_tiles == -1:
-            cfg = cfg.replace(tree_vip_tiles=resolve_vip_tiles(-1, n))
-        use_flat = (cfg.tree_flat_cap == 0 and state.device.type == "cuda"
-                    and n >= treecode.CHUNK_LANES and n % src == 0)
-        use_hier = (cfg.tree_hier and n >= treecode.FAR_ENTRIES * src
-                    and (use_flat or (cfg.tree_flat_cap > 0 and cfg.tree_far_cap > 0)))
-        sel = dict(tile=cfg.tree_tile, theta=cfg.tree_theta,
-                   vip_tiles=cfg.tree_vip_tiles, eps2=cfg.eps2,
-                   compensate=cfg.compensate)
-        if use_hier:
-            caps = treecode.suggest_hier(
-                state.pos, state.mass, src_tile=src, slack=cfg.tree_near_slack,
-                mac_tau=cfg.tree_hier_tau, mac_tau0=cfg.tree_mac_tau,
-                union_coarse=cfg.tree_hier_union, **sel)
-            for field, key in (("tree_max_near", "max_near"),
-                               ("tree_flat_cap", "flat_cap"),
-                               ("tree_far_max", "far_max"),
-                               ("tree_far_cap", "far_cap")):
-                if getattr(cfg, field) == 0:
-                    cfg = cfg.replace(**{field: caps[key]})
-            return cfg
-        # The flat path counts the near capacity in source tiles, the
-        # dense path in target tiles.
-        flat_src = src if use_flat or cfg.tree_flat_cap > 0 else None
-        if cfg.tree_max_near == 0:
-            cfg = cfg.replace(tree_max_near=treecode.suggest_max_near(
-                state.pos, state.mass, src_tile=flat_src, mac_tau=cfg.tree_mac_tau,
-                **sel))
-        if use_flat:
-            cfg = cfg.replace(tree_flat_cap=treecode.suggest_flat_cap(
-                state.pos, state.mass, src_tile=src, slack=cfg.tree_near_slack,
-                mac_tau=cfg.tree_mac_tau, **sel))
-        return cfg
 
     @property
     def step_fn(self) -> StepFn:

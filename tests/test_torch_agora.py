@@ -178,7 +178,7 @@ N = 4096
 
 def _sim(path: str, pos, vel, mass) -> tnb.Simulation:
     """The port's treecode on ``path``, its capacities planned as the card
-    plans them (``Simulation._plan_treecode`` with ``tree_flat_cap`` 0) on
+    plans them (``registry.plan_tree`` with ``tree_flat_cap`` 0) on
     the Morton-sorted bodies; the configuration's physics."""
     order = morton_argsort(pos)
     p, m = torch.from_numpy(pos[order]), torch.from_numpy(mass[order])

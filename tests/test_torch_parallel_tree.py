@@ -9,7 +9,8 @@ interpret mode) within rtol=1e-4, atol=2e-6, the bound tests/test_torch_treecode
 holds the port's single-device force to, and the sharded planners return
 the JAX package's capacities. The ranks' forces, reactions added, equal the
 single-device force on their merged lists: the check the smoke run makes
-on the card.
+on the card. A ring of one rank is the single-device treecode to the bit,
+its lists and its force.
 
 One gloo world of 4 runs ``ShardedSimulation(strategy="treecode")`` for 8
 steps (two resorts) on each path, held against the port's single-device
@@ -35,6 +36,7 @@ from n_body_problem_tpu.state import to_numpy as jax_to_numpy
 from n_body_problem_tpu.utils.morton import morton_argsort
 from n_body_problem_tpu_torch import SimConfig, Simulation, from_numpy
 from n_body_problem_tpu_torch.ops import treecode as ttc
+from n_body_problem_tpu_torch.ops.registry import tree_fns, tree_path
 from n_body_problem_tpu_torch.parallel import spawn_ring
 from n_body_problem_tpu_torch.parallel import tree as ptree
 from n_body_problem_tpu_torch.parallel.drive import run_cases
@@ -203,6 +205,27 @@ def test_rank_forces_equal_single_device_on_merged_lists(path):
                                      max_near=cfg.tree_max_near, far_max=cfg.tree_far_max,
                                      **kw)
     torch.testing.assert_close(acc, want, **TOL)
+
+
+@pytest.mark.parametrize("path", ["flat", "hier", "dense"])
+def test_one_rank_is_the_single_device_treecode_bitwise(path):
+    """A ring of one rank (``tree.treecode_acc_ranks`` at D = 1) against the
+    single-device build and force of the same config (``registry.tree_fns``):
+    the rank's lists element for element, its force to the bit. The dense
+    capacity is a multiple of 4, which both paths' rules keep as it is."""
+    n = {"flat": N_FLAT, "hier": N_HIER, "dense": N_DENSE}[path]
+    cfg = _resolved({"flat": _flat_cfg(n), "hier": _hier_cfg(n),
+                     "dense": _dense_cfg(max_near=64)}[path], n)
+    assert ptree.sharded_path(cfg) == path == tree_path(cfg)
+    pos, mass = (torch.from_numpy(a.copy()) for a in _sorted_plummer(n, 0))
+    acc, (lists,) = ptree.treecode_acc_ranks(cfg, pos, mass, 1)
+    build, force = tree_fns(cfg)
+    want_lists = build(pos, mass)
+    assert len(lists) == len(want_lists)
+    for got, want in zip(lists, want_lists):
+        assert got.dtype == want.dtype
+        np.testing.assert_array_equal(got.numpy(), want.numpy())
+    assert torch.equal(acc, force(pos, mass, want_lists))
 
 
 # ------------------------------------------------------- a gloo world of 4

@@ -81,7 +81,7 @@ def _children(found, parent) -> list:
 
 def _planned(path: str, n: int) -> dict:
     """The capacities the planner gives the config's ``n`` bodies (as
-    ``Simulation._plan_treecode`` plans them on the card)."""
+    ``registry.plan_tree`` plans them for ``Simulation`` on the card)."""
     sim = _sim(path, n=n)
     state, cfg = sim.state, sim.cfg
     sel = dict(tile=cfg.tree_tile, theta=cfg.tree_theta, vip_tiles=cfg.tree_vip_tiles,
