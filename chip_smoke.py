@@ -55,11 +55,16 @@ is non-zero:
    dense and the near-panel kernel also at 1,024; these four each with its
    kernels' device time from a ``torch.profiler`` trace (the sweep is a
    pair and a summing kernel). Last, the acceptance build's
-   minimum-distance kernel bitwise its plain twin and itself at the
-   1,048,576 and 65,536 hierarchical plans' level 0 (8,192 x 16,384 and
-   512 x 1,024, 128-body rows), timed beside the twin, its bound and its
-   issue floor (``compare_min_dist``); phase 6 counts its launches a
-   rebuild. Then the work lists' row selection (``compare_top_k``) bitwise
+   minimum-distance kernel, which only the flat and dense builds run,
+   bitwise its plain twin and itself at the shapes those builds give it in
+   one rebuild of phase 6's ``20k flat`` and ``20k dense`` runs (640 x 320,
+   32-body rows), timed beside the twin, its bound and its issue floor
+   (``compare_min_dist``); phase 6 counts its launches a rebuild. Then the
+   hierarchical build's fused opening test (``compare_min_dist_open``):
+   every level of one eager rebuild of the 1,048,576-body Plummer sphere
+   and of the AGORA disk bitwise its plain twin and itself; level 0 timed
+   beside the distances' kernel alone and beside that kernel with the
+   PyTorch passes it replaced; phase 6 counts its launches a rebuild. Then the work lists' row selection (``compare_top_k``) bitwise
    its plain twin and itself on every selection of a rebuild (the VIP pick,
    the near and the far lists') at 65,536 and 1,048,576 Plummer bodies and
    on the AGORA disk (2,125,000), timed beside the twin, one ``torch.topk``
@@ -758,10 +763,30 @@ def compare_tree_kernels(device, cases=None, time_at: dict | None = None) -> dic
     return res
 
 
-# The acceptance build's minimum distances (csrc/min_dist.cu) are timed at
-# the 1,048,576 hierarchical plan's level 0 (8,192 rows of 128 against 16,384
-# tiles of 64) and at 65,536's (512 x 1,024): (label, N, tile, source tile).
-MIN_DIST_SHAPES = (("1,048,576 level 0", 1048576, 128, 64), ("65,536 level 0", 65536, 128, 64))
+# The distances' kernel (csrc/min_dist.cu's min_tile_dist_kernel) runs only
+# in the flat and dense builds: it is held to its twin at the shapes one
+# rebuild of these phase 6 runs gives it, the first the record's own.
+MIN_DIST_RUNS = ("20k flat", "20k dense")
+
+
+def recorded_calls(sim, name: str) -> list:
+    """(args, kw) of every call of ``treecode.<name>`` in one eager rebuild
+    of ``sim``'s lists, in order (on the hierarchical path, level 0 first)."""
+    from n_body_problem_tpu_torch.ops import treecode
+    from n_body_problem_tpu_torch.ops.registry import tree_fns
+
+    got, real = [], getattr(treecode, name)
+
+    def record(*args, **kw):
+        got.append((tuple(a.contiguous() if hasattr(a, "contiguous") else a for a in args), kw))
+        return real(*args, **kw)
+
+    setattr(treecode, name, record)
+    try:
+        tree_fns(sim.cfg)[0](sim.state.pos, sim.state.mass)
+    finally:
+        setattr(treecode, name, real)
+    return got
 
 
 def min_dist_work(n: int, k_l: int, tile: int) -> dict:
@@ -772,30 +797,39 @@ def min_dist_work(n: int, k_l: int, tile: int) -> dict:
             "issue_floor_ms": issue_floor_ms(n * k_l, MIN_DIST_SLOTS, sm_clock_mhz())}
 
 
-def compare_min_dist(device, shapes=MIN_DIST_SHAPES) -> dict:
-    """Phase 4's last part: the minimum-distance kernel bitwise its plain
-    twin (and itself) at each shape, then its time beside the twin's, its
-    bound and its issue floor; the first shape is the record's, the others
-    ``at_<N>``."""
+def compare_min_dist(device, labels=MIN_DIST_RUNS) -> dict:
+    """Phase 4: the minimum-distance kernel bitwise its plain twin (and
+    itself) on the call of one eager rebuild of each of ``labels``' phase 6
+    runs (Plummer, seed 0), then its time beside the twin's, its bound and
+    its issue floor; the first run is the record's, the others
+    ``at_<N>_<path>``."""
     import torch
 
-    from n_body_problem_tpu_torch import models
+    from n_body_problem_tpu_torch import Simulation, models
     from n_body_problem_tpu_torch.ops import cuda_treecode as ct
-    from n_body_problem_tpu_torch.ops import treecode
+    from n_body_problem_tpu_torch.ops.registry import tree_path
     from n_body_problem_tpu_torch.treecode_profile import time_ms
 
+    runs = {run[0]: run for run in tree_runs()}
     res = {"max_abs_err": 0.0, "library_ms": None}
-    for i, (label, n, tile, src_tile) in enumerate(shapes):
-        st = models.plummer(n, seed=4).to(device)
-        cols = tuple(st.pos[:, a].contiguous() for a in range(3))
-        cen = tuple(c.contiguous() for c in treecode._level0(*cols, st.mass, src_tile)[:3])
-        got, again = ct.min_tile_dist(*cols, *cen, tile), ct.min_tile_dist(*cols, *cen, tile)
-        want = ct.min_tile_dist_plain(*cols, *cen, tile)
-        check(torch.equal(got, want), f"min_dist N={label}: kernel != plain twin bitwise")
-        check(torch.equal(got, again), f"min_dist N={label}: two launches differ bitwise")
-        t = {"ms": time_ms(lambda: ct.min_tile_dist(*cols, *cen, tile), 20),
-             "plain_ms": time_ms(lambda: ct.min_tile_dist_plain(*cols, *cen, tile), 3),
-             "shape": f"{n // tile} x {cen[0].shape[0]}, tile {tile}",
+    for i, label in enumerate(labels):
+        _, n_bodies, cfg, _, _ = runs[label]
+        sim = Simulation(cfg, models.plummer(n_bodies, seed=0), device=device)
+        found = recorded_calls(sim, "_min_tile_dist")
+        want_calls, path = min_dist_a_rebuild(sim.cfg, sim.state.n)[0], tree_path(sim.cfg)
+        del sim
+        check(len(found) == want_calls,
+              f"min_dist [{label}]: {len(found)} calls a rebuild, expected {want_calls}")
+        args = found[0][0]
+        cols, cen, tile = args[:3], args[3:6], args[6]
+        n = cols[0].shape[0]
+        got, again = ct.min_tile_dist(*args), ct.min_tile_dist(*args)
+        want = ct.min_tile_dist_plain(*args)
+        check(torch.equal(got, want), f"min_dist [{label}]: kernel != plain twin bitwise")
+        check(torch.equal(got, again), f"min_dist [{label}]: two launches differ bitwise")
+        t = {"ms": time_ms(lambda: ct.min_tile_dist(*args), 20),
+             "plain_ms": time_ms(lambda: ct.min_tile_dist_plain(*args), 3),
+             "shape": f"{n // tile} x {cen[0].shape[0]}, tile {tile}, {path}",
              **min_dist_work(n, cen[0].shape[0], tile)}
         print(f"min_dist [{label}]: {t['shape']}: bitwise the twin; {t['ms']:.4f} ms vs plain "
               f"{t['plain_ms']:.4f}, bound {t['bound_ms']:.4f} ({t['bound_by']}), issue floor "
@@ -803,9 +837,108 @@ def compare_min_dist(device, shapes=MIN_DIST_SHAPES) -> dict:
         if i == 0:
             res.update(t)
         else:
-            res[at_key(f"{n:,}")] = t
-        del st, cols, cen, got, again, want
-        torch.cuda.empty_cache()
+            res[at_key(f"{n} {path}")] = t
+        del found, args, cols, cen, got, again, want
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    return res
+
+
+def min_dist_open_work(n: int, k_l: int, tile: int, score: bool) -> dict:
+    """``bound`` and the issue floor of one fused opening test: the
+    distances' operations and issue slots (the epilogue's few a (row, node)
+    element are left out: under a tenth of a 128-body row's sweep), the
+    columns and three node vectors read, and the level's outputs (bool
+    opens, float32 far keys and, at level 0, scores) written once."""
+    nbytes = (3 * n + 6 * k_l) * 4 + n // tile * k_l * (5 + 4 * score)
+    return {**bound(MIN_DIST_FLOPS * n * k_l, nbytes),
+            "issue_floor_ms": issue_floor_ms(n * k_l, MIN_DIST_SLOTS, sm_clock_mhz())}
+
+
+def open_runs():
+    """(bodies, config, state) of ``compare_min_dist_open``: the 1,048,576
+    Plummer sphere (seed 4, treecode defaults: the flat MAC at level 0) and
+    the AGORA disk (seed 1, the benchmark's physics)."""
+    from n_body_problem_tpu_torch import SimConfig, models
+
+    agora = SimConfig(solver="treecode", dt=1.0227e-4, G=43007.1, eps2=0.0064, compensate=1.0,
+                      integrator="leapfrog")
+    return ((1048576, SimConfig(solver="treecode"), lambda: models.plummer(1048576, seed=4)),
+            (2125000, agora, lambda: models.agora_disk(2125000, seed=1)))
+
+
+def same_open_test(a, b) -> bool:
+    """Whether two (opens, far, score) triples are the same bits."""
+    import torch
+
+    return torch.equal(a[0], b[0]) and all(
+        (x is None and y is None) or (x is not None and y is not None
+                                      and torch.equal(x.view(torch.int32), y.view(torch.int32)))
+        for x, y in zip(a[1:], b[1:]))
+
+
+def compare_min_dist_open(device, runs=None) -> dict:
+    """Phase 4: the fused opening test (``cuda_treecode.min_dist_open``) on
+    every level of one eager rebuild of each of ``open_runs``: bitwise its
+    plain twin and itself at each level; level 0's time beside the
+    distances' kernel alone (``dist_ms``) and beside that kernel followed by
+    the PyTorch passes the fusion replaced (``unfused_ms``: the clamp, the
+    MAC, the self-overlap, the threshold and the far key,
+    ``open_test_plain`` on the card), its bound and its issue floor. The
+    first run's level 0 is the record's, the others ``at_<bodies>``."""
+    import torch
+
+    from n_body_problem_tpu_torch import Simulation
+    from n_body_problem_tpu_torch.ops import cuda_treecode as ct
+    from n_body_problem_tpu_torch.treecode_profile import time_ms
+
+    res = {"max_abs_err": 0.0, "library_ms": None}
+    for i, (bodies, cfg, state) in enumerate(runs or open_runs()):
+        sim = Simulation(cfg, state(), device=device)
+        found = recorded_calls(sim, "_min_dist_open")
+        want_calls = min_dist_a_rebuild(sim.cfg, sim.state.n)[1]
+        del sim
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        check(len(found) == want_calls and found[0][1]["score"],
+              f"min_dist_open {bodies:,}: {len(found)} calls a rebuild, expected {want_calls}"
+              " with level 0 first")
+        for level, (args, kw) in enumerate(found):
+            got = ct.min_dist_open(*args, **kw)
+            for other, what in ((ct.min_dist_open(*args, **kw), "itself"),
+                                (ct.min_dist_open_plain(*args, **kw), "plain twin")):
+                check(same_open_test(got, other),
+                      f"min_dist_open {bodies:,} level {level}: kernel != {what} bitwise")
+                del other
+            if level == 0:
+                opened = float(got[0].float().mean())
+            del got
+            if device.type == "cuda":
+                torch.cuda.empty_cache()
+        args, kw = found[0]
+        del found
+        cols, cen, tile = args[:3], args[3:6], kw["tile"]
+        n = cols[0].shape[0]
+        t = {"ms": time_ms(lambda: ct.min_dist_open(*args, **kw), 20),
+             "dist_ms": time_ms(lambda: ct.min_tile_dist(*cols, *cen, tile), 20),
+             "unfused_ms": time_ms(lambda: ct.open_test_plain(
+                 ct.min_tile_dist(*cols, *cen, tile), **kw), 10),
+             "plain_ms": time_ms(lambda: ct.min_dist_open_plain(*args, **kw), 2),
+             "shape": f"{n // tile} x {cen[0].shape[0]}, tile {tile}, mac {kw['mac']}",
+             "levels_checked": want_calls, "open_share": opened,
+             **min_dist_open_work(n, cen[0].shape[0], tile, True)}
+        print(f"min_dist_open [{bodies:,}]: {want_calls} levels bitwise the twin and itself; "
+              f"level 0 {t['shape']}: {t['ms']:.4f} ms vs the distances alone "
+              f"{t['dist_ms']:.4f}, kernel + PyTorch passes {t['unfused_ms']:.4f}, plain "
+              f"{t['plain_ms']:.4f}; bound {t['bound_ms']:.4f} ({t['bound_by']}), issue floor "
+              f"{t['issue_floor_ms']:.4f}; opened {opened:.4f}", flush=True)
+        if i == 0:
+            res.update(t)
+        else:
+            res[at_key(f"{bodies}")] = t
+        del args, kw, cols, cen
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
     return res
 
 
@@ -910,16 +1043,19 @@ def top_k_a_rebuild(cfg, n: int) -> int:
     return (1 if vip else 0) + (2 if path == "hier" else 1)
 
 
-def min_dist_a_rebuild(cfg, n: int) -> int:
-    """Minimum-distance launches a rebuild of ``cfg``'s path: one a level of
-    the hierarchy while ``tree_hier_union`` (level 0 alone without it), one
-    on the flat and dense paths."""
+def min_dist_a_rebuild(cfg, n: int) -> tuple[int, int]:
+    """Minimum-distance launches a rebuild of ``cfg``'s path, (the
+    distances' kernel, the fused opening test): on the hierarchical path the
+    fused one once a level while ``tree_hier_union`` (level 0 alone without
+    it), on the flat and dense paths the distances' once."""
     from n_body_problem_tpu_torch.ops import treecode
     from n_body_problem_tpu_torch.ops.registry import tree_path
 
-    if tree_path(cfg) != "hier" or not cfg.tree_hier_union:
-        return 1
-    return len(treecode._level_plan(n // cfg.tree_src_tile, treecode.HIER_BRANCH))
+    if tree_path(cfg) != "hier":
+        return 1, 0
+    if not cfg.tree_hier_union:
+        return 0, 1
+    return 0, len(treecode._level_plan(n // cfg.tree_src_tile, treecode.HIER_BRANCH))
 
 
 def counters() -> dict:
@@ -1149,13 +1285,13 @@ def drive_treecode(device, runs=None, profiled=PROFILED) -> dict:
     import torch
 
     from n_body_problem_tpu_torch import Simulation, models
-    from n_body_problem_tpu_torch.ops.cuda_treecode import min_tile_dist, top_k
+    from n_body_problem_tpu_torch.ops.cuda_treecode import min_dist_open, min_tile_dist, top_k
     from n_body_problem_tpu_torch.ops.registry import tree_path
     from n_body_problem_tpu_torch.simulation import chunk_lengths
     from n_body_problem_tpu_torch.treecode_profile import profile_tree_step
 
     wrappers = counters()
-    launched = {k: 0 for k in TREE_KERNELS + ("min_dist", "top_k")}
+    launched = {k: 0 for k in TREE_KERNELS + ("min_dist", "min_dist_open", "top_k")}
     for label, n, cfg, timed, sample in runs or tree_runs():
         t0 = time.perf_counter()
         sim = Simulation(cfg, models.plummer(n, seed=0), device=device)
@@ -1164,7 +1300,8 @@ def drive_treecode(device, runs=None, profiled=PROFILED) -> dict:
         init_s = time.perf_counter() - t0
         e0 = sim.diagnostics()["energy"]
         before = {k: wrappers[k].launches for k in TREE_KERNELS}
-        dist_before, select_before = min_tile_dist.launches, top_k.launches
+        dist_before = min_tile_dist.launches, min_dist_open.launches
+        select_before = top_k.launches
         sim.run(TREE_PRIME)
         wall0 = sim.wall_seconds
         sim.run(timed)
@@ -1179,11 +1316,14 @@ def drive_treecode(device, runs=None, profiled=PROFILED) -> dict:
         # The build's kernel a rebuild: every call restarts the cadence.
         rebuilds = sum(len(chunk_lengths(k, sim.cfg.tree_rebuild_every))
                        for k in (TREE_PRIME, timed))
-        moved["min_dist"] = min_tile_dist.launches - dist_before
-        want = min_dist_a_rebuild(sim.cfg, sim.state.n) * rebuilds if device.type == "cuda" else 0
-        check(moved["min_dist"] == want,
-              f"treecode [{label}]: min_dist launches {moved['min_dist']}, expected {want}")
-        launched["min_dist"] += moved["min_dist"]
+        moved["min_dist"] = min_tile_dist.launches - dist_before[0]
+        moved["min_dist_open"] = min_dist_open.launches - dist_before[1]
+        per_rebuild = min_dist_a_rebuild(sim.cfg, sim.state.n)
+        for key, per in zip(("min_dist", "min_dist_open"), per_rebuild):
+            want = per * rebuilds if device.type == "cuda" else 0
+            check(moved[key] == want,
+                  f"treecode [{label}]: {key} launches {moved[key]}, expected {want}")
+            launched[key] += moved[key]
         moved["top_k"] = top_k.launches - select_before
         want = top_k_a_rebuild(sim.cfg, sim.state.n) * rebuilds if device.type == "cuda" else 0
         check(moved["top_k"] == want,
@@ -3076,6 +3216,7 @@ def main() -> int:
                                                     "issue_floor_ms")}}
     res.update(compare_tree_kernels(device))
     res["min_dist"] = compare_min_dist(device)
+    res["min_dist_open"] = compare_min_dist_open(device)
     res["top_k"] = compare_top_k(device)
 
     wrappers = counters()
@@ -3136,6 +3277,9 @@ def main() -> int:
         ("far", "far_field_kernel", "far_hier.cu", "treecode.py:2164"),
         ("min_dist", "min_tile_dist_kernel", "min_dist.cu",
          "none: XLA fused the JAX package's plain _min_tile_dist (treecode.py:163)"),
+        ("min_dist_open", "min_dist_open_kernel", "min_dist.cu",
+         "none: XLA fused the JAX package's plain _min_tile_dist and opening test "
+         "(treecode.py:163, :1914)"),
         ("top_k", "top_k_kernel", "top_k.cu",
          "none: the JAX package leaves its lax.top_k (treecode.py:341, :1157) to XLA"),
     )

@@ -72,6 +72,10 @@ _SIGNATURES = {
     "nbody_vip_both": ((_P, _I, _P, _I, _I, _I, _P, _P, _P, _P, _F, _F, _P), _I),
     # (x, y, z, n, tile, cx, cy, cz, k_l, out, stream) -> cudaError_t
     "nbody_min_tile_dist": ((_P, _P, _P, _I, _I, _P, _P, _P, _I, _P, _P), _I),
+    # (x, y, z, n, tile, cx, cy, cz, k_l, mac, amp, radius, mass, a_med, thresh,
+    #  tiny, row_offset, row_div, col_div, opens, far, score, stream) -> cudaError_t
+    "nbody_min_dist_open": ((_P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _P, _P, _P, _P, _F, _F,
+                             ctypes.c_longlong, _I, _I, _P, _P, _P, _P), _I),
     # (x, rows, cols, ld, k, scratch, values, indices, stream) -> cudaError_t
     "nbody_top_k": ((_P, _I, _I, ctypes.c_longlong, _I, _P, _P, _P, _P), _I),
     # (rows, k) -> bytes of device scratch nbody_top_k needs (0: none)

@@ -4,7 +4,9 @@ the acceptance build's minimum distances and row selection.
 Each function here has two forms. On a CUDA tensor the wrapper launches a
 hand-written kernel (``csrc/near.cu``, ``csrc/far_hier.cu``,
 ``csrc/far_single.cu``, ``csrc/gather.cu``, ``csrc/near_panel.cu``,
-``csrc/vip.cu``, ``csrc/min_dist.cu``, ``csrc/top_k.cu``); on a CPU tensor it runs the
+``csrc/vip.cu``, ``csrc/min_dist.cu`` (two entries: the distances, and the
+distances turned into a hierarchy level's opening test), ``csrc/top_k.cu``);
+on a CPU tensor it runs the
 ``*_plain`` function beside
 it, the same computation in plain PyTorch, which is also what the kernel is
 checked against on the card. A failed build or launch raises. Each wrapper
@@ -35,7 +37,9 @@ Layouts (the GPU's, not the TPU's lane-padded ones):
   sweep.
 - The minimum distances take the target bodies and the node centres as
   separate (n,) and (K_l,) float32 columns: a rank of the sharded treecode
-  passes its own rows against every node.
+  passes its own rows against every node. The opening test takes the same
+  columns and the level's (K_l,) float32 node operands, and gives (K_t, K_l)
+  bool opens and float32 far keys (and level 0's scores).
 - The row selection takes a (rows, cols) float32 matrix (scores or keys)
   and gives each row's k largest values and their int64 columns.
 """
@@ -678,6 +682,121 @@ def min_tile_dist(xc, yc, zc, cx, cy, cz, tile: int) -> torch.Tensor:
 min_tile_dist.launches = 0
 
 
+# ---------------------------------------------------- acceptance opening test
+TINY = 1e-12    # the build's floor on a distance (``ops/treecode.py`` ``_TINY``)
+# The opening test's MAC modes, in the order of csrc/min_dist.cu's kMac codes.
+OPEN_MACS = ("geometric", "flat", "hier")
+
+
+def self_overlap(k_t: int, k_l: int, tile: int, node_bodies: int, device,
+                 row_offset: int = 0) -> torch.Tensor:
+    """(K_t, K_l) bool: target row i (``tile`` bodies) and node j
+    (``node_bodies`` bodies) share bodies. ``row_offset`` maps local target
+    rows to the sources' tiling (a rank of the sharded treecode holds rows
+    ``row_offset`` onwards)."""
+    rows = torch.arange(k_t, device=device)[:, None] + row_offset
+    cols = torch.arange(k_l, device=device)[None, :]
+    return (rows // max(node_bodies // tile, 1)) == (cols // max(tile // node_bodies, 1))
+
+
+def mac_score(d, amp, a_med):
+    """The mass-aware MAC's scores amp_j / d_ij^5 / a_med (K_t, K_l) of the
+    clamped distances ``d``."""
+    d5 = torch.square(torch.square(d)) * d
+    return amp[None, :] / d5 / a_med
+
+
+def open_test_plain(min_d, *, mac: str, thresh: float, amp, radius, mass, a_med, tile: int,
+                    node_bodies: int, row_offset: int = 0, score: bool = False):
+    """One hierarchy level's opening test from its (K_t, K_l) minimum
+    distances: ``(opens (K_t, K_l) bool, far (K_t, K_l) float32, score or
+    None)``.
+
+    With d = max(min_d, :data:`TINY`): the score is :func:`mac_score` of d
+    (``mac`` "flat", ``amp`` = m r^3), of max(d - radius, TINY) ("hier",
+    ``amp`` = m rms^2 r), or radius / d ("geometric"), +inf where the row and
+    the node share bodies (:func:`self_overlap`); ``opens`` = score >
+    ``thresh``, ``far`` = mass / d^2 (the far lists' key), and the score
+    itself where ``score`` is asked for (level 0's near ranking)."""
+    min_d = torch.clamp(min_d, min=TINY)
+    if mac == "flat":
+        s = mac_score(min_d, amp, a_med)
+    elif mac == "hier":
+        s = mac_score(torch.clamp(min_d - radius[None, :], min=TINY), amp, a_med)
+    elif mac == "geometric":
+        s = radius[None, :] / min_d
+    else:
+        raise ValueError(f"open_test: mac={mac!r} is not one of {OPEN_MACS}")
+    s = torch.where(self_overlap(*s.shape, tile, node_bodies, s.device, row_offset),
+                    torch.inf, s)
+    return s > thresh, mass[None, :] / (min_d * min_d), s if score else None
+
+
+def min_dist_open_plain(xc, yc, zc, cx, cy, cz, tile: int, **kw):
+    """:func:`open_test_plain` of :func:`min_tile_dist_plain`'s distances."""
+    return open_test_plain(min_tile_dist_plain(xc, yc, zc, cx, cy, cz, tile), tile=tile, **kw)
+
+
+def min_dist_open(xc, yc, zc, cx, cy, cz, tile: int, *, mac: str, thresh: float, amp, radius,
+                  mass, a_med, node_bodies: int, row_offset: int = 0, score: bool = False):
+    """A hierarchy level's minimum distances turned into its opening test
+    in one pass: ``(opens, far, score or None)`` as :func:`open_test_plain`
+    gives them from :func:`min_tile_dist`'s distances, bitwise, without
+    writing the distances. The geometric test reads no ``amp`` and takes
+    ``a_med`` None, the flat one reads no ``radius``; ``a_med`` is otherwise
+    a 0-d float32 tensor on the device, read there (no host sync).
+
+    ``min_dist_open.launches`` counts the kernel's launches.
+    """
+    kw = dict(mac=mac, thresh=thresh, amp=amp, radius=radius, mass=mass, a_med=a_med,
+              node_bodies=node_bodies, row_offset=row_offset, score=score)
+    if xc.device.type == "cpu":
+        return min_dist_open_plain(xc, yc, zc, cx, cy, cz, tile, **kw)
+    if xc.device.type != "cuda":
+        raise ValueError(f"min_dist_open: no kernel for device {xc.device}")
+    if mac not in OPEN_MACS:
+        raise ValueError(f"min_dist_open: mac={mac!r} is not one of {OPEN_MACS}")
+    dev = xc.device
+    n, k_l = xc.shape[0], cx.shape[0]
+    nodes = {"cx": cx, "cy": cy, "cz": cz, "mass": mass}
+    if mac != "flat":
+        nodes["radius"] = radius
+    if mac != "geometric":
+        nodes["amp"] = amp
+        cuda_build.require_f32("a_med", a_med, (), dev)
+    for name, t in (("xc", xc), ("yc", yc), ("zc", zc)):
+        cuda_build.require_f32(name, t, (n,), dev)
+    for name, t in nodes.items():
+        cuda_build.require_f32(name, t, (k_l,), dev)
+    if tile <= 0 or n % tile or node_bodies <= 0 or row_offset < 0:
+        raise ValueError(f"min_dist_open: N={n} must be a multiple of tile={tile}, with "
+                         f"node_bodies={node_bodies} > 0 and row_offset={row_offset} >= 0")
+    if max(n, k_l) > cuda_build.MAX_BODIES:
+        raise ValueError(f"min_dist_open: {n} bodies x {k_l} nodes is too many")
+    k_t = n // tile
+    opens = torch.empty((k_t, k_l), dtype=torch.bool, device=dev)
+    far = torch.empty((k_t, k_l), dtype=torch.float32, device=dev)
+    s = torch.empty((k_t, k_l), dtype=torch.float32, device=dev) if score else None
+    if opens.numel() == 0:
+        return opens, far, s
+    lib = cuda_build.load_library()
+    with torch.cuda.device(dev):
+        rc = lib.nbody_min_dist_open(
+            xc.data_ptr(), yc.data_ptr(), zc.data_ptr(), n, tile, cx.data_ptr(), cy.data_ptr(),
+            cz.data_ptr(), k_l, OPEN_MACS.index(mac),
+            None if mac == "geometric" else amp.data_ptr(),
+            None if mac == "flat" else radius.data_ptr(), mass.data_ptr(),
+            None if mac == "geometric" else a_med.data_ptr(), thresh, TINY, row_offset,
+            max(node_bodies // tile, 1), max(tile // node_bodies, 1), opens.data_ptr(),
+            far.data_ptr(), None if s is None else s.data_ptr(), _stream(dev))
+        min_dist_open.launches += 1
+    cuda_build.check(rc, "min_dist_open_kernel")
+    return opens, far, s
+
+
+min_dist_open.launches = 0
+
+
 # ------------------------------------------------------------ row selection
 def top_k_plain(x: torch.Tensor, k: int):
     """(values, indices) of the k largest entries of each row, largest
@@ -737,4 +856,4 @@ top_k.launches = 0
 # The wrappers whose ``.launches`` a captured CUDA graph adds to on every
 # replay (``graphs.Program``).
 COUNTED = (near_field, far_field_hier, far_field_single, gather_panels, near_panel, vip_both,
-           min_tile_dist, top_k)
+           min_tile_dist, min_dist_open, top_k)

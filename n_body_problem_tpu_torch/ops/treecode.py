@@ -41,13 +41,16 @@ card).
 
 The acceptance build is plain PyTorch but for its minimum distances
 (:func:`_min_tile_dist`, a kernel on the card: ``cuda_treecode.
-min_tile_dist``) and its row selection (:func:`_top_k`: ``cuda_treecode.
+min_tile_dist``), which the hierarchical path turns into each level's
+opening test in the same kernel (:func:`_min_dist_open`: ``cuda_treecode.
+min_dist_open``), and its row selection (:func:`_top_k`: ``cuda_treecode.
 top_k``), and never synchronises with the host: capacities are static, and
 a capacity overflow is a ``torch.where``.
 
 The hierarchical and flat paths stamp their phases (``utils.profiling``):
 the build's ``build.levels``, ``build.open`` (``build.min_dist`` around each
-:func:`_min_tile_dist`) and ``build.lists`` (``build.select`` around each
+:func:`_min_tile_dist` and :func:`_min_dist_open`) and ``build.lists``
+(``build.select`` around each
 :func:`_top_k` of the compaction), whose end carries the lists'
 counters (:func:`_list_counters`), and the force's ``force.operands``,
 ``force.near``, ``force.far`` and ``force.vip``: their one-card functions
@@ -82,7 +85,7 @@ FAR_ENTRIES = cuda_treecode.FAR_ENTRIES  # far-list node entries per work chunk
 HIER_MIN_NODES = 16        # the coarsest level keeps at least this many nodes
 DEFAULT_HIER_TILE = 128    # target-row granularity of the hierarchical path
 
-_TINY = 1e-12
+_TINY = cuda_treecode.TINY
 # Bodies sampled for the MAC's median acceleration scale.
 _MEDIAN_SAMPLE = 2048
 
@@ -314,6 +317,17 @@ def _min_tile_dist(xc, yc, zc, cx, cy, cz, tile: int) -> torch.Tensor:
         *(a.contiguous() for a in (xc, yc, zc, cx, cy, cz)), tile)
 
 
+def _min_dist_open(xc, yc, zc, cx, cy, cz, tile: int, **kw):
+    """One hierarchy level's ``(opens, far, score or None)`` from the target
+    rows' distances to its nodes (``cuda_treecode.min_dist_open``: one kernel
+    on the card, the plain twin on the CPU; ``kw`` as there), the columns
+    and node vectors made contiguous (a staged rank's level 0 holds columns
+    of its gathered summaries)."""
+    kw.update({k: kw[k].contiguous() for k in ("amp", "radius", "mass") if kw[k] is not None})
+    return cuda_treecode.min_dist_open(
+        *(a.contiguous() for a in (xc, yc, zc, cx, cy, cz)), tile, **kw)
+
+
 def _monopole_acc_mags(xs, ys, zs, cx, cy, cz, m_tot, *, eps2, c2):
     """(S,) per-G acceleration magnitudes of sample bodies, estimated from
     monopole tile summaries."""
@@ -349,22 +363,11 @@ def _median_monopole_acc(xc, yc, zc, cx, cy, cz, m_tot, *, eps2, c2):
         eps2=eps2, c2=c2))
 
 
-def _self_overlap(k_t: int, k_s: int, tile: int, src_tile: int,
-                  device, row_offset: int = 0) -> torch.Tensor:
-    """(K_t, K_s) bool: target row i and source column j share bodies.
-    ``row_offset`` maps local target rows to global source columns (a rank
-    of the sharded treecode holds rows ``row_offset`` onwards)."""
-    rows = torch.arange(k_t, device=device)[:, None] + row_offset
-    cols = torch.arange(k_s, device=device)[None, :]
-    return (rows // max(src_tile // tile, 1)) == (cols // max(tile // src_tile, 1))
-
-
-def _flat_mac(min_d, m, radius, a_med, tau: float):
-    """The single-level mass-aware MAC: scores m r^3 / d^5 / a_med (K_t, K_s)
-    and their threshold tau * sqrt(MAC_REF_KSRC / K_s)."""
-    d5 = torch.square(torch.square(min_d)) * min_d
-    return ((m * radius * radius * radius)[None, :] / d5 / a_med,
-            tau * math.sqrt(MAC_REF_KSRC / m.shape[0]))
+def _flat_mac(m, radius, tau: float):
+    """The single-level mass-aware MAC's numerators m r^3 (K_s,) and its
+    threshold tau * sqrt(MAC_REF_KSRC / K_s): the scores are
+    ``cuda_treecode.mac_score`` of them."""
+    return m * radius * radius * radius, tau * math.sqrt(MAC_REF_KSRC / m.shape[0])
 
 
 def _opening_scores(xc, yc, zc, cx, cy, cz, m_tot, radius, tile: int, *,
@@ -384,10 +387,12 @@ def _opening_scores(xc, yc, zc, cx, cy, cz, m_tot, radius, tile: int, *,
     if mac_tau > 0:
         a_med = torch.clamp(_median_monopole_acc(
             xc, yc, zc, cx, cy, cz, m_tot, eps2=eps2, c2=c2), min=_TINY)
-        score, thresh = _flat_mac(min_d, m_tot, radius, a_med, mac_tau)
+        amp, thresh = _flat_mac(m_tot, radius, mac_tau)
+        score = cuda_treecode.mac_score(min_d, amp, a_med)
     else:
         score, thresh = radius[None, :] / min_d, theta
-    overlap = _self_overlap(k_t, cx.shape[0], tile, src_tile, xc.device, row_offset)
+    overlap = cuda_treecode.self_overlap(k_t, cx.shape[0], tile, src_tile, xc.device,
+                                         row_offset)
     return torch.where(overlap, torch.inf, score), thresh
 
 
@@ -407,8 +412,9 @@ def _hier_open_masks(xc, yc, zc, levels, tile: int, src_tile: int, *,
                      mac_tau: float, theta: float, a_med, row_offset: int = 0,
                      mac_tau0: float | None = None, union_coarse: bool = True,
                      stamp=NO_STAMPS):
-    """Per-level (opens, min_d) and the level-0 score matrix for near
-    ranking (self-overlapping nodes forced to +inf).
+    """Per-level (opens, fars), the level-0 score matrix for near ranking
+    (self-overlapping nodes forced to +inf) and its threshold. ``fars[l]``
+    is m_j / d_ij^2, the far lists' key (:func:`_far_lists`).
 
     ``mac_tau > 0``: open node j for target row i iff
     m_j rms_j^2 r_j / (d_ij - r_j)^5 > tau * a_med, with d the per-body
@@ -418,48 +424,46 @@ def _hier_open_masks(xc, yc, zc, levels, tile: int, src_tile: int, *,
     m r^3 / d^5 > mac_tau0 * sqrt(MAC_REF_KSRC / K_s) * a_med instead.
     ``mac_tau == 0``: the geometric radius / theta test.
 
+    Each level whose distance is the union one is a single pass
+    (:func:`_min_dist_open`: the distances never leave the kernel); the
+    row-centroid levels take the same test's plain form
+    (``cuda_treecode.open_test_plain``) on their PyTorch distances.
+
     ``a_med`` is the median scale of the whole source population
     (:func:`_hier_lists`), so that every rank of the sharded treecode
     applies the same threshold to its rows (``row_offset`` onwards); None
     when ``mac_tau`` is 0.
     """
-    opens, minds = [], []
-    k_t = xc.shape[0] // tile
+    opens, fars = [], []
     score0 = thresh0 = None
     if not union_coarse:
         tcx, tcy, tcz, trad = _row_bounds(xc, yc, zc, tile)
+    n_src = levels[0][0].shape[0] * src_tile
     for lvl, (cx, cy, cz, m, radius, rms2, _) in enumerate(levels):
+        if mac_tau > 0 and lvl == 0 and mac_tau0:
+            mac, (amp, thresh) = "flat", _flat_mac(m, radius, mac_tau0)
+        elif mac_tau > 0:
+            mac, amp, thresh = "hier", m * rms2 * radius, mac_tau
+        else:
+            mac, amp, thresh = "geometric", None, theta
+        kw = dict(mac=mac, thresh=thresh, amp=amp, radius=radius, mass=m, a_med=a_med,
+                  tile=tile, node_bodies=n_src // cx.shape[0], row_offset=row_offset,
+                  score=lvl == 0)
         if lvl == 0 or union_coarse:
             stamp.begin("build.min_dist")
-            min_d = _min_tile_dist(xc, yc, zc, cx, cy, cz, tile)
+            opened, far, score = _min_dist_open(xc, yc, zc, cx, cy, cz, **kw)
             stamp.end("build.min_dist")
         else:
             dcx = cx[None, :] - tcx[:, None]
             dcy = cy[None, :] - tcy[:, None]
             dcz = cz[None, :] - tcz[:, None]
-            min_d = torch.sqrt(dcx * dcx + dcy * dcy + dcz * dcz) - trad[:, None]
-        min_d = torch.clamp(min_d, min=_TINY)
-        if mac_tau > 0 and lvl == 0 and mac_tau0:
-            score, thresh = _flat_mac(min_d, m, radius, a_med, mac_tau0)
-        elif mac_tau > 0:
-            amp = m * rms2 * radius
-            delta = torch.clamp(min_d - radius[None, :], min=_TINY)
-            d5 = torch.square(torch.square(delta)) * delta
-            score = amp[None, :] / d5 / a_med
-            thresh = mac_tau
-        else:
-            score = radius[None, :] / min_d
-            thresh = theta
-        k_l = score.shape[1]
-        node_bodies = levels[0][0].shape[0] * src_tile // k_l
-        score = torch.where(
-            _self_overlap(k_t, k_l, tile, node_bodies, xc.device, row_offset),
-            torch.inf, score)
+            opened, far, score = cuda_treecode.open_test_plain(
+                torch.sqrt(dcx * dcx + dcy * dcy + dcz * dcz) - trad[:, None], **kw)
         if lvl == 0:
             score0, thresh0 = score, thresh
-        opens.append(score > thresh)
-        minds.append(min_d)
-    return opens, minds, score0, thresh0
+        opens.append(opened)
+        fars.append(far)
+    return opens, fars, score0, thresh0
 
 
 def _chain_evals(opens, branch: int):
@@ -575,7 +579,7 @@ def _hier_lists(xl, yl, zl, xg, yg, zg, mass_g, *, tile, src_tile, theta, vip_sr
                 stamp=NO_STAMPS):
     """The hierarchical chain of target rows against every source, what the
     capacity planner and the acceptance build share: (is_vip_body (N,),
-    levels, opens, minds, score0, thresh0, evals, reach0). The MAC's median
+    levels, opens, fars, score0, thresh0, evals, reach0). The MAC's median
     scale is the sources' (on one card, the targets')."""
     stamp.begin("build.levels")
     mass_tree, is_vip_body = _tree_mass(xg, yg, zg, mass_g, src_tile, vip_src)
@@ -585,11 +589,11 @@ def _hier_lists(xl, yl, zl, xg, yg, zg, mass_g, *, tile, src_tile, theta, vip_sr
     if mac_tau > 0:
         a_med = torch.clamp(_median_monopole_acc(xg, yg, zg, *levels[0][:4], eps2=eps2,
                                                  c2=c2), min=_TINY)
-    opens, minds, score0, thresh0 = _hier_open_masks(
+    opens, fars, score0, thresh0 = _hier_open_masks(
         xl, yl, zl, levels, tile, src_tile, mac_tau=mac_tau, theta=theta, a_med=a_med,
         row_offset=row_offset, mac_tau0=mac_tau0, union_coarse=union_coarse, stamp=stamp)
     evals, reach0 = _chain_evals(opens, branch)
-    return is_vip_body, levels, opens, minds, score0, thresh0, evals, reach0
+    return is_vip_body, levels, opens, fars, score0, thresh0, evals, reach0
 
 
 def _build_hier(xl, yl, zl, xg, yg, zg, mass_g, *, row_offset, flat_cap, far_max, far_cap,
@@ -608,7 +612,7 @@ def _build_hier(xl, yl, zl, xg, yg, zg, mass_g, *, row_offset, flat_cap, far_max
      far_max) = _hier_static(xg.shape[0], tile, src_tile, theta, max_near, vip_tiles,
                              far_max, branch)
     xl, yl, zl, xg, yg, zg, mass_g = (a.to(_f32) for a in (xl, yl, zl, xg, yg, zg, mass_g))
-    (is_vip_body, levels, _, minds, score0, thresh0, evals,
+    (is_vip_body, _, _, fars, score0, thresh0, evals,
      reach0) = _hier_lists(xl, yl, zl, xg, yg, zg, mass_g, tile=tile, src_tile=src_tile,
                            theta=theta, vip_src=vip_src, plan=plan, branch=branch,
                            mac_tau=mac_tau, mac_tau0=mac_tau0, eps2=eps2,
@@ -616,7 +620,7 @@ def _build_hier(xl, yl, zl, xg, yg, zg, mass_g, *, row_offset, flat_cap, far_max
                            row_offset=row_offset, stamp=stamp)
     stamp.begin("build.lists")
     tally = [] if stamp.live else None
-    lists = _hier_compact(levels, minds, score0, thresh0, evals, reach0, slack=slack,
+    lists = _hier_compact(fars, score0, thresh0, evals, reach0, slack=slack,
                           flat_cap=flat_cap, entries=entries, max_near=max_near,
                           far_cap=far_cap, far_max=far_max, tally=tally, stamp=stamp)
     stamp.end("build.lists", None if tally is None else
@@ -656,9 +660,9 @@ def _list_counters(tally, is_vip_body, *, tile: int, src_tile: int) -> torch.Ten
                         vip * is_vip_body.shape[0]])
 
 
-def _hier_compact(levels, minds, score0, thresh0, evals, reach0, *, slack, flat_cap,
-                  entries, max_near, far_cap, far_max, tally=None, stamp=NO_STAMPS):
-    """The hierarchical build's work lists from its open masks:
+def _hier_compact(fars, score0, thresh0, evals, reach0, *, slack, flat_cap, entries,
+                  max_near, far_cap, far_max, tally=None, stamp=NO_STAMPS):
+    """The hierarchical build's work lists from its open masks and far keys:
     ``(flat_src, chunk_tgt, far_src, far_tgt)``; ``tally`` and ``stamp`` as
     :func:`_compact_open_lists`'s, near then far."""
     # Near: only leaves the chain reaches (a leaf under an accepted
@@ -667,19 +671,19 @@ def _hier_compact(levels, minds, score0, thresh0, evals, reach0, *, slack, flat_
     flat_src, chunk_tgt, near_mask = _compact_open_lists(
         score0, thresh0, slack, flat_cap, entries, max_near, tally, stamp)
     return (flat_src, chunk_tgt,
-            *_far_lists(levels, minds, evals, reach0, near_mask, far_cap=far_cap,
-                        far_max=far_max, tally=tally, stamp=stamp))
+            *_far_lists(fars, evals, reach0, near_mask, far_cap=far_cap, far_max=far_max,
+                        tally=tally, stamp=stamp))
 
 
-def _far_lists(levels, minds, evals, reach0, near_mask, *, far_cap, far_max, tally=None,
+def _far_lists(fars, evals, reach0, near_mask, *, far_cap, far_max, tally=None,
                stamp=NO_STAMPS):
     """``(far_src, far_tgt)``: the level-0 complements of the near entries
     that landed (``near_mask``), plus the chain evals at coarser levels,
-    ranked by monopole strength m / d^2 so an overflow sheds the weakest
+    ranked by monopole strength m / d^2 (``fars``, per level, from
+    :func:`_hier_open_masks`) so an overflow sheds the weakest
     contributors."""
     evals = [reach0 & ~near_mask] + list(evals[1:])
-    key = torch.cat([torch.where(ev, lv[3][None, :] / (md * md), -1.0)
-                     for ev, lv, md in zip(evals, levels, minds)], 1)
+    key = torch.cat([torch.where(ev, far, -1.0) for ev, far in zip(evals, fars)], 1)
     far_src, far_tgt, _ = _compact_open_lists(
         key, 0.0, 0, far_cap, FAR_ENTRIES, far_max, tally, stamp)
     return far_src, far_tgt

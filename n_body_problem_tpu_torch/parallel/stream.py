@@ -184,7 +184,7 @@ def rank_staged_build(cfg: SimConfig, pos_l, rank: int, gathered: dict):
         plan, far_max, far_cap = hier
         levels = tc._merge_levels(level0, plan, tc.HIER_BRANCH)
         a_med = torch.clamp(tc._median(gathered["samples"]), min=_TINY)
-        opens, minds, score0, thresh0 = tc._hier_open_masks(
+        opens, fars, score0, thresh0 = tc._hier_open_masks(
             xl, yl, zl, levels, tile, src, mac_tau=cfg.tree_hier_tau, theta=cfg.tree_theta,
             a_med=a_med, row_offset=rank * k_t_l, mac_tau0=cfg.tree_mac_tau,
             union_coarse=cfg.tree_hier_union)
@@ -202,8 +202,8 @@ def rank_staged_build(cfg: SimConfig, pos_l, rank: int, gathered: dict):
     near_mask = torch.cat([a[2] for a in lists], 1)
     far_src = far_tgt = None
     if hier is not None:
-        far_src, far_tgt = tc._far_lists(levels, minds, evals, reach0, near_mask,
-                                         far_cap=far_cap, far_max=far_max)
+        far_src, far_tgt = tc._far_lists(fars, evals, reach0, near_mask, far_cap=far_cap,
+                                         far_max=far_max)
     return (torch.stack([a[0] for a in lists]), torch.stack([a[1] for a in lists]),
             near_mask.contiguous(), far_src, far_tgt, vip_idx, is_vip)
 

@@ -23,7 +23,8 @@ program keeps in memory:
 - *device phases* (:class:`Stamper`, names and parents in :data:`PHASES`)
   inside the hierarchical and flat treecode's programs: the build's
   ``build.levels``, ``build.open`` (``build.min_dist`` around each
-  ``_min_tile_dist`` in it) and ``build.lists`` (``build.select`` around
+  ``_min_tile_dist`` or ``_min_dist_open`` in it, the latter with the
+  level's opening test) and ``build.lists`` (``build.select`` around
   each ``_top_k`` in it, the row selection); the step's
   ``force.operands``, ``force.near``, ``force.far``, ``force.vip`` and
   ``update``; the resort's ``resort.order`` (its keys and their sort,

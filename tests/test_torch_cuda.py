@@ -19,7 +19,7 @@ import torch
 
 import n_body_problem_tpu_torch as tnb
 from n_body_problem_tpu_torch.kernel_compare import allpairs_sweep
-from n_body_problem_tpu_torch.ops import cuda_force, cuda_symmetric
+from n_body_problem_tpu_torch.ops import cuda_force, cuda_symmetric, cuda_treecode
 from n_body_problem_tpu_torch.state import pad_state_to
 
 pytestmark = pytest.mark.cuda
@@ -498,8 +498,8 @@ def test_min_dist_kernel_carries_nans_as_its_twin(cuda, min_dist_inputs):
 
 def test_min_dist_kernel_builds_the_twins_lists(cuda, monkeypatch):
     """The hierarchical build at 262,144 bodies on the card: the same lists,
-    element for element, with the kernel and with the plain twin; one
-    launch a level (``union_coarse``)."""
+    element for element, with the fused opening-test kernel and with its
+    plain twin; one launch a level (``union_coarse``)."""
     from n_body_problem_tpu_torch.ops import cuda_treecode as ct
     from n_body_problem_tpu_torch.ops import treecode
     from n_body_problem_tpu_torch.ops.registry import tree_kwargs
@@ -508,10 +508,10 @@ def test_min_dist_kernel_builds_the_twins_lists(cuda, monkeypatch):
                          device=cuda)
     build_kw, _ = tree_kwargs(sim.cfg)
     cols = (*sim.state.pos.unbind(1), sim.state.mass)
-    before = ct.min_tile_dist.launches
+    before = ct.min_dist_open.launches
     got = treecode.build_tree_hier_cols(*cols, **build_kw)
-    launched = ct.min_tile_dist.launches - before
-    monkeypatch.setattr(ct, "min_tile_dist", lambda *a: ct.min_tile_dist_plain(*a))
+    launched = ct.min_dist_open.launches - before
+    monkeypatch.setattr(ct, "min_dist_open", lambda *a, **k: ct.min_dist_open_plain(*a, **k))
     want = treecode.build_tree_hier_cols(*cols, **build_kw)
     torch.cuda.synchronize()
     assert len(got) == len(want) == 5
@@ -522,23 +522,29 @@ def test_min_dist_kernel_builds_the_twins_lists(cuda, monkeypatch):
 
 
 @pytest.mark.parametrize("overrides,per_build", [({}, None), (dict(tree_hier=False), 1),
-                                                 (dict(tree_flat_cap=-1), 1)])
+                                                 (dict(tree_flat_cap=-1), 1),
+                                                 (dict(tree_hier_union=False), 1)])
 def test_min_dist_wrapper_counts_a_rebuilds_launches(cuda, overrides, per_build):
-    """An eager rebuild of each path launches the kernel once a level of the
-    hierarchy (every level while ``union_coarse``), once on the flat and
-    dense paths."""
+    """Eager rebuilds of each path: the hierarchical one launches the fused
+    opening-test kernel (``min_dist_open``) once a level (every level while
+    ``union_coarse``, level 0 alone without it) and the plain distances
+    never; the flat and dense paths the distances' kernel once and the
+    fused one never. Two rebuilds count twice as much as one."""
     from n_body_problem_tpu_torch.ops import cuda_treecode as ct
     from n_body_problem_tpu_torch.ops import treecode
-    from n_body_problem_tpu_torch.ops.registry import tree_fns
+    from n_body_problem_tpu_torch.ops.registry import tree_fns, tree_path
 
     sim = tnb.Simulation(tnb.SimConfig(solver="treecode", **overrides),
                          tnb.models.plummer(8192, seed=3), device=cuda)
-    before = ct.min_tile_dist.launches
-    tree_fns(sim.cfg)[0](sim.state.pos, sim.state.mass)
+    before = ct.min_tile_dist.launches, ct.min_dist_open.launches
+    for _ in range(2):
+        tree_fns(sim.cfg)[0](sim.state.pos, sim.state.mass)
     torch.cuda.synchronize()
     if per_build is None:
         per_build = len(treecode._level_plan(8192 // sim.cfg.tree_src_tile, treecode.HIER_BRANCH))
-    assert ct.min_tile_dist.launches - before == per_build
+    moved = ct.min_tile_dist.launches - before[0], ct.min_dist_open.launches - before[1]
+    hier = tree_path(sim.cfg) == "hier"
+    assert moved == ((0, 2 * per_build) if hier else (2 * per_build, 0))
 
 
 def test_min_dist_wrapper_rejects_what_the_kernel_does_not_take(cuda):
@@ -557,6 +563,124 @@ def test_min_dist_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         ct.min_tile_dist(x[:1000], y[:1000], z[:1000], *cen, 128)
     with pytest.raises(ValueError, match="is on"):
         ct.min_tile_dist(x, y, z, cen[0].cpu(), *cen[1:], 128)
+
+
+# --------------------------------- the hierarchical build's opening test
+# (label, level, mac, rows): the defaults' level 0 (flat MAC) and coarse
+# levels (hierarchical MAC), the hierarchical MAC and the geometric test at
+# level 0 and at a coarse level, and a sharded rank's rows (rank 1 of 4, its
+# row offset) at level 0 and at a coarse level, of the 65,536-body plan.
+OPEN_CASES = [("level 0 flat", 0, "flat", "all"), ("level 0 hier", 0, "hier", "all"),
+              ("level 0 geometric", 0, "geometric", "all"), ("level 3 hier", 3, "hier", "all"),
+              ("level 3 geometric", 3, "geometric", "all"),
+              ("level 0 flat rank 1 of 4", 0, "flat", "quarter"),
+              ("level 2 hier rank 1 of 4", 2, "hier", "quarter")]
+
+
+@pytest.fixture(scope="module")
+def open_inputs(cuda):
+    """The columns, level summaries and MAC scale of 65,536 Plummer bodies,
+    Morton-sorted as the build takes them (so that nodes open and close)."""
+    from n_body_problem_tpu_torch.ops import treecode
+    from n_body_problem_tpu_torch.utils.morton import morton_argsort
+
+    x, y, z, m = _min_dist_columns(cuda, 65536)
+    perm = torch.as_tensor(morton_argsort(torch.stack([x, y, z], 1).cpu().numpy()), device=cuda)
+    x, y, z, m = (a[perm].contiguous() for a in (x, y, z, m))
+    plan = treecode._level_plan(65536 // 64, treecode.HIER_BRANCH)
+    levels = treecode._level_summaries(x, y, z, m, 64, plan, treecode.HIER_BRANCH)
+    a_med = torch.clamp(treecode._median_monopole_acc(x, y, z, *levels[0][:4], eps2=1e-6,
+                                                      c2=0.01), min=1e-12)
+    return (x, y, z), levels, a_med
+
+
+def _open_args(open_inputs, level, mac, rows):
+    """(columns, centres, keywords) of ``min_dist_open`` as the build passes
+    them for one level."""
+    from n_body_problem_tpu_torch.ops import treecode
+
+    cols, levels, a_med = open_inputs
+    row_offset = 0
+    if rows == "quarter":
+        q = cols[0].shape[0] // 4
+        cols, row_offset = tuple(c[q:2 * q].contiguous() for c in cols), q // 128
+    cx, cy, cz, m, radius, rms2, _ = levels[level]
+    if mac == "flat":
+        amp, thresh = treecode._flat_mac(m, radius, 2e-4)
+    elif mac == "hier":
+        amp, thresh = m * rms2 * radius, 0.01
+    else:
+        amp, thresh, a_med = None, 0.55, None
+    kw = dict(mac=mac, thresh=thresh, amp=amp, radius=radius.contiguous(),
+              mass=m.contiguous(), a_med=a_med, node_bodies=65536 // cx.shape[0],
+              row_offset=row_offset, score=level == 0)
+    return cols, tuple(c.contiguous() for c in (cx, cy, cz)), kw
+
+
+def _same_floats(a, b):
+    """float32 tensors equal bit for bit, NaN where the other is NaN."""
+    nan = torch.isnan(a)
+    return (a.shape == b.shape and torch.equal(nan, torch.isnan(b))
+            and torch.equal(a[~nan].view(torch.int32), b[~nan].view(torch.int32)))
+
+
+@pytest.mark.parametrize("label,level,mac,rows", OPEN_CASES, ids=[c[0] for c in OPEN_CASES])
+def test_min_dist_open_kernel_is_its_plain_twin_bitwise(cuda, open_inputs, label, level, mac,
+                                                        rows):
+    """The fused kernel's opens, far keys and (level 0) scores: bitwise its
+    plain twin's, and the same bits from two launches, one launch each."""
+    from n_body_problem_tpu_torch.ops import cuda_treecode as ct
+
+    cols, cen, kw = _open_args(open_inputs, level, mac, rows)
+    before = ct.min_dist_open.launches
+    got, again = ct.min_dist_open(*cols, *cen, 128, **kw), ct.min_dist_open(*cols, *cen, 128, **kw)
+    want = ct.min_dist_open_plain(*cols, *cen, 128, **kw)
+    torch.cuda.synchronize()
+    assert ct.min_dist_open.launches - before == 2
+    shape = (cols[0].shape[0] // 128, cen[0].shape[0])
+    for g in (got, again):
+        assert g[0].dtype == torch.bool and g[0].shape == shape
+        assert torch.equal(g[0], want[0]) and _same_floats(g[1], want[1])
+        assert (g[2] is None) == (want[2] is None) == (level != 0)
+        assert g[2] is None or _same_floats(g[2], want[2])
+    assert want[0].any() and not want[0].all()
+
+
+@pytest.mark.parametrize("level,mac", [(0, "flat"), (2, "hier")])
+def test_min_dist_open_kernel_carries_nans_as_its_twin(cuda, open_inputs, level, mac):
+    """A NaN body, a NaN centre and infinite centres: NaN scores and far
+    keys where the twin has them, closed nodes there, the rest bitwise."""
+    from n_body_problem_tpu_torch.ops import cuda_treecode as ct
+
+    cols, cen, kw = _open_args(open_inputs, level, mac, "all")
+    cols, cen = [c.clone() for c in cols], [c.clone() for c in cen]
+    cols[1][7 * 128 + 5] = float("nan")
+    cols[0][9 * 128] = float("inf")
+    cen[2][3] = float("nan")
+    cen[0][4] = float("-inf")
+    cen[0][5] = float("inf")
+    got = ct.min_dist_open(*cols, *cen, 128, **kw)
+    want = ct.min_dist_open_plain(*cols, *cen, 128, **kw)
+    torch.cuda.synchronize()
+    assert torch.isnan(want[1][7]).all() and torch.isnan(want[1][:, 3]).all()
+    assert torch.equal(got[0], want[0]) and _same_floats(got[1], want[1])
+    assert got[2] is None or _same_floats(got[2], want[2])
+
+
+def test_min_dist_open_rejects_what_the_kernel_does_not_take(cuda, open_inputs):
+    from n_body_problem_tpu_torch.ops import cuda_treecode as ct
+
+    cols, cen, kw = _open_args(open_inputs, 0, "flat", "all")
+    with pytest.raises(ValueError, match="mac="):
+        ct.min_dist_open(*cols, *cen, 128, **dict(kw, mac="bh"))
+    with pytest.raises(TypeError, match="a_med"):
+        ct.min_dist_open(*cols, *cen, 128, **dict(kw, a_med=None))
+    with pytest.raises(TypeError, match="float32"):
+        ct.min_dist_open(*cols, *cen, 128, **dict(kw, mass=kw["mass"].double()))
+    with pytest.raises(ValueError, match="shape"):
+        ct.min_dist_open(*cols, *cen, 128, **dict(kw, amp=kw["amp"][:-1]))
+    with pytest.raises(ValueError, match="multiple of tile"):
+        ct.min_dist_open(*(c[:1000] for c in cols), *cen, 128, **kw)
 
 
 # ---------------------------------------- the work lists' row selection
@@ -1121,6 +1245,10 @@ def test_near_kernel_at_one_device_is_its_earlier_output(cuda):
 # ------------------------------------------------ CUDA graphs of the run
 GRAPH_PATHS = [{}, dict(tree_hier=False), dict(tree_flat_cap=-1)]   # hier, flat, dense
 
+# The kernels a rebuild launches (counted a call: each call restarts the
+# cadence), not a step.
+BUILD_WRAPPERS = (cuda_treecode.min_tile_dist, cuda_treecode.min_dist_open, cuda_treecode.top_k)
+
 
 def _graph_sim(cuda, overrides, n=8192):
     return tnb.Simulation(tnb.SimConfig(solver="treecode", **overrides),
@@ -1184,10 +1312,11 @@ def test_graph_counters_count_replays(cuda, overrides):
         sim.run(steps)
         # The step's kernels a step; the build's a call (one rebuild: each
         # call restarts the cadence of 8).
-        moves.append([(w.launches - b) / (1 if w in (ct.min_tile_dist, ct.top_k) else steps)
+        moves.append([(w.launches - b) / (1 if w in BUILD_WRAPPERS else steps)
                       for w, b in zip(wrappers, before)])
     assert moves[0] == moves[1] == moves[2] and sum(moves[0]) >= 3
-    assert moves[0][wrappers.index(ct.min_tile_dist)] >= 1
+    assert (moves[0][wrappers.index(ct.min_tile_dist)]
+            + moves[0][wrappers.index(ct.min_dist_open)]) >= 1
     assert moves[0][wrappers.index(ct.top_k)] >= 1
 
 
@@ -1332,13 +1461,14 @@ def test_graph_frame_counters_count_replays(cuda):
             sim.run(8)
         moves.append([w.launches - b for w, b in zip(wrappers, before)])
     # The build's kernels count rebuilds: each of the movie's four 2-step
-    # frame spans starts a chunk, and run(8) is one chunk.
-    for w in (ct.min_tile_dist, ct.top_k):
+    # frame spans starts a chunk, and run(8) is one chunk. The hierarchical
+    # build's distances are the fused opening test's.
+    for w in BUILD_WRAPPERS:
         at = wrappers.index(w)
         build = [m[at] for m in moves]
-        assert build[0] == build[1] == 4 * build[2] > 0
-    moves = [[v for i, v in enumerate(m)
-              if wrappers[i] not in (ct.min_tile_dist, ct.top_k)] for m in moves]
+        assert build[0] == build[1] == 4 * build[2]
+        assert (build[2] > 0) == (w is not ct.min_tile_dist)
+    moves = [[v for i, v in enumerate(m) if wrappers[i] not in BUILD_WRAPPERS] for m in moves]
     assert moves[0] == moves[1] == moves[2] and sum(moves[0]) >= 3 * 8
 
 

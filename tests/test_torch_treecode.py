@@ -351,6 +351,121 @@ def test_min_tile_dist_refuses_a_device_without_a_kernel():
         ct.min_tile_dist(meta, meta, meta, meta[:128], meta[:128], meta[:128], 128)
 
 
+# ------------------------------------------------------- the opening test
+def _parent_open_masks(xc, yc, zc, levels, tile, src_tile, *, mac_tau, theta, a_med,
+                       row_offset, mac_tau0, union_coarse):
+    """The hierarchical opening test as the build formed it before the
+    kernel took it over, a PyTorch pass at a time: per level (opens,
+    m / d^2), level 0's scores and threshold."""
+    opens, fars = [], []
+    k_t = xc.shape[0] // tile
+    score0 = thresh0 = None
+    if not union_coarse:
+        tcx, tcy, tcz, trad = ttc._row_bounds(xc, yc, zc, tile)
+    for lvl, (cx, cy, cz, m, radius, rms2, _) in enumerate(levels):
+        if lvl == 0 or union_coarse:
+            min_d = ct.min_tile_dist_plain(xc, yc, zc, cx, cy, cz, tile)
+        else:
+            dcx = cx[None, :] - tcx[:, None]
+            dcy = cy[None, :] - tcy[:, None]
+            dcz = cz[None, :] - tcz[:, None]
+            min_d = torch.sqrt(dcx * dcx + dcy * dcy + dcz * dcz) - trad[:, None]
+        min_d = torch.clamp(min_d, min=1e-12)
+        if mac_tau > 0 and lvl == 0 and mac_tau0:
+            d5 = torch.square(torch.square(min_d)) * min_d
+            score = (m * radius * radius * radius)[None, :] / d5 / a_med
+            thresh = mac_tau0 * math.sqrt(ttc.MAC_REF_KSRC / m.shape[0])
+        elif mac_tau > 0:
+            delta = torch.clamp(min_d - radius[None, :], min=1e-12)
+            d5 = torch.square(torch.square(delta)) * delta
+            score = (m * rms2 * radius)[None, :] / d5 / a_med
+            thresh = mac_tau
+        else:
+            score = radius[None, :] / min_d
+            thresh = theta
+        k_l = score.shape[1]
+        node = levels[0][0].shape[0] * src_tile // k_l
+        rows = torch.arange(k_t)[:, None] + row_offset
+        cols = torch.arange(k_l)[None, :]
+        overlap = (rows // max(node // tile, 1)) == (cols // max(tile // node, 1))
+        score = torch.where(overlap, torch.inf, score)
+        if lvl == 0:
+            score0, thresh0 = score, thresh
+        opens.append(score > thresh)
+        fars.append(m[None, :] / (min_d * min_d))
+    return opens, fars, score0, thresh0
+
+
+def _same_bits(a, b):
+    """float32 tensors equal bit for bit, NaN where the other is NaN."""
+    nan = torch.isnan(a)
+    return (a.shape == b.shape and torch.equal(nan, torch.isnan(b))
+            and torch.equal(a[~nan].view(torch.int32), b[~nan].view(torch.int32)))
+
+
+@pytest.fixture(scope="module")
+def open_bodies():
+    """Morton-sorted (pos, mass, eps2, c2) of 8,192 bodies: the case's
+    Plummer sphere, the same with one NaN coordinate, and a sample of the
+    AGORA disk (two particle masses) at its benchmark physics."""
+    from n_body_problem_tpu_torch import models as tmodels
+    from n_body_problem_tpu_torch.utils.morton import morton_argsort as t_argsort
+
+    pos, mass = _sorted_plummer(N, seed=3)
+    bad = pos.copy()
+    bad[17 * 128 + 5, 1] = np.nan
+    disk = tmodels.agora_disk(N, seed=1)
+    dpos, dmass = disk.pos.numpy(), disk.mass.numpy()
+    perm = t_argsort(dpos)
+    assert dmass.max() / dmass.min() > 30    # the halo's bodies and the stars'
+    return {"plummer": (pos, mass, EPS2, C2), "plummer with a NaN": (bad, mass, EPS2, C2),
+            "agora": (dpos[perm], dmass[perm], 0.0064, 1.0)}
+
+
+# (mac_tau, mac_tau0): the flat MAC at level 0 and the hierarchical one above
+# (the defaults), the hierarchical MAC at every level, the geometric test.
+OPEN_MODES = {"flat": (jtc.DEFAULT_HIER_TAU, jtc.DEFAULT_MAC_TAU),
+              "hier": (jtc.DEFAULT_HIER_TAU, None), "geometric": (0.0, None)}
+
+
+@pytest.mark.parametrize("rank", [0, 1], ids=["one card", "rank 1 of 4"])
+@pytest.mark.parametrize("union", [True, False], ids=["union", "row bound"])
+@pytest.mark.parametrize("mode", list(OPEN_MODES))
+@pytest.mark.parametrize("bodies", ["plummer", "plummer with a NaN", "agora"])
+def test_opening_test_twin_is_the_parent_glue_bitwise(open_bodies, bodies, mode, union, rank):
+    """``_hier_open_masks`` (``cuda_treecode.min_dist_open``'s plain twin on
+    the CPU; ``open_test_plain`` at the row-bound levels) gives every
+    level's opens and far keys, and level 0's scores and threshold, bit for
+    bit as the PyTorch chain it replaced: each MAC mode, with and without
+    the coarse union, on one card and for a rank's rows (``row_offset``)."""
+    pos, mass, eps2, c2 = open_bodies[bodies]
+    mac_tau, mac_tau0 = OPEN_MODES[mode]
+    cols = [torch.from_numpy(pos[:, i].copy()) for i in range(3)]
+    mass = torch.from_numpy(mass.copy())
+    plan = ttc._level_plan(N // 64)
+    vip = ttc._clamp_vip(ttc._vip_src_tiles(128, 128, 64), N // 64)
+    mass_tree, _ = ttc._tree_mass(*cols, mass, 64, vip)
+    levels = ttc._level_summaries(*cols, mass_tree, 64, plan, 2)
+    a_med = (torch.clamp(ttc._median_monopole_acc(*cols, *levels[0][:4], eps2=eps2, c2=c2),
+                         min=1e-12) if mac_tau > 0 else None)
+    rows, row_offset = cols, 0
+    if rank:
+        q = N // 4
+        rows, row_offset = [c[q:2 * q].contiguous() for c in cols], q // 128
+    kw = dict(mac_tau=mac_tau, theta=0.55, a_med=a_med, row_offset=row_offset,
+              mac_tau0=mac_tau0, union_coarse=union)
+    opens, fars, score0, thresh0 = ttc._hier_open_masks(*rows, levels, 128, 64, **kw)
+    w_opens, w_fars, w_score0, w_thresh0 = _parent_open_masks(*rows, levels, 128, 64, **kw)
+    assert len(opens) == len(fars) == len(plan)
+    for lvl, (o, f, wo, wf) in enumerate(zip(opens, fars, w_opens, w_fars)):
+        assert o.dtype == torch.bool and torch.equal(o, wo), lvl
+        assert f.dtype == torch.float32 and _same_bits(f, wf), lvl
+    assert _same_bits(score0, w_score0) and thresh0 == w_thresh0
+    assert opens[0].any() and not opens[0].all()
+    if bodies == "plummer with a NaN":
+        assert torch.isnan(score0).any() and torch.isnan(fars[0]).any()
+
+
 # ------------------------------------------------------------ row selection
 def _rows(kind: str, cols: int, seed: int = 0) -> np.ndarray:
     """(4, cols) float32 rows whose ties the selection has to order: the
